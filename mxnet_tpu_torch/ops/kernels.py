@@ -1,0 +1,295 @@
+"""Attention kernels of the serving path, each beside its plain version.
+
+Counterpart of the serving half of `mxnet_tpu/ops/pallas_kernels.py`:
+
+  * `flash_attention` / `flash_attention_fwd` — the encoder's prefill
+    attention. On CUDA tensors it launches `csrc/flash_fwd.cu`
+    (replaces `_flash_fwd_kernel`); on CPU tensors it runs the plain
+    version `_flash_plain`.
+  * `ragged_paged_attention` — the decode step's self-attention over
+    the paged KV cache. On CUDA tensors it launches
+    `csrc/ragged_paged_attention.cu` (replaces `_rpa_kernel`); on CPU
+    tensors it runs the plain gather `_paged_attention_plain`, which
+    shares `single_query_cached_attention` with the decoder's
+    cross-attention, as the JAX package's lax path does.
+
+A wrapper takes the plain version only because the tensors it was given
+lie on the CPU. On CUDA tensors it launches its kernel or raises: there
+is no fallback. Each launch adds one to `LAUNCHES[name]`, so a run can
+show that the serving path went through the kernels.
+
+Masking follows the JAX package: masked scores are the finite -1e30, and
+the softmax runs in fp32. A row with no visible key (a key length of 0)
+is zeros in both the kernels and the plain versions — the convention of
+the TPU kernels (`pallas_kernels.py:287-291`). The JAX
+`attention_reference` instead averages V over such a row; that
+divergence is recorded in ROADMAP.md, and parity tests use lengths >= 1.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..base import MXNetError
+from . import _build
+
+__all__ = ["flash_attention", "flash_attention_fwd",
+           "single_query_cached_attention", "ragged_paged_attention",
+           "LAUNCHES", "reset_launch_counts"]
+
+_MASKED = -1e30
+
+# kernel launches per wrapper; bumped only where a kernel is launched
+LAUNCHES = {"flash_fwd": 0, "ragged_paged_attention": 0}
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _device_of(*tensors):
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise MXNetError(
+            f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise MXNetError(f"unsupported device {dev}")
+    return dev
+
+
+def _check(cond, what):
+    if not cond:
+        raise MXNetError(what)
+
+
+def _launched(name, rc):
+    """Raise on a refused launch (a launch that never ran is not
+    reported by `synchronize`); count the one that went out."""
+    if rc != 0:
+        raise MXNetError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# plain attention (CPU path; the yardstick of both kernels)
+# ---------------------------------------------------------------------------
+def _masked_softmax(s, allowed):
+    """Row softmax of fp32 scores `s` whose hidden entries are already
+    -1e30; rows where `allowed` (bool, broadcastable) is all False are
+    zeros — the kernels' convention."""
+    p = torch.softmax(s, dim=-1)
+    if allowed is not None:
+        p = p * allowed.any(dim=-1, keepdim=True)
+    return p
+
+
+def _attention_scores(q, k, causal, sm_scale, keep):
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    allowed = keep
+    if causal:
+        sq, sk = s.shape[-2:]
+        tri = (torch.arange(sq, device=s.device)[:, None]
+               >= torch.arange(sk, device=s.device)[None, :])
+        allowed = tri if allowed is None else allowed & tri
+    if allowed is not None:
+        s = torch.where(allowed, s, torch.full_like(s, _MASKED))
+    return s, allowed
+
+
+def _flash_plain(q, k, v, causal, sm_scale, kv_lengths):
+    """The plain version of the flash kernel: (out, lse (B*H, Sq))."""
+    b, h, sq, _ = q.shape
+    keep = None
+    if kv_lengths is not None:
+        pos = torch.arange(k.shape[2], device=k.device)
+        keep = (pos[None, :] < kv_lengths.long()[:, None])[:, None, None, :]
+    s, allowed = _attention_scores(q, k, causal, sm_scale, keep)
+    p = _masked_softmax(s, allowed).to(v.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v)
+    return out, torch.logsumexp(s, dim=-1).reshape(b * h, sq)
+
+
+# ---------------------------------------------------------------------------
+# flash attention forward
+# ---------------------------------------------------------------------------
+def _flash_args(q, k, v, causal, kv_lengths):
+    """What the kernel takes, checked on either device (so the CPU tests
+    catch a layout the card would refuse): (B, H, Sq, Sk, D)."""
+    _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+           "flash_attention takes (B, H, S, D) tensors")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _check(k.shape == (b, h, sk, d) and v.shape == k.shape,
+           f"flash_attention shapes q {tuple(q.shape)}, k {tuple(k.shape)},"
+           f" v {tuple(v.shape)} do not agree")
+    _check(all(t.dtype == torch.float32 for t in (q, k, v)),
+           "flash_attention kernel takes float32 q/k/v")
+    _check(all(t.is_contiguous() for t in (q, k, v)),
+           "flash_attention kernel takes contiguous q/k/v")
+    _check(0 < d <= 128,
+           f"flash_attention kernel takes 0 < D <= 128, got {d}")
+    _check(b * h > 0 and sq > 0 and sk > 0, "flash_attention: empty input")
+    _check(not causal or sq == sk, "causal flash_attention needs Sq == Sk")
+    if kv_lengths is not None:
+        _check(kv_lengths.dtype == torch.int32 and kv_lengths.shape == (b,)
+               and kv_lengths.is_contiguous(),
+               "kv_lengths must be a contiguous (B,) int32 tensor")
+    return b, h, sq, sk, d
+
+
+def _flash_cuda(q, k, v, causal, sm_scale, kv_lengths):
+    b, h, sq, sk, d = _flash_args(q, k, v, causal, kv_lengths)
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        rc = lib.mxtt_flash_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if kv_lengths is None else kv_lengths.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, int(causal),
+            float(sm_scale), torch.cuda.current_stream().cuda_stream)
+    _launched("flash_fwd", rc)
+    return out, lse
+
+
+def flash_attention_fwd(q, k, v, causal=False, sm_scale=None,
+                        kv_lengths=None):
+    """Attention forward with its per-row log-sum-exp: (out (B, H, Sq,
+    D), lse (B*H, Sq) fp32). q: (B, H, Sq, D); k, v: (B, H, Sk, D);
+    kv_lengths: optional (B,) int32 — key positions >= kv_lengths[b]
+    are masked. Causal requires Sq == Sk."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    dev = _device_of(q, k, v, kv_lengths)
+    if dev.type == "cuda":
+        return _flash_cuda(q, k, v, causal, sm_scale, kv_lengths)
+    _flash_args(q, k, v, causal, kv_lengths)
+    return _flash_plain(q, k, v, causal, sm_scale, kv_lengths)
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lengths=None):
+    """Fused attention. q, k, v: (B, H, S, D) -> (B, H, Sq, D). See
+    `flash_attention_fwd`."""
+    return flash_attention_fwd(q, k, v, causal, sm_scale, kv_lengths)[0]
+
+
+# ---------------------------------------------------------------------------
+# single-query cached attention + ragged paged attention
+# ---------------------------------------------------------------------------
+def single_query_cached_attention(qh, kc, vc, mask=None):
+    """Attention of a single query token over a cached context — the
+    decode-path math the paged self-attention (plain version) and the
+    cross-attention share.
+
+    qh: (B, H, 1, dh); kc/vc: (B, H, L, dh); mask: boolean broadcastable
+    to (B, H, 1, L), True = attend (None = attend everywhere). Returns
+    (B, H, 1, dh). fp32 scores and softmax, output in the value dtype."""
+    dh = qh.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, kc).float() / math.sqrt(dh)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, _MASKED))
+    p = _masked_softmax(s, mask).to(vc.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vc)
+
+
+def _paged_attention_plain(q, k_pages, v_pages, page_tables, lengths):
+    """Plain version of the paged kernel: gather each slot's pages into a
+    dense context, then the shared single-query math. q: (S, H, dh);
+    k_pages/v_pages: (P, psize, H, dh); page_tables: (S, npages) int32;
+    lengths: (S,) int32 visible positions (the current token included).
+    Returns (S, H, dh)."""
+    S, H, dh = q.shape
+    psize = k_pages.shape[1]
+    npages = page_tables.shape[1]
+    L = npages * psize
+    idx = page_tables.long()
+    kc = k_pages[idx].reshape(S, L, H, dh).transpose(1, 2)
+    vc = v_pages[idx].reshape(S, L, H, dh).transpose(1, 2)
+    pos = torch.arange(L, device=q.device)
+    mask = (pos[None, :] < lengths.long()[:, None])[:, None, None, :]
+    return single_query_cached_attention(q[:, :, None, :], kc, vc,
+                                         mask)[:, :, 0]
+
+
+def _rpa_args(q, k_pages, v_pages, page_tables, lengths):
+    """What the kernel takes, checked on either device: (S, H, dh,
+    psize, page / row / head strides)."""
+    _check(q.dim() == 3 and k_pages.dim() == 4,
+           "ragged_paged_attention takes q (S, H, dh) and pages "
+           "(P, psize, H, dh)")
+    S, H, dh = q.shape
+    P, psize = k_pages.shape[:2]
+    _check(k_pages.shape == (P, psize, H, dh)
+           and v_pages.shape == k_pages.shape
+           and v_pages.stride() == k_pages.stride(),
+           f"page pools {tuple(k_pages.shape)} / {tuple(v_pages.shape)} do "
+           f"not match q {tuple(q.shape)}")
+    _check(page_tables.dim() == 2 and page_tables.shape[0] == S
+           and page_tables.dtype == torch.int32
+           and page_tables.is_contiguous(),
+           "page_tables must be a contiguous (S, npages) int32 tensor")
+    _check(lengths.shape == (S,) and lengths.dtype == torch.int32
+           and lengths.is_contiguous(),
+           "lengths must be a contiguous (S,) int32 tensor")
+    _check(all(t.dtype == torch.float32 for t in (q, k_pages, v_pages)),
+           "ragged_paged_attention kernel takes float32 q and pages")
+    _check(q.is_contiguous(), "ragged_paged_attention takes a contiguous q")
+    _check(0 < dh <= 128 and dh % 4 == 0,
+           f"ragged_paged_attention kernel takes dh % 4 == 0, dh <= 128, "
+           f"got {dh}")
+    sp, so, sh, sd = k_pages.stride()
+    _check(sd == 1 and sp % 4 == 0 and so % 4 == 0 and sh % 4 == 0
+           and k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+           "page pools need unit stride on dh and 16-byte aligned rows")
+    _check(S * H > 0 and page_tables.shape[1] > 0,
+           "ragged_paged_attention: empty input")
+    return S, H, dh, psize, sp, so, sh
+
+
+def _rpa_cuda(q, k_pages, v_pages, page_tables, lengths, sm_scale):
+    S, H, dh, psize, sp, so, sh = _rpa_args(q, k_pages, v_pages,
+                                            page_tables, lengths)
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        rc = lib.mxtt_rpa_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            S, H, dh, psize, page_tables.shape[1], sp, so, sh,
+            float(sm_scale), torch.cuda.current_stream().cuda_stream)
+    _launched("ragged_paged_attention", rc)
+    return out
+
+
+def ragged_paged_attention(q, k_pages, v_pages, page_tables, lengths,
+                           sm_scale=None, k_scales=None, v_scales=None):
+    """One shared attention launch per decode step over a paged KV cache.
+
+    q: (S, H, dh) — one query token per decode slot; k_pages/v_pages:
+    (P, psize, H, dh) page pools; page_tables: (S, npages) int32 page ids
+    per slot (unused entries point at the reserved null page 0);
+    lengths: (S,) int32 visible positions per slot INCLUDING the current
+    token. Returns (S, H, dh).
+
+    The widened (S, W, H, dh) query form and int8 pages
+    (`k_scales`/`v_scales`) belong to a later slice and raise."""
+    if k_scales is not None or v_scales is not None:
+        raise MXNetError("int8 KV pages (k_scales/v_scales) are not ported "
+                         "yet (ROADMAP.md, Queue 2: the RPA int8 page path)")
+    if q.dim() != 3:
+        raise MXNetError("the widened (S, W, H, dh) ragged-paged-attention "
+                         "form is not ported yet (ROADMAP.md, Queue 2: "
+                         "_rpa_multi_kernel)")
+    dev = _device_of(q, k_pages, v_pages, page_tables, lengths)
+    if dev.type == "cuda":
+        if sm_scale is None:
+            sm_scale = 1.0 / math.sqrt(q.shape[-1])
+        return _rpa_cuda(q, k_pages, v_pages, page_tables, lengths,
+                         sm_scale)
+    _rpa_args(q, k_pages, v_pages, page_tables, lengths)
+    if sm_scale is not None:
+        q = q * (sm_scale * math.sqrt(q.shape[-1]))
+    return _paged_attention_plain(q, k_pages, v_pages, page_tables, lengths)

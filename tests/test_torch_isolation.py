@@ -1,0 +1,100 @@
+"""The port stands alone: `mxnet_tpu_torch` and `chip_smoke.py` import
+neither JAX nor the JAX package, and the port's entry points run on the
+card unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.base import MXNetError
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "mxnet_tpu_torch"
+
+
+def test_import_pulls_in_no_jax():
+    """Importing the package and every submodule, in a fresh
+    interpreter, loads no `jax*` and no `mxnet_tpu` module."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mxnet_tpu_torch\n"
+        "for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,\n"
+        "                               'mxnet_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'mxnet_tpu'))\n"
+        "print(len([n for n in sys.modules\n"
+        "           if n.startswith('mxnet_tpu_torch')]), bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_mods, bad = out.stdout.split(maxsplit=1)
+    assert int(n_mods) >= 20          # every submodule was imported
+    assert bad.strip() == "[]"
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(p for p in PKG.rglob("*.py")
+                                        if "_build" not in p.parts)
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    """AST scan: no `import jax...` and no `mxnet_tpu` / `mxnet_tpu.*`
+    import anywhere in the port or in chip_smoke.py."""
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "mxnet_tpu"), (path, name)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_the_cpu_by_default(no_cuda):
+    """Without a CUDA device and without an explicit CPU request, every
+    entry point raises instead of carrying on on the CPU."""
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.models.TransformerNMT(20, units=16, hidden=16, num_layers=1,
+                                 num_heads=2, max_length=16)
+    model = mx.models.TransformerNMT(20, units=16, hidden=16, num_layers=1,
+                                     num_heads=2, max_length=16,
+                                     device="cpu")
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.serve.Server(model, engine_driven=False)
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.serve.Server(model, engine_driven=False, device=mx.gpu(0))
+    from mxnet_tpu_torch.models.transformer import (decoder_weights,
+                                                    encoder_weights)
+    snap = [{k: (v.numpy() if isinstance(v, torch.Tensor) else
+                 [{n: tuple(np.asarray(t) if isinstance(t, torch.Tensor)
+                            else t for t in leaf)
+                   for n, leaf in layer.items()} for layer in v]
+                 if k == "layers" else v)
+             for k, v in fn(model).items()}
+            for fn in (encoder_weights, decoder_weights)]
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.convert.from_jax_weights(*snap)
+    # the explicit CPU request is honoured
+    again = mx.convert.from_jax_weights(*snap, device=mx.cpu())
+    assert again.device.type == "cpu"
+    srv = mx.serve.Server(model, engine_driven=False, device="cpu",
+                          max_src_len=8, max_new_tokens=2)
+    assert srv.runtime.k_pages.device.type == "cpu"
+    assert len(srv.submit([4, 5, 6]).result()) == 2
+    srv.close()
