@@ -5,28 +5,48 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-  1. build   — `nvcc` builds the port's kernels from `mxnet_tpu_torch/
-               ops/csrc/` for sm_90a (one nvcc per source, in parallel);
-               TF32 is switched off for matmuls and cuDNN.
-  2. kernels — each kernel against its plain PyTorch version on the card,
-               on the same inputs, at the serving shapes and a few edge
-               shapes; kernel, plain-version and library times.
-  3. serve   — full-width `transformer_base(36548)` (random weights from
-               a numpy seed) behind `serve.Server(slots=8, page_size=16,
-               max_src_len=128, max_new_tokens=32)`: 16 mixed-length
-               requests with continuous-batching backfill. The launch
-               counters are zeroed just before and read just after: every
-               prefill must launch the flash kernel once per encoder
-               layer, every decode turn the paged kernel once per decoder
-               layer.
-     Then the first 8 requests again under torch.profiler: the device's
-     busy share and the kernels that take the time.
-  4. card vs CPU — three of those requests through a `device="cpu"`
-               server with the same weights (the plain versions): the
-               first-step logits must agree within the stated tolerance
-               and the greedy tokens must be identical (unless the top
-               two CPU logits at the first divergent step are closer than
-               that tolerance, which is printed).
+  1. build     — `nvcc` builds the port's kernels from `mxnet_tpu_torch/
+                 ops/csrc/` for sm_90a (one nvcc per source, in parallel);
+                 TF32 is switched off for matmuls and cuDNN.
+  2. kernels   — each kernel against its plain PyTorch version on the
+                 card, on the same inputs, at the shapes its path gives it
+                 and a few edge shapes; kernel, plain-version and library
+                 times, and the least time the card could take (bound):
+                 flash forward (serving and training shapes), ragged
+                 paged attention (serving shapes), the flash backward pair
+                 (training shapes; also against float64 autograd) and
+                 LayerNorm (training shape; D = 512 only).
+  3. serve     — full-width `transformer_base(36548)` (random weights from
+                 a seed) behind `serve.Server(slots=8, page_size=16,
+                 max_src_len=128, max_new_tokens=32)`: 16 mixed-length
+                 requests with continuous-batching backfill. The launch
+                 counters are zeroed just before and read just after: every
+                 prefill must launch the flash kernel once per encoder
+                 layer, every decode turn the paged kernel once per decoder
+                 layer.
+       Then the first 8 requests again under torch.profiler: the device's
+       busy share and the kernels that take the time.
+  4. card vs CPU (serving) — three of those requests through a
+                 `device="cpu"` server with the same weights (the plain
+                 versions): the first-step logits must agree within the
+                 stated tolerance and the greedy tokens must be identical
+                 (unless the top two CPU logits at the first divergent step
+                 are closer than that tolerance, which is printed).
+  5. train     — the Gluon loop of examples/nmt_translate.py at full
+                 width: `transformer_base(36548, max_length=64,
+                 dropout=0.0)`, `initialize(ctx=mx.gpu(0))`, Adam at 3e-4,
+                 SoftmaxCrossEntropyLoss, `autograd.record()`,
+                 `loss.backward()`, `trainer.step(B)`, 10 steps on one
+                 fixed batch of B=32, S=64 + 64 (bench_nmt.py's shape).
+                 The counters are zeroed just before and read just after:
+                 every step must launch 18 flash forwards, 18 of each
+                 backward kernel and 30 LayerNorms. Tokens/s (src + tgt)
+                 over steps 3-10, step ms, peak memory, then one step
+                 under torch.profiler.
+  6. card vs CPU (training) — the initial weights go to a CPU model
+                 through save_parameters / load_parameters, and one step
+                 at full width (B=2, S=16) must give the card's loss and
+                 every gradient within the stated tolerances.
 
 Output: progress lines, then `nvidia-smi`'s name and power limit, then
 one JSON line `{"kernels": [...]}`, then the last line
@@ -38,6 +58,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,9 +73,21 @@ PEAK_FP32_FLOPS = 67e12
 
 FLASH_TOL = dict(rtol=2e-4, atol=2e-5)   # kernel vs plain: fp32, sums in
 RPA_TOL = dict(rtol=2e-5, atol=2e-6)     # another order than torch's
+BWD_TOL = dict(rtol=2e-4, atol=2e-5)     # (the flash backward pair and
+LN_TOL = dict(rtol=1e-5, atol=1e-5)      # LayerNorm likewise)
+# the flash backward pair against float64 autograd: fp32 rounding of
+# sums over at most 80 keys or queries
+BWD_F64_TOL = dict(rtol=2e-4, atol=2e-5)
 # card vs CPU logits: fp32 through 12 layers (cuBLAS vs the CPU BLAS sum
 # in different orders; TF32 off)
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
+# card vs CPU training step: the loss, and every gradient (kernel vs
+# plain and cuBLAS vs CPU BLAS summation orders)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+VOCAB = 36548
+TRAIN_B, TRAIN_S = 32, 64        # bench_nmt.py's seq: 64 src + 64 tgt
 
 BOS, EOS = 2, 3
 
@@ -134,6 +167,19 @@ def phase_build(mx, torch):
             log(f"  ptxas {line.strip()}")
 
 
+def _train_attention_cases():
+    """The attentions of a training step at B=32, H=8, S=64, D=64, as
+    (B, H, Sq, Sk, D, causal, kv_lengths): the decoder's causal
+    self-attention, the encoder's self-attention with key lengths 5-64,
+    and a rectangular cross-attention (Sq=48, Sk=80) with lengths 5-80,
+    both drawn from numpy seed 0."""
+    B, H, S, D = TRAIN_B, 8, TRAIN_S, 64
+    lens64 = [int(x) for x in np.random.RandomState(0).randint(5, 65, B)]
+    lens80 = [int(x) for x in np.random.RandomState(0).randint(5, 81, B)]
+    return [(B, H, S, S, D, True, None), (B, H, S, S, D, False, lens64),
+            (B, H, 48, 80, D, False, lens80)]
+
+
 def phase_flash(mx, torch):
     K = mx.ops.kernels
     dev = torch.device("cuda", 0)
@@ -144,8 +190,9 @@ def phase_flash(mx, torch):
                 ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d))]
 
     # (B, H, Sq, Sk, D, causal, kv_lengths); the first is the serving
-    # prefill: one request padded to max_src_len=128, 77 real tokens
-    cases = [(1, 8, 128, 128, 64, False, [77]),
+    # prefill: one request padded to max_src_len=128, 77 real tokens; the
+    # training shapes follow it
+    cases = [(1, 8, 128, 128, 64, False, [77]), *_train_attention_cases(),
              (2, 8, 128, 128, 64, False, [128, 5]),
              (2, 8, 100, 100, 64, False, [37, 100]),
              (1, 8, 128, 128, 64, True, None),
@@ -173,7 +220,8 @@ def phase_flash(mx, torch):
             check(out[lens.index(0)].abs().max().item() == 0.0,
                   "a zero-length row must be zeros")
         worst = max(worst, err)
-        log(f"flash {(b, h, sq, sk, d)} causal={causal} lens={lens}: "
+        log(f"flash {(b, h, sq, sk, d)} causal={causal} "
+            f"lens={None if lens is None else lens[:4]}: "
             f"max abs err {err:.3e} (tol rtol={FLASH_TOL['rtol']} "
             f"atol={FLASH_TOL['atol']})")
 
@@ -271,7 +319,9 @@ def phase_serve(mx, torch):
     K = mx.ops.kernels
     reg = mx.observability.registry()
     t0 = time.perf_counter()
-    model = mx.models.transformer_base(36548, seed=0)      # on mx.gpu(0)
+    mx.random.seed(0)
+    model = mx.models.transformer_base(36548)
+    model.initialize(ctx=mx.gpu(0))
     n_params = sum(p.numel() for p in model.parameters())
     srv = mx.serve.Server(model, slots=8, page_size=16, max_src_len=128,
                           max_new_tokens=32, engine_driven=False)
@@ -305,6 +355,9 @@ def phase_serve(mx, torch):
         check(all(0 <= t < 36548 for t in h.tokens), "token out of range")
     check(srv.pool.in_use() == 0, f"{srv.pool.in_use()} pages leaked")
     check(prefills == len(reqs), f"{prefills} prefills for {len(reqs)}")
+    check(launches["flash_bwd_dkv"] == launches["flash_bwd_dq"]
+          == launches["layer_norm"] == 0,
+          f"serving launched a training kernel: {launches}")
     check(launches["flash_fwd"] == 6 * prefills > 0,
           f"flash launches {launches['flash_fwd']} != 6 x {prefills}")
     check(launches["ragged_paged_attention"] == 6 * turns > 0,
@@ -324,21 +377,20 @@ def phase_serve(mx, torch):
     return model, srv, reqs, handles, launches
 
 
-def phase_profile(mx, torch, srv, reqs):
-    """Where the serving time goes: the first 8 requests again under
-    torch.profiler (CPU + CUDA activity). The device's busy share is the
-    summed kernel time over the window's wall clock (one stream, so
-    kernels do not overlap); the profiler's own cost lengthens the wall
-    clock, so the idle share it gives is an upper bound."""
+def device_profile(torch, work):
+    """Run `work()` under torch.profiler (CPU + CUDA activity), ending in
+    a synchronize: (window wall us, device rows (us, count, name) sorted
+    by time), or None where the profiler cannot trace the card. The
+    device's busy share is the summed kernel time over the window's wall
+    clock (one stream, so kernels do not overlap); the profiler's own
+    cost lengthens the wall clock, so the idle share it gives is an upper
+    bound."""
     from torch.profiler import ProfilerActivity, profile
-    turns0 = srv.scheduler.decode_turns
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for src, n in reqs[:8]:
-                srv.submit(src, max_new_tokens=n)
-            srv.wait(timeout=600)
+            work()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         # device-side events only: an aten op's row repeats the time of
@@ -353,16 +405,36 @@ def phase_profile(mx, torch, srv, reqs):
             rows.append((dev_us, ev.count, ev.key))
     except RuntimeError as e:
         log(f"profile: not measured ({e})")
-        return
+        return None
     rows.sort(reverse=True)
+    return wall_us, rows
+
+
+def log_profile(tag, wall_us, rows, what):
     busy = sum(r[0] for r in rows)
-    turns = srv.scheduler.decode_turns - turns0
-    log(f"profile: window {wall_us / 1e3:.1f} ms, {turns} decode turns, "
+    log(f"{tag}: window {wall_us / 1e3:.1f} ms, {what}, "
         f"{sum(r[1] for r in rows)} device kernels, device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f} %), idle "
         f"{100 * (1 - busy / wall_us):.1f} % (upper bound)")
     for dev_us, count, key in rows[:12]:
-        log(f"profile:   {dev_us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+        log(f"{tag}:   {dev_us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+    return busy / wall_us
+
+
+def phase_profile(mx, torch, srv, reqs):
+    """Where the serving time goes: the first 8 requests again under
+    torch.profiler."""
+    turns0 = srv.scheduler.decode_turns
+
+    def work():
+        for src, n in reqs[:8]:
+            srv.submit(src, max_new_tokens=n)
+        srv.wait(timeout=600)
+    got = device_profile(torch, work)
+    if got is None:
+        return
+    log_profile("profile", *got,
+                f"{srv.scheduler.decode_turns - turns0} decode turns")
 
     # host syncs: torch's sync debug mode warns at every call that makes
     # the host wait for the device; the design has one per decode turn
@@ -440,6 +512,302 @@ def phase_card_vs_cpu(mx, torch, model, srv, reqs, handles):
     cpu_srv.close()
 
 
+def _bwd_case(torch, K, g, b, h, sq, sk, d, causal, lens):
+    """Inputs of one backward case and the forward's lse and delta. The
+    forward kernel's out and lse are held against `_flash_plain` first:
+    both the backward kernels and their plain version take this lse, so
+    a wrong one would not show in their comparison."""
+    dev = torch.device("cuda", 0)
+    q, k, v, do = [torch.randn(shape, generator=g).to(dev) for shape in
+                   ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d),
+                    (b, h, sq, d))]
+    vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    out, lse = K.flash_attention_fwd(q, k, v, causal, d ** -0.5, vl)
+    ref, ref_lse = K._flash_plain(q, k, v, causal, d ** -0.5, vl)
+    check(torch.allclose(out, ref, **FLASH_TOL)
+          and torch.allclose(lse, ref_lse, **FLASH_TOL),
+          f"flash forward out / lse vs plain at "
+          f"{(b, h, sq, sk, d, causal)}: max abs errs "
+          f"{(out - ref).abs().max().item()} / "
+          f"{(lse - ref_lse).abs().max().item()}")
+    delta = (out * do).sum(-1).reshape(b * h, sq)
+    return q, k, v, do, vl, out, lse, delta
+
+
+def _attention_grads_f64(torch, q, k, v, do, causal, scale, lens):
+    """(dQ, dK, dV) of softmax attention by autograd in float64 on the
+    CPU; a row with no visible key is zeros, the kernels' convention."""
+    q, k, v = (t.detach().cpu().double().requires_grad_(True)
+               for t in (q, k, v))
+    s = q @ k.transpose(-1, -2) * scale
+    allowed = torch.ones(s.shape, dtype=torch.bool)
+    if lens is not None:
+        keys = torch.arange(s.shape[-1])[None, :] < torch.tensor(lens)[:, None]
+        allowed &= keys[:, None, None, :]
+    if causal:
+        allowed &= torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+    live = allowed.any(-1, keepdim=True)
+    s = torch.where(allowed, s, torch.tensor(-torch.inf, dtype=s.dtype))
+    p = torch.softmax(torch.where(live, s, torch.zeros_like(s)), -1) * live
+    return torch.autograd.grad(p @ v, (q, k, v), do.cpu().double())
+
+
+def phase_flash_bwd(mx, torch):
+    """The dK/dV and dQ kernels against `_flash_bwd_plain` at the training
+    shapes (B=32, H=8, S=64, D=64): the decoder's causal self-attention,
+    the encoder's self-attention with key lengths, and a rectangular
+    cross-attention; then a few edge shapes. Timed on the lengths case
+    (encoder self-attention and cross-attention, 12 of the 18 attentions
+    of a training step)."""
+    K = mx.ops.kernels
+    g = torch.Generator(device="cpu").manual_seed(2)
+    B, H, S, D = TRAIN_B, 8, TRAIN_S, 64
+    train_cases = _train_attention_cases()
+    lens64 = train_cases[1][-1]
+    cases = [*train_cases, (2, 2, 33, 33, 128, True, [20, 33]),
+             (2, 3, 100, 70, 32, False, [0, 70])]
+    worst = {"dkv": 0.0, "dq": 0.0}
+    for b, h, sq, sk, d, causal, lens in cases:
+        q, k, v, do, vl, _, lse, delta = _bwd_case(torch, K, g, b, h, sq, sk,
+                                                   d, causal, lens)
+        dq, dk, dv = K.flash_attention_bwd(q, k, v, do, lse, delta, causal,
+                                           d ** -0.5, vl)
+        rq, rk, rv = K._flash_bwd_plain(q, k, v, do, lse, delta, causal,
+                                        d ** -0.5, vl)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
+                               ("dv", dv, rv)):
+            check(torch.isfinite(got).all().item(), f"{name} not finite")
+            check(ref.abs().max().item() > 0, f"plain {name} is all zeros")
+            errs[name] = (got - ref).abs().max().item()
+            check(torch.allclose(got, ref, **BWD_TOL),
+                  f"flash bwd {name} kernel vs plain: max abs err "
+                  f"{errs[name]} at {(b, h, sq, sk, d, causal)}")
+        for bi, n in enumerate(lens or []):
+            check(dk[bi, :, n:].abs().max().item() == 0.0
+                  and dv[bi, :, n:].abs().max().item() == 0.0
+                  if n < sk else True,
+                  f"dK/dV of keys past kv_len {n} must be exactly 0")
+        # a second yardstick: torch autograd through float64 softmax
+        # attention on the CPU (at D = 64 cuBLAS can sum in the kernels'
+        # own order, so the fp32 plain version may agree bit for bit)
+        errs64 = {}
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                  _attention_grads_f64(torch, q, k, v, do,
+                                                       causal, d ** -0.5,
+                                                       lens)):
+            got = got.cpu().double()
+            errs64[name] = (got - ref).abs().max().item()
+            check(torch.allclose(got, ref, **BWD_F64_TOL),
+                  f"flash bwd {name} kernel vs float64 autograd: max abs "
+                  f"err {errs64[name]} at {(b, h, sq, sk, d, causal)}")
+        worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
+        worst["dq"] = max(worst["dq"], errs["dq"])
+        log(f"flash bwd {(b, h, sq, sk, d)} causal={causal} "
+            f"lens={None if lens is None else lens[:4]}...: max abs err "
+            f"{errs} (tol rtol={BWD_TOL['rtol']} atol={BWD_TOL['atol']}); "
+            f"vs float64 {errs64} (tol rtol={BWD_F64_TOL['rtol']} "
+            f"atol={BWD_F64_TOL['atol']})")
+
+    q, k, v, do, vl, out, lse, delta = _bwd_case(torch, K, g, B, H, S, S, D,
+                                                 False, lens64)
+    scale = D ** -0.5
+    args = (q, k, v, do, lse, delta, False, scale, vl)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < vl[:, None].long())[:, None, None, :]
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(qg, kg, vg, attn_mask=mask), (qg, kg, vg),
+                            do)
+
+    fns = {"dkv": lambda: K._flash_bwd_dkv_cuda(*args),
+           "dq": lambda: K._flash_bwd_dq_cuda(*args),
+           "plain": lambda: K._flash_bwd_plain(*args),
+           "sdpa_fwd": lambda: sdpa(q, k, v, attn_mask=mask),
+           "sdpa_fwd_bwd": sdpa_fwd_bwd}
+    call = {name: cuda_ms(fn) for name, fn in fns.items()}
+    dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
+    library_ms = dev_ms["sdpa_fwd_bwd"] - dev_ms["sdpa_fwd"]
+    # this run's data: the kernels never load K/V rows at or past kv_len
+    live = sum(min(n, S) for n in lens64)
+    pairs = H * S * live                  # live (q, k) pairs over (b, h)
+    rows_q = 4 * B * H * S * D            # bytes of one (B, H, Sq, D)
+    rows_kv = 4 * H * live * D            # bytes of the live K (or V) rows
+    common = 2 * rows_q + 2 * 4 * B * H * S + 2 * rows_kv + 4 * B
+    bounds = {"dkv": bound(common + 2 * 4 * B * H * S * D, 8 * pairs * D),
+              "dq": bound(common + rows_q, 6 * pairs * D)}
+    log(f"flash bwd training shape {(B, H, S, D)} lens 5-64: per call "
+        f"(host launch included) {call}; device (CUDA graph) {dev_ms}; "
+        f"SDPA backward (fwd+bwd - fwd) {library_ms:.5f} ms; bounds "
+        f"{bounds}")
+    return [dict(name=f"flash_bwd_{part}", route="cuda",
+                 source="mxnet_tpu_torch/ops/csrc/flash_bwd.cu",
+                 replaces=f"mxnet_tpu/ops/pallas_kernels.py:{line}",
+                 max_abs_err=worst[part], ms=dev_ms[part],
+                 plain_ms=dev_ms["plain"], bound_ms=bounds[part][0],
+                 bound_by=bounds[part][1], library_ms=library_ms,
+                 call_ms=call[part])
+            for part, line in (("dkv", 417), ("dq", 484))]
+
+
+def phase_ln(mx, torch):
+    """The LayerNorm kernel against `_ln_plain` at the training shape
+    (rows = 32 x 64, D = 512) and at row counts that leave a block part
+    full; the kernel takes D = 512 only and must refuse another width."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    try:
+        K.layer_norm_fwd(*[torch.ones(shape, device=dev)
+                           for shape in ((4, 768), (768,), (768,))])
+        check(False, "layer norm kernel took D = 768")
+    except mx.MXNetError as e:
+        log(f"layer norm D = 768 refused: {e}")
+    worst = 0.0
+    for rows, d in [(TRAIN_B * TRAIN_S, 512), (7, 512), (1, 512),
+                    (4099, 512)]:
+        x, ga, be = [torch.randn(shape, generator=g).to(dev)
+                     for shape in ((rows, d), (d,), (d,))]
+        got = K.layer_norm_fwd(x, ga, be, 1e-5)
+        ref = K._ln_plain(x, ga, be, 1e-5)
+        torch.cuda.synchronize()
+        errs = [(a - r).abs().max().item() for a, r in zip(got, ref)]
+        check(all(torch.allclose(a, r, **LN_TOL) for a, r in zip(got, ref)),
+              f"layer norm kernel vs plain at ({rows}, {d}): max abs errs "
+              f"(y, mean, rstd) {errs}")
+        worst = max(worst, *errs)
+        log(f"layer norm ({rows}, {d}): max abs err (y, mean, rstd) {errs} "
+            f"(tol rtol={LN_TOL['rtol']} atol={LN_TOL['atol']})")
+    rows, d = TRAIN_B * TRAIN_S, 512
+    x, ga, be = [torch.randn(shape, generator=g).to(dev)
+                 for shape in ((rows, d), (d,), (d,))]
+    fns = {"kernel": lambda: K.layer_norm_fwd(x, ga, be, 1e-5),
+           "plain": lambda: K._ln_plain(x, ga, be, 1e-5),
+           "torch": lambda: torch.nn.functional.layer_norm(x, (d,), ga, be,
+                                                           1e-5)}
+    call = {name: cuda_ms(fn) for name, fn in fns.items()}
+    dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
+    # x and y once each, gamma and beta, mean and rstd; ~8 FLOP an element
+    bms, by = bound(4 * (2 * rows * d + 2 * d + 2 * rows), 8 * rows * d)
+    log(f"layer norm training shape ({rows}, {d}): per call (host launch "
+        f"included) {call}; device (CUDA graph) {dev_ms}; bound "
+        f"{bms:.6f} ms ({by})")
+    return dict(name="layer_norm", route="cuda",
+                source="mxnet_tpu_torch/ops/csrc/layer_norm.cu",
+                replaces="mxnet_tpu/ops/pallas_kernels.py:1209",
+                max_abs_err=worst, ms=dev_ms["kernel"],
+                plain_ms=dev_ms["plain"], bound_ms=bms, bound_by=by,
+                library_ms=dev_ms["torch"], call_ms=call["kernel"])
+
+
+def _train_batch(mx, b, s, ctx):
+    """One fixed batch from numpy seed 0: source and target tokens,
+    labels, and source lengths 16..s (all of them s when s < 16)."""
+    rng = np.random.RandomState(0)
+    toks = [rng.randint(4, VOCAB, (b, s)).astype(np.int32) for _ in range(3)]
+    lens = rng.randint(min(16, s), s + 1, b).astype(np.int32)
+    return [mx.nd.array(a, ctx=ctx) for a in (*toks, lens)]
+
+
+def _train_step(mx, model, trainer, ce, batch):
+    src, tgt, lab, vl = batch
+    with mx.autograd.record():
+        logits = model(src, tgt, vl)
+        loss = ce(logits.reshape((-1, VOCAB)), lab.reshape((-1,))).mean()
+    loss.backward()
+    if trainer is not None:
+        trainer.step(src.shape[0])
+    return loss
+
+
+def phase_train(mx, torch, init_file):
+    """examples/nmt_translate.py's Gluon loop at full width on the card.
+    The initial weights go to `init_file` for the card-vs-CPU phase."""
+    K = mx.ops.kernels
+    mx.random.seed(0)
+    model = mx.models.transformer_base(VOCAB, max_length=TRAIN_S,
+                                       dropout=0.0)
+    model.initialize(ctx=mx.gpu(0))
+    model.save_parameters(init_file)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = _train_batch(mx, TRAIN_B, TRAIN_S, mx.gpu(0))
+    trainer = mx.gluon.Trainer(model.collect_params(), "adam",
+                               {"learning_rate": 3e-4})
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    K.reset_launch_counts()
+    losses, per_step, t_window = [], [], None
+    for step in range(10):
+        before = dict(K.LAUNCHES)
+        if step == 2:                  # steps 3-10 are timed
+            torch.cuda.synchronize()
+            t_window = time.perf_counter()
+        losses.append(_train_step(mx, model, trainer, ce,
+                                  batch)._data.detach())
+        per_step.append({k: K.LAUNCHES[k] - before[k] for k in before})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_window
+    launches = dict(K.LAUNCHES)
+
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    want = {"flash_fwd": 18, "flash_bwd_dkv": 18, "flash_bwd_dq": 18,
+            "ragged_paged_attention": 0, "layer_norm": 30}
+    for i, counts in enumerate(per_step):
+        check(counts == want, f"step {i + 1} launches {counts} != {want}")
+    for name, p in model._collect_params_with_prefix().items():
+        check(p.data()._data.is_cuda and p.grad()._data.is_cuda,
+              f"{name} or its gradient is not on the card")
+    tokens = 8 * TRAIN_B * TRAIN_S * 2          # steps 3-10, src + tgt
+    summary = dict(params=n_params, batch=TRAIN_B, seq=TRAIN_S,
+                   losses=losses, tokens_per_s=tokens / wall,
+                   mean_step_ms=wall / 8 * 1e3, launches=launches,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("training " + json.dumps(summary))
+
+    got = device_profile(torch, lambda: _train_step(mx, model, trainer, ce,
+                                                    batch))
+    if got is not None:
+        log_profile("train profile", *got, "1 training step")
+    return launches
+
+
+def phase_train_card_vs_cpu(mx, torch, init_file):
+    """One step at full width on B=2, S=16 from the same initial weights
+    on the card and on the CPU: the loss and every gradient agree."""
+    mx.random.seed(0)
+    models = {}
+    for tag, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        model = mx.models.transformer_base(VOCAB, max_length=TRAIN_S,
+                                           dropout=0.0)
+        model.load_parameters(init_file, ctx=ctx)
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        loss = _train_step(mx, model, None, ce, _train_batch(mx, 2, 16, ctx))
+        models[tag] = (model, float(loss.asnumpy()))
+    (card, card_loss), (cpu, cpu_loss) = models["card"], models["cpu"]
+    check(abs(card_loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss),
+          f"card vs CPU loss {card_loss} vs {cpu_loss}")
+    worst, cpu_params = (0.0, ""), cpu._collect_params_with_prefix()
+    for name, p in card._collect_params_with_prefix().items():
+        got = p.grad().asnumpy()
+        want = cpu_params[name].grad().asnumpy()
+        err = float(np.abs(got - want).max())
+        check(np.allclose(got, want, **TRAIN_GRAD_TOL),
+              f"card vs CPU gradient of {name}: max abs err {err}")
+        worst = max(worst, (err, name))
+    log(f"train card vs cpu (B=2, S=16): loss {card_loss:.7f} vs "
+        f"{cpu_loss:.7f} (rtol {TRAIN_LOSS_RTOL}); all "
+        f"{len(cpu_params)} gradients within {TRAIN_GRAD_TOL}, worst max "
+        f"abs err {worst[0]:.3e} ({worst[1]})")
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -462,22 +830,32 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build(mx, torch)
-    kernels = [phase_flash(mx, torch), phase_rpa(mx, torch)]
-    model, srv, reqs, handles, launches = phase_serve(mx, torch)
+    kernels = [phase_flash(mx, torch), phase_rpa(mx, torch),
+               *phase_flash_bwd(mx, torch), phase_ln(mx, torch)]
+    model, srv, reqs, handles, serve_launches = phase_serve(mx, torch)
     phase_profile(mx, torch, srv, reqs)
     phase_card_vs_cpu(mx, torch, model, srv, reqs, handles)
     srv.close()
+    del model, srv
+    with tempfile.TemporaryDirectory() as tmp:
+        init_file = os.path.join(tmp, "transformer_base_init.params")
+        train_launches = phase_train(mx, torch, init_file)
+        phase_train_card_vs_cpu(mx, torch, init_file)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        by_path = {"serve": serve_launches[k["name"]],
+                   "train": train_launches[k["name"]]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
+        check(k["launches"] > 0, f"{k['name']} never launched on a path")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "call_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "call_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

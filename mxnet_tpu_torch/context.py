@@ -1,9 +1,9 @@
 """Device contexts: `mx.cpu()` / `mx.gpu(i)` as `torch.device`s.
 
 Counterpart of `mxnet_tpu/context.py`. The card is the first-class
-context: every entry point that takes `device=` resolves `None` to
-`gpu(0)`, and the CPU is used only when the caller asks for it
-(`device="cpu"` / `mx.cpu()`). With no CUDA device and no explicit CPU
+context: every entry point that takes `device=` or `ctx=` resolves
+`None` to `gpu(0)`, and the CPU is used only when the caller asks for it
+(`device="cpu"` / `ctx=mx.cpu()`). With no CUDA device and no explicit CPU
 request, `resolve_device` raises — nothing carries on quietly on the
 CPU. There is no `mx.tpu`.
 """

@@ -1,57 +1,62 @@
-"""Carry a TransformerNMT's weights across from the JAX package.
+"""Carry weights across from the JAX package.
 
-`from_jax_weights(enc_w, dec_w)` takes the JAX package's structured
+`load_jax_parameters(block, arrays)` takes what the JAX package's
+`save_parameters` writes — `{structural name: numpy array}`, for
+example `dict(np.load("net.params"))` — and puts it into a port block of
+the same architecture. The name sets must match exactly and every shape
+must agree. (`block.load_parameters(filename)` reads such a file
+directly.)
+
+`from_jax_weights(enc_w, dec_w)` takes the JAX package's serving
 snapshots — `encoder_weights(model)` / `decoder_weights(model)` with
 every array already converted to numpy (for example
 `jax.tree.map(np.asarray, decoder_weights(model))`; this module never
 touches JAX) — and returns a port `TransformerNMT` whose
-`encoder_weights()` / `decoder_weights()` hold the same values.
-
-The snapshots are used rather than `collect_params()` names, which
-carry process-global counters (`transformernmt0_...`) that change with
-every model a process builds. Dense weights are `(out, in)` in both
-frameworks; the embedding is tied (encoder, decoder and projection
-share it), so the port keeps it as one tensor.
+`encoder_weights()` / `decoder_weights()` hold the same values. Dense
+weights are `(out, in)` in both frameworks.
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .base import MXNetError
 from .models.transformer import TransformerNMT
 
-__all__ = ["from_jax_weights"]
+__all__ = ["load_jax_parameters", "from_jax_weights"]
 
-_ENC_DENSE = ("qkv", "proj", "ffn1", "ffn2")
-_ENC_LN = ("ln1", "ln2")
-_DEC_DENSE = ("qkv", "sproj", "q", "kv", "cproj", "ffn1", "ffn2")
-_DEC_LN = ("ln1", "ln2", "ln3")
-
-
-def _put(param, value):
-    value = np.array(value, np.float32)       # a private, writable copy
-    if tuple(param.shape) != value.shape:
-        raise MXNetError(f"shape mismatch: parameter {tuple(param.shape)} "
-                         f"vs snapshot {value.shape}")
-    param.copy_(torch.from_numpy(value))
+_ENC_DENSE = {"qkv": "attn.qkv", "proj": "attn.proj", "ffn1": "ffn.ffn1",
+              "ffn2": "ffn.ffn2"}
+_DEC_DENSE = {"qkv": "self_attn.qkv", "sproj": "self_attn.proj",
+              "q": "cross_attn.q", "kv": "cross_attn.kv",
+              "cproj": "cross_attn.proj", "ffn1": "ffn.ffn1",
+              "ffn2": "ffn.ffn2"}
 
 
-def _load_layer(layer, snap, dense_keys, ln_keys):
-    for key in dense_keys:
-        w, b = snap[key]
-        dense = getattr(layer, key)
-        _put(dense.weight, w)
-        if b is None:
-            raise MXNetError(f"dense {key!r} without a bias is not "
-                             f"supported")
-        _put(dense.bias, b)
-    for key in ln_keys:
-        g, b, eps = snap[key]
-        ln = getattr(layer, key)
-        _put(ln.gamma, g)
-        _put(ln.beta, b)
-        ln.epsilon = float(eps)
+def load_jax_parameters(block, arrays, ctx=None):
+    """Put `{structural name: array}` into `block`'s parameters on `ctx`
+    (None = `mx.gpu(0)`): no name may be missing or extra, and every
+    shape must match."""
+    block._load_arrays(arrays, ctx, allow_missing=False, ignore_extra=False)
+
+
+def _stack_arrays(prefix, snaps, dense_keys, ln_keys):
+    """(structural name -> array, LayerNorm epsilons in layer order)."""
+    arrays, eps = {}, []
+    for i, snap in enumerate(snaps):
+        base = f"{prefix}.layers.{i}."
+        for key, path in dense_keys.items():
+            w, b = snap[key]
+            if b is None:
+                raise MXNetError(f"dense {key!r} without a bias is not "
+                                 f"supported")
+            arrays[base + path + ".weight"] = np.asarray(w, np.float32)
+            arrays[base + path + ".bias"] = np.asarray(b, np.float32)
+        for key in ln_keys:
+            g, b, e = snap[key]
+            arrays[base + key + ".gamma"] = np.asarray(g, np.float32)
+            arrays[base + key + ".beta"] = np.asarray(b, np.float32)
+            eps.append(float(e))
+    return arrays, eps
 
 
 def from_jax_weights(enc_w, dec_w, device=None):
@@ -61,7 +66,7 @@ def from_jax_weights(enc_w, dec_w, device=None):
     if "embed_scale" in dec_w or "embed_scale" in enc_w:
         raise MXNetError("int8 weight snapshots are not ported yet "
                          "(ROADMAP.md, Queue 1: int8 serving)")
-    embed = np.asarray(dec_w["embed"])
+    embed = np.asarray(dec_w["embed"], np.float32)
     if not np.array_equal(embed, np.asarray(enc_w["embed"])):
         raise MXNetError("encoder and decoder snapshots must share the "
                          "tied embedding")
@@ -70,17 +75,24 @@ def from_jax_weights(enc_w, dec_w, device=None):
     if len(enc_w["layers"]) != len(layers):
         raise MXNetError("encoder and decoder layer counts differ")
     hidden = np.asarray(layers[0]["ffn1"][0]).shape[0]
-    max_length = np.asarray(dec_w["pos"]).shape[0]
+    pos = np.asarray(dec_w["pos"], np.float32)
     model = TransformerNMT(vocab, units=units, hidden=hidden,
                            num_layers=len(layers),
                            num_heads=int(dec_w["num_heads"]),
-                           max_length=max_length, device=device,
-                           seed=None)
-    with torch.no_grad():
-        _put(model.embed, embed)
-        for layer, snap in zip(model.encoder_layers, enc_w["layers"]):
-            _load_layer(layer, snap, _ENC_DENSE, _ENC_LN)
-        for layer, snap in zip(model.decoder_layers, layers):
-            _load_layer(layer, snap, _DEC_DENSE, _DEC_LN)
-        _put(model.pos, dec_w["pos"])
+                           max_length=pos.shape[0], dropout=0.0)
+    arrays = {"embed.weight": embed}
+    enc, enc_eps = _stack_arrays("encoder", enc_w["layers"], _ENC_DENSE,
+                                 ("ln1", "ln2"))
+    dec, dec_eps = _stack_arrays("decoder", layers, _DEC_DENSE,
+                                 ("ln1", "ln2", "ln3"))
+    arrays.update(enc)
+    arrays.update(dec)
+    load_jax_parameters(model, arrays, ctx=device)
+    for stack, snap_pos, eps, names in (
+            (model.encoder, enc_w["pos"], enc_eps, ("ln1", "ln2")),
+            (model.decoder, pos, dec_eps, ("ln1", "ln2", "ln3"))):
+        stack._pos = np.array(snap_pos, np.float32)
+        lns = [getattr(layer, n) for layer in stack.layers for n in names]
+        for ln, e in zip(lns, eps):
+            ln._epsilon = e
     return model

@@ -1,22 +1,30 @@
-"""Transformer NMT for serving (counterpart of
-`mxnet_tpu/models/transformer.py`).
+"""Transformer NMT (counterpart of `mxnet_tpu/models/transformer.py`).
 
-`TransformerNMT` is an `nn.Module` that holds the parameters of the
-Sockeye / gluonnlp transformer_en_de encoder-decoder: a tied embedding
-shared by encoder, decoder and output projection, fused-QKV
-self-attention, fused-KV cross-attention, post-LN residual blocks.
+The Sockeye / gluonnlp transformer_en_de encoder-decoder as the JAX
+package's Gluon block tree: a tied embedding shared by encoder, decoder
+and output projection, fused-QKV self-attention, fused-KV
+cross-attention, post-LN residual blocks. The tree gives the JAX
+package's structural parameter names (`embed.weight`,
+`encoder.layers.0.attn.qkv.weight`, ..., 193 of them for
+`transformer_base`), so a JAX `save_parameters` file loads into it and
+back.
+
+Training runs the teacher-forcing `hybrid_forward(F, src, tgt,
+src_valid_length)` under `autograd.record()`: every attention is
+`flash_attention` (the flash kernels forward and backward on the card)
+and every LayerNorm `fused_layer_norm` (the LayerNorm kernel).
 
 Serving runs on weight SNAPSHOTS, as in the JAX package:
-`encoder_weights(model)` / `decoder_weights(model)` return plain dicts
-of tensors (dense leaves are `(w (out, in), b)`, LayerNorm leaves
+`encoder_weights(model)` / `decoder_weights(model)` read this tree into
+plain dicts of tensors (dense leaves `(w (out, in), b)`, LayerNorm leaves
 `(gamma, beta, eps)`), and the functions below are pure functions of
-those dicts — `encode_memory` (the prefill; its attention is the
-flash kernel) and the factored decode core (`decode_embed`,
-`decoder_layer_*`, `decode_project`) that `serve.decode` composes
-around the ragged-paged-attention kernel.
+those dicts — `encode_memory` (the prefill; its attention is the flash
+kernel) and the factored decode core (`decode_embed`, `decoder_layer_*`,
+`decode_project`) that `serve.decode` composes around the
+ragged-paged-attention kernel.
 
-The teacher-forcing `forward`, beam search and `decode_step` belong to
-the training slice (ROADMAP.md, Queue 1).
+`beam_search`, `beam_search_cached` and `decode_step` are not ported yet
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -24,17 +32,20 @@ import math
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..base import MXNetError
-from ..context import resolve_device
+from ..gluon import nn
+from ..gluon.block import HybridBlock
+from ..ndarray.ndarray import _apply
 from ..ops.kernels import flash_attention, single_query_cached_attention
 
-__all__ = ["TransformerNMT", "transformer_base", "sinusoid_table",
-           "encoder_weights", "decoder_weights", "encode_memory",
-           "precompute_memory_kv", "decode_embed", "decode_project",
-           "decoder_layer_qkv", "decoder_layer_self_post",
-           "decoder_layer_cross", "decoder_layer_ffn"]
+__all__ = ["SelfAttention", "CrossAttention", "EncoderLayer", "DecoderLayer",
+           "TransformerEncoder", "TransformerDecoder", "TransformerNMT",
+           "transformer_base", "sinusoid_table", "encoder_weights",
+           "decoder_weights", "encode_memory", "precompute_memory_kv",
+           "decode_embed", "decode_project", "decoder_layer_qkv",
+           "decoder_layer_self_post", "decoder_layer_cross",
+           "decoder_layer_ffn"]
 
 
 def sinusoid_table(max_len, units):
@@ -47,165 +58,6 @@ def sinusoid_table(max_len, units):
     return table
 
 
-class _Dense(nn.Module):
-    """Parameters of one dense layer: weight (out, in), bias (out,)."""
-
-    def __init__(self, units, in_units, device):
-        super().__init__()
-        self.weight = nn.Parameter(
-            torch.empty(units, in_units, device=device), requires_grad=False)
-        self.bias = nn.Parameter(torch.empty(units, device=device),
-                                 requires_grad=False)
-
-
-class _LayerNorm(nn.Module):
-    def __init__(self, units, device, epsilon=1e-5):
-        super().__init__()
-        self.gamma = nn.Parameter(torch.empty(units, device=device),
-                                  requires_grad=False)
-        self.beta = nn.Parameter(torch.empty(units, device=device),
-                                 requires_grad=False)
-        self.epsilon = float(epsilon)
-
-
-class _EncoderLayer(nn.Module):
-    def __init__(self, units, hidden, device):
-        super().__init__()
-        self.qkv = _Dense(3 * units, units, device)
-        self.proj = _Dense(units, units, device)
-        self.ln1 = _LayerNorm(units, device)
-        self.ffn1 = _Dense(hidden, units, device)
-        self.ffn2 = _Dense(units, hidden, device)
-        self.ln2 = _LayerNorm(units, device)
-
-
-class _DecoderLayer(nn.Module):
-    def __init__(self, units, hidden, device):
-        super().__init__()
-        self.qkv = _Dense(3 * units, units, device)
-        self.sproj = _Dense(units, units, device)
-        self.ln1 = _LayerNorm(units, device)
-        self.q = _Dense(units, units, device)
-        self.kv = _Dense(2 * units, units, device)
-        self.cproj = _Dense(units, units, device)
-        self.ln2 = _LayerNorm(units, device)
-        self.ffn1 = _Dense(hidden, units, device)
-        self.ffn2 = _Dense(units, hidden, device)
-        self.ln3 = _LayerNorm(units, device)
-
-
-class TransformerNMT(nn.Module):
-    """Seq2seq NMT model parameters. Source/target embeddings and the
-    output projection share one weight matrix (Sockeye's
-    weight-tying=src_trg_softmax).
-
-    device: where the parameters live — None means `mx.gpu(0)` (raises
-    without a CUDA device); pass `device="cpu"` for the CPU. seed: the
-    parameters are drawn from `numpy.random.RandomState(seed)` — dense
-    and embedding weights uniform in [-0.07, 0.07] (MXNet's default
-    initializer), biases 0, LayerNorm gamma 1 and beta 0; `seed=None`
-    leaves them unset, for a loader that fills every one
-    (`convert.from_jax_weights`). `dropout` is accepted for signature
-    parity; serving runs without it."""
-
-    def __init__(self, vocab_size, units=512, hidden=2048, num_layers=6,
-                 num_heads=8, max_length=512, dropout=0.1, device=None,
-                 seed=0):
-        super().__init__()
-        if units % num_heads:
-            raise MXNetError("units must be divisible by num_heads")
-        device = resolve_device(device)
-        self.vocab_size = int(vocab_size)
-        self.units = int(units)
-        self.num_heads = int(num_heads)
-        self.dropout = float(dropout)
-        self.embed = nn.Parameter(torch.empty(vocab_size, units,
-                                              device=device),
-                                  requires_grad=False)
-        self.encoder_layers = nn.ModuleList(
-            _EncoderLayer(units, hidden, device) for _ in range(num_layers))
-        self.decoder_layers = nn.ModuleList(
-            _DecoderLayer(units, hidden, device) for _ in range(num_layers))
-        pos = torch.from_numpy(sinusoid_table(max_length, units))
-        self.register_buffer("pos", pos.to(device))
-        self.scale = math.sqrt(units)
-        if seed is not None:
-            self.initialize(seed)
-
-    @property
-    def device(self):
-        return self.embed.device
-
-    def initialize(self, seed=0):
-        """Fill every parameter from `numpy.random.RandomState(seed)`
-        (see the class docstring), in registration order."""
-        rng = np.random.RandomState(seed)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                leaf = name.rsplit(".", 1)[-1]
-                if leaf in ("bias", "beta"):
-                    p.zero_()
-                elif leaf == "gamma":
-                    p.fill_(1.0)
-                else:
-                    p.copy_(torch.from_numpy(rng.uniform(
-                        -0.07, 0.07, tuple(p.shape)).astype(np.float32)))
-
-    def forward(self, *args, **kwargs):
-        raise MXNetError("the teacher-forcing forward belongs to the "
-                         "training slice (ROADMAP.md, Queue 1)")
-
-
-def transformer_base(vocab_size=36548, **kwargs):
-    """WMT16 En-De base config (Sockeye transformer parity): units 512,
-    hidden 2048, 6 + 6 layers, 8 heads."""
-    return TransformerNMT(vocab_size, units=512, hidden=2048, num_layers=6,
-                          num_heads=8, **kwargs)
-
-
-# ---------------------------------------------------------------------------
-# weight snapshots
-# ---------------------------------------------------------------------------
-def _dense_w(dense):
-    return dense.weight.detach(), dense.bias.detach()
-
-
-def _ln_w(ln):
-    return ln.gamma.detach(), ln.beta.detach(), ln.epsilon
-
-
-def decoder_weights(model):
-    """Snapshot the decoder's weights as a dict of tensors for the pure
-    decode functions (same structure as the JAX package's)."""
-    layers = []
-    for layer in model.decoder_layers:
-        layers.append(dict(
-            qkv=_dense_w(layer.qkv), sproj=_dense_w(layer.sproj),
-            q=_dense_w(layer.q), kv=_dense_w(layer.kv),
-            cproj=_dense_w(layer.cproj),
-            ffn1=_dense_w(layer.ffn1), ffn2=_dense_w(layer.ffn2),
-            ln1=_ln_w(layer.ln1), ln2=_ln_w(layer.ln2),
-            ln3=_ln_w(layer.ln3)))
-    return dict(embed=model.embed.detach(), layers=layers, pos=model.pos,
-                scale=float(model.scale), num_heads=model.num_heads)
-
-
-def encoder_weights(model):
-    """Snapshot the encoder's weights as a dict of tensors for the pure
-    `encode_memory` (the serving prefill)."""
-    layers = []
-    for layer in model.encoder_layers:
-        layers.append(dict(
-            qkv=_dense_w(layer.qkv), proj=_dense_w(layer.proj),
-            ffn1=_dense_w(layer.ffn1), ffn2=_dense_w(layer.ffn2),
-            ln1=_ln_w(layer.ln1), ln2=_ln_w(layer.ln2)))
-    return dict(embed=model.embed.detach(), layers=layers, pos=model.pos,
-                scale=float(model.scale), num_heads=model.num_heads)
-
-
-# ---------------------------------------------------------------------------
-# pure functions of the snapshots
-# ---------------------------------------------------------------------------
 def _split_heads(x, n_heads):
     """(B, S, U) -> contiguous (B, H, S, U/H) (the kernels take
     contiguous inputs)."""
@@ -219,6 +71,280 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
+def _kv_len(maybe_vl):
+    return maybe_vl[0].to(torch.int32).contiguous() if maybe_vl else None
+
+
+# ---------------------------------------------------------------------------
+# the block tree
+# ---------------------------------------------------------------------------
+class SelfAttention(HybridBlock):
+    """Fused-QKV self-attention; `causal=True` for the decoder."""
+
+    def __init__(self, units, num_heads, dropout=0.0, causal=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        if units % num_heads != 0:
+            raise MXNetError("units must be divisible by num_heads")
+        self._h = num_heads
+        self._causal = causal
+        with self.name_scope():
+            self.qkv = nn.Dense(3 * units, flatten=False, in_units=units,
+                                prefix="qkv_")
+            self.proj = nn.Dense(units, flatten=False, in_units=units,
+                                 prefix="proj_")
+            self.dropout = nn.Dropout(dropout)
+
+    def hybrid_forward(self, F, x, valid_length=None):
+        h, causal = self._h, self._causal
+
+        def attn(qkv, *maybe_vl):
+            q, k, v = (_split_heads(t, h) for t in qkv.chunk(3, dim=-1))
+            return _merge_heads(flash_attention(
+                q, k, v, causal=causal, kv_lengths=_kv_len(maybe_vl)))
+
+        inputs = [self.qkv(x)] + \
+            ([valid_length] if valid_length is not None else [])
+        return self.dropout(self.proj(_apply(attn, inputs)))
+
+
+class CrossAttention(HybridBlock):
+    """Decoder-to-encoder attention with a fused KV projection."""
+
+    def __init__(self, units, num_heads, dropout=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self._h = num_heads
+        with self.name_scope():
+            self.q = nn.Dense(units, flatten=False, in_units=units,
+                              prefix="q_")
+            self.kv = nn.Dense(2 * units, flatten=False, in_units=units,
+                               prefix="kv_")
+            self.proj = nn.Dense(units, flatten=False, in_units=units,
+                                 prefix="proj_")
+            self.dropout = nn.Dropout(dropout)
+
+    def hybrid_forward(self, F, x, memory, mem_valid_length=None):
+        h = self._h
+
+        def attn(q_raw, kv_raw, *maybe_vl):
+            k, v = (_split_heads(t, h) for t in kv_raw.chunk(2, dim=-1))
+            return _merge_heads(flash_attention(
+                _split_heads(q_raw, h), k, v, kv_lengths=_kv_len(maybe_vl)))
+
+        inputs = [self.q(x), self.kv(memory)]
+        if mem_valid_length is not None:
+            inputs.append(mem_valid_length)
+        return self.dropout(self.proj(_apply(attn, inputs)))
+
+
+class _FFN(HybridBlock):
+    def __init__(self, units, hidden, dropout=0.0, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ffn1 = nn.Dense(hidden, flatten=False, in_units=units,
+                                 activation="relu", prefix="ffn1_")
+            self.ffn2 = nn.Dense(units, flatten=False, in_units=hidden,
+                                 prefix="ffn2_")
+            self.dropout = nn.Dropout(dropout)
+
+    def hybrid_forward(self, F, x):
+        return self.dropout(self.ffn2(self.ffn1(x)))
+
+
+class EncoderLayer(HybridBlock):
+    def __init__(self, units, hidden, num_heads, dropout=0.0, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.attn = SelfAttention(units, num_heads, dropout)
+            self.ln1 = nn.LayerNorm(in_channels=units)
+            self.ffn = _FFN(units, hidden, dropout)
+            self.ln2 = nn.LayerNorm(in_channels=units)
+
+    def hybrid_forward(self, F, x, valid_length=None):
+        x = self.ln1(x + self.attn(x, valid_length))
+        return self.ln2(x + self.ffn(x))
+
+
+class DecoderLayer(HybridBlock):
+    def __init__(self, units, hidden, num_heads, dropout=0.0, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.self_attn = SelfAttention(units, num_heads, dropout,
+                                           causal=True)
+            self.ln1 = nn.LayerNorm(in_channels=units)
+            self.cross_attn = CrossAttention(units, num_heads, dropout)
+            self.ln2 = nn.LayerNorm(in_channels=units)
+            self.ffn = _FFN(units, hidden, dropout)
+            self.ln3 = nn.LayerNorm(in_channels=units)
+
+    def hybrid_forward(self, F, x, memory, self_valid_length=None,
+                       mem_valid_length=None):
+        x = self.ln1(x + self.self_attn(x, self_valid_length))
+        x = self.ln2(x + self.cross_attn(x, memory, mem_valid_length))
+        return self.ln3(x + self.ffn(x))
+
+
+class _Stack(HybridBlock):
+    """What the encoder and the decoder share: the sinusoid table, the
+    embedding scale, the input dropout and the layer stack."""
+
+    def __init__(self, layer_cls, num_layers, units, hidden, num_heads,
+                 max_length, dropout, **kwargs):
+        super().__init__(**kwargs)
+        self._pos = sinusoid_table(max_length, units)
+        self._pos_on = {}                # device -> the table there
+        self._scale = math.sqrt(units)
+        with self.name_scope():
+            self.dropout = nn.Dropout(dropout)
+            self.layers = nn.HybridSequential(prefix="layers_")
+            with self.layers.name_scope():
+                for _ in range(num_layers):
+                    self.layers.add(layer_cls(units, hidden, num_heads,
+                                              dropout))
+
+    def pos_table(self, device):
+        table = self._pos_on.get(device)
+        if table is None:
+            table = self._pos_on[device] = torch.from_numpy(self._pos).to(
+                device)
+        return table
+
+    def _embed_positions(self, x):
+        s = x.shape[1]
+        pos = self.pos_table(x.context)[:s][None]
+        return self.dropout(_apply(lambda a: a * self._scale + pos, [x]))
+
+
+class TransformerEncoder(_Stack):
+    def __init__(self, num_layers, units, hidden, num_heads, max_length=512,
+                 dropout=0.0, **kwargs):
+        super().__init__(EncoderLayer, num_layers, units, hidden, num_heads,
+                         max_length, dropout, **kwargs)
+
+    def hybrid_forward(self, F, x, valid_length=None):
+        x = self._embed_positions(x)
+        for layer in self.layers:
+            x = layer(x, valid_length)
+        return x
+
+
+class TransformerDecoder(_Stack):
+    def __init__(self, num_layers, units, hidden, num_heads, max_length=512,
+                 dropout=0.0, **kwargs):
+        super().__init__(DecoderLayer, num_layers, units, hidden, num_heads,
+                         max_length, dropout, **kwargs)
+
+    def hybrid_forward(self, F, x, memory, self_valid_length=None,
+                       mem_valid_length=None):
+        x = self._embed_positions(x)
+        for layer in self.layers:
+            x = layer(x, memory, self_valid_length, mem_valid_length)
+        return x
+
+
+class TransformerNMT(HybridBlock):
+    """Seq2seq NMT model. `model(src, tgt, src_valid_length=None)` ->
+    logits over the target vocabulary (teacher forcing). Source and
+    target embeddings and the output projection share one weight matrix
+    (Sockeye's weight-tying=src_trg_softmax).
+
+    As every Gluon block, it is built uninitialised: call
+    `initialize(ctx=...)` (None = `mx.gpu(0)`, which raises without a
+    card; `ctx=mx.cpu()` for the CPU), after `mx.random.seed(s)` for
+    reproducible weights, or load weights."""
+
+    def __init__(self, vocab_size, units=512, hidden=2048, num_layers=6,
+                 num_heads=8, max_length=512, dropout=0.1, **kwargs):
+        super().__init__(**kwargs)
+        self.vocab_size = vocab_size
+        self._units = units
+        with self.name_scope():
+            self.embed = nn.Embedding(vocab_size, units, prefix="embed_")
+            self.encoder = TransformerEncoder(num_layers, units, hidden,
+                                              num_heads, max_length, dropout)
+            self.decoder = TransformerDecoder(num_layers, units, hidden,
+                                              num_heads, max_length, dropout)
+
+    @property
+    def device(self):
+        """Where the weights live."""
+        return self.embed.weight.data().context
+
+    def encode(self, src, src_valid_length=None):
+        return (self.encoder(self.embed(src), src_valid_length),
+                src_valid_length)
+
+    def project(self, x):
+        """Tied output projection: logits = x @ embed.weight^T."""
+        return _apply(lambda a, w: a @ w.T, [x, self.embed.weight.data()])
+
+    def hybrid_forward(self, F, src, tgt, src_valid_length=None):
+        memory, mem_vl = self.encode(src, src_valid_length)
+        out = self.decoder(self.embed(tgt), memory, None, mem_vl)
+        return self.project(out)
+
+
+def transformer_base(vocab_size=36548, **kwargs):
+    """WMT16 En-De base config (Sockeye transformer parity): units 512,
+    hidden 2048, 6 + 6 layers, 8 heads."""
+    return TransformerNMT(vocab_size, units=512, hidden=2048, num_layers=6,
+                          num_heads=8, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# weight snapshots
+# ---------------------------------------------------------------------------
+def _dense_w(dense):
+    w = dense.weight.data()._data.detach()
+    b = dense.bias.data()._data.detach() if dense.bias is not None else None
+    return w, b
+
+
+def _ln_w(ln):
+    return (ln.gamma.data()._data.detach(), ln.beta.data()._data.detach(),
+            float(ln._epsilon))
+
+
+def _snapshot(model, stack, layers, num_heads):
+    embed = model.embed.weight.data()._data.detach()
+    return dict(embed=embed, layers=layers,
+                pos=stack.pos_table(embed.device), scale=float(stack._scale),
+                num_heads=num_heads)
+
+
+def decoder_weights(model):
+    """Snapshot the decoder's weights as a dict of tensors for the pure
+    decode functions (same structure as the JAX package's)."""
+    dec = model.decoder
+    layers = [dict(qkv=_dense_w(layer.self_attn.qkv),
+                   sproj=_dense_w(layer.self_attn.proj),
+                   q=_dense_w(layer.cross_attn.q),
+                   kv=_dense_w(layer.cross_attn.kv),
+                   cproj=_dense_w(layer.cross_attn.proj),
+                   ffn1=_dense_w(layer.ffn.ffn1),
+                   ffn2=_dense_w(layer.ffn.ffn2),
+                   ln1=_ln_w(layer.ln1), ln2=_ln_w(layer.ln2),
+                   ln3=_ln_w(layer.ln3))
+              for layer in dec.layers]
+    return _snapshot(model, dec, layers, dec.layers[0].self_attn._h)
+
+
+def encoder_weights(model):
+    """Snapshot the encoder's weights as a dict of tensors for the pure
+    `encode_memory` (the serving prefill)."""
+    enc = model.encoder
+    layers = [dict(qkv=_dense_w(layer.attn.qkv),
+                   proj=_dense_w(layer.attn.proj),
+                   ffn1=_dense_w(layer.ffn.ffn1),
+                   ffn2=_dense_w(layer.ffn.ffn2),
+                   ln1=_ln_w(layer.ln1), ln2=_ln_w(layer.ln2))
+              for layer in enc.layers]
+    return _snapshot(model, enc, layers, enc.layers[0].attn._h)
+
+
+# ---------------------------------------------------------------------------
+# pure functions of the snapshots
+# ---------------------------------------------------------------------------
 def _ln_apply(x, lnw):
     g, b, eps = lnw
     mu = x.mean(dim=-1, keepdim=True)

@@ -27,7 +27,8 @@ __all__ = ["library", "build_info", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd.cu", "ragged_paged_attention.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "ragged_paged_attention.cu",
+           "layer_norm.cu")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v: registers, shared memory and spills of each kernel land in
 # the build log (`build_info()["log"]`)
@@ -39,6 +40,17 @@ _SIGNATURES = {
     # q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale, stream
     "mxtt_flash_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _P],
+    # q, k, v, dO, lse, delta, kv_len, dk, dv, B, H, Sq, Sk, D, causal,
+    # sm_scale, stream
+    "mxtt_flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, ctypes.c_float, _P],
+    # q, k, v, dO, lse, delta, kv_len, dq, B, H, Sq, Sk, D, causal,
+    # sm_scale, stream
+    "mxtt_flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, ctypes.c_float, _P],
+    # x, gamma, beta, y, mean, rstd, rows, D, eps, stream
+    "mxtt_layer_norm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                            _P],
     # q, k_pages, v_pages, page_tables, lengths, out, S, H, dh, psize,
     # npages, stride_page, stride_row, stride_head, sm_scale, stream
     "mxtt_rpa_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

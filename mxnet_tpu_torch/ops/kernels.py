@@ -1,29 +1,40 @@
-"""Attention kernels of the serving path, each beside its plain version.
+"""Kernels of the serving and training paths, each beside its plain
+version.
 
-Counterpart of the serving half of `mxnet_tpu/ops/pallas_kernels.py`:
+Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
 
-  * `flash_attention` / `flash_attention_fwd` — the encoder's prefill
-    attention. On CUDA tensors it launches `csrc/flash_fwd.cu`
-    (replaces `_flash_fwd_kernel`); on CPU tensors it runs the plain
-    version `_flash_plain`.
+  * `flash_attention` — every attention of the model, forward and
+    backward, as a `torch.autograd.Function`. Its forward launches
+    `csrc/flash_fwd.cu` (replaces `_flash_fwd_kernel`) and keeps q, k, v,
+    the output and the row log-sum-exp; its backward launches the two
+    kernels of `csrc/flash_bwd.cu` (replace `_flash_bwd_dkv_kernel` and
+    `_flash_bwd_dq_kernel`). `flash_attention_fwd` / `flash_attention_bwd`
+    are the two halves on their own; the backward takes
+    delta = rowsum(dO * O) as an input, which its caller computes.
   * `ragged_paged_attention` — the decode step's self-attention over
-    the paged KV cache. On CUDA tensors it launches
-    `csrc/ragged_paged_attention.cu` (replaces `_rpa_kernel`); on CPU
-    tensors it runs the plain gather `_paged_attention_plain`, which
-    shares `single_query_cached_attention` with the decoder's
-    cross-attention, as the JAX package's lax path does.
+    the paged KV cache: `csrc/ragged_paged_attention.cu` (replaces
+    `_rpa_kernel`). Its plain version shares
+    `single_query_cached_attention` with the decoder's cross-attention,
+    as the JAX package's lax path does.
+  * `fused_layer_norm` — LayerNorm over the last axis as a
+    `torch.autograd.Function`: the forward launches `csrc/layer_norm.cu`
+    (replaces `_ln_kernel`), the backward is the closed form of
+    `_fused_ln_vjp_bwd` in plain torch on both devices (it was XLA in
+    the JAX package).
 
 A wrapper takes the plain version only because the tensors it was given
 lie on the CPU. On CUDA tensors it launches its kernel or raises: there
 is no fallback. Each launch adds one to `LAUNCHES[name]`, so a run can
-show that the serving path went through the kernels.
+show that its path went through the kernels.
 
 Masking follows the JAX package: masked scores are the finite -1e30, and
 the softmax runs in fp32. A row with no visible key (a key length of 0)
 is zeros in both the kernels and the plain versions — the convention of
-the TPU kernels (`pallas_kernels.py:287-291`). The JAX
-`attention_reference` instead averages V over such a row; that
-divergence is recorded in ROADMAP.md, and parity tests use lengths >= 1.
+the TPU kernels (`pallas_kernels.py:287-291`) — and its backward is
+zeros too, because the backward masks p itself rather than relying on
+exp(-1e30 - lse) underflowing. The JAX `attention_reference` instead
+averages V over such a row; that divergence is recorded in ROADMAP.md,
+and parity tests use lengths >= 1.
 """
 from __future__ import annotations
 
@@ -34,14 +45,16 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_fwd",
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "single_query_cached_attention", "ragged_paged_attention",
-           "LAUNCHES", "reset_launch_counts"]
+           "fused_layer_norm", "layer_norm_fwd", "LAUNCHES",
+           "reset_launch_counts"]
 
 _MASKED = -1e30
 
 # kernel launches per wrapper; bumped only where a kernel is launched
-LAUNCHES = {"flash_fwd": 0, "ragged_paged_attention": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+            "ragged_paged_attention": 0, "layer_norm": 0}
 
 
 def reset_launch_counts():
@@ -170,10 +183,133 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None,
     return _flash_plain(q, k, v, causal, sm_scale, kv_lengths)
 
 
+# ---------------------------------------------------------------------------
+# flash attention backward
+# ---------------------------------------------------------------------------
+def _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale, kv_lengths):
+    """The plain version of the two backward kernels: p = exp(s - lse)
+    where the mask allows it and 0 elsewhere, dS = p (dP - delta) scale;
+    returns (dQ, dK, dV)."""
+    b, h, sq, _ = q.shape
+    keep = None
+    if kv_lengths is not None:
+        pos = torch.arange(k.shape[2], device=k.device)
+        keep = (pos[None, :] < kv_lengths.long()[:, None])[:, None, None, :]
+    s, allowed = _attention_scores(q, k, causal, sm_scale, keep)
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    if allowed is not None:
+        p = torch.where(allowed, p, torch.zeros_like(p))
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    ds = p * (dp - delta.reshape(b, h, sq, 1)) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_args(q, k, v, do, lse, delta, causal, kv_lengths):
+    b, h, sq, sk, d = _flash_args(q, k, v, causal, kv_lengths)
+    _check(do.shape == q.shape and do.dtype == torch.float32
+           and do.is_contiguous(),
+           "flash_attention_bwd takes a contiguous float32 dO shaped as q")
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check(t.shape == (b * h, sq) and t.dtype == torch.float32
+               and t.is_contiguous(),
+               f"flash_attention_bwd takes a contiguous float32 {name} of "
+               f"shape (B*H, Sq) = {(b * h, sq)}")
+    return b, h, sq, sk, d
+
+
+def _bwd_pointers(q, k, v, do, lse, delta, kv_lengths):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if kv_lengths is None else kv_lengths.data_ptr())
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+                        kv_lengths):
+    b, h, sq, sk, d = _flash_bwd_args(q, k, v, do, lse, delta, causal,
+                                      kv_lengths)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        rc = lib.mxtt_flash_bwd_dkv_f32(
+            *_bwd_pointers(q, k, v, do, lse, delta, kv_lengths),
+            dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, int(causal),
+            float(sm_scale), torch.cuda.current_stream().cuda_stream)
+    _launched("flash_bwd_dkv", rc)
+    return dk, dv
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+                       kv_lengths):
+    b, h, sq, sk, d = _flash_bwd_args(q, k, v, do, lse, delta, causal,
+                                      kv_lengths)
+    dq = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        rc = lib.mxtt_flash_bwd_dq_f32(
+            *_bwd_pointers(q, k, v, do, lse, delta, kv_lengths),
+            dq.data_ptr(), b, h, sq, sk, d, int(causal), float(sm_scale),
+            torch.cuda.current_stream().cuda_stream)
+    _launched("flash_bwd_dq", rc)
+    return dq
+
+
+def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
+                        sm_scale=None, kv_lengths=None):
+    """Attention backward from the forward's saved lse: (dQ, dK, dV).
+    do: (B, H, Sq, D) output gradient; lse, delta: (B*H, Sq) fp32, with
+    delta = rowsum(dO * O) (a caller may shift it, as the JAX package's
+    `flash_block_attention` does to fold in an lse gradient). The dK and
+    dV rows of keys at or past kv_lengths[b] are exactly 0."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    dev = _device_of(q, k, v, do, lse, delta, kv_lengths)
+    if dev.type == "cuda":
+        dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
+                                     sm_scale, kv_lengths)
+        dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+                                kv_lengths)
+        return dq, dk, dv
+    _flash_bwd_args(q, k, v, do, lse, delta, causal, kv_lengths)
+    return _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
+                            kv_lengths)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash forward, keeping what the backward needs;
+    backward: delta in torch, then the dK/dV and dQ launches."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, causal, sm_scale):
+        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale,
+                                       kv_lengths)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lengths)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_lengths = ctx.saved_tensors
+        b, h, sq, _ = q.shape
+        # autograd hands back views (the heads merge is a transpose)
+        do = dout.contiguous()
+        delta = (out.float() * do.float()).sum(-1).reshape(b * h, sq)
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta,
+                                         ctx.causal, ctx.sm_scale,
+                                         kv_lengths)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lengths=None):
-    """Fused attention. q, k, v: (B, H, S, D) -> (B, H, Sq, D). See
-    `flash_attention_fwd`."""
-    return flash_attention_fwd(q, k, v, causal, sm_scale, kv_lengths)[0]
+    """Fused attention, differentiable in q, k and v. q: (B, H, Sq, D);
+    k, v: (B, H, Sk, D) -> (B, H, Sq, D). See `flash_attention_fwd`.
+    Under `torch.no_grad()` (serving) only the forward kernel runs."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, kv_lengths, causal, sm_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -293,3 +429,103 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, lengths,
     if sm_scale is not None:
         q = q * (sm_scale * math.sqrt(q.shape[-1]))
     return _paged_attention_plain(q, k_pages, v_pages, page_tables, lengths)
+
+
+# ---------------------------------------------------------------------------
+# fused layer norm
+# ---------------------------------------------------------------------------
+# the one width the kernel is built for: transformer_base's units
+_LN_D = 512
+
+
+def _ln_plain(x2, gamma, beta, eps):
+    """The plain version of the LayerNorm kernel over (rows, D): mean
+    first, then the centred variance, fp32 statistics (the formula of
+    `_ln_kernel`). Returns (y, mean (rows,), rstd (rows,))."""
+    xf = x2.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = (xc * rstd) * gamma.float() + beta.float()
+    return y.to(x2.dtype), mean[:, 0], rstd[:, 0]
+
+
+def _ln_args(x, gamma, beta):
+    """What the kernel takes, checked on either device: (rows, D)."""
+    _check(x.dim() >= 1 and x.numel() > 0, "layer norm: empty input")
+    d = x.shape[-1]
+    _check(gamma.shape == (d,) and beta.shape == (d,),
+           f"layer norm: gamma {tuple(gamma.shape)} / beta "
+           f"{tuple(beta.shape)} must be ({d},)")
+    _check(all(t.dtype == torch.float32 for t in (x, gamma, beta)),
+           "layer norm kernel takes float32 x / gamma / beta")
+    _check(all(t.is_contiguous() for t in (x, gamma, beta)),
+           "layer norm kernel takes contiguous x / gamma / beta")
+    return x.numel() // d, d
+
+
+def _ln_cuda(x2, gamma, beta, eps):
+    rows, d = x2.shape
+    y = torch.empty_like(x2)
+    mean = torch.empty(rows, dtype=torch.float32, device=x2.device)
+    rstd = torch.empty_like(mean)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        rc = lib.mxtt_layer_norm_f32(
+            x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), rows, d, float(eps),
+            torch.cuda.current_stream().cuda_stream)
+    _launched("layer_norm", rc)
+    return y, mean, rstd
+
+
+def layer_norm_fwd(x, gamma, beta, eps=1e-5):
+    """LayerNorm over the last axis with its statistics: (y shaped as x,
+    mean (rows,), rstd (rows,)), rows = x.numel() / D, fp32 statistics.
+    The kernel takes D = 512 only; the plain version any D."""
+    dev = _device_of(x, gamma, beta)
+    rows, d = _ln_args(x, gamma, beta)
+    if dev.type == "cuda":
+        _check(d == _LN_D,
+               f"layer norm kernel takes D = {_LN_D}, got {d}; other widths "
+               f"come with the model slices that need them (ROADMAP.md, "
+               f"Queue 2: _ln_kernel)")
+    x2 = x.reshape(rows, d)
+    run = _ln_cuda if dev.type == "cuda" else _ln_plain
+    y, mean, rstd = run(x2, gamma, beta, eps)
+    return y.reshape(x.shape), mean, rstd
+
+
+class _FusedLayerNorm(torch.autograd.Function):
+    """Forward: the LayerNorm kernel; backward: the closed form of
+    `_fused_ln_vjp_bwd` in plain torch (XLA in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = layer_norm_fwd(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        d = x.shape[-1]
+        x2 = x.reshape(-1, d).float()
+        xhat = (x2 - mean[:, None]) * rstd[:, None]
+        dyf = dy.reshape(-1, d).float()
+        dgamma = (dyf * xhat).sum(dim=0)
+        dbeta = dyf.sum(dim=0)
+        dxhat = dyf * gamma.float()
+        m1 = dxhat.mean(dim=-1, keepdim=True)
+        m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+        dx = (dxhat - m1 - xhat * m2) * rstd[:, None]
+        return (dx.reshape(x.shape).to(x.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(gamma.dtype), None)
+
+
+def fused_layer_norm(x, gamma, beta, eps=1e-5):
+    """LayerNorm over the last axis, differentiable in x, gamma and beta:
+    the hand-written kernel's forward on the card, its plain version on
+    the CPU; the backward is plain torch on both."""
+    return _FusedLayerNorm.apply(x, gamma, beta, float(eps))

@@ -1,7 +1,8 @@
 """Request-level serving API: `serve.Server` (counterpart of
 `mxnet_tpu/serve/server.py`, same signature plus `device=`).
 
-    model = transformer_base(vocab_size=...)        # on mx.gpu(0)
+    model = transformer_base(vocab_size=...)
+    model.initialize(ctx=mx.gpu(0))                  # or load_parameters
     srv = mx.serve.Server(model, slots=8, page_size=16,
                           engine_driven=False)
     h = srv.submit([5, 9, 11], max_new_tokens=32)   # source token ids

@@ -66,15 +66,24 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_refuse_the_cpu_by_default(no_cuda):
+def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
     """Without a CUDA device and without an explicit CPU request, every
     entry point raises instead of carrying on on the CPU."""
+    kw = dict(units=16, hidden=16, num_layers=1, num_heads=2, max_length=16)
+    # a Gluon block is built uninitialised; initialize() and
+    # initialize(ctx=None) after a seed default to mx.gpu(0)
     with pytest.raises(MXNetError, match="CUDA"):
-        mx.models.TransformerNMT(20, units=16, hidden=16, num_layers=1,
-                                 num_heads=2, max_length=16)
-    model = mx.models.TransformerNMT(20, units=16, hidden=16, num_layers=1,
-                                     num_heads=2, max_length=16,
-                                     device="cpu")
+        mx.models.TransformerNMT(20, **kw).initialize()
+    mx.random.seed(0)
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.models.TransformerNMT(20, **kw).initialize(ctx=None)
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.nd.array(np.zeros(3, np.float32))
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.nd.zeros((2, 2))
+    model = mx.models.TransformerNMT(20, **kw)
+    model.initialize(ctx=mx.cpu())
+    assert model.device.type == "cpu"
     with pytest.raises(MXNetError, match="CUDA"):
         mx.serve.Server(model, engine_driven=False)
     with pytest.raises(MXNetError, match="CUDA"):
@@ -98,3 +107,10 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda):
     assert srv.runtime.k_pages.device.type == "cpu"
     assert len(srv.submit([4, 5, 6]).result()) == 2
     srv.close()
+    # loading a parameter file lands on ctx (None = mx.gpu(0)) too
+    model.save_parameters(str(tmp_path / "m.params"))
+    fresh = mx.models.TransformerNMT(20, **kw)
+    with pytest.raises(MXNetError, match="CUDA"):
+        fresh.load_parameters(str(tmp_path / "m.params"))
+    fresh.load_parameters(str(tmp_path / "m.params"), ctx=mx.cpu())
+    assert fresh.device.type == "cpu"

@@ -167,7 +167,7 @@ def test_cpu_path_launches_no_kernel():
     tk.ragged_paged_attention(*(torch.from_numpy(a) for a in
                                 (qp, kp, vp, pt,
                                  np.array([3, 4, 5], np.int32))))
-    assert tk.LAUNCHES == {"flash_fwd": 0, "ragged_paged_attention": 0}
+    assert tk.LAUNCHES == dict.fromkeys(tk.LAUNCHES, 0)
 
 
 def test_wrappers_check_what_the_kernels_take():

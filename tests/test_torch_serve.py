@@ -150,7 +150,7 @@ def test_server_greedy_tokens_match_jax(models):
         assert len({t for toks in got for t in toks}) > 1
         assert ts.pool.in_use() == 0
         assert ts.scheduler.decode_turns > 0
-        assert LAUNCHES == {"flash_fwd": 0, "ragged_paged_attention": 0}
+        assert LAUNCHES == dict.fromkeys(LAUNCHES, 0)
     finally:
         js.close()
         ts.close()
