@@ -13,9 +13,13 @@ Phases (any failure raises and the script exits non-zero):
                  and a few edge shapes; kernel, plain-version and library
                  times, and the least time the card could take (bound):
                  flash forward (serving and training shapes), ragged
-                 paged attention (serving shapes), the flash backward pair
-                 (training shapes; also against float64 autograd) and
-                 LayerNorm (training shape; D = 512 only).
+                 paged attention (serving shapes), its int8 1-wide, fp32
+                 widened and int8 widened forms (the fast path's serving
+                 shape: 8 slots, W = 4, H = 8, dh = 64, psize 16, with
+                 length-0 slots, rows past the page budget and a long
+                 table), the flash backward pair (training shapes; also
+                 against float64 autograd) and LayerNorm (training shape;
+                 D = 512 only).
   3. serve     — full-width `transformer_base(36548)` (random weights from
                  a seed) behind `serve.Server(slots=8, page_size=16,
                  max_src_len=128, max_new_tokens=32)`: 16 mixed-length
@@ -32,6 +36,24 @@ Phases (any failure raises and the script exits non-zero):
                  stated tolerance and the greedy tokens must be identical
                  (unless the top two CPU logits at the first divergent step
                  are closer than that tolerance, which is printed).
+  4b. fast path — the serving fast path on the weights of phase 3, all
+                 with `slots=8, page_size=16, max_src_len=128,
+                 max_new_tokens=32, max_prompt_len=16`: 16 requests from
+                 numpy seed 0, half of them sharing one decoder prompt
+                 (prefix cache, widened prompt chunks), through a k = 0
+                 fp32 reference server and servers (a) speculative_k=3,
+                 (b) kv_dtype="int8" + weight_dtype="int8", (c)
+                 speculative_k=3 + kv_dtype="int8". Counters zeroed just
+                 before and read just after each: every decode turn must
+                 launch the widened, the int8 and the widened int8 paged
+                 kernel respectively once per decoder layer, and no other
+                 paged kernel. Tokens/s, turns per token, draft
+                 acceptance, step ms, page bytes, the int8 / fp32
+                 capacity ratio, the token-match rate against the
+                 reference, and one profiled turn each. (a) must give the
+                 reference's greedy tokens, (b) and (c) a `device="cpu"`
+                 server's on three requests, unless the first divergence
+                 is a near tie (stated tolerances).
   5. train     — the Gluon loop of examples/nmt_translate.py at full
                  width: `transformer_base(36548, max_length=64,
                  dropout=0.0)`, `initialize(ctx=mx.gpu(0))`, Adam at 3e-4,
@@ -85,8 +107,22 @@ LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
 # plain and cuBLAS vs CPU BLAS summation orders)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+# near ties of the int8-KV servers, card vs CPU: a K/V value within fp32
+# rounding of a .5 quantization boundary rounds one way on the card and
+# the other on the CPU, and that one-step change of an int8 code (the
+# page scale, about 1 % of the page's range) moves the logits by far
+# more than fp32 summation order does; and the gap is read from a
+# token-by-token replay, whose page scales grow in other steps than a
+# widened run's
+INT8_TIE_TOL = dict(rtol=1e-3, atol=1e-2)
 
 VOCAB = 36548
+# slot lengths of the paged kernels' serving shape (8 slots, 2 pages each)
+SERVE_LENS = [1, 5, 16, 17, 32, 9, 24, 2]
+SPEC_K = 3                       # drafts per turn of the fast-path phase
+FAST_KW = dict(slots=8, page_size=16, max_src_len=128, max_new_tokens=32,
+               max_prompt_len=16, engine_driven=False)
+CARD_VS_CPU = (0, 1, 3)          # fast-path requests also run on the CPU
 TRAIN_B, TRAIN_S = 32, 64        # bench_nmt.py's seq: 64 src + 64 tgt
 
 BOS, EOS = 2, 3
@@ -273,7 +309,7 @@ def phase_rpa(mx, torch):
     # serving shape: 8 slots, 2 pages each (max_new_tokens 32 / psize 16),
     # pool 17 pages; slot 0 is length 1 on the null page
     serve_tables = [[0, 0]] + [[1 + 2 * i, 2 + 2 * i] for i in range(7)]
-    serve_lens = [1, 5, 16, 17, 32, 9, 24, 2]
+    serve_lens = SERVE_LENS
     long_tables = [[(7 * s + j) % 80 + 1 for j in range(10)]
                    for s in range(8)]
     cases = [(17, serve_tables, serve_lens),
@@ -313,6 +349,115 @@ def phase_rpa(mx, torch):
                 max_abs_err=worst, ms=dev_ms["kernel"],
                 plain_ms=dev_ms["plain"], bound_ms=bms, bound_by=by,
                 library_ms=None, call_ms=call["kernel"])
+
+
+def phase_rpa_fastpath(mx, torch):
+    """The int8 1-wide, fp32 widened and int8 widened paged kernels
+    against their plain versions at the serving shape of the fast path
+    (8 slots, W = 4, H = 8, dh = 64, psize 16, a 5-D pool), with the
+    same edge cases as `phase_rpa`: slots of length 0, rows past the page
+    budget (row i sees lengths + i keys, clamped to the table), and the
+    long-table case."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    L, H, dh, psize, W = 6, 8, 64, 16, SPEC_K + 1
+
+    def make(P, tables, lens, wide, quant):
+        # a 5-D (L, P, psize, H, dh) pool and (L, P, H) scales as the
+        # runtime holds them; the kernels read one layer slice in place
+        shape = (L, P, psize, H, dh)
+        if quant:
+            kp, vp = (torch.randint(-127, 128, shape, generator=g,
+                                    dtype=torch.int8).to(dev)
+                      for _ in range(2))
+            ks, vs = ((torch.rand((L, P, H), generator=g) * 0.05 + 1e-3)
+                      .to(dev)[2] for _ in range(2))
+        else:
+            kp, vp = (torch.randn(shape, generator=g).to(dev)
+                      for _ in range(2))
+            ks = vs = None
+        qshape = (len(lens), W, H, dh) if wide else (len(lens), H, dh)
+        q = torch.randn(qshape, generator=g).to(dev)
+        pt = torch.tensor(tables, dtype=torch.int32, device=dev)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        return q, kp[2], vp[2], pt, ln, ks, vs
+
+    def plain(q, kp, vp, pt, ln, ks, vs):
+        run = K._paged_attention_plain_multi if q.dim() == 4 \
+            else K._paged_attention_plain
+        return run(q, kp, vp, pt, ln, ks, vs)
+
+    serve_tables = [[0, 0]] + [[1 + 2 * i, 2 + 2 * i] for i in range(7)]
+    long_tables = [[(7 * s + j) % 80 + 1 for j in range(10)]
+                   for s in range(8)]
+    cases = [(17, serve_tables, SERVE_LENS),
+             (17, serve_tables, [0, 31, 32, 17, 30, 29, 0, 2]),
+             (81, long_tables, [160, 1, 0, 33, 100, 64, 15, 159])]
+    rows = []
+    for name, wide, quant, line in (
+            ("ragged_paged_attention_int8", False, True, "872 (quant)"),
+            ("ragged_paged_attention_multi", True, False, "1014"),
+            ("ragged_paged_attention_multi_int8", True, True,
+             "1014 (quant)")):
+        worst = 0.0
+        for P, tables, lens in cases:
+            q, kp, vp, pt, ln, ks, vs = make(P, tables, lens, wide, quant)
+            out = K.ragged_paged_attention(q, kp, vp, pt, ln, k_scales=ks,
+                                           v_scales=vs)
+            ref = plain(q, kp, vp, pt, ln, ks, vs)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            check(torch.isfinite(out).all().item(), f"{name} not finite")
+            check(torch.allclose(out, ref, **RPA_TOL),
+                  f"{name} kernel vs plain: max abs err {err} at lens "
+                  f"{lens}")
+            if 0 in lens:
+                # row 0 of a length-0 slot sees no key
+                zero = out[lens.index(0)]
+                check((zero[0] if wide else zero).abs().max().item() == 0.0,
+                      f"{name}: a row with no visible key must be zeros")
+            worst = max(worst, err)
+            log(f"{name} P={P} W={W if wide else 1} lens={lens}: max abs "
+                f"err {err:.3e} (tol rtol={RPA_TOL['rtol']} "
+                f"atol={RPA_TOL['atol']})")
+
+        args = make(17, serve_tables, SERVE_LENS, wide, quant)
+        q, kp, vp, pt, ln, ks, vs = args
+        fns = {"kernel": lambda: K.ragged_paged_attention(
+                   q, kp, vp, pt, ln, k_scales=ks, v_scales=vs),
+               "plain": lambda: plain(*args)}
+        call = {k: cuda_ms(fn) for k, fn in fns.items()}
+        dev_ms = {k: graph_ms(fn) for k, fn in fns.items()}
+        # this run's data: row i of slot s reads min(len + i, 32) keys,
+        # so a slot's live K/V rows are those of its longest row; int8
+        # pages are 1 byte an element plus one f32 scale per (page, head)
+        # they touch, dequantized by one multiply an element
+        w = W if wide else 1
+        S, npages = len(SERVE_LENS), pt.shape[1]
+        vis = [[min(n + i, npages * psize) for i in range(w)]
+               for n in SERVE_LENS]
+        live = sum(v[-1] for v in vis)
+        item = 1 if quant else 4
+        pages = sum(-(-v[-1] // psize) for v in vis)
+        nbytes = (2 * 4 * S * w * H * dh + 2 * item * live * H * dh
+                  + (2 * 4 * pages * H if quant else 0) + 4 * pt.numel()
+                  + 4 * S)
+        flops = 4 * sum(map(sum, vis)) * H * dh \
+            + (2 * live * H * dh if quant else 0)
+        bms, by = bound(nbytes, flops)
+        log(f"{name} serving shape S={S} W={w} H={H} dh={dh} psize={psize}"
+            f" lens={SERVE_LENS}: per call (host launch included) {call}; "
+            f"device (CUDA graph) {dev_ms}; bound {bms:.6f} ms ({by}); "
+            f"library: none (no single PyTorch call gathers pages)")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="mxnet_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+            replaces=f"mxnet_tpu/ops/pallas_kernels.py:{line}",
+            max_abs_err=worst, ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
+            bound_ms=bms, bound_by=by, library_ms=None,
+            call_ms=call["kernel"]))
+    return rows
 
 
 def phase_serve(mx, torch):
@@ -458,58 +603,238 @@ def phase_profile(mx, torch, srv, reqs):
         f"2 prefills; synchronizing calls {kinds}")
 
 
-def _greedy_logits(rt, src, steps):
-    """Greedy decode of one request through slot 0 of runtime `rt`:
-    (tokens, per-step logits as numpy)."""
-    rt.prefill(0, src)
-    pt = np.zeros((rt.slots, rt.max_pages_per_slot), np.int32)
-    pt[0] = np.arange(1, rt.max_pages_per_slot + 1)
-    lens = np.zeros(rt.slots, np.int32)
-    tok = np.zeros(rt.slots, np.int32)
-    active = np.zeros(rt.slots, np.int32)
-    tok[0], active[0] = BOS, 1
-    toks, logits = [], []
-    for _ in range(steps):
-        nxt, lg = rt.decode(pt, lens, tok, active)
-        toks.append(int(nxt[0]))
-        logits.append(lg[0].float().cpu().numpy())
-        tok[0] = nxt[0]
-        lens[0] += 1
-    return toks, logits
-
-
 def phase_card_vs_cpu(mx, torch, model, srv, reqs, handles):
     cpu_srv = mx.serve.Server(model, slots=2, page_size=16, max_src_len=128,
                               max_new_tokens=32, engine_driven=False,
                               device="cpu")
     for i in range(3):
         src, n = reqs[i]
-        _, lg_gpu = _greedy_logits(srv.runtime, src, 1)
-        _, lg_cpu = _greedy_logits(cpu_srv.runtime, src, 1)
-        check(np.isfinite(lg_gpu[0]).all() and lg_gpu[0].shape == (36548,),
+        lg_gpu = _forced_logits(srv.runtime, src, [BOS])
+        lg_cpu = _forced_logits(cpu_srv.runtime, src, [BOS])
+        check(np.isfinite(lg_gpu).all() and lg_gpu.shape == (VOCAB,),
               "card logits not finite / wrong shape")
-        err = float(np.abs(lg_gpu[0] - lg_cpu[0]).max())
-        check(np.allclose(lg_gpu[0], lg_cpu[0], **LOGITS_TOL),
+        err = float(np.abs(lg_gpu - lg_cpu).max())
+        check(np.allclose(lg_gpu, lg_cpu, **LOGITS_TOL),
               f"request {i}: first-step logits card vs CPU max abs err "
               f"{err}")
         cpu_toks = cpu_srv.submit(src, max_new_tokens=n).result()
-        gpu_toks = handles[i].tokens
-        if cpu_toks == gpu_toks:
-            log(f"card vs cpu request {i} (src {len(src)}, {n} tokens): "
-                f"first-step logits max abs err {err:.3e} (tol "
-                f"{LOGITS_TOL}), greedy tokens identical")
-            continue
-        j = next(t for t, (a, b) in enumerate(zip(cpu_toks, gpu_toks))
-                 if a != b)
-        _, lg = _greedy_logits(cpu_srv.runtime, src, j + 1)
-        top2 = np.sort(lg[j])[-2:]
-        gap = float(top2[1] - top2[0])
-        check(gap < LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * abs(top2[1]),
-              f"request {i}: greedy tokens diverge at step {j} with a top-2"
-              f" logit gap of {gap} (card {gpu_toks} vs cpu {cpu_toks})")
-        log(f"card vs cpu request {i}: tokens diverge at step {j}, where "
-            f"the CPU's top two logits are {gap:.3e} apart (within tol)")
+        how = _same_or_near_tie(cpu_srv.runtime, (src, n, None),
+                                handles[i].tokens, cpu_toks, LOGITS_TOL,
+                                f"request {i} card vs cpu")
+        log(f"card vs cpu request {i} (src {len(src)}, {n} tokens): "
+            f"first-step logits max abs err {err:.3e} (tol {LOGITS_TOL}), "
+            f"{how}")
     cpu_srv.close()
+
+
+def _fastpath_requests():
+    """16 requests from numpy seed 0, sources of 5-128 tokens and
+    budgets of 4-32: the even ones without a prompt, the odd ones sharing
+    one 16-token decoder prompt over two sources, so that the prefix
+    cache adopts prompt pages and the prompts run in widened chunks."""
+    rng = np.random.RandomState(0)
+    prompt = rng.randint(4, VOCAB, 16).astype(np.int32)
+    shared = [rng.randint(4, VOCAB, rng.randint(5, 129)).astype(np.int32)
+              for _ in range(2)]
+    reqs = []
+    for i in range(16):
+        n = int(rng.randint(4, 33))
+        if i % 2:
+            reqs.append((shared[(i // 2) % 2], n, prompt))
+        else:
+            src = rng.randint(4, VOCAB, rng.randint(5, 129))
+            reqs.append((src.astype(np.int32), n, None))
+    return reqs
+
+
+def _match_rate(ref, out):
+    """Share of token positions where two runs' outputs agree (the JAX
+    package's tests/test_serve.py measure)."""
+    matched = sum(sum(1 for x, y in zip(a, b) if x == y)
+                  for a, b in zip(ref, out))
+    total = sum(max(len(a), len(b)) for a, b in zip(ref, out))
+    return matched / max(total, 1)
+
+
+def _forced_logits(rt, src, known):
+    """Feed `known` (BOS first) one token a step through slot 0 of the
+    runtime `rt` after prefilling `src`; the logits of the last step (the
+    prediction of the token after `known`) as numpy. Overwrites the
+    runtime's pages 1..max_pages_per_slot: use on a server that serves
+    nothing afterwards."""
+    rt.prefill(0, src)
+    pt = np.zeros((rt.slots, rt.max_pages_per_slot), np.int32)
+    pt[0] = np.arange(1, rt.max_pages_per_slot + 1)
+    lens = np.zeros(rt.slots, np.int32)
+    tok = np.zeros(rt.slots, np.int32)
+    active = np.zeros(rt.slots, np.int32)
+    active[0] = 1
+    for t, token in enumerate(known):
+        tok[0], lens[0] = token, t
+        _, lg = rt.decode(pt, lens, tok, active)
+    return lg[0].float().cpu().numpy()
+
+
+def _same_or_near_tie(rt, req, got, want, tol, what):
+    """`got` must equal `want`, or differ first at a step where the top
+    two logits of `rt` (fed the common prefix) are within `tol`."""
+    if got == want:
+        return "greedy tokens identical"
+    src, _n, prompt = req
+    j = next(t for t, (a, b) in enumerate(zip(got, want)) if a != b)
+    known = [BOS] + ([] if prompt is None else [int(t) for t in prompt]) \
+        + want[:j]
+    top2 = np.sort(_forced_logits(rt, src, known))[-2:]
+    gap = float(top2[1] - top2[0])
+    check(gap < tol["atol"] + tol["rtol"] * abs(top2[1]),
+          f"{what}: greedy tokens diverge at step {j} with a top-2 logit "
+          f"gap of {gap} ({got} vs {want})")
+    return f"tokens diverge at step {j}, where the top two logits are " \
+           f"{gap:.3e} apart (within {tol})"
+
+
+def _fast_run(mx, torch, model, reqs, tag, expect, **extra):
+    """Serve `reqs` at once on a card server with the fast path's
+    settings; the launch counters are zeroed just before and read just
+    after, and every decode turn must launch the `expect` paged kernel
+    once per decoder layer and no other paged kernel."""
+    K = mx.ops.kernels
+    reg = mx.observability.registry()
+    srv = mx.serve.Server(model, **FAST_KW, **extra)
+    srv.submit(reqs[0][0], max_new_tokens=2).result()       # warm-up
+    torch.cuda.synchronize()
+    sched = srv.scheduler
+    K.reset_launch_counts()
+    reg.histogram("serve_decode_step_seconds").reset()
+    prefills0 = mx.profiler.dispatch_count("serve_prefill")
+    turns0 = sched.decode_turns
+    drafted0, accepted0 = sched.spec_drafted, sched.spec_accepted
+    t0 = time.perf_counter()
+    handles = [srv.submit(src, max_new_tokens=n, prompt_tokens=prompt)
+               for src, n, prompt in reqs]
+    check(srv.wait(timeout=600), f"{tag}: not finished within 600 s")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    prefills = mx.profiler.dispatch_count("serve_prefill") - prefills0
+    turns = sched.decode_turns - turns0
+
+    for h, (src, n, _p) in zip(handles, reqs):
+        check(h.state == "done", f"{tag}: request {h.id} {h.state}: "
+              f"{h.error}")
+        check(len(h.tokens) == n or (h.tokens and h.tokens[-1] == EOS),
+              f"{tag}: request {h.id}: {len(h.tokens)} tokens for {n}")
+        check(all(0 <= t < VOCAB for t in h.tokens), "token out of range")
+    held = srv.prefix_cache.pages_held()
+    check(srv.pool.in_use() == held,
+          f"{tag}: {srv.pool.in_use()} pages in use, the cache holds {held}")
+    check(prefills == len(reqs), f"{tag}: {prefills} prefills")
+    check(launches["flash_fwd"] == 6 * prefills,
+          f"{tag}: flash launches {launches['flash_fwd']} != 6 x "
+          f"{prefills}")
+    for name, n in launches.items():
+        if name.startswith("ragged_paged_attention"):
+            want = 6 * turns if name == expect else 0
+            check(n == want and turns > 0,
+                  f"{tag}: {name} launched {n} times in {turns} turns")
+        elif name != "flash_fwd":
+            check(n == 0, f"{tag}: serving launched {name}")
+    tokens = sum(len(h.tokens) for h in handles)
+    drafted = sched.spec_drafted - drafted0
+    accepted = sched.spec_accepted - accepted0
+    summary = dict(
+        server=tag, settings=extra, tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall, decode_turns=turns,
+        turns_per_token=turns / tokens, spec_drafted=drafted,
+        spec_accepted=accepted,
+        acceptance=accepted / drafted if drafted else None,
+        mean_step_ms=reg.histogram("serve_decode_step_seconds").mean * 1e3,
+        kv_bytes_per_page=srv.runtime.kv_bytes_per_page(),
+        prompt_cached_tokens=sum(h.prompt_cached_tokens for h in handles),
+        kernel=expect, launches=launches[expect])
+    return srv, handles, summary, launches
+
+
+def _profile_turn(torch, srv, reqs, tag):
+    """Where one decode turn's time goes: 8 requests admitted and
+    prefilled in a first turn, then one turn of the slots still active
+    under torch.profiler; the rest drains unprofiled."""
+    for src, n, prompt in reqs[:8]:
+        srv.submit(src, max_new_tokens=n, prompt_tokens=prompt)
+    srv.scheduler.step()
+    active = srv.scheduler.active_count()
+    got = device_profile(torch, srv.scheduler.step)
+    if got is not None:
+        log_profile(tag, *got, f"1 decode turn, {active} active slots")
+    check(srv.wait(timeout=600), f"{tag}: not drained")
+
+
+def phase_fastpath(mx, torch, model):
+    """The serving fast path on the weights of phase 3: a k = 0 fp32
+    reference server with the fast path's settings, then servers (a)
+    speculative_k=3 on fp32, (b) int8 KV and int8 weights at k = 0 and
+    (c) speculative_k=3 on int8 KV, each serving the 16 requests of
+    `_fastpath_requests`. (a) must give the reference's greedy tokens;
+    (b) and (c) are held against a `device="cpu"` server with the same
+    settings on three requests. Both allow a divergence only at a near
+    tie. Returns the paged kernels' launches summed over (a), (b), (c)."""
+    reqs = _fastpath_requests()
+    ref_srv, ref_h, ref_sum, _ = _fast_run(
+        mx, torch, model, reqs, "reference k=0 fp32",
+        "ragged_paged_attention")
+    ref = [list(h.tokens) for h in ref_h]
+    log("fastpath " + json.dumps(ref_sum))
+    quant = mx.serve.quant
+    budget = 2 ** 30
+    geo = dict(n_layers=6, page_size=16, num_heads=8, head_dim=64)
+    capacity = (quant.token_capacity(budget, kv_dtype="int8", **geo)
+                / quant.token_capacity(budget, kv_dtype="float32", **geo))
+    log(f"fastpath: int8 / fp32 token capacity in {budget} bytes of KV "
+        f"pages: {capacity:.4f}")
+    check(capacity >= 1.9, f"int8 capacity ratio {capacity}")
+    total = {}
+    for tag, extra, expect in (
+            ("a", dict(speculative_k=SPEC_K), "ragged_paged_attention_multi"),
+            ("b", dict(kv_dtype="int8", weight_dtype="int8"),
+             "ragged_paged_attention_int8"),
+            ("c", dict(speculative_k=SPEC_K, kv_dtype="int8"),
+             "ragged_paged_attention_multi_int8")):
+        srv, handles, summary, launches = _fast_run(mx, torch, model, reqs,
+                                                    tag, expect, **extra)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        got = [list(h.tokens) for h in handles]
+        summary["match_vs_fp32_k0"] = _match_rate(ref, got)
+        log("fastpath " + json.dumps(summary))
+        _profile_turn(torch, srv, reqs, f"fastpath ({tag}) profile")
+        if tag == "a":
+            # the bitwise-greedy contract: speculation changes how many
+            # turns a request takes, never its tokens
+            for i, req in enumerate(reqs):
+                how = _same_or_near_tie(ref_srv.runtime, req, got[i],
+                                        ref[i], LOGITS_TOL,
+                                        f"(a) vs k=0 request {i}")
+                if how != "greedy tokens identical":
+                    log(f"fastpath (a) request {i}: {how}")
+            log("fastpath (a): every request's tokens match the k=0 fp32 "
+                "server's (near ties above, if any)")
+        else:
+            cpu = mx.serve.Server(model, **FAST_KW, device="cpu", **extra)
+            cpu_toks = [cpu.submit(reqs[i][0], max_new_tokens=reqs[i][1],
+                                   prompt_tokens=reqs[i][2]).result()
+                        for i in CARD_VS_CPU]
+            for i, want in zip(CARD_VS_CPU, cpu_toks):
+                how = _same_or_near_tie(cpu.runtime, reqs[i], got[i], want,
+                                        INT8_TIE_TOL,
+                                        f"({tag}) card vs cpu request {i}")
+                log(f"fastpath ({tag}) card vs cpu request {i} (src "
+                    f"{len(reqs[i][0])}, prompt "
+                    f"{0 if reqs[i][2] is None else len(reqs[i][2])}, "
+                    f"{reqs[i][1]} tokens): {how}")
+            cpu.close()
+        srv.close()
+    ref_srv.close()
+    return total
 
 
 def _bwd_case(torch, K, g, b, h, sq, sk, d, causal, lens):
@@ -758,8 +1083,9 @@ def phase_train(mx, torch, init_file):
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = {"flash_fwd": 18, "flash_bwd_dkv": 18, "flash_bwd_dq": 18,
-            "ragged_paged_attention": 0, "layer_norm": 30}
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want.update(flash_fwd=18, flash_bwd_dkv=18, flash_bwd_dq=18,
+                layer_norm=30)
     for i, counts in enumerate(per_step):
         check(counts == want, f"step {i + 1} launches {counts} != {want}")
     for name, p in model._collect_params_with_prefix().items():
@@ -831,11 +1157,13 @@ def main():
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build(mx, torch)
     kernels = [phase_flash(mx, torch), phase_rpa(mx, torch),
+               *phase_rpa_fastpath(mx, torch),
                *phase_flash_bwd(mx, torch), phase_ln(mx, torch)]
     model, srv, reqs, handles, serve_launches = phase_serve(mx, torch)
     phase_profile(mx, torch, srv, reqs)
     phase_card_vs_cpu(mx, torch, model, srv, reqs, handles)
     srv.close()
+    fast_launches = phase_fastpath(mx, torch, model)
     del model, srv
     with tempfile.TemporaryDirectory() as tmp:
         init_file = os.path.join(tmp, "transformer_base_init.params")
@@ -843,6 +1171,7 @@ def main():
         phase_train_card_vs_cpu(mx, torch, init_file)
     for k in kernels:
         by_path = {"serve": serve_launches[k["name"]],
+                   "fastpath": fast_launches[k["name"]],
                    "train": train_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path

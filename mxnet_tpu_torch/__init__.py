@@ -27,10 +27,11 @@ CPU request they raise `MXNetError`. The kernels are CUDA C++ written
 for `sm_90a` (`ops/csrc/`), built with `nvcc` at first use; on CPU
 tensors their plain PyTorch versions run instead.
 
-Two slices are ported: serving (TransformerNMT through `serve.Server`)
-and Gluon training (NDArray, autograd, Gluon blocks and layers, losses,
-optimizers and the Trainer, on the same TransformerNMT). ROADMAP.md
-lists what is still to be ported.
+Three slices are ported: serving (TransformerNMT through `serve.Server`),
+Gluon training (NDArray, autograd, Gluon blocks and layers, losses,
+optimizers and the Trainer, on the same TransformerNMT) and the serving
+fast path (`Server(speculative_k=k, kv_dtype="int8",
+weight_dtype="int8")`). ROADMAP.md lists what is still to be ported.
 """
 
 __version__ = "0.1.0"
@@ -52,10 +53,11 @@ from . import ops
 from . import optimizer
 from . import gluon
 from . import models
+from . import contrib
 from . import convert
 from . import serve
 
 __all__ = ["MXNetError", "base", "context", "cpu", "gpu", "num_gpus",
            "observability", "profiler", "fault", "random", "initializer",
            "init", "autograd", "ndarray", "nd", "ops", "optimizer", "gluon",
-           "models", "convert", "serve"]
+           "models", "contrib", "convert", "serve"]

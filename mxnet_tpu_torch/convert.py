@@ -14,15 +14,25 @@ every array already converted to numpy (for example
 touches JAX) — and returns a port `TransformerNMT` whose
 `encoder_weights()` / `decoder_weights()` hold the same values. Dense
 weights are `(out, in)` in both frameworks.
+
+`from_jax_snapshot(weights)` carries one such snapshot, as numpy, into
+the port's snapshot layout directly — torch tensors in the same dict
+structure — and takes the int8 snapshots of the JAX package's
+`serve.quant` too (dense leaves `(w_int8, b, scale)` and the
+`embed_scale` row scales), which no model holds. A port `DecodeRuntime`
+runs on the result, so both packages' runtimes can be fed one identical
+int8 snapshot.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .base import MXNetError
+from .context import resolve_device
 from .models.transformer import TransformerNMT
 
-__all__ = ["load_jax_parameters", "from_jax_weights"]
+__all__ = ["load_jax_parameters", "from_jax_weights", "from_jax_snapshot"]
 
 _ENC_DENSE = {"qkv": "attn.qkv", "proj": "attn.proj", "ffn1": "ffn.ffn1",
               "ffn2": "ffn.ffn2"}
@@ -64,8 +74,8 @@ def from_jax_weights(enc_w, dec_w, device=None):
     holding the JAX snapshots' values. Every array in `enc_w` / `dec_w`
     must be a numpy array (or convertible by `numpy.asarray`)."""
     if "embed_scale" in dec_w or "embed_scale" in enc_w:
-        raise MXNetError("int8 weight snapshots are not ported yet "
-                         "(ROADMAP.md, Queue 1: int8 serving)")
+        raise MXNetError("an int8 weight snapshot has no fp32 weights to "
+                         "build a model from; use from_jax_snapshot")
     embed = np.asarray(dec_w["embed"], np.float32)
     if not np.array_equal(embed, np.asarray(enc_w["embed"])):
         raise MXNetError("encoder and decoder snapshots must share the "
@@ -96,3 +106,25 @@ def from_jax_weights(enc_w, dec_w, device=None):
         for ln, e in zip(lns, eps):
             ln._epsilon = e
     return model
+
+
+def from_jax_snapshot(weights, device=None):
+    """A JAX `encoder_weights` / `decoder_weights` snapshot (fp32 or the
+    int8 one of `serve.quant`), every array as numpy, as the port's
+    snapshot dict on `device` (None = `mx.gpu(0)`): arrays become tensors
+    of the same dtype, tuples and lists keep their structure, and
+    `scale` / `num_heads` / LayerNorm epsilons stay Python numbers."""
+    device = resolve_device(device)
+
+    def carry(x):
+        if isinstance(x, dict):
+            return {k: carry(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(carry(v) for v in x)
+        if isinstance(x, (int, float)) or x is None:
+            return x
+        if isinstance(x, np.generic):
+            return x.item()
+        return torch.from_numpy(np.array(x)).to(device)
+
+    return carry(weights)

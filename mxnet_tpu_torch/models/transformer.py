@@ -21,7 +21,9 @@ plain dicts of tensors (dense leaves `(w (out, in), b)`, LayerNorm leaves
 those dicts — `encode_memory` (the prefill; its attention is the flash
 kernel) and the factored decode core (`decode_embed`, `decoder_layer_*`,
 `decode_project`) that `serve.decode` composes around the
-ragged-paged-attention kernel.
+ragged-paged-attention kernel. An int8 snapshot (`serve.quant`) holds
+its dense leaves as `(w_int8, b, scale)` and its embedding as int8 rows
+with an `embed_scale` per row; the same functions take it.
 
 `beam_search`, `beam_search_cached` and `decode_step` are not ported yet
 (ROADMAP.md, Queue 1).
@@ -45,7 +47,7 @@ __all__ = ["SelfAttention", "CrossAttention", "EncoderLayer", "DecoderLayer",
            "decoder_weights", "encode_memory", "precompute_memory_kv",
            "decode_embed", "decode_project", "decoder_layer_qkv",
            "decoder_layer_self_post", "decoder_layer_cross",
-           "decoder_layer_ffn"]
+           "decoder_layer_cross_multi", "decoder_layer_ffn"]
 
 
 def sinusoid_table(max_len, units):
@@ -354,9 +356,26 @@ def _ln_apply(x, lnw):
 
 
 def _affine(x, wb):
-    w, b = wb
-    y = x @ w.T
+    # a 3-tuple is a per-output-channel int8 weight (serve.quant): the
+    # product runs over the int8 values converted to x's type and the
+    # scale is one multiply per output column
+    if len(wb) == 3:
+        wq, b, s = wb
+        y = (x @ wq.T.to(x.dtype)) * s.to(x.dtype)
+    else:
+        w, b = wb
+        y = x @ w.T
     return y + b if b is not None else y
+
+
+def _embed_rows(weights, idx):
+    """Embedding gather; an int8 embedding dequantizes the gathered rows
+    with their per-row scales."""
+    e = weights["embed"][idx]
+    es = weights.get("embed_scale")
+    if es is not None:
+        e = e.to(weights["pos"].dtype) * es[idx][..., None]
+    return e
 
 
 def _heads(x, h):
@@ -370,7 +389,8 @@ def encode_memory(weights, src, src_vl=None):
     source lengths as key lengths — the flash kernel on the card."""
     h = weights["num_heads"]
     s = src.shape[1]
-    x = weights["embed"][src] * weights["scale"] + weights["pos"][:s][None]
+    x = _embed_rows(weights, src) * weights["scale"] \
+        + weights["pos"][:s][None]
     kv_len = src_vl.to(torch.int32) if src_vl is not None else None
     for L in weights["layers"]:
         qkv = _affine(x, L["qkv"])
@@ -394,13 +414,19 @@ def precompute_memory_kv(weights, memory):
 
 
 def decode_embed(weights, tok_t, t):
-    """Embed the current token(s) at position(s) t: tok_t (B,) int64,
-    t (B,) int64 -> (B, U)."""
-    return weights["embed"][tok_t] * weights["scale"] + weights["pos"][t]
+    """Embed the current token(s) at position(s) t: tok_t and t int64 of
+    the same shape, (B,) or (B, W) -> (B, U) or (B, W, U)."""
+    return _embed_rows(weights, tok_t) * weights["scale"] \
+        + weights["pos"][t]
 
 
 def decode_project(weights, x):
-    """Tied output projection for the decode path: (B, U) -> (B, V)."""
+    """Tied output projection for the decode path: (..., U) -> (..., V).
+    With an int8 embedding the per-row `embed_scale` is the projection's
+    per-output-column scale."""
+    es = weights.get("embed_scale")
+    if es is not None:
+        return (x @ weights["embed"].T.to(x.dtype)) * es.to(x.dtype)
     return x @ weights["embed"].T
 
 
@@ -424,6 +450,20 @@ def decoder_layer_cross(L, h, x, mk, mv, mem_vl=None):
         keep = (pos[None, :] < mem_vl.long()[:, None])[:, None, None, :]
     attn = _merge_heads(
         single_query_cached_attention(qc, mk, mv, keep))[:, 0]
+    return _ln_apply(x + _affine(attn, L["cproj"]), L["ln2"])
+
+
+def decoder_layer_cross_multi(L, h, x, mk, mv, mem_vl=None):
+    """Cross-attention over precomputed memory K/V for a window of decode
+    tokens (the widened verify step): x (B, W, U), mk/mv (B, H, S, dh).
+    Each window row runs the math `decoder_layer_cross` runs for one
+    token."""
+    qc = _split_heads(_affine(x, L["q"]), h)          # (B, H, W, dh)
+    keep = None
+    if mem_vl is not None:
+        pos = torch.arange(mk.shape[2], device=mk.device)
+        keep = (pos[None, :] < mem_vl.long()[:, None])[:, None, None, :]
+    attn = _merge_heads(single_query_cached_attention(qc, mk, mv, keep))
     return _ln_apply(x + _affine(attn, L["cproj"]), L["ln2"])
 
 

@@ -36,6 +36,7 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale, stream
     "mxtt_flash_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -54,8 +55,21 @@ _SIGNATURES = {
     # q, k_pages, v_pages, page_tables, lengths, out, S, H, dh, psize,
     # npages, stride_page, stride_row, stride_head, sm_scale, stream
     "mxtt_rpa_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     ctypes.c_longlong, ctypes.c_longlong,
-                     ctypes.c_longlong, ctypes.c_float, _P],
+                     _L, _L, _L, ctypes.c_float, _P],
+    # q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths, out,
+    # S, H, dh, psize, npages, stride_page, stride_row, stride_head,
+    # sm_scale, stream
+    "mxtt_rpa_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _L, _L, _L, ctypes.c_float, _P],
+    # q, k_pages, v_pages, page_tables, lengths, out, S, W, H, dh, psize,
+    # npages, stride_page, stride_row, stride_head, sm_scale, stream
+    "mxtt_rpa_multi_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _L, _L, _L, ctypes.c_float, _P],
+    # q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths, out,
+    # S, W, H, dh, psize, npages, stride_page, stride_row, stride_head,
+    # sm_scale, stream
+    "mxtt_rpa_multi_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _L, _L, _L, ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

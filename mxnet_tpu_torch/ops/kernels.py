@@ -12,10 +12,12 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
     are the two halves on their own; the backward takes
     delta = rowsum(dO * O) as an input, which its caller computes.
   * `ragged_paged_attention` — the decode step's self-attention over
-    the paged KV cache: `csrc/ragged_paged_attention.cu` (replaces
-    `_rpa_kernel`). Its plain version shares
-    `single_query_cached_attention` with the decoder's cross-attention,
-    as the JAX package's lax path does.
+    the paged KV cache: four kernels of `csrc/ragged_paged_attention.cu`
+    — one query row per slot (replaces `_rpa_kernel`) or W rows
+    (replaces `_rpa_multi_kernel`), over float32 pages or int8 pages
+    with per-page scales (their `quant=True` paths). Its plain versions
+    share `single_query_cached_attention` with the decoder's
+    cross-attention, as the JAX package's lax path does.
   * `fused_layer_norm` — LayerNorm over the last axis as a
     `torch.autograd.Function`: the forward launches `csrc/layer_norm.cu`
     (replaces `_ln_kernel`), the backward is the closed form of
@@ -54,7 +56,9 @@ _MASKED = -1e30
 
 # kernel launches per wrapper; bumped only where a kernel is launched
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-            "ragged_paged_attention": 0, "layer_norm": 0}
+            "ragged_paged_attention": 0, "ragged_paged_attention_int8": 0,
+            "ragged_paged_attention_multi": 0,
+            "ragged_paged_attention_multi_int8": 0, "layer_norm": 0}
 
 
 def reset_launch_counts():
@@ -331,32 +335,76 @@ def single_query_cached_attention(qh, kc, vc, mask=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, vc)
 
 
-def _paged_attention_plain(q, k_pages, v_pages, page_tables, lengths):
-    """Plain version of the paged kernel: gather each slot's pages into a
-    dense context, then the shared single-query math. q: (S, H, dh);
+def _dequant_gathered(pages, page_tables, scales, dtype):
+    """Gather (S, npages, psize, H, dh) pages; with per-page (P, H)
+    `scales` (int8 pages) dequantize the gathered context — never the
+    whole pool — into `dtype`."""
+    idx = page_tables.long()
+    ctx = pages[idx]
+    if scales is not None:
+        ctx = ctx.to(dtype) * scales[idx][:, :, None, :, None]
+    return ctx
+
+
+def _gathered_context(q, k_pages, v_pages, page_tables, k_scales,
+                      v_scales):
+    """Each slot's pages as dense (S, H, L, dh) K and V contexts."""
+    S, H, dh = q.shape[0], q.shape[-2], q.shape[-1]
+    L = page_tables.shape[1] * k_pages.shape[1]
+    kc = _dequant_gathered(k_pages, page_tables, k_scales, q.dtype) \
+        .reshape(S, L, H, dh).transpose(1, 2)
+    vc = _dequant_gathered(v_pages, page_tables, v_scales, q.dtype) \
+        .reshape(S, L, H, dh).transpose(1, 2)
+    return kc, vc, L
+
+
+def _paged_attention_plain(q, k_pages, v_pages, page_tables, lengths,
+                           k_scales=None, v_scales=None):
+    """Plain version of the 1-wide paged kernels: gather each slot's
+    pages into a dense context (dequantized with the (P, H) scales for
+    int8 pages), then the shared single-query math. q: (S, H, dh);
     k_pages/v_pages: (P, psize, H, dh); page_tables: (S, npages) int32;
     lengths: (S,) int32 visible positions (the current token included).
     Returns (S, H, dh)."""
-    S, H, dh = q.shape
-    psize = k_pages.shape[1]
-    npages = page_tables.shape[1]
-    L = npages * psize
-    idx = page_tables.long()
-    kc = k_pages[idx].reshape(S, L, H, dh).transpose(1, 2)
-    vc = v_pages[idx].reshape(S, L, H, dh).transpose(1, 2)
+    kc, vc, L = _gathered_context(q, k_pages, v_pages, page_tables,
+                                  k_scales, v_scales)
     pos = torch.arange(L, device=q.device)
     mask = (pos[None, :] < lengths.long()[:, None])[:, None, None, :]
     return single_query_cached_attention(q[:, :, None, :], kc, vc,
                                          mask)[:, :, 0]
 
 
-def _rpa_args(q, k_pages, v_pages, page_tables, lengths):
-    """What the kernel takes, checked on either device: (S, H, dh,
-    psize, page / row / head strides)."""
-    _check(q.dim() == 3 and k_pages.dim() == 4,
-           "ragged_paged_attention takes q (S, H, dh) and pages "
-           "(P, psize, H, dh)")
-    S, H, dh = q.shape
+def _paged_attention_plain_multi(q, k_pages, v_pages, page_tables, lengths,
+                                 k_scales=None, v_scales=None):
+    """Plain version of the widened paged kernels: the gathered context
+    of `_paged_attention_plain` and one more query axis. q: (S, W, H,
+    dh), W query tokens per slot at consecutive positions; query i sees
+    `lengths + i` keys. Returns (S, W, H, dh)."""
+    W = q.shape[1]
+    kc, vc, L = _gathered_context(q, k_pages, v_pages, page_tables,
+                                  k_scales, v_scales)
+    vis = lengths.long()[:, None] + torch.arange(W, device=q.device)[None]
+    mask = (torch.arange(L, device=q.device)[None, None, :]
+            < vis[:, :, None])[:, None, :, :]          # (S, 1, W, L)
+    out = single_query_cached_attention(q.transpose(1, 2), kc, vc, mask)
+    return out.transpose(1, 2)
+
+
+# the widest query window the widened kernels take (speculative_k <= 7)
+_RPA_MAX_W = 8
+
+
+def _rpa_args(q, k_pages, v_pages, page_tables, lengths, k_scales,
+              v_scales):
+    """What the kernels take, checked on either device: (S, W, H, dh,
+    psize, page / row / head strides); W is 1 for a 3-D q."""
+    _check((k_scales is None) == (v_scales is None),
+           "k_scales and v_scales must be given together")
+    _check(q.dim() in (3, 4) and k_pages.dim() == 4,
+           "ragged_paged_attention takes q (S, H, dh) or (S, W, H, dh) and "
+           "pages (P, psize, H, dh)")
+    S, H, dh = q.shape[0], q.shape[-2], q.shape[-1]
+    W = q.shape[1] if q.dim() == 4 else 1
     P, psize = k_pages.shape[:2]
     _check(k_pages.shape == (P, psize, H, dh)
            and v_pages.shape == k_pages.shape
@@ -370,33 +418,60 @@ def _rpa_args(q, k_pages, v_pages, page_tables, lengths):
     _check(lengths.shape == (S,) and lengths.dtype == torch.int32
            and lengths.is_contiguous(),
            "lengths must be a contiguous (S,) int32 tensor")
-    _check(all(t.dtype == torch.float32 for t in (q, k_pages, v_pages)),
-           "ragged_paged_attention kernel takes float32 q and pages")
+    quant = k_scales is not None
+    page_dtype = torch.int8 if quant else torch.float32
+    _check(q.dtype == torch.float32 and k_pages.dtype == page_dtype
+           and v_pages.dtype == page_dtype,
+           "ragged_paged_attention kernel takes float32 q, and float32 "
+           "pages or int8 pages with k_scales / v_scales")
+    if quant:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            _check(t.shape == (P, H) and t.dtype == torch.float32
+                   and t.is_contiguous(),
+                   f"{name} must be a contiguous ({P}, {H}) float32 tensor")
     _check(q.is_contiguous(), "ragged_paged_attention takes a contiguous q")
+    _check(1 <= W <= _RPA_MAX_W,
+           f"ragged_paged_attention takes 1 <= W <= {_RPA_MAX_W} query rows "
+           f"per slot, got {W}")
     _check(0 < dh <= 128 and dh % 4 == 0,
            f"ragged_paged_attention kernel takes dh % 4 == 0, dh <= 128, "
            f"got {dh}")
+    # the kernels load 4 elements at a time: a float4 (16 bytes) or, for
+    # int8 pages, a char4 (4 bytes); strides in elements must keep every
+    # row's start aligned to that
     sp, so, sh, sd = k_pages.stride()
     _check(sd == 1 and sp % 4 == 0 and so % 4 == 0 and sh % 4 == 0
            and k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
-           "page pools need unit stride on dh and 16-byte aligned rows")
+           "page pools need unit stride on dh and rows aligned to 4 "
+           "elements")
     _check(S * H > 0 and page_tables.shape[1] > 0,
            "ragged_paged_attention: empty input")
-    return S, H, dh, psize, sp, so, sh
+    return S, W, H, dh, psize, sp, so, sh
 
 
-def _rpa_cuda(q, k_pages, v_pages, page_tables, lengths, sm_scale):
-    S, H, dh, psize, sp, so, sh = _rpa_args(q, k_pages, v_pages,
-                                            page_tables, lengths)
+def _rpa_cuda(q, k_pages, v_pages, page_tables, lengths, sm_scale,
+              k_scales, v_scales):
+    """Launch the one of the four kernels that the form of q and the
+    page type select."""
+    S, W, H, dh, psize, sp, so, sh = _rpa_args(
+        q, k_pages, v_pages, page_tables, lengths, k_scales, v_scales)
     out = torch.empty_like(q)
     lib = _build.library()
+    quant = k_scales is not None
+    wide = q.dim() == 4
+    name = "ragged_paged_attention" + ("_multi" if wide else "") \
+        + ("_int8" if quant else "")
+    fn = getattr(lib, "mxtt_rpa" + ("_multi" if wide else "")
+                 + ("_i8" if quant else "_f32"))
+    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
+    if quant:
+        ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
+    ptrs += [page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr()]
+    dims = [S, W, H] if wide else [S, H]
     with torch.cuda.device(q.device):
-        rc = lib.mxtt_rpa_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            S, H, dh, psize, page_tables.shape[1], sp, so, sh,
-            float(sm_scale), torch.cuda.current_stream().cuda_stream)
-    _launched("ragged_paged_attention", rc)
+        rc = fn(*ptrs, *dims, dh, psize, page_tables.shape[1], sp, so, sh,
+                float(sm_scale), torch.cuda.current_stream().cuda_stream)
+    _launched(name, rc)
     return out
 
 
@@ -404,31 +479,33 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, lengths,
                            sm_scale=None, k_scales=None, v_scales=None):
     """One shared attention launch per decode step over a paged KV cache.
 
-    q: (S, H, dh) — one query token per decode slot; k_pages/v_pages:
-    (P, psize, H, dh) page pools; page_tables: (S, npages) int32 page ids
-    per slot (unused entries point at the reserved null page 0);
-    lengths: (S,) int32 visible positions per slot INCLUDING the current
-    token. Returns (S, H, dh).
+    q: (S, H, dh) — one query token per decode slot — or (S, W, H, dh):
+    W query tokens per slot at consecutive positions (speculative
+    verification), where query i of a slot sees `lengths + i` keys and
+    rows past a slot's real window compute values nobody reads.
+    k_pages/v_pages: (P, psize, H, dh) page pools, float32, or int8 with
+    `k_scales`/`v_scales` (P, H) float32 per-page/per-head dequant
+    scales; page_tables: (S, npages) int32 page ids per slot (unused
+    entries point at the reserved null page 0); lengths: (S,) int32
+    visible positions per slot INCLUDING the current (first) token.
+    Returns (S, H, dh) or (S, W, H, dh).
 
-    The widened (S, W, H, dh) query form and int8 pages
-    (`k_scales`/`v_scales`) belong to a later slice and raise."""
-    if k_scales is not None or v_scales is not None:
-        raise MXNetError("int8 KV pages (k_scales/v_scales) are not ported "
-                         "yet (ROADMAP.md, Queue 2: the RPA int8 page path)")
-    if q.dim() != 3:
-        raise MXNetError("the widened (S, W, H, dh) ragged-paged-attention "
-                         "form is not ported yet (ROADMAP.md, Queue 2: "
-                         "_rpa_multi_kernel)")
-    dev = _device_of(q, k_pages, v_pages, page_tables, lengths)
+    On CUDA tensors one of four kernels launches (1-wide or widened,
+    float32 or int8 pages); on CPU tensors the plain versions run."""
+    dev = _device_of(q, k_pages, v_pages, page_tables, lengths, k_scales,
+                     v_scales)
     if dev.type == "cuda":
         if sm_scale is None:
             sm_scale = 1.0 / math.sqrt(q.shape[-1])
         return _rpa_cuda(q, k_pages, v_pages, page_tables, lengths,
-                         sm_scale)
-    _rpa_args(q, k_pages, v_pages, page_tables, lengths)
+                         sm_scale, k_scales, v_scales)
+    _rpa_args(q, k_pages, v_pages, page_tables, lengths, k_scales, v_scales)
     if sm_scale is not None:
         q = q * (sm_scale * math.sqrt(q.shape[-1]))
-    return _paged_attention_plain(q, k_pages, v_pages, page_tables, lengths)
+    plain = _paged_attention_plain_multi if q.dim() == 4 \
+        else _paged_attention_plain
+    return plain(q, k_pages, v_pages, page_tables, lengths, k_scales,
+                 v_scales)
 
 
 # ---------------------------------------------------------------------------

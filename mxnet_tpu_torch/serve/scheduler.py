@@ -33,13 +33,15 @@ crank:
     ADOPTS those pages (refcounted sharing, never a copy) and skips that
     part of prefill. Under page pressure admission evicts LRU cache-only
     pages instead of failing (`serve_prefix_evictions`).
-  * SPECULATIVE DECODING is not ported yet: it needs the widened verify
-    step `DecodeRuntime.decode_multi` (ROADMAP.md, Queue 1: serving fast
-    path). Every turn here is 1-wide: one input token per active slot —
-    a forced prompt token or the last committed one.
+  * SPECULATIVE DECODING — with `width > 1` (Server(speculative_k=k)),
+    each turn drafts up to k tokens by n-gram prompt lookup over the
+    request's own committed history and verifies the whole window with
+    ONE pass through the widened decode step; the accepted run +
+    one corrective token commit together. Greedy output is IDENTICAL to
+    the 1-wide loop — drafts only change how many turns it takes.
 
 Fault discipline (fault/injection.py points `serve.admit` /
-`serve.decode` / `serve.prefix`): an admit-time
+`serve.decode` / `serve.prefix` / `serve.speculate`): an admit-time
 fault fails ONLY the request being admitted. A decode-time fault kills
 the whole in-flight batch — every active request frees its pages and is
 retried from scratch (bounded by `max_retries`) or failed cleanly;
@@ -47,8 +49,9 @@ either way `kv_pages_in_use` returns to baseline. An error raised by
 the decode step itself
 additionally resets the page pools AND clears the prefix cache (their
 contents are no longer trustworthy after a partial in-place step). A
-`serve.prefix` fault merely DEGRADES — cache lookup/insert skipped —
-with bitwise-identical request output.
+`serve.prefix` or `serve.speculate` fault merely DEGRADES — cache
+lookup/insert skipped, turn runs unspeculated — with bitwise-identical
+request output.
 """
 from __future__ import annotations
 
@@ -62,6 +65,7 @@ from ..observability import registry as _obs_registry
 from ..observability import tracer as _tracer
 from .kv_pages import NULL_PAGE, PageAllocError
 from .prefix_cache import PrefixCache, content_key
+from .speculate import propose_ngram
 
 __all__ = ["Request", "Scheduler", "ServeError", "ServeOverloaded",
            "ServeDeadlineExceeded", "StepResult"]
@@ -244,11 +248,16 @@ class StepResult:
 class Scheduler:
     def __init__(self, runtime, pool, bos_id=2, eos_id=3, max_queue=64,
                  max_retries=1, max_preemptions=8, static_batching=False,
-                 prefix_cache=True):
+                 prefix_cache=True, spec_ngram=2, quant_fallback=None):
         import numpy as np
         self._np = np
         self._rt = runtime
         self._pool = pool
+        # speculative decoding rides the runtime's widened executable:
+        # width = spec_k + 1 (window = current token + k drafts)
+        self.width = int(getattr(runtime, "width", 1))
+        self.spec_k = self.width - 1
+        self.spec_ngram = int(spec_ngram)
         if prefix_cache is True:
             self._cache = PrefixCache(pool)
         elif prefix_cache:
@@ -264,6 +273,11 @@ class Scheduler:
         # pressure cannot burn a request's fault retries
         self.max_preemptions = int(max_preemptions)
         self.static_batching = bool(static_batching)
+        # low-precision degradation path: on a `serve.quant`
+        # fault, a quantized server routes THAT request through this
+        # full-precision callback instead of the int8 executables —
+        # identical greedy output to an fp32 server, no pages touched
+        self._quant_fallback = quant_fallback
         s = runtime.slots
         self._slots = [None] * s                       # Request per slot
         self._page_tables = np.full(
@@ -298,10 +312,20 @@ class Scheduler:
         self._m_ttft = reg.histogram("serve_ttft_seconds")
         self._m_latency = reg.histogram("serve_request_seconds")
         self._m_step = reg.histogram("serve_decode_step_seconds")
+        # speculative decoding telemetry: the acceptance
+        # distribution is the regression signal — profiler.dumps() shows
+        # it as a [serve-spec] row
+        self._m_spec_hist = reg.histogram("serve_spec_accepted_tokens")
+        self._m_spec_drafted = reg.counter("serve_spec_drafted")
+        self._m_spec_accepted = reg.counter("serve_spec_accepted")
+        self._m_spec_degraded = reg.counter("serve_spec_degraded")
         self._m_prefix_degraded = reg.counter("serve_prefix_degraded")
+        self._m_quant_degraded = reg.counter("serve_quant_degraded")
         self._m_warm_pref = reg.counter("serve_prefix_admit_preferred")
-        # per-instance tally (registry counters are process-global)
+        # per-instance tallies (registry counters are process-global)
         self.decode_turns = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
     # ------------------------------------------------------------ API
     @property
@@ -414,12 +438,12 @@ class Scheduler:
             if _finj.ENABLED:
                 _finj.check("serve.decode",
                             context=f"{len(active)} active")
-            self._plan_turn(active, res)
+            plans = self._plan_turn(active, res)
             active = [(s, r) for s, r in enumerate(self._slots)
                       if r is not None]
             if not active:
                 return res
-            next_tok = self._decode(active)
+            next_tok = self._decode(active, plans)
         except _finj.FaultInjected as e:
             self._fail_inflight(active, res, e, reset_pages=False)
             return res
@@ -431,21 +455,53 @@ class Scheduler:
         self.decode_turns += 1
         now = time.perf_counter()
         for s, r in active:
-            L = int(self._lens[s]) + 1
-            self._lens[s] = L
+            window, f = plans[s]
+            q = len(window)
+            g = next_tok[s]                    # (width,) host int32
+            L = int(self._lens[s])
+            commits = []
+            accepted = 0
+            if L + f == len(r.known):
+                # the window reaches the generation frontier: g[f-1] is
+                # the greedy token after the last known one, and each
+                # accepted draft (window[i+1] == g[i]) validates one
+                # more greedy commit — EXACTLY the tokens the 1-wide
+                # loop would have produced over as many turns
+                i = f - 1
+                while True:
+                    tok = int(g[i])
+                    commits.append(tok)
+                    if tok == self.eos_id or \
+                            len(r.tokens) + len(commits) \
+                            >= r.max_new_tokens:
+                        break
+                    if i + 1 < q and window[i + 1] == tok:
+                        i += 1
+                        continue
+                    break
+                accepted = i - (f - 1)
+                self._lens[s] = L + f + accepted
+            else:
+                # pure prompt turn: every window token was forced, every
+                # prediction is for a position we already know
+                self._lens[s] = L + q
+            if q > f:
+                drafted = q - f
+                self._m_spec_drafted.inc(drafted)
+                self.spec_drafted += drafted
+                self._m_spec_accepted.inc(accepted)
+                self.spec_accepted += accepted
+                self._m_spec_hist.observe(accepted)
             self._offer_prompt_pages(s, r)
-            if L < len(r.known):
-                # prompt turn: the input was a forced prompt token and the
-                # prediction is for a position already known
+            if not commits:
                 continue
-            # the input was the last known token: its prediction is the
-            # next greedy token
-            tok = int(next_tok[s])
             if r.t_first_token is None:
                 r.t_first_token = now
-            r.known.append(tok)
-            r._emit(tok)
-            if tok == self.eos_id or len(r.tokens) >= r.max_new_tokens:
+            r.known.extend(commits)
+            for tok in commits:
+                r._emit(tok)
+            if commits[-1] == self.eos_id \
+                    or len(r.tokens) >= r.max_new_tokens:
                 self._evict(s, r, "done")
                 res.completed += 1
         self._m_active.set(self.active_count())
@@ -572,6 +628,16 @@ class Scheduler:
                     break
                 req = self._pop_next_locked()
                 self._m_queue.set(len(self._queue))
+            # serve.quant fault: degrade THIS request to the
+            # full-precision path before it touches pages or slots —
+            # leak-freedom is structural (nothing was allocated yet)
+            if self._quant_fallback is not None and _finj.ENABLED:
+                try:
+                    _finj.check("serve.quant",
+                                context=f"request {req.id}")
+                except _finj.FaultInjected:
+                    self._degrade_quant(req)
+                    continue
             psize = self._pool.page_size
             known = [self.bos_id] + req.prompt
             # prefix-cache adoption: the longest cached chain
@@ -698,39 +764,74 @@ class Scheduler:
             return self._pool.alloc(n)
 
     def _plan_turn(self, active, res):
-        """Allocate the page each active slot's next position needs (the
-        submit-time budget check keeps every position inside the slot's
-        page table). A slot whose current page is full when the pool is
-        dry is preempted (pages freed, requeued)."""
+        """Build every active slot's token window for this turn — the
+        FORCED tokens first (known-but-uncached prompt / committed
+        tokens), then up to `spec_k` n-gram drafts once the window
+        reaches the generation frontier — and allocate the pages those
+        positions need. A slot whose current page is full when the pool
+        is dry is preempted (pages freed, requeued) exactly like the
+        1-wide path; a slot that can only fit part of its window just
+        runs a shorter window (ragged qlens are free — same executable,
+        same dispatch)."""
         psize = self._rt.page_size
-        for s, r in active:
-            if r._n_table > int(self._lens[s]) // psize:
-                continue
+        budget = self._rt.max_pages_per_slot * psize
+        width = self.width
+        draft_ok = self.spec_k > 0
+        if draft_ok and _finj.ENABLED:
             try:
-                page = self._alloc_pages(1)[0]
-            except PageAllocError:
+                _finj.check("serve.speculate", context="draft window")
+            except _finj.FaultInjected:
+                # degrade: run the turn unspeculated — committed output
+                # is IDENTICAL, only turns/token suffers
+                self._m_spec_degraded.inc()
+                draft_ok = False
+        plans = {}
+        for s, r in active:
+            L = int(self._lens[s])
+            window = list(r.known[L:L + width])
+            f = len(window)
+            if draft_ok and f < width:
+                window.extend(propose_ngram(r.known, width - f,
+                                            self.spec_ngram))
+            del window[budget - L:]     # never write past the page budget
+            need_idx = (L + len(window) - 1) // psize
+            while r._n_table <= need_idx:
+                try:
+                    page = self._alloc_pages(1)[0]
+                except PageAllocError:
+                    del window[r._n_table * psize - L:]
+                    break
+                r._pages.append(page)
+                self._page_tables[s, r._n_table] = page
+                r._n_table += 1
+            if not window:
                 self._m_preempt.inc()
                 self._requeue(s, r, "page pool exhausted mid-decode",
                               preempted=True)
                 res.preempted += 1
                 continue
-            r._pages.append(page)
-            self._page_tables[s, r._n_table] = page
-            r._n_table += 1
+            plans[s] = (window, min(f, len(window)))
+        return plans
 
-    def _decode(self, active):
-        """One 1-wide decode step: each active slot feeds the token at its
-        current position; returns the (slots,) greedy next tokens."""
+    def _decode(self, active, plans):
         np = self._np
+        width = self.width
         mask = np.zeros((self._rt.slots,), np.int32)
-        toks = np.zeros((self._rt.slots,), np.int32)
+        toks = np.zeros((self._rt.slots, width), np.int32)
+        qlens = np.ones((self._rt.slots,), np.int32)
         for s, r in active:
+            window, _f = plans[s]
             mask[s] = 1
-            toks[s] = r.known[int(self._lens[s])]
+            toks[s, :len(window)] = window
+            qlens[s] = len(window)
 
         def launch():
-            out, _ = self._rt.decode(self._page_tables, self._lens, toks,
-                                     mask)
+            if width == 1:
+                out, _ = self._rt.decode(self._page_tables, self._lens,
+                                         toks[:, 0], mask)
+                return out.reshape(-1, 1)
+            out, _ = self._rt.decode_multi(self._page_tables, self._lens,
+                                           toks, qlens, mask)
             return out
 
         if _tracer.ACTIVE:
@@ -764,6 +865,49 @@ class Scheduler:
             return
         pages = [int(p) for p in self._page_tables[s, :ncache]]
         self._cache.insert(self._src_key(r), r.known, pages)
+
+    def _degrade_quant(self, req):
+        """Run one request through the full-precision fallback (a
+        `serve.quant` fault fired at its admission): greedy output is
+        IDENTICAL to an fp32 server's, the quantized executables and the
+        page pool are never touched for it, and the handle's stream/
+        result plumbing behaves normally (tokens arrive in one burst).
+        The request's end-to-end deadline stays in force — the remaining
+        budget rides into the fallback, and expiry surfaces as the same
+        `ServeDeadlineExceeded` the normal path raises."""
+        self._m_quant_degraded.inc()
+        req.state = "running"
+        try:
+            toks = self._quant_fallback(req.src, req.prompt,
+                                        req.max_new_tokens,
+                                        deadline=req.deadline)
+        except ServeDeadlineExceeded:
+            self._m_deadline.inc()
+            self._m_failed.inc()
+            req._exc = ServeDeadlineExceeded(
+                f"request {req.id} exceeded its deadline (degraded "
+                f"full-precision attempt)")
+            req._finish("failed", "deadline exceeded")
+            return
+        except Exception as e:
+            self._m_failed.inc()
+            req._finish("failed", f"quant degrade failed: {e!r}")
+            return
+        now = time.perf_counter()
+        if toks and req.t_first_token is None:
+            req.t_first_token = now
+        for tok in toks:
+            req._emit(tok)
+        self._m_ok.inc()
+        self._m_tokens.inc(len(req.tokens))
+        self.tokens_generated += len(req.tokens)
+        if req.ttft is not None:
+            self._m_ttft.observe(req.ttft)
+        self._m_latency.observe(time.perf_counter() - req.t_submit)
+        req._finish("done")
+        if _tracer.ACTIVE:
+            _tracer.instant("serve.quant_degraded",
+                            args={"id": req.id, "tokens": len(req.tokens)})
 
     def _release_slot(self, s, r):
         if r._pages:

@@ -18,11 +18,12 @@ allocator (`serve.kv_pages.PagePool`) and the continuous-batching
 scheduler. `engine_driven=False` runs the crank inline in
 `result()`/`stream()`/`wait()` — the deterministic single-threaded mode.
 
-Settings that need a later slice raise `MXNetError` naming the ROADMAP
-item instead of falling back: `engine_driven=True` (the dependency
-engine), `speculative_k > 0` (the widened decode step and
-`_rpa_multi_kernel`), `kv_dtype="int8"` (the RPA int8 page path) and
-`weight_dtype="int8"` (int8 weight snapshots).
+The serving fast path: `speculative_k=k` drafts up to k tokens a turn
+and verifies them in one widened step; `kv_dtype="int8"` stores the KV
+pages in int8 with per-page scales (about 4x the tokens in the same
+bytes); `weight_dtype="int8"` serves from per-channel int8 weight
+snapshots. `engine_driven=True` (the dependency engine) needs a later
+slice and raises `MXNetError` naming the ROADMAP item.
 
 Observability: per-request TTFT/latency histograms
 (`serve_ttft_seconds`, `serve_request_seconds`), `serve_tokens`, the
@@ -41,7 +42,8 @@ from ..models.transformer import decoder_weights, encoder_weights
 from ..observability import registry as _obs_registry
 from .decode import DecodeRuntime
 from .kv_pages import PagePool
-from .quant import kv_page_bytes, pages_for_budget
+from .quant import (kv_page_bytes, pages_for_budget,
+                    quantize_decoder_weights, quantize_encoder_weights)
 from .scheduler import Scheduler
 
 __all__ = ["Server"]
@@ -63,11 +65,6 @@ def _to(weights, device):
     return move(weights)
 
 
-def _unported(setting, item):
-    return MXNetError(f"Server({setting}) is not ported yet (ROADMAP.md, "
-                      f"{item})")
-
-
 class Server:
     """Continuous-batching inference server for a `TransformerNMT`.
 
@@ -78,10 +75,18 @@ class Server:
     budget denominator is prompt + generation); prefix_cache: share full
     prompt pages across requests through the content-hashed radix index;
     kv_hbm_bytes: size the pool from a device byte budget instead of a
-    page count. device: where the server runs — None means `mx.gpu(0)`
-    (raises without a CUDA device); `device="cpu"` runs the plain
-    versions of the kernels on the CPU. The model's weights are
-    snapshotted onto that device."""
+    page count; speculative_k: tokens drafted per turn and verified in
+    one widened step (0 = one-token turns). device: where the server
+    runs — None means `mx.gpu(0)` (raises without a CUDA device);
+    `device="cpu"` runs the plain versions of the kernels on the CPU.
+    The model's weights are snapshotted onto that device.
+
+    Low precision: `kv_dtype="int8"` stores K/V pages int8 with
+    per-page/per-head scales; `weight_dtype="int8"` runs the decode and
+    prefill products over per-output-channel int8 weight snapshots (the
+    model's weights stay fp32). A quantized server keeps a lazily built
+    full-precision twin: a `serve.quant` fault degrades that request to
+    it, with the output of an fp32 server."""
 
     def __init__(self, model, slots=8, page_size=16, num_pages=None,
                  max_src_len=32, max_new_tokens=32, max_prompt_len=0,
@@ -94,35 +99,35 @@ class Server:
             raise MXNetError("max_new_tokens must be >= 1")
         if speculative_k < 0:
             raise MXNetError("speculative_k must be >= 0")
-        if speculative_k > 0:
-            raise _unported("speculative_k>0", "Queue 1: serving fast "
-                            "path, with _rpa_multi_kernel in Queue 2")
-        if kv_dtype not in (None, "float32"):
-            raise _unported(f"kv_dtype={kv_dtype!r}",
-                            "Queue 2: the RPA int8 page path")
-        if weight_dtype not in (None, "float32"):
-            raise _unported(f"weight_dtype={weight_dtype!r}",
-                            "Queue 1: int8 serving")
+        if weight_dtype not in (None, "float32", "int8"):
+            raise MXNetError(f"weight_dtype must be None/'float32'/"
+                             f"'int8', got {weight_dtype!r}")
         if engine_driven:
-            raise _unported("engine_driven=True", "Queue 1: the dependency "
-                            "engine; pass engine_driven=False")
+            raise MXNetError("Server(engine_driven=True) is not ported yet "
+                             "(ROADMAP.md, Queue 1: the dependency engine);"
+                             " pass engine_driven=False")
         self.max_new_tokens = int(max_new_tokens)
         self.max_prompt_len = int(max_prompt_len)
-        self.speculative_k = 0
-        self.kv_dtype = None
-        self.weight_dtype = None
+        self.speculative_k = int(speculative_k)
+        self.kv_dtype = kv_dtype if kv_dtype != "float32" else None
+        self.weight_dtype = weight_dtype if weight_dtype != "float32" \
+            else None
         self.device = device
         dec_w = _to(decoder_weights(model), device)
         enc_w = _to(encoder_weights(model), device)
+        if self.weight_dtype == "int8":
+            dec_w = quantize_decoder_weights(dec_w)
+            enc_w = quantize_encoder_weights(enc_w)
         u = dec_w["embed"].shape[1]
         h = dec_w["num_heads"]
         n_layers = len(dec_w["layers"])
+        page_dtype = self.kv_dtype or dec_w["pos"].dtype
         budget_tokens = int(max_new_tokens) + self.max_prompt_len
         if num_pages is None:
             if kv_hbm_bytes is not None:
                 num_pages = pages_for_budget(
                     kv_hbm_bytes, n_layers, int(page_size), h, u // h,
-                    dec_w["pos"].dtype)
+                    page_dtype)
             else:
                 # every slot can hold a full-length request + null page
                 num_pages = slots * \
@@ -130,18 +135,28 @@ class Server:
         elif kv_hbm_bytes is not None:
             raise MXNetError("pass num_pages OR kv_hbm_bytes, not both")
         pbytes = kv_page_bytes(n_layers, int(page_size), h, u // h,
-                               dec_w["pos"].dtype)
+                               page_dtype)
         self._pool = PagePool(num_pages, page_size, page_bytes=pbytes)
         pages_per_slot = self._pool.pages_for(budget_tokens)
         self._rt = DecodeRuntime(
             dec_w, enc_w, slots=slots,
             num_pages=num_pages, page_size=page_size,
-            max_pages_per_slot=pages_per_slot, max_src_len=max_src_len)
+            max_pages_per_slot=pages_per_slot, max_src_len=max_src_len,
+            width=self.speculative_k + 1, kv_dtype=self.kv_dtype)
+        # a quantized server keeps the model so a serve.quant fault can
+        # degrade a request to a lazily built full-precision twin
+        self._model = model if (self.kv_dtype or self.weight_dtype) \
+            else None
+        self._fp_twin = None
+        self._fp_lock = threading.Lock()
+        quant_fallback = self._full_precision_decode if \
+            self._model is not None else None
         self._sched = Scheduler(self._rt, self._pool, bos_id=bos_id,
                                 eos_id=eos_id, max_queue=max_queue,
                                 max_retries=max_retries,
                                 static_batching=static_batching,
-                                prefix_cache=prefix_cache)
+                                prefix_cache=prefix_cache,
+                                quant_fallback=quant_fallback)
         self._closed = False
         # serialises submit() against close(): a submit that slips past
         # the closed check after shutdown drained the queue would strand
@@ -239,6 +254,37 @@ class Server:
         self._m_tps.set(tps)
         return tps
 
+    def _full_precision_decode(self, src, prompt, max_new,
+                               deadline=None):
+        """The serve.quant degradation path: decode ONE request through a
+        lazily built full-precision twin server (1 slot, inline, no
+        prefix cache, no speculation) on this server's device, so its
+        greedy output is an fp32 `Server`'s, and the request never
+        touches the quantized state or this server's page pool. The twin
+        is built at the first fault only. `deadline` is the request's
+        absolute monotonic deadline: the remaining budget becomes the
+        twin request's `deadline_ms`, so expiry surfaces as the same
+        `ServeDeadlineExceeded` as on the normal path."""
+        deadline_ms = None
+        if deadline is not None:
+            deadline_ms = max(0.0, (deadline - time.monotonic()) * 1e3)
+        with self._fp_lock:
+            if self._fp_twin is None:
+                self._fp_twin = Server(
+                    self._model, slots=1,
+                    page_size=self._pool.page_size,
+                    max_src_len=self._rt.max_src_len,
+                    max_new_tokens=self.max_new_tokens,
+                    max_prompt_len=self.max_prompt_len,
+                    bos_id=self._sched.bos_id, eos_id=self._sched.eos_id,
+                    prefix_cache=False, engine_driven=False,
+                    device=self.device)
+            h = self._fp_twin.submit(
+                src, max_new,
+                prompt_tokens=prompt if len(prompt) else None,
+                deadline_ms=deadline_ms)
+            return h.result(timeout=600)
+
     def close(self):
         """FAIL any still-pending requests (their handles unblock with
         `ServeError`, their pages return to the pool) — close never
@@ -248,6 +294,14 @@ class Server:
                 return
             self._closed = True
         self._sched.shutdown()
+        if self._rt.kv_quant:
+            # the gauge is last-writer-wins across servers (like
+            # serve_tokens_per_s); a closed pool's scale bytes are gone
+            _obs_registry().gauge("kv_page_scale_bytes").set(0)
+        with self._fp_lock:
+            if self._fp_twin is not None:
+                self._fp_twin.close()
+                self._fp_twin = None
 
     def __enter__(self):
         return self

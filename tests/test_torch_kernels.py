@@ -190,13 +190,15 @@ def test_wrappers_check_what_the_kernels_take():
 
 
 def test_unported_forms_raise():
-    """int8 pages and the widened query form belong to a later slice:
-    they raise instead of being ignored."""
+    """The int8 and widened forms take what their kernels take, on the
+    CPU too: scales come in pairs, and a widened q must be contiguous
+    (a column slice of the fused QKV output is not)."""
     qp, kp, vp, pt = (torch.from_numpy(a) for a in _paged_fixture())
     lens = torch.tensor([3, 4, 5], dtype=torch.int32)
     scales = torch.ones(kp.shape[0], kp.shape[2])
-    with pytest.raises(MXNetError, match="int8"):
-        tk.ragged_paged_attention(qp, kp, vp, pt, lens, k_scales=scales,
-                                  v_scales=scales)
-    with pytest.raises(MXNetError, match="widened"):
-        tk.ragged_paged_attention(qp[:, None], kp, vp, pt, lens)
+    with pytest.raises(MXNetError, match="together"):
+        tk.ragged_paged_attention(qp, kp.to(torch.int8), vp.to(torch.int8),
+                                  pt, lens, k_scales=scales)
+    wide = torch.cat([qp[:, None]] * 3, dim=-1).expand(3, 2, 2, 24)
+    with pytest.raises(MXNetError, match="contiguous q"):
+        tk.ragged_paged_attention(wide[..., :8], kp, vp, pt, lens)

@@ -256,13 +256,11 @@ def test_remap_pages_moves_pool_rows(models):
     assert rt.v_pages[0, :, 0, 0, 0].tolist() == [0, 6, 8, 6, 8]
 
 
-@pytest.mark.parametrize("setting", [
-    {"speculative_k": 2}, {"kv_dtype": "int8"}, {"weight_dtype": "int8"},
-    {"engine_driven": True}], ids=["speculative", "kv_int8", "weight_int8",
-                                   "engine_driven"])
+@pytest.mark.parametrize("setting", [{"engine_driven": True}],
+                         ids=["engine_driven"])
 def test_unported_settings_raise(models, setting):
-    """Settings of later slices raise MXNetError naming the ROADMAP
-    instead of falling back."""
+    """The setting of a later slice (the dependency engine) raises
+    MXNetError naming the ROADMAP instead of falling back."""
     kw = dict(SERVER_KW, **setting)
     with pytest.raises(MXNetError, match="ROADMAP"):
         tserve.Server(models[3], device="cpu", **kw)
