@@ -20,6 +20,15 @@ Phases (any failure raises and the script exits non-zero):
                  table), the flash backward pair (training shapes; also
                  against float64 autograd) and LayerNorm (training shape;
                  D = 512 only).
+  2b. conv1x1  — the conv1x1 + BN-stats kernel, fp32 and bf16, against a
+                 float64 evaluation on the card at the probe's four
+                 ResNet-50 shapes (batch 128) and an odd shape; kernel,
+                 plain and library (`torch.matmul` + the two means) times.
+  2c. rtc      — `mx.rtc.CudaModule` compiles an axpy and a templated
+                 block sum (dynamic shared memory) with NVRTC; both launch
+                 (counters zeroed just before, read just after) and match
+                 `2 * x + y` and `x.sum()`; a syntax error raises with the
+                 compiler's log; axpy timed against `torch.add`.
   3. serve     — full-width `transformer_base(36548)` (random weights from
                  a seed) behind `serve.Server(slots=8, page_size=16,
                  max_src_len=128, max_new_tokens=32)`: 16 mixed-length
@@ -69,6 +78,26 @@ Phases (any failure raises and the script exits non-zero):
                  through save_parameters / load_parameters, and one step
                  at full width (B=2, S=16) must give the card's loss and
                  every gradient within the stated tolerances.
+  7. resnet train — `gluon.model_zoo.vision.get_model("resnet50_v1",
+                 layout="NHWC")` at full width and depth, Xavier (gaussian,
+                 in, 2) from `mx.random.seed(0)`, SGD (lr 0.1, momentum
+                 0.9, wd 1e-4) through `gluon.Trainer`, 10 steps at B=128
+                 on synthetic 224 x 224 images and labels 0-999 from numpy
+                 seed 0. The loss must stay finite, every running
+                 statistic must move, and no port kernel may launch (the
+                 JAX ResNet runs no Pallas kernel either). Images/s and
+                 step ms over steps 3-10, peak memory, the cuDNN settings,
+                 then one step under torch.profiler.
+  8. resnet conv1x1 — one training-mode forward of that net at B=128
+                 with a hook on each of the 30 stride-1 1x1 convolutions;
+                 with the counters zeroed, each one's input and weight go
+                 through the conv1x1 kernel as (B*H*W, Cin) @ (Cin, Cout)
+                 in fp32 and in bf16 (30 launches each); y must match the
+                 Conv2D's own output and the statistics float64 ones.
+  9. resnet card vs CPU — one SGD step at B=4 from the same initial
+                 weights (a saved file) on the card and on the CPU: the
+                 loss, every gradient and every running statistic agree
+                 within the stated limits.
 
 Output: progress lines, then `nvidia-smi`'s name and power limit, then
 one JSON line `{"kernels": [...]}`, then the last line
@@ -92,6 +121,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # kernels compute in fp32 FMAs
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# the dense bf16 tensor-core rate: the least time of the bf16 conv1x1
+# product, though its first kernel runs it through fp32 FMAs
+PEAK_BF16_FLOPS = 989e12
 
 FLASH_TOL = dict(rtol=2e-4, atol=2e-5)   # kernel vs plain: fp32, sums in
 RPA_TOL = dict(rtol=2e-5, atol=2e-6)     # another order than torch's
@@ -124,6 +156,35 @@ FAST_KW = dict(slots=8, page_size=16, max_src_len=128, max_new_tokens=32,
                max_prompt_len=16, engine_driven=False)
 CARD_VS_CPU = (0, 1, 3)          # fast-path requests also run on the CPU
 TRAIN_B, TRAIN_S = 32, 64        # bench_nmt.py's seq: 64 src + 64 tgt
+
+# the conv1x1 kernel: the probe's four ResNet-50 shapes at batch 128
+# (tools/probe_fused_convbn.py:121-126) and an odd one
+CONV1X1_SHAPES = [(128 * 56 * 56, 64, 256), (128 * 28 * 28, 512, 128),
+                  (128 * 14 * 14, 1024, 256), (128 * 7 * 7, 512, 2048)]
+CONV1X1_ODD = (300, 77, 50)
+# conv1x1 kernel vs float64 on the card: fp32 y within 1e-5 x max|y| (fp32
+# sums of at most 2048 products); mean and meansq within 1e-5 x
+# max|meansq| + 1e-6, the JAX test's rtol / atol (tests/test_pallas.py:
+# 240-244) on the scale of the statistics; bf16 y within one bf16 ulp of
+# the float64 value plus the fp32 limit
+CONV1X1_Y_RTOL = 1e-5
+CONV1X1_STATS_RTOL, CONV1X1_STATS_ATOL = 1e-5, 1e-6
+# rtc: axpy is exact up to one fp32 rounding of 2x + y (|x|, |y| < 6);
+# the block sum is fp32 sums over 2^24 values in another order
+RTC_N = 1 << 24
+RTC_AXPY_ATOL = 2e-6
+RTC_SUM_RTOL = 1e-5
+RESNET_B, RESNET_STEPS = 128, 10
+# ResNet-50 card vs CPU, one step at B=4 (phase_resnet_card_vs_cpu): the
+# loss through 53 convolutions and BatchNorms in fp32, cuDNN's algorithms
+# against oneDNN's (TF32 off), within 1e-4; each gradient and running
+# statistic, in norm, within 10x what a one-thread CPU run differs from
+# the default one (the net's own fp32 conditioning; that parameter's or
+# the median of its kind, the larger), or 10x the floor: 1e-4 for
+# gradients, 1e-5 for the statistics (one forward pass)
+RESNET_LOSS_RTOL = 1e-4
+RESNET_SPREAD_FACTOR = 10
+RESNET_GRAD_FLOOR, RESNET_STAT_FLOOR = 1e-4, 1e-5
 
 BOS, EOS = 2, 3
 
@@ -182,9 +243,9 @@ def graph_ms(fn, calls=20, iters=20):
     return start.elapsed_time(end) / (iters * calls)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -192,7 +253,10 @@ def phase_build(mx, torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; cudnn "
+        f"{torch.backends.cudnn.version()} benchmark="
+        f"{torch.backends.cudnn.benchmark} deterministic="
+        f"{torch.backends.cudnn.deterministic}")
     from mxnet_tpu_torch.ops import _build
     _build.library()
     info = _build.build_info()
@@ -1134,6 +1198,441 @@ def phase_train_card_vs_cpu(mx, torch, init_file):
         f"abs err {worst[0]:.3e} ({worst[1]})")
 
 
+
+# ---------------------------------------------------------------------------
+# ResNet slice: conv1x1 + BN-stats kernel, rtc, ResNet-50 training
+# ---------------------------------------------------------------------------
+def _bf16_ulp(torch, v):
+    """One bf16 unit in the last place at |v| (8 significant bits)."""
+    mag = v.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _conv1x1_errors(torch, x, w, got):
+    """The kernel's (y, mean, meansq) against a float64 evaluation of the
+    same product on the card: max abs errors, checked against the
+    CONV1X1_* limits. Each bf16 y must be within one bf16 ulp of the
+    float64 product of the bf16 operands, plus the fp32 limit (the fp32
+    sum's own error, which decides the rounding of values near 0)."""
+    y64 = x.double() @ w.double()
+    mean64, msq64 = y64.mean(0), (y64 * y64).mean(0)
+    y, mean, msq = got
+    err_y = (y.double() - y64).abs()
+    y_lim = CONV1X1_Y_RTOL * y64.abs().max().item()
+    if y.dtype == torch.bfloat16:
+        y_ok = bool((err_y <= _bf16_ulp(torch, y64) + y_lim).all())
+        y_lim = f"one bf16 ulp + {y_lim:.3e}"
+    else:
+        y_ok = err_y.max().item() <= y_lim
+    s_lim = CONV1X1_STATS_RTOL * msq64.abs().max().item() \
+        + CONV1X1_STATS_ATOL
+    errs = dict(y=err_y.max().item(),
+                mean=(mean.double() - mean64).abs().max().item(),
+                meansq=(msq.double() - msq64).abs().max().item())
+    ok = (y_ok and errs["mean"] <= s_lim and errs["meansq"] <= s_lim
+          and bool(torch.isfinite(y).all()))
+    return ok, errs, (y_lim, s_lim)
+
+
+def phase_conv1x1(mx, torch):
+    """The conv1x1 + BN-stats kernel against a float64 evaluation on the
+    card, fp32 and bf16, at the probe's four ResNet-50 shapes (batch 128)
+    and an odd one; the kernel, its plain version and the library pair
+    (`torch.matmul`, then the two means: the probe's `xla_conv_stats`)
+    timed by CUDA-graph replay. `ms` in the row is the sum over the four
+    probe shapes, as the probe's TOTAL line; so are the bound and the
+    plain and library times."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for dt, name, peak, replaces in (
+            (torch.float32, "conv1x1_bn_stats", PEAK_FP32_FLOPS,
+             "mxnet_tpu/ops/pallas_kernels.py:1305"),
+            (torch.bfloat16, "conv1x1_bn_stats_bf16", PEAK_BF16_FLOPS,
+             "tools/probe_fused_convbn.py:31")):
+        item = torch.finfo(dt).bits // 8
+        worst, per_shape = 0.0, []
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for m, k, n in [*CONV1X1_SHAPES, CONV1X1_ODD]:
+            x = torch.randn((m, k), generator=g, device=dev).to(dt)
+            w = (torch.randn((k, n), generator=g, device=dev) * 0.05).to(dt)
+            got = K.conv1x1_bn_stats(x, w)
+            torch.cuda.synchronize()
+            ok, errs, lims = _conv1x1_errors(torch, x, w, got)
+            check(ok, f"{name} ({m}, {k}, {n}) vs float64: max abs errs "
+                      f"{errs}, limits (y, stats) {lims}")
+            worst = max(worst, *errs.values())
+            log(f"{name} ({m}, {k}, {n}): max abs err vs float64 {errs} "
+                f"(limits: y {lims[0]}, stats {lims[1]:.3e})")
+            if (m, k, n) == CONV1X1_ODD:
+                continue
+
+            def library(x=x, w=w):
+                yf = torch.matmul(x, w).float()
+                return yf.mean(0), (yf * yf).mean(0)
+            fns = {"kernel": lambda x=x, w=w: K.conv1x1_bn_stats(x, w),
+                   "plain": lambda x=x, w=w: K._conv1x1_stats_plain(x, w),
+                   "library": library}
+            dev_ms = {key: graph_ms(fn, calls=5, iters=10)
+                      for key, fn in fns.items()}
+            # x, w read once, y written once, two (N,) fp32 outputs; the
+            # product's 2MKN and the statistics' 3 FLOP an output
+            bms, by = bound(item * (m * k + k * n + m * n) + 8 * n,
+                            2 * m * k * n + 3 * m * n, peak)
+            tot["ms"] += dev_ms["kernel"]
+            tot["plain_ms"] += dev_ms["plain"]
+            tot["library_ms"] += dev_ms["library"]
+            tot["bound_ms"] += bms
+            per_shape.append(dict(shape=[m, k, n], bound_by=by,
+                                  bound_ms=bms, **dev_ms))
+            log(f"{name} ({m}, {k}, {n}): device (CUDA graph) {dev_ms}; "
+                f"bound {bms:.6f} ms ({by}); "
+                f"{2 * m * k * n / dev_ms['kernel'] / 1e9:.2f} TFLOP/s")
+            del x, w, got
+        # the summed bound is bound by what bounds most of it
+        by_bytes = sum(r["bound_ms"] for r in per_shape
+                       if r["bound_by"] == "bytes")
+        rows.append(dict(name=name, route="cuda",
+                         source="mxnet_tpu_torch/ops/csrc/conv1x1_bn_stats.cu",
+                         replaces=replaces, max_abs_err=worst,
+                         bound_by="bytes" if 2 * by_bytes > tot["bound_ms"]
+                         else "operations",
+                         per_shape=per_shape, call_ms=None, **tot))
+    torch.cuda.empty_cache()
+    return rows
+
+
+RTC_SOURCE = r"""
+extern "C" __global__ void axpy(const float *x, const float *y, float *o,
+                                int n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = 2.0f * x[i] + y[i];
+}
+
+// a C++ template, fetched through its exported name expression
+template <typename T>
+__global__ void block_sum(const T *x, T *out, int n) {
+  extern __shared__ float part[];
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s += (float)x[i];
+  part[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[0] = (T)part[0];
+}
+"""
+
+
+def phase_rtc(mx, torch):
+    """`mx.rtc`: compile the JAX test's axpy (o = 2x + y) and a templated
+    block sum with an `int n` and dynamic shared memory; their launches
+    (counted from zero) are held against `2 * x + y` and `x.sum()`; a
+    source with a syntax error must raise with NVRTC's log; axpy timed
+    against its plain version and `torch.add(y, x, alpha=2)`."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    t0 = time.perf_counter()
+    mod = mx.rtc.CudaModule(RTC_SOURCE, exports=["block_sum<float>"])
+    log(f"rtc: compiled in {time.perf_counter() - t0:.2f} s for {mod.arch} "
+        f"with {mx.rtc._lib('nvrtc').path}")
+    axpy = mod.get_kernel("axpy", "const float *x, const float *y, "
+                                  "float *o, int n")
+    bsum = mod.get_kernel("block_sum<float>", "const float *x, float *out, "
+                                              "int n")
+    n = RTC_N
+    x = mx.nd.NDArray(torch.randn(n, generator=g, device=dev))
+    y = mx.nd.NDArray(torch.randn(n, generator=g, device=dev))
+    o = mx.nd.NDArray(torch.empty(n, device=dev))
+    s = mx.nd.NDArray(torch.empty(1, device=dev))
+    threads = 1024
+    K.reset_launch_counts()
+    axpy.launch([x, y, o, n], mx.gpu(0), (-(-n // 256), 1, 1), (256, 1, 1))
+    bsum.launch([x, s, n], mx.gpu(0), (1, 1, 1), (threads, 1, 1),
+                shared_mem=4 * threads)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(launches["rtc"] == 2 and sum(launches.values()) == 2,
+          f"rtc launches {launches}")
+    xt, yt = x._data, y._data
+    err_axpy = (o._data - (2 * xt + yt)).abs().max().item()
+    check(err_axpy <= RTC_AXPY_ATOL, f"rtc axpy: max abs err {err_axpy}")
+    want = xt.double().sum().item()
+    err_sum = abs(s._data.item() - want)
+    lim_sum = RTC_SUM_RTOL * xt.abs().sum().item()
+    check(err_sum <= lim_sum, f"rtc block_sum: {s._data.item()} vs {want}")
+    log(f"rtc: axpy max abs err {err_axpy:.3e} (limit {RTC_AXPY_ATOL}); "
+        f"block_sum {s._data.item():.6f} vs float64 {want:.6f} (limit "
+        f"{lim_sum:.3e}); launches {launches['rtc']}")
+    try:
+        mx.rtc.CudaModule('extern "C" __global__ void bad(float *x) '
+                          '{ x[0] = ; }')
+        check(False, "rtc compiled a source with a syntax error")
+    except mx.MXNetError as e:
+        check("NVRTC log" in str(e) and "error" in str(e),
+              f"rtc compile error without the log: {e}")
+        log(f"rtc: syntax error refused: {str(e).splitlines()[-2:]}")
+
+    fns = {"kernel": lambda: axpy.launch([x, y, o, n], mx.gpu(0),
+                                         (-(-n // 256),), (256,)),
+           "plain": lambda: 2 * xt + yt,
+           "library": lambda: torch.add(yt, xt, alpha=2)}
+    call = {key: cuda_ms(fn) for key, fn in fns.items()}
+    dev_ms = {key: graph_ms(fn) for key, fn in fns.items()}
+    bms, by = bound(3 * 4 * n, 2 * n)
+    log(f"rtc axpy n={n}: per call (host launch included) {call}; device "
+        f"(CUDA graph) {dev_ms}; bound {bms:.6f} ms ({by})")
+    row = dict(name="rtc", route="cuda", source="mxnet_tpu_torch/rtc.py",
+               replaces="mxnet_tpu/rtc.py:55", max_abs_err=err_axpy,
+               ms=dev_ms["kernel"], plain_ms=dev_ms["plain"], bound_ms=bms,
+               bound_by=by, library_ms=dev_ms["library"],
+               call_ms=call["kernel"])
+    return row, launches
+
+
+def _resnet_batch(mx, b, ctx):
+    """Synthetic NHWC images and labels 0-999 from numpy seed 0."""
+    rng = np.random.RandomState(0)
+    images = rng.rand(b, 224, 224, 3).astype(np.float32)
+    labels = rng.randint(0, 1000, b).astype(np.int32)
+    return mx.nd.array(images, ctx=ctx), mx.nd.array(labels, ctx=ctx)
+
+
+def _resnet50(mx):
+    return mx.gluon.model_zoo.vision.get_model("resnet50_v1", layout="NHWC")
+
+
+def _resnet_step(mx, net, trainer, ce, x, y):
+    with mx.autograd.record():
+        loss = ce(net(x), y).mean()
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def _resnet_trainer(mx, net):
+    return mx.gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9,
+                             "wd": 1e-4})
+
+
+def phase_resnet_train(mx, torch, init_file):
+    """Full-width ResNet-50 v1 (NHWC) through the Gluon loop at B=128 on
+    the card: SGD with momentum, 10 steps. The initial weights go to
+    `init_file` for the card-vs-CPU phase. The port's kernel counters
+    must not move: the JAX ResNet runs no Pallas kernel either."""
+    K = mx.ops.kernels
+    ctx = mx.gpu(0)
+    mx.random.seed(0)
+    net = _resnet50(mx)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx)
+    net(mx.nd.zeros((2, 224, 224, 3), ctx=ctx))   # the deferred shapes
+    net.save_parameters(init_file)
+    x, y = _resnet_batch(mx, RESNET_B, ctx)
+    params = net._collect_params_with_prefix()
+    stats0 = {n: p.data()._data.clone() for n, p in params.items()
+              if n.endswith(("running_mean", "running_var"))}
+    trainer = _resnet_trainer(mx, net)
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, t_window = [], None
+    for step in range(RESNET_STEPS):
+        if step == 2:                  # steps 3-10 are timed
+            torch.cuda.synchronize()
+            t_window = time.perf_counter()
+        losses.append(_resnet_step(mx, net, trainer, ce, x, y)._data
+                      .detach())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_window
+    launches = dict(K.LAUNCHES)
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(sum(launches.values()) == 0,
+          f"the ResNet step launched a port kernel: {launches}")
+    moved = sum(not torch.equal(p.data()._data, stats0[n])
+                for n, p in params.items() if n in stats0)
+    check(moved == len(stats0), f"{len(stats0) - moved} running statistics "
+                                f"did not move")
+    for name, p in params.items():
+        check(p.data()._data.is_cuda, f"{name} is not on the card")
+    steps = RESNET_STEPS - 2
+    summary = dict(model="resnet50_v1", layout="NHWC", batch=RESNET_B,
+                   params=sum(p.data().size for p in params.values()
+                              if p.grad_req != "null"),
+                   losses=losses, images_per_s=steps * RESNET_B / wall,
+                   mean_step_ms=wall / steps * 1e3, launches=launches,
+                   running_stats_moved=moved,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   cudnn=dict(benchmark=torch.backends.cudnn.benchmark,
+                              deterministic=
+                              torch.backends.cudnn.deterministic,
+                              allow_tf32=torch.backends.cudnn.allow_tf32,
+                              version=torch.backends.cudnn.version()))
+    log("resnet training " + json.dumps(summary))
+    got = device_profile(torch, lambda: _resnet_step(mx, net, trainer, ce,
+                                                     x, y))
+    if got is not None:
+        log_profile("resnet profile", *got, "1 training step")
+    return net, x, launches
+
+
+def phase_resnet_conv1x1(mx, torch, net, x):
+    """The conv1x1 kernel fed the live activations of the ResNet-50 of
+    `phase_resnet_train`: one training-mode forward at B=128 with a hook
+    on every stride-1 1x1 Conv2D (each feeds a BatchNorm in v1: 16
+    expand, 13 reduce and the stage-1 downsample convolutions). With the
+    counters zeroed, each hooked convolution's input goes through the
+    kernel as (B*H*W, Cin) @ (Cin, Cout), in fp32 and in bf16; then y is
+    held against the Conv2D's own output (fp32) or the float64 product
+    of the bf16 operands, and the statistics against float64 ones."""
+    K = mx.ops.kernels
+    Conv2D = mx.gluon.nn.Conv2D
+    convs = [m for m in net.modules() if isinstance(m, Conv2D)
+             and m._kernel == (1, 1) and m._strides == (1, 1)]
+    check(len(convs) == 30, f"{len(convs)} stride-1 1x1 convolutions")
+    seen = []
+    hooks = [c.register_forward_hook(
+        lambda mod, args, out: seen.append(
+            (args[0]._data.detach(), mod.weight.data()._data.detach(),
+             out._data.detach()))) for c in convs]
+    try:
+        with mx.autograd.train_mode():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    check(len(seen) == 30, f"{len(seen)} hooked convolutions ran")
+    operands = []
+    for xin, w, yconv in seen:
+        cin, cout = xin.shape[-1], w.shape[0]
+        x2d = xin.reshape(-1, cin).contiguous()
+        w2d = w.reshape(cout, cin).t().contiguous()
+        operands.append((x2d, w2d, yconv.reshape(-1, cout)))
+    K.reset_launch_counts()
+    outs = [(K.conv1x1_bn_stats(x2d, w2d),
+             K.conv1x1_bn_stats(x2d.bfloat16(), w2d.bfloat16()))
+            for x2d, w2d, _ in operands]
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want.update(conv1x1_bn_stats=30, conv1x1_bn_stats_bf16=30)
+    check(launches == want, f"live conv1x1 launches {launches} != {want}")
+    worst = {"f32": {}, "bf16": {}}
+    for (x2d, w2d, yconv), (f32, bf16) in zip(operands, outs):
+        y64 = yconv.double()
+        err_y = (f32[0].double() - y64).abs().max().item()
+        y_lim = CONV1X1_Y_RTOL * y64.abs().max().item()
+        msq64 = (y64 * y64).mean(0)
+        s_lim = CONV1X1_STATS_RTOL * msq64.abs().max().item() \
+            + CONV1X1_STATS_ATOL
+        errs = dict(y=err_y,
+                    mean=(f32[1].double() - y64.mean(0)).abs().max().item(),
+                    meansq=(f32[2].double() - msq64).abs().max().item())
+        shape = tuple(x2d.shape) + (w2d.shape[1],)
+        check(err_y <= y_lim and errs["mean"] <= s_lim
+              and errs["meansq"] <= s_lim,
+              f"live conv1x1 {shape} fp32 vs the Conv2D output: {errs}, "
+              f"limits y {y_lim}, stats {s_lim}")
+        ok, errs16, lims = _conv1x1_errors(torch, x2d.bfloat16(),
+                                           w2d.bfloat16(), bf16)
+        check(ok, f"live conv1x1 {shape} bf16 vs float64: {errs16}, limits "
+                  f"{lims}")
+        for tag, e in (("f32", errs), ("bf16", errs16)):
+            for key, v in e.items():
+                worst[tag][key] = max(worst[tag].get(key, 0.0), v)
+    shapes = sorted({tuple(o[0].shape) + (o[1].shape[1],) for o in operands})
+    log(f"resnet conv1x1: 30 live stride-1 1x1 convolutions, {len(shapes)} "
+        f"shapes {shapes}; worst max abs errs {worst}; launches {launches}")
+    return launches
+
+
+def _resnet_one_step(mx, ctx, init_file):
+    """(loss, gradients, running statistics after the step) of one SGD
+    step of full-width ResNet-50 v1 (NHWC) at B=4 from `init_file`."""
+    net = _resnet50(mx)
+    net.load_parameters(init_file, ctx=ctx)
+    x, y = _resnet_batch(mx, 4, ctx)
+    trainer = _resnet_trainer(mx, net)
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = ce(net(x), y).mean()
+    loss.backward()
+    params = net._collect_params_with_prefix()
+    grads = {n: p.grad().asnumpy() for n, p in params.items()
+             if p.grad_req != "null"}
+    trainer.step(4)
+    stats = {n: p.data().asnumpy() for n, p in params.items()
+             if p.grad_req == "null"}
+    return float(loss.asnumpy()), grads, stats
+
+
+def _norm_rel(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def phase_resnet_card_vs_cpu(mx, torch, init_file):
+    """One SGD step of full-width ResNet-50 v1 (NHWC) at B=4 from the same
+    initial weights on the card and on the CPU: the loss, every gradient
+    and every running statistic agree.
+
+    At this random initialisation and batch the gradients are ill
+    conditioned: BatchNorm over 196 values a channel in stage 4 and the
+    ReLU kinks amplify fp32 rounding about 1e5 times, so two CPU runs
+    that only split their sums differently (one thread, then all) already
+    differ by about 1 % in some gradients' norm. So each gradient and
+    running statistic is held, in norm, against that CPU-vs-CPU spread:
+    the card may differ from the CPU by at most RESNET_SPREAD_FACTOR
+    times the larger of its own spread and the median spread of its
+    kind (a few kinks decide one parameter's spread, so it can be small
+    by chance), or of the floor."""
+    card = _resnet_one_step(mx, mx.gpu(0), init_file)
+    cpu = _resnet_one_step(mx, mx.cpu(), init_file)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu1 = _resnet_one_step(mx, mx.cpu(), init_file)
+    finally:
+        torch.set_num_threads(threads)
+    check(abs(card[0] - cpu[0]) <= RESNET_LOSS_RTOL * abs(cpu[0]),
+          f"resnet card vs CPU loss {card[0]} vs {cpu[0]}")
+    report = {}
+    for i, kind, floor in ((1, "gradient", RESNET_GRAD_FLOOR),
+                           (2, "running statistic", RESNET_STAT_FLOOR)):
+        check(set(card[i]) == set(cpu[i]) == set(cpu1[i]) and cpu[i],
+              f"resnet {kind} names differ")
+        spread = {n: _norm_rel(cpu1[i][n], w) for n, w in cpu[i].items()}
+        # a parameter's own spread, or the typical one where its own is
+        # smaller by chance (a few kinks decide it)
+        typical = float(np.median(list(spread.values())))
+        worst = (0.0, "", 0.0, 0.0, 0.0)
+        for name, want in cpu[i].items():
+            err = _norm_rel(card[i][name], want)
+            lim = RESNET_SPREAD_FACTOR * max(spread[name], typical, floor)
+            check(err <= lim, f"resnet card vs CPU {kind} {name}: norm-"
+                              f"relative error {err} > {lim} (CPU spread "
+                              f"{spread[name]}, median {typical})")
+            max_abs = float(np.abs(card[i][name] - want).max())
+            worst = max(worst, (err / lim, name, err, spread[name], max_abs))
+        report[kind] = dict(count=len(cpu[i]), worst_share=worst[0],
+                            worst=worst[1], err=worst[2], spread=worst[3],
+                            max_abs_err=worst[4], median_spread=typical,
+                            max_spread=max(spread.values()),
+                            max_err=max(_norm_rel(card[i][n], w)
+                                        for n, w in cpu[i].items()))
+    log(f"resnet card vs cpu (B=4): loss {card[0]:.7f} vs {cpu[0]:.7f} "
+        f"(rtol {RESNET_LOSS_RTOL}), one-thread CPU {cpu1[0]:.7f}; norm-"
+        f"relative errors within {RESNET_SPREAD_FACTOR} x max(CPU spread, "
+        f"median spread, floor): " + json.dumps(report))
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -1158,7 +1657,10 @@ def main():
     phase_build(mx, torch)
     kernels = [phase_flash(mx, torch), phase_rpa(mx, torch),
                *phase_rpa_fastpath(mx, torch),
-               *phase_flash_bwd(mx, torch), phase_ln(mx, torch)]
+               *phase_flash_bwd(mx, torch), phase_ln(mx, torch),
+               *phase_conv1x1(mx, torch)]
+    rtc_row, rtc_launches = phase_rtc(mx, torch)
+    kernels.append(rtc_row)
     model, srv, reqs, handles, serve_launches = phase_serve(mx, torch)
     phase_profile(mx, torch, srv, reqs)
     phase_card_vs_cpu(mx, torch, model, srv, reqs, handles)
@@ -1169,10 +1671,21 @@ def main():
         init_file = os.path.join(tmp, "transformer_base_init.params")
         train_launches = phase_train(mx, torch, init_file)
         phase_train_card_vs_cpu(mx, torch, init_file)
+        torch.cuda.empty_cache()
+        resnet_init = os.path.join(tmp, "resnet50_v1_init.params")
+        net, images, resnet_launches = phase_resnet_train(mx, torch,
+                                                          resnet_init)
+        conv_launches = phase_resnet_conv1x1(mx, torch, net, images)
+        del net, images
+        torch.cuda.empty_cache()
+        phase_resnet_card_vs_cpu(mx, torch, resnet_init)
     for k in kernels:
         by_path = {"serve": serve_launches[k["name"]],
                    "fastpath": fast_launches[k["name"]],
-                   "train": train_launches[k["name"]]}
+                   "train": train_launches[k["name"]],
+                   "rtc": rtc_launches[k["name"]],
+                   "resnet_train": resnet_launches[k["name"]],
+                   "resnet_conv1x1": conv_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         check(k["launches"] > 0, f"{k['name']} never launched on a path")
@@ -1185,8 +1698,9 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "call_ms")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in kernels]}), flush=True)
+    print(json.dumps({"kernels": [{key: k[key] for key in keys + ("per_shape",)
+                                   if key in k} for k in kernels]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

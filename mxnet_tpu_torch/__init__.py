@@ -27,11 +27,15 @@ CPU request they raise `MXNetError`. The kernels are CUDA C++ written
 for `sm_90a` (`ops/csrc/`), built with `nvcc` at first use; on CPU
 tensors their plain PyTorch versions run instead.
 
-Three slices are ported: serving (TransformerNMT through `serve.Server`),
+Four slices are ported: serving (TransformerNMT through `serve.Server`),
 Gluon training (NDArray, autograd, Gluon blocks and layers, losses,
-optimizers and the Trainer, on the same TransformerNMT) and the serving
+optimizers and the Trainer, on the same TransformerNMT), the serving
 fast path (`Server(speculative_k=k, kv_dtype="int8",
-weight_dtype="int8")`). ROADMAP.md lists what is still to be ported.
+weight_dtype="int8")`) and ResNet training through Gluon
+(`gluon.model_zoo.vision.get_model("resnet50_v1")`, convolution,
+pooling, BatchNorm), with `ops.conv1x1_bn_stats` and runtime CUDA
+compilation (`rtc.CudaModule`). ROADMAP.md lists what is still to be
+ported.
 """
 
 __version__ = "0.1.0"
@@ -55,9 +59,10 @@ from . import gluon
 from . import models
 from . import contrib
 from . import convert
+from . import rtc
 from . import serve
 
 __all__ = ["MXNetError", "base", "context", "cpu", "gpu", "num_gpus",
            "observability", "profiler", "fault", "random", "initializer",
            "init", "autograd", "ndarray", "nd", "ops", "optimizer", "gluon",
-           "models", "contrib", "convert", "serve"]
+           "models", "contrib", "convert", "rtc", "serve"]

@@ -1,11 +1,12 @@
 """mx.gluon (counterpart of `mxnet_tpu/gluon/`): blocks, parameters, the
-basic layers, losses and the Trainer."""
-from . import block, loss, nn, parameter, trainer
+basic, convolution and pooling layers, losses, the Trainer and the
+vision zoo's ResNets."""
+from . import block, loss, model_zoo, nn, parameter, trainer
 from .block import Block, HybridBlock
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["block", "loss", "nn", "parameter", "trainer", "Block",
+__all__ = ["block", "loss", "model_zoo", "nn", "parameter", "trainer", "Block",
            "HybridBlock", "Parameter", "ParameterDict",
            "DeferredInitializationError", "Trainer"]

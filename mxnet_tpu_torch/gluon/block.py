@@ -34,6 +34,15 @@ from .parameter import DeferredInitializationError, Parameter, \
 __all__ = ["Block", "HybridBlock"]
 
 
+def _report_aux_update(param, new_value):
+    """Write a layer's new auxiliary state (BatchNorm's running
+    statistics) into its parameter, in place and outside autograd: the
+    JAX package rebinds the array, and its traced path returns the
+    update instead (`mxnet_tpu/gluon/block.py:154`)."""
+    with torch.no_grad():
+        param.data()._data.copy_(new_value)
+
+
 class _NameManager:
     _lock = threading.Lock()
     _counters = {}

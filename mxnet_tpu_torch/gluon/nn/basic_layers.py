@@ -1,5 +1,5 @@
 """Gluon basic layers (counterpart of `mxnet_tpu/gluon/nn/
-basic_layers.py`): the ones TransformerNMT training needs."""
+basic_layers.py`): the ones TransformerNMT and ResNet training need."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,11 +9,13 @@ from ... import autograd
 from ... import random as _random
 from ...base import MXNetError
 from ...ndarray.ndarray import _apply
+from ...ops import nn_ops
 from ...ops.kernels import fused_layer_norm
-from ..block import Block, HybridBlock
+from ..block import Block, HybridBlock, _report_aux_update
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "Embedding", "LayerNorm"]
+           "Embedding", "LayerNorm", "BatchNorm", "BatchNormReLU",
+           "Activation", "Flatten", "Identity"]
 
 
 class _SequentialContainer:
@@ -168,3 +170,95 @@ class LayerNorm(HybridBlock):
         eps = self._epsilon
         return _apply(lambda a, g, b: fused_layer_norm(a, g, b, eps),
                       [x, gamma, beta])
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalisation over every axis but `axis` (1 for NCHW, 3 for
+    NHWC), through `ops.nn_ops.batch_norm`. In training mode (inside
+    `autograd.record()` or `train_mode()`, `use_global_stats=False`) it
+    normalises with the batch statistics and moves `running_mean` /
+    `running_var` towards them; otherwise the running statistics
+    normalise. The running statistics are `grad_req="null"` parameters,
+    so the Trainer never updates them."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, in_channels=0,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._use_global_stats = use_global_stats
+        self.in_channels = in_channels
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if scale else "null")
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if center else "null")
+            self.running_mean = self.params.get(
+                "running_mean", shape=(in_channels,), init="zeros",
+                allow_deferred_init=True, grad_req="null")
+            self.running_var = self.params.get(
+                "running_var", shape=(in_channels,), init="ones",
+                allow_deferred_init=True, grad_req="null")
+
+    def _infer_shapes(self, x):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p._finish_deferred_init((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        training = autograd.is_training() and not self._use_global_stats
+        new = {}
+
+        def bn(a, g, b, mm, mv):
+            y, new["mean"], new["var"] = nn_ops.batch_norm(
+                a, g, b, mm, mv, self._epsilon, self._momentum, training,
+                self._axis)
+            return y
+        out = _apply(bn, [x, gamma, beta, running_mean, running_var])
+        if training:
+            _report_aux_update(self.running_mean, new["mean"])
+            _report_aux_update(self.running_var, new["var"])
+        return out
+
+    def __repr__(self):
+        return (f"BatchNorm(axis={self._axis}, eps={self._epsilon}, "
+                f"momentum={self._momentum}, in_channels={self.in_channels})")
+
+
+class BatchNormReLU(BatchNorm):
+    """BatchNorm followed by a ReLU."""
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        return F.relu(super().hybrid_forward(F, x, *args, **kwargs))
+
+
+class Activation(HybridBlock):
+    def __init__(self, activation, **kwargs):
+        super().__init__(**kwargs)
+        self._act_type = activation
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
+    def __repr__(self):
+        return f"Activation({self._act_type})"
+
+
+class Flatten(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return x.flatten()
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Identity(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return x

@@ -5,10 +5,11 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import nn_ops
 from .ndarray import NDArray, _apply, array, ones, zeros
 
 __all__ = ["NDArray", "array", "zeros", "ones", "FullyConnected",
-           "Embedding", "Activation"]
+           "Embedding", "Activation", "Convolution", "relu"]
 
 _ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
          "softrelu": torch.nn.functional.softplus}
@@ -46,3 +47,20 @@ def Activation(data, act_type="relu"):
     if act_type not in _ACTS:
         raise ValueError(f"unknown act_type {act_type!r}: {sorted(_ACTS)}")
     return _apply(_ACTS[act_type], [data])
+
+
+def relu(data):
+    return Activation(data, "relu")
+
+
+def Convolution(data, weight, bias=None, kernel=None, stride=1, dilate=1,
+                pad=0, num_filter=None, num_group=1, no_bias=False,
+                layout="NCHW"):
+    """2-D convolution (`ops.nn_ops.convolution`): weight (O, I/g, kh,
+    kw) for NCHW data, (O, kh, kw, I/g) for NHWC."""
+    def conv(x, w, *b):
+        return nn_ops.convolution(x, w, b[0] if b else None, stride, pad,
+                                  dilate, num_group, layout)
+    inputs = [data, weight] + ([] if no_bias or bias is None else [bias])
+    return _apply(conv, inputs)
+

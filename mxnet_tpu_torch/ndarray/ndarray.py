@@ -188,6 +188,10 @@ class NDArray:
                     for i, s in enumerate(shape))
         return _apply(lambda a: a.reshape(out), [self])
 
+    def flatten(self):
+        """(N, ...) -> (N, prod(...))."""
+        return _apply(lambda a: a.reshape(a.shape[0], -1), [self])
+
     # ---------------------------------------------------------- reductions
     def _reduce(self, name, axis, keepdims):
         if axis is None and not keepdims:

@@ -28,7 +28,7 @@ __all__ = ["library", "build_info", "SOURCES"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "ragged_paged_attention.cu",
-           "layer_norm.cu")
+           "layer_norm.cu", "conv1x1_bn_stats.cu")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v: registers, shared memory and spills of each kernel land in
 # the build log (`build_info()["log"]`)
@@ -70,6 +70,11 @@ _SIGNATURES = {
     # sm_scale, stream
     "mxtt_rpa_multi_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _L, _L, _L, ctypes.c_float, _P],
+    # x, w, y, part_s, part_q, mean, meansq, M, K, N, grid_m, stream
+    "mxtt_conv1x1_stats_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                               _P],
+    "mxtt_conv1x1_stats_bf16": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                                _P],
 }
 
 _lock = threading.Lock()

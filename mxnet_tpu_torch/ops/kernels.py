@@ -23,6 +23,12 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
     (replaces `_ln_kernel`), the backward is the closed form of
     `_fused_ln_vjp_bwd` in plain torch on both devices (it was XLA in
     the JAX package).
+  * `conv1x1_bn_stats` — a 1x1 convolution as an (M, K) @ (K, N)
+    product with BatchNorm's per-column mean and mean square of y in its
+    epilogue: `csrc/conv1x1_bn_stats.cu` (replaces
+    `_conv1x1_stats_kernel` and the probe kernel of
+    `tools/probe_fused_convbn.py`), fp32 or bf16. As in the JAX package
+    it is an entry of its own: no model calls it.
 
 A wrapper takes the plain version only because the tensors it was given
 lie on the CPU. On CUDA tensors it launches its kernel or raises: there
@@ -49,8 +55,8 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "single_query_cached_attention", "ragged_paged_attention",
-           "fused_layer_norm", "layer_norm_fwd", "LAUNCHES",
-           "reset_launch_counts"]
+           "fused_layer_norm", "layer_norm_fwd", "conv1x1_bn_stats",
+           "LAUNCHES", "reset_launch_counts"]
 
 _MASKED = -1e30
 
@@ -58,7 +64,8 @@ _MASKED = -1e30
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
             "ragged_paged_attention": 0, "ragged_paged_attention_int8": 0,
             "ragged_paged_attention_multi": 0,
-            "ragged_paged_attention_multi_int8": 0, "layer_norm": 0}
+            "ragged_paged_attention_multi_int8": 0, "layer_norm": 0,
+            "conv1x1_bn_stats": 0, "conv1x1_bn_stats_bf16": 0, "rtc": 0}
 
 
 def reset_launch_counts():
@@ -606,3 +613,79 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5):
     the hand-written kernel's forward on the card, its plain version on
     the CPU; the backward is plain torch on both."""
     return _FusedLayerNorm.apply(x, gamma, beta, float(eps))
+
+
+# ---------------------------------------------------------------------------
+# 1x1 convolution with BatchNorm statistics
+# ---------------------------------------------------------------------------
+_CONV1X1_DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's output tile is 128 rows x 64 columns; a block walks the row
+# tiles t, t + grid_m, ... and writes one row of partial sums, so grid_m
+# is also the scratch's row count. About three blocks per SM on 132 SMs:
+# enough blocks in flight, few scratch rows. It depends on (M, N) only,
+# so a shape always sums in the same order.
+_CONV1X1_BM, _CONV1X1_BN, _CONV1X1_BLOCKS = 128, 64, 396
+
+
+def _conv1x1_grid(m, n):
+    tiles_m = -(-m // _CONV1X1_BM)
+    tiles_n = -(-n // _CONV1X1_BN)
+    return max(1, min(tiles_m, -(-_CONV1X1_BLOCKS // tiles_n)))
+
+
+def _conv1x1_stats_plain(x2d, w):
+    """The plain version: the product in fp32, the statistics from the
+    fp32 y, then the cast (`pallas_kernels.py:1334-1339`)."""
+    yf = x2d.float() @ w.float()
+    return yf.to(x2d.dtype), yf.mean(0), (yf * yf).mean(0)
+
+
+def _conv1x1_args(x2d, w):
+    """What the kernel takes, checked on either device: (M, K, N)."""
+    _check(x2d.dim() == 2 and w.dim() == 2,
+           "conv1x1_bn_stats takes x (M, K) and w (K, N)")
+    m, k = x2d.shape
+    _check(w.shape[0] == k,
+           f"conv1x1_bn_stats: x {tuple(x2d.shape)} and w {tuple(w.shape)} "
+           f"do not agree on K")
+    _check(x2d.dtype == w.dtype and x2d.dtype in _CONV1X1_DTYPES,
+           f"conv1x1_bn_stats takes float32 or bfloat16 x and w of one "
+           f"dtype, got {x2d.dtype} and {w.dtype}")
+    _check(x2d.is_contiguous() and w.is_contiguous(),
+           "conv1x1_bn_stats takes contiguous (row-major) x and w")
+    _check(m > 0 and k > 0 and w.shape[1] > 0,
+           "conv1x1_bn_stats: empty input")
+    return m, k, w.shape[1]
+
+
+def _conv1x1_cuda(x2d, w):
+    m, k, n = _conv1x1_args(x2d, w)
+    grid_m = _conv1x1_grid(m, n)
+    dev = x2d.device
+    y = torch.empty((m, n), dtype=x2d.dtype, device=dev)
+    part = torch.empty((2, grid_m, n), dtype=torch.float32, device=dev)
+    stats = torch.empty((2, n), dtype=torch.float32, device=dev)
+    bf16 = x2d.dtype == torch.bfloat16
+    lib = _build.library()
+    fn = lib.mxtt_conv1x1_stats_bf16 if bf16 else lib.mxtt_conv1x1_stats_f32
+    with torch.cuda.device(dev):
+        rc = fn(x2d.data_ptr(), w.data_ptr(), y.data_ptr(),
+                part[0].data_ptr(), part[1].data_ptr(), stats[0].data_ptr(),
+                stats[1].data_ptr(), m, k, n, grid_m,
+                torch.cuda.current_stream().cuda_stream)
+    _launched("conv1x1_bn_stats" + ("_bf16" if bf16 else ""), rc)
+    return y, stats[0], stats[1]
+
+
+def conv1x1_bn_stats(x2d, w, bm=1024):
+    """A 1x1 convolution as x2d (M, K) @ w (K, N), with BatchNorm's batch
+    statistics of the result: (y (M, N) in x's dtype, mean (N,) fp32,
+    meansq (N,) fp32), the statistics taken from the fp32 product before
+    y is cast. x and w are both float32 or both bfloat16, contiguous.
+    `bm` is the JAX signature's row block; the CUDA kernel tiles by 128
+    rows and ignores it."""
+    dev = _device_of(x2d, w)
+    if dev.type == "cuda":
+        return _conv1x1_cuda(x2d, w)
+    _conv1x1_args(x2d, w)
+    return _conv1x1_stats_plain(x2d, w)
