@@ -17,9 +17,16 @@ Phases (any failure raises and the script exits non-zero):
                  widened and int8 widened forms (the fast path's serving
                  shape: 8 slots, W = 4, H = 8, dh = 64, psize 16, with
                  length-0 slots, rows past the page budget and a long
-                 table), the flash backward pair (training shapes; also
-                 against float64 autograd) and LayerNorm (training shape;
-                 D = 512 only).
+                 table), the flash backward (training shapes on its fused
+                 path, edge shapes, and Sk above one block on its split
+                 path; also against float64 autograd and a repeated
+                 launch, bit for bit) and LayerNorm (training shape;
+                 D = 512 only). The long-sequence path drives
+                 `flash_attention` forward and backward at B=4, H=8,
+                 S=1024, D=64, causal and not (counters zeroed just
+                 before, read just after: 2 launches of the forward, the
+                 fused and the dQ kernel each), and times the split path
+                 against SDPA's backward.
   2b. conv1x1  — the conv1x1 + BN-stats kernel, fp32 and bf16, against a
                  float64 evaluation on the card at the probe's four
                  ResNet-50 shapes (batch 128) and an odd shape; kernel,
@@ -70,10 +77,11 @@ Phases (any failure raises and the script exits non-zero):
                  `loss.backward()`, `trainer.step(B)`, 10 steps on one
                  fixed batch of B=32, S=64 + 64 (bench_nmt.py's shape).
                  The counters are zeroed just before and read just after:
-                 every step must launch 18 flash forwards, 18 of each
-                 backward kernel and 30 LayerNorms. Tokens/s (src + tgt)
-                 over steps 3-10, step ms, peak memory, then one step
-                 under torch.profiler.
+                 every step must launch 18 flash forwards, 18 fused
+                 backwards, no dQ kernel and 30 LayerNorms. Tokens/s
+                 (src + tgt) over steps 3-10, step ms, peak memory, then
+                 one step under torch.profiler (with the rows of the
+                 port's kernels).
   6. card vs CPU (training) — the initial weights go to a CPU model
                  through save_parameters / load_parameters, and one step
                  at full width (B=2, S=16) must give the card's loss and
@@ -117,10 +125,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet):
-# memory bandwidth, and the fp32 rate outside the tensor cores — both
-# kernels compute in fp32 FMAs
+# memory bandwidth, and the fp32 rate outside the tensor cores: the
+# kernels' work is fp32
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# the flash backward's products run on the tensor cores in split TF32:
+# three TF32 products for each fp32 one, so its fp32 operations have the
+# dense TF32 tensor-core rate over 3
+PEAK_TF32X3_FLOPS = 495e12 / 3
 # the dense bf16 tensor-core rate: the least time of the bf16 conv1x1
 # product, though its first kernel runs it through fp32 FMAs
 PEAK_BF16_FLOPS = 989e12
@@ -129,8 +141,9 @@ FLASH_TOL = dict(rtol=2e-4, atol=2e-5)   # kernel vs plain: fp32, sums in
 RPA_TOL = dict(rtol=2e-5, atol=2e-6)     # another order than torch's
 BWD_TOL = dict(rtol=2e-4, atol=2e-5)     # (the flash backward pair and
 LN_TOL = dict(rtol=1e-5, atol=1e-5)      # LayerNorm likewise)
-# the flash backward pair against float64 autograd: fp32 rounding of
-# sums over at most 80 keys or queries
+# the flash backward against float64 autograd: fp32 rounding (the
+# kernels' products in split TF32, fp32-class) of sums over at most 300
+# keys or queries
 BWD_F64_TOL = dict(rtol=2e-4, atol=2e-5)
 # card vs CPU logits: fp32 through 12 layers (cuBLAS vs the CPU BLAS sum
 # in different orders; TF32 off)
@@ -156,6 +169,9 @@ FAST_KW = dict(slots=8, page_size=16, max_src_len=128, max_new_tokens=32,
                max_prompt_len=16, engine_driven=False)
 CARD_VS_CPU = (0, 1, 3)          # fast-path requests also run on the CPU
 TRAIN_B, TRAIN_S = 32, 64        # bench_nmt.py's seq: 64 src + 64 tgt
+# the flash backward's long-sequence path (Sk above one block: the fused
+# kernel for dK / dV, then the dQ kernel)
+LONG_B, LONG_H, LONG_S = 4, 8, 1024
 
 # the conv1x1 kernel: the probe's four ResNet-50 shapes at batch 128
 # (tools/probe_fused_convbn.py:121-126) and an odd one
@@ -564,7 +580,7 @@ def phase_serve(mx, torch):
         check(all(0 <= t < 36548 for t in h.tokens), "token out of range")
     check(srv.pool.in_use() == 0, f"{srv.pool.in_use()} pages leaked")
     check(prefills == len(reqs), f"{prefills} prefills for {len(reqs)}")
-    check(launches["flash_bwd_dkv"] == launches["flash_bwd_dq"]
+    check(launches["flash_bwd"] == launches["flash_bwd_dq"]
           == launches["layer_norm"] == 0,
           f"serving launched a training kernel: {launches}")
     check(launches["flash_fwd"] == 6 * prefills > 0,
@@ -942,63 +958,191 @@ def _attention_grads_f64(torch, q, k, v, do, causal, scale, lens):
     return torch.autograd.grad(p @ v, (q, k, v), do.cpu().double())
 
 
+def _bwd_check(torch, K, case, got, worst, tags):
+    """One backward case's (dQ, dK, dV) against `_flash_bwd_plain` and
+    float64 autograd; exact zeros past kv_len. `tags` names the kernel
+    that wrote each gradient, for the worst-error record."""
+    q, k, v, do, vl, lse, delta, (b, h, sq, sk, d, causal, lens) = case
+    refs = K._flash_bwd_plain(q, k, v, do, lse, delta, causal, d ** -0.5,
+                              vl)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, ref in zip(("dq", "dk", "dv"), got, refs):
+        check(torch.isfinite(g).all().item(), f"{name} not finite")
+        check(ref.abs().max().item() > 0, f"plain {name} is all zeros")
+        errs[name] = (g - ref).abs().max().item()
+        check(torch.allclose(g, ref, **BWD_TOL),
+              f"flash bwd {name} kernel vs plain: max abs err "
+              f"{errs[name]} at {(b, h, sq, sk, d, causal)}")
+    dq, dk, dv = got
+    for bi, n in enumerate(lens or []):
+        check(dk[bi, :, n:].abs().max().item() == 0.0
+              and dv[bi, :, n:].abs().max().item() == 0.0
+              if n < sk else True,
+              f"dK/dV of keys past kv_len {n} must be exactly 0")
+    # a second yardstick: torch autograd through float64 softmax
+    # attention on the CPU (the fp32 plain version shares the kernels'
+    # formula, so it would not show an error common to both)
+    errs64 = {}
+    for name, g, ref in zip(("dq", "dk", "dv"), got,
+                            _attention_grads_f64(torch, q, k, v, do, causal,
+                                                 d ** -0.5, lens)):
+        g = g.cpu().double()
+        errs64[name] = (g - ref).abs().max().item()
+        check(torch.allclose(g, ref, **BWD_F64_TOL),
+              f"flash bwd {name} kernel vs float64 autograd: max abs err "
+              f"{errs64[name]} at {(b, h, sq, sk, d, causal)}")
+    for name, tag in zip(("dq", "dk", "dv"), tags):
+        worst[tag] = max(worst[tag], errs[name])
+    return errs, errs64
+
+
+def _long_attention(mx, torch, g):
+    """The path of long sequences: `flash_attention` forward and backward
+    through its autograd Function at B=4, H=8, S=1024, D=64, causal and
+    not (Sk above one block: the split path). The counters are zeroed
+    just before and read just after; the gradients are then held against
+    `_flash_bwd_plain`."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    B, H, S, D = LONG_B, LONG_H, LONG_S, 64
+    check(K.flash_bwd_plan(S, D)["path"] == "split",
+          f"S = {S} should take the split path")
+    runs = []
+    for causal in (False, True):
+        q, k, v, do = [torch.randn((B, H, S, D), generator=g).to(dev)
+                       for _ in range(4)]
+        runs.append((causal, [t.clone().requires_grad_(True)
+                              for t in (q, k, v)], do))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for causal, (q, k, v), do in runs:
+        K.flash_attention(q, k, v, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want.update(flash_fwd=2, flash_bwd=2, flash_bwd_dq=2)
+    check(launches == want, f"long attention launches {launches} != {want}")
+    for causal, (q, k, v), do in runs:
+        q0, k0, v0 = (t.detach() for t in (q, k, v))
+        out, lse = K._flash_plain(q0, k0, v0, causal, D ** -0.5, None)
+        delta = (out * do).sum(-1).reshape(B * H, S)
+        refs = K._flash_bwd_plain(q0, k0, v0, do, lse, delta, causal,
+                                  D ** -0.5, None)
+        for name, t, ref in zip(("dq", "dk", "dv"), (q, k, v), refs):
+            err = (t.grad - ref).abs().max().item()
+            check(torch.isfinite(t.grad).all().item()
+                  and torch.allclose(t.grad, ref, **BWD_TOL),
+                  f"long attention causal={causal} {name}: max abs err "
+                  f"{err}")
+        log(f"long attention {(B, H, S, D)} causal={causal}: gradients "
+            f"within BWD_TOL of the plain version")
+    return launches
+
+
+def _long_attention_times(mx, torch, g):
+    """Device ms of the split path at B=4, H=8, S=1024, D=64, causal and
+    not: the whole backward, its two kernels alone, the plain version and
+    SDPA's backward (fwd+bwd - fwd) in the same call; achieved TFLOP/s
+    of the backward (10 * pairs * D). Returns the dQ kernel's numbers at
+    the non-causal shape, for the kernels line."""
+    K = mx.ops.kernels
+    B, H, S, D = LONG_B, LONG_H, LONG_S, 64
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for causal in (False, True):
+        q, k, v, do, vl, _, lse, delta = _bwd_case(torch, K, g, B, H, S, S,
+                                                   D, causal, None)
+        args = (q, k, v, do, lse, delta, causal, D ** -0.5, None)
+        plan = K.flash_bwd_plan(S, D)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(qg, kg, vg, is_causal=causal),
+                                (qg, kg, vg), do)
+
+        fns = {"split": lambda: K.flash_attention_bwd(*args),
+               "fused_dkv": lambda: K._flash_bwd_fused_cuda(*args, plan),
+               "dq": lambda: K._flash_bwd_dq_cuda(*args, plan),
+               "plain": lambda: K._flash_bwd_plain(*args),
+               "sdpa_fwd": lambda: sdpa(q, k, v, is_causal=causal),
+               "sdpa_fwd_bwd": sdpa_fwd_bwd}
+        dev_ms = {name: graph_ms(fn, calls=5, iters=10)
+                  for name, fn in fns.items()}
+        sdpa_bwd = dev_ms["sdpa_fwd_bwd"] - dev_ms["sdpa_fwd"]
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        tflops = {name: f * pairs * D / (dev_ms[name] * 1e-3) / 1e12
+                  for name, f in (("split", 10), ("fused_dkv", 8),
+                                  ("dq", 6))}
+        rows[causal] = dict(dev_ms=dev_ms, sdpa_bwd=sdpa_bwd, pairs=pairs)
+        log(f"flash bwd long {(B, H, S, D)} causal={causal} (split path): "
+            f"device (CUDA graph) {dev_ms}; SDPA backward (fwd+bwd - fwd) "
+            f"{sdpa_bwd:.5f} ms; split / SDPA backward "
+            f"{dev_ms['split'] / sdpa_bwd:.3f}; achieved TFLOP/s {tflops}")
+    row = rows[False]
+    rows_q = 4 * B * H * S * D
+    # q, dO, K, V, lse, delta read once, dQ written once; S, dP, dQ
+    bms, by = bound(5 * rows_q + 2 * 4 * B * H * S, 6 * row["pairs"] * D,
+                    PEAK_TF32X3_FLOPS)
+    return dict(ms=row["dev_ms"]["dq"], plain_ms=row["dev_ms"]["plain"],
+                bound_ms=bms, bound_by=by)
+
+
 def phase_flash_bwd(mx, torch):
-    """The dK/dV and dQ kernels against `_flash_bwd_plain` at the training
-    shapes (B=32, H=8, S=64, D=64): the decoder's causal self-attention,
-    the encoder's self-attention with key lengths, and a rectangular
-    cross-attention; then a few edge shapes. Timed on the lengths case
-    (encoder self-attention and cross-attention, 12 of the 18 attentions
-    of a training step)."""
+    """The backward kernels against `_flash_bwd_plain` and float64
+    autograd at the training shapes (B=32, H=8, S=64, D=64: the decoder's
+    causal self-attention, the encoder's self-attention with key lengths
+    and a rectangular cross-attention, all on the fused path), a few edge
+    shapes, and one case with Sk above one block (the split path) at each
+    padded width; a repeated launch must give the same bits. The fused
+    kernel is timed on the lengths case (12 of the 18 attentions of a
+    training step) against SDPA's backward; then the long-sequence path
+    (`_long_attention`) runs, as a path of its own, and is timed.
+    Returns the kernel rows and that path's launches."""
     K = mx.ops.kernels
     g = torch.Generator(device="cpu").manual_seed(2)
     B, H, S, D = TRAIN_B, 8, TRAIN_S, 64
     train_cases = _train_attention_cases()
     lens64 = train_cases[1][-1]
+    # Sk above one block at D padded to 32, 64, 96 and 128, and a D that
+    # is no multiple of 4 (copies float by float) on either path
+    split_cases = [(2, 3, 130, 200, 64, False, [131, 200]),
+                   (1, 2, 160, 160, 128, True, [97]),
+                   (1, 2, 100, 100, 96, True, None),
+                   (2, 2, 70, 140, 32, False, [140, 3]),
+                   (1, 2, 50, 300, 18, False, [260])]
     cases = [*train_cases, (2, 2, 33, 33, 128, True, [20, 33]),
-             (2, 3, 100, 70, 32, False, [0, 70])]
-    worst = {"dkv": 0.0, "dq": 0.0}
-    for b, h, sq, sk, d, causal, lens in cases:
-        q, k, v, do, vl, _, lse, delta = _bwd_case(torch, K, g, b, h, sq, sk,
-                                                   d, causal, lens)
-        dq, dk, dv = K.flash_attention_bwd(q, k, v, do, lse, delta, causal,
-                                           d ** -0.5, vl)
-        rq, rk, rv = K._flash_bwd_plain(q, k, v, do, lse, delta, causal,
-                                        d ** -0.5, vl)
+             (2, 3, 100, 70, 32, False, [0, 70]),
+             (2, 2, 45, 45, 30, True, [45, 17]), *split_cases]
+    worst = {"flash_bwd": 0.0, "flash_bwd_dq": 0.0}
+    for case in cases:
+        b, h, sq, sk, d, causal, lens = case
+        path = K.flash_bwd_plan(sk, d)["path"]
+        check((path == "split") == (case in split_cases),
+              f"{case}: plan path {path}")
+        q, k, v, do, vl, _, lse, delta = _bwd_case(torch, K, g, *case)
+        args = (q, k, v, do, lse, delta, causal, d ** -0.5, vl)
+        before = dict(K.LAUNCHES)
+        got = K.flash_attention_bwd(*args)
+        again = K.flash_attention_bwd(*args)
         torch.cuda.synchronize()
-        errs = {}
-        for name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
-                               ("dv", dv, rv)):
-            check(torch.isfinite(got).all().item(), f"{name} not finite")
-            check(ref.abs().max().item() > 0, f"plain {name} is all zeros")
-            errs[name] = (got - ref).abs().max().item()
-            check(torch.allclose(got, ref, **BWD_TOL),
-                  f"flash bwd {name} kernel vs plain: max abs err "
-                  f"{errs[name]} at {(b, h, sq, sk, d, causal)}")
-        for bi, n in enumerate(lens or []):
-            check(dk[bi, :, n:].abs().max().item() == 0.0
-                  and dv[bi, :, n:].abs().max().item() == 0.0
-                  if n < sk else True,
-                  f"dK/dV of keys past kv_len {n} must be exactly 0")
-        # a second yardstick: torch autograd through float64 softmax
-        # attention on the CPU (at D = 64 cuBLAS can sum in the kernels'
-        # own order, so the fp32 plain version may agree bit for bit)
-        errs64 = {}
-        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
-                                  _attention_grads_f64(torch, q, k, v, do,
-                                                       causal, d ** -0.5,
-                                                       lens)):
-            got = got.cpu().double()
-            errs64[name] = (got - ref).abs().max().item()
-            check(torch.allclose(got, ref, **BWD_F64_TOL),
-                  f"flash bwd {name} kernel vs float64 autograd: max abs "
-                  f"err {errs64[name]} at {(b, h, sq, sk, d, causal)}")
-        worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
-        worst["dq"] = max(worst["dq"], errs["dq"])
-        log(f"flash bwd {(b, h, sq, sk, d)} causal={causal} "
+        counts = {n: K.LAUNCHES[n] - before[n]
+                  for n in ("flash_bwd", "flash_bwd_dq")}
+        want = {"flash_bwd": 2, "flash_bwd_dq": 2 * (path == "split")}
+        check(counts == want, f"{case}: launches {counts} != {want}")
+        check(all(torch.equal(a, r) for a, r in zip(got, again)),
+              f"{case}: a repeated launch gave other bits")
+        tags = ("flash_bwd_dq" if path == "split" else "flash_bwd",
+                "flash_bwd", "flash_bwd")
+        errs, errs64 = _bwd_check(torch, K, (q, k, v, do, vl, lse, delta,
+                                             case), got, worst, tags)
+        log(f"flash bwd {(b, h, sq, sk, d)} causal={causal} {path} "
             f"lens={None if lens is None else lens[:4]}...: max abs err "
             f"{errs} (tol rtol={BWD_TOL['rtol']} atol={BWD_TOL['atol']}); "
             f"vs float64 {errs64} (tol rtol={BWD_F64_TOL['rtol']} "
-            f"atol={BWD_F64_TOL['atol']})")
+            f"atol={BWD_F64_TOL['atol']}); repeat bit-identical")
+
+    long_launches = _long_attention(mx, torch, g)
 
     q, k, v, do, vl, out, lse, delta = _bwd_case(torch, K, g, B, H, S, S, D,
                                                  False, lens64)
@@ -1013,34 +1157,43 @@ def phase_flash_bwd(mx, torch):
         torch.autograd.grad(sdpa(qg, kg, vg, attn_mask=mask), (qg, kg, vg),
                             do)
 
-    fns = {"dkv": lambda: K._flash_bwd_dkv_cuda(*args),
-           "dq": lambda: K._flash_bwd_dq_cuda(*args),
+    plan = K.flash_bwd_plan(S, D)
+    fns = {"fused": lambda: K._flash_bwd_fused_cuda(*args, plan),
            "plain": lambda: K._flash_bwd_plain(*args),
            "sdpa_fwd": lambda: sdpa(q, k, v, attn_mask=mask),
            "sdpa_fwd_bwd": sdpa_fwd_bwd}
     call = {name: cuda_ms(fn) for name, fn in fns.items()}
     dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
     library_ms = dev_ms["sdpa_fwd_bwd"] - dev_ms["sdpa_fwd"]
-    # this run's data: the kernels never load K/V rows at or past kv_len
+    # this run's data: the kernel never loads K/V rows at or past kv_len
     live = sum(min(n, S) for n in lens64)
     pairs = H * S * live                  # live (q, k) pairs over (b, h)
     rows_q = 4 * B * H * S * D            # bytes of one (B, H, Sq, D)
     rows_kv = 4 * H * live * D            # bytes of the live K (or V) rows
-    common = 2 * rows_q + 2 * 4 * B * H * S + 2 * rows_kv + 4 * B
-    bounds = {"dkv": bound(common + 2 * 4 * B * H * S * D, 8 * pairs * D),
-              "dq": bound(common + rows_q, 6 * pairs * D)}
-    log(f"flash bwd training shape {(B, H, S, D)} lens 5-64: per call "
-        f"(host launch included) {call}; device (CUDA graph) {dev_ms}; "
-        f"SDPA backward (fwd+bwd - fwd) {library_ms:.5f} ms; bounds "
-        f"{bounds}")
-    return [dict(name=f"flash_bwd_{part}", route="cuda",
-                 source="mxnet_tpu_torch/ops/csrc/flash_bwd.cu",
-                 replaces=f"mxnet_tpu/ops/pallas_kernels.py:{line}",
-                 max_abs_err=worst[part], ms=dev_ms[part],
-                 plain_ms=dev_ms["plain"], bound_ms=bounds[part][0],
-                 bound_by=bounds[part][1], library_ms=library_ms,
-                 call_ms=call[part])
-            for part, line in (("dkv", 417), ("dq", 484))]
+    # q, dO, live K / V, lse, delta, kv_len read; dQ, dK, dV written
+    nbytes = 2 * rows_q + 2 * rows_kv + 2 * 4 * B * H * S + 4 * B \
+        + 3 * rows_q
+    bms, by = bound(nbytes, 10 * pairs * D, PEAK_TF32X3_FLOPS)
+    log(f"flash bwd training shape {(B, H, S, D)} lens 5-64 (fused path): "
+        f"per call (host launch included) {call}; device (CUDA graph) "
+        f"{dev_ms}; SDPA backward (fwd+bwd - fwd) {library_ms:.5f} ms; "
+        f"fused / SDPA backward {dev_ms['fused'] / library_ms:.3f}; bound "
+        f"{bms:.6f} ms ({by}; 10 * pairs * D = {10 * pairs * D} FLOP, "
+        f"{nbytes} bytes)")
+    dq_row = _long_attention_times(mx, torch, g)
+    src = "mxnet_tpu_torch/ops/csrc/flash_bwd.cu"
+    rows = [dict(name="flash_bwd", route="cuda", source=src,
+                 replaces="mxnet_tpu/ops/pallas_kernels.py:417",
+                 max_abs_err=worst["flash_bwd"], ms=dev_ms["fused"],
+                 plain_ms=dev_ms["plain"], bound_ms=bms, bound_by=by,
+                 library_ms=library_ms, call_ms=call["fused"]),
+            # timed at the long shape; no one PyTorch call computes dQ
+            # alone (SDPA's backward at that shape is in the log)
+            dict(name="flash_bwd_dq", route="cuda", source=src,
+                 replaces="mxnet_tpu/ops/pallas_kernels.py:484",
+                 max_abs_err=worst["flash_bwd_dq"], library_ms=None,
+                 **dq_row)]
+    return rows, long_launches
 
 
 def phase_ln(mx, torch):
@@ -1148,8 +1301,7 @@ def phase_train(mx, torch, init_file):
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     want = dict.fromkeys(K.LAUNCHES, 0)
-    want.update(flash_fwd=18, flash_bwd_dkv=18, flash_bwd_dq=18,
-                layer_norm=30)
+    want.update(flash_fwd=18, flash_bwd=18, layer_norm=30)
     for i, counts in enumerate(per_step):
         check(counts == want, f"step {i + 1} launches {counts} != {want}")
     for name, p in model._collect_params_with_prefix().items():
@@ -1166,6 +1318,10 @@ def phase_train(mx, torch, init_file):
                                                     batch))
     if got is not None:
         log_profile("train profile", *got, "1 training step")
+        for dev_us, count, key in got[1]:
+            if "flash" in key or "layer_norm" in key:
+                log(f"train profile: port kernel {dev_us / 1e3:.3f} ms "
+                    f"{count}x {key[:70]}")
     return launches
 
 
@@ -1655,10 +1811,10 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build(mx, torch)
+    bwd_rows, long_launches = phase_flash_bwd(mx, torch)
     kernels = [phase_flash(mx, torch), phase_rpa(mx, torch),
-               *phase_rpa_fastpath(mx, torch),
-               *phase_flash_bwd(mx, torch), phase_ln(mx, torch),
-               *phase_conv1x1(mx, torch)]
+               *phase_rpa_fastpath(mx, torch), *bwd_rows,
+               phase_ln(mx, torch), *phase_conv1x1(mx, torch)]
     rtc_row, rtc_launches = phase_rtc(mx, torch)
     kernels.append(rtc_row)
     model, srv, reqs, handles, serve_launches = phase_serve(mx, torch)
@@ -1684,6 +1840,7 @@ def main():
                    "fastpath": fast_launches[k["name"]],
                    "train": train_launches[k["name"]],
                    "rtc": rtc_launches[k["name"]],
+                   "long_attention": long_launches[k["name"]],
                    "resnet_train": resnet_launches[k["name"]],
                    "resnet_conv1x1": conv_launches[k["name"]]}
         k["launches"] = sum(by_path.values())

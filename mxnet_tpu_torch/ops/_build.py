@@ -41,14 +41,15 @@ _SIGNATURES = {
     # q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale, stream
     "mxtt_flash_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _P],
-    # q, k, v, dO, lse, delta, kv_len, dk, dv, B, H, Sq, Sk, D, causal,
-    # sm_scale, stream
-    "mxtt_flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, ctypes.c_float, _P],
+    # q, k, v, dO, lse, delta, kv_len, dq, dk, dv, B, H, Sq, Sk, D, causal,
+    # sm_scale, BK, with_dq, vec, smem bytes, stream
+    "mxtt_flash_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _L,
+                           _P],
     # q, k, v, dO, lse, delta, kv_len, dq, B, H, Sq, Sk, D, causal,
-    # sm_scale, stream
+    # sm_scale, vec, smem bytes, stream
     "mxtt_flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, ctypes.c_float, _P],
+                              _I, _I, _I, ctypes.c_float, _I, _L, _P],
     # x, gamma, beta, y, mean, rstd, rows, D, eps, stream
     "mxtt_layer_norm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
                             _P],

@@ -1,364 +1,740 @@
-// Flash-attention backward, fp32, for Hopper (sm_90a): two kernels.
+// Flash-attention backward, fp32, for Hopper (sm_90a): a fused dQ/dK/dV
+// kernel and a dQ kernel, both on the tensor cores in split TF32.
 //
-// Replaces: mxnet_tpu/ops/pallas_kernels.py:_flash_bwd_dkv_kernel and
-// _flash_bwd_dq_kernel (launched by _flash_bwd_pallas). Same split as the
-// JAX package (FlashAttention-2): one kernel accumulates dK / dV over the
-// query tiles, the other dQ over the key tiles. Both recompute
+// Replaces: mxnet_tpu/ops/pallas_kernels.py:_flash_bwd_dkv_kernel (:417)
+// and _flash_bwd_dq_kernel (:484), launched by _flash_bwd_pallas. From
+// the compact (B*H, Sq) lse of the forward and delta = rowsum(dO * O),
+// which the caller computes (and may shift, as flash_block_attention
+// does), both recompute
 //   p  = exp(s * scale - lse)     where the mask allows (qi, kj), else 0
-//   dS = p * (dP - delta) * scale with dP = dO V^T
-// from the compact (B*H, Sq) lse the forward kernel writes and the
-// delta = rowsum(dO * O) the caller computes (and may shift, as
-// flash_block_attention does), so nothing Sq x Sk ever reaches memory.
-// The mask is the forward's: causal (kj <= qi, Sq == Sk) and the per-batch
-// key length (kj < kv_len[b]). p is masked explicitly rather than through
-// exp(-1e30 - lse) underflowing, so the dK / dV rows of keys at or past
-// kv_len[b] are exactly 0 and a row with no visible key contributes 0.
+//   dS = p * (dP - delta) * scale with s = q.k, dP = dO.v
+// so nothing Sq x Sk ever reaches memory. The mask is the forward's:
+// causal (kj <= qi, Sq == Sk) and the per-batch key length (kj <
+// kv_len[b]). p is masked explicitly rather than through exp(-1e30 - lse)
+// underflowing, so the dK / dV rows of keys at or past kv_len[b] are
+// exactly 0 and a row with no visible key contributes 0.
 //
 // Layout: q, dO, dQ (B, H, Sq, D); k, v, dK, dV (B, H, Sk, D); all
-// contiguous fp32. lse, delta (B*H, Sq) fp32. kv_len (B,) int32 or NULL.
+// contiguous fp32, any Sq and Sk, D <= 128. lse, delta (B*H, Sq) fp32.
+// kv_len (B,) int32 or NULL.
 //
-// What bounds it on this card: at the training shape (B*H = 256, S = 64,
-// D = 64) the pair moves 4 MB once each and does 8*Sq*Sk*D (dK/dV) plus
-// 6*Sq*Sk*D (dQ) FLOP per (b, h): 0.94 GFLOP, 14 us at the 67 TFLOP/s fp32
-// rate outside the tensor cores against 1.2 us for the bytes, so the bound
-// is operations. The data is fp32 and the kernels keep fp32 FMAs (the
-// tensor cores would need TF32 or bf16, i.e. other numerics than the plain
-// version): that rate is the roof, and shared-memory bandwidth the wall
-// under it.
+// What bounds it on this card. chip_smoke.py counts the live (q, k) pairs
+// only (a tile with none is never loaded): the bytes are q, dO, the live
+// K / V rows, lse, delta and kv_len read once and dQ, dK, dV written
+// once; the operations are 10 * pairs * D (S = QK^T, dP = dO V^T, dV =
+// P^T dO, dK = dS^T Q, dQ = dS K). At the training shape (B*H = 256,
+// S = 64, D = 64, key lengths 5-64) that is 0.0075 ms by bytes against
+// 0.0020 ms of operations at the split-TF32 rate (the H100's dense TF32
+// tensor-core peak, 495 TFLOP/s, over the 3 passes): the bound is bytes.
+// The dQ kernel at S = 1024 (6 * pairs * D) is bound by operations at
+// that rate. The SIMT pair this file replaced ran at 13x the fused bound
+// (its fp32 FMAs would have had 67 TFLOP/s): its products went
+// through fp32 FMAs at 10 shared loads per 8 FMAs, the two kernels
+// recomputed S and dP (14 * pairs * D FLOP instead of 10) and read every
+// input twice, and its loads did not overlap its arithmetic.
 //
-// Design: the TPU kernels keep the reduction over the other sequence on a
-// sequential "arbitrary" grid axis with VMEM scratch. Hopper blocks run in
-// no order, so each block owns its output tile and loops over the other
-// sequence inside: the dK/dV block owns BK = 32 keys of one (b, h) and walks
-// the query tiles; the dQ block owns BQ = 32 queries and walks the key
-// tiles. No block writes what another writes, so no atomics. A block has 8
-// warps. For the score tile (32 x 32) warp w takes rows w, w+8, w+16, w+24
-// and lane j takes key j: q and dO rows are read as warp broadcasts, and
-// K and V rows are padded by one float so the 32 lanes hit 32 banks. For
-// the accumulations the lanes run over D (coalesced, conflict-free) and
-// each warp owns 4 rows of the output tile in registers. Tiles of the
-// other sequence that hold no live (qi, kj) pair — above the diagonal
-// when causal, at or past kv_len — are never loaded (the TPU kernels'
-// pl.when skip), and a dK/dV block whose keys all lie at or past kv_len
-// writes zeros and stops. The ragged edge (Sq or Sk not a multiple of 32)
-// is masked here: every shape launches, no 128-multiple gate. Tiles live
-// in dynamic shared memory: 41 KB at D = 64, 74 KB at D = 128 (above the
-// 48 KB static limit, hence cudaFuncSetAttribute).
+// Design:
+// * Products on the tensor cores in split TF32 ("3xTF32", the arithmetic
+//   of CUTLASS's OpMultiplyAddFastF32 that PyTorch's fp32 memory-efficient
+//   attention uses): each fp32 operand x becomes hi = tf32(x) (cvt.rna)
+//   and lo = tf32(x - hi), and each product is lo*hi + hi*lo + hi*hi
+//   through mma.sync.m16n8k8 with fp32 accumulators. The dropped lo*lo
+//   term is 2^-22 relative: fp32-class error, where one-pass TF32 keeps
+//   about 3 digits.
+// * One fused launch. A block owns BK keys of one (b, h), one warp per 16
+//   keys, and walks the query tiles (BQ = 32). Each warp computes S^T and
+//   dP^T for its keys (A = its K / V rows, B = the Q / dO tile), turns
+//   them into P and dS in registers, and feeds them straight back as the
+//   A operand of dV += P^T dO and dK += dS^T Q: the contraction over the
+//   tile's queries is permuted so that the C fragment of S^T (columns 2t,
+//   2t + 1) is the A fragment (columns t, t + 4), and the B rows of dO / Q
+//   are read in the same permuted order. dK and dV stay in registers. K
+//   and V are loaded once; the next query tile (Q, dO, lse, delta) is
+//   copied with cp.async while the current one is computed (two buffers).
+// * When Sk <= BK (every attention of the training step) the block owns
+//   all keys of its (b, h), writes dS once to shared memory (the round
+//   trip from accumulator layout to the A layout of another warp's rows)
+//   and computes dQ = dS K for the tile too: the whole backward is one
+//   launch doing 10 * pairs * D FLOP.
+// * When Sk > BK the fused kernel skips dQ and the dQ kernel runs after
+//   it: a block owns 64 queries, one warp per 16, and walks the key tiles
+//   (64 keys, two cp.async buffers) with the same register-resident P /
+//   dS. No block writes what another writes: no atomics, and the same
+//   bits on every run.
+// * Ragged edges: D is zero-padded to DP = 32, 64, 96 or 128 in shared
+//   memory; rows past Sq or Sk are zero-filled by cp.async and masked in
+//   p, like keys at or past kv_len. Query tiles above the diagonal (causal)
+//   and key tiles at or past kv_len are never loaded, a warp whose 16
+//   keys hold no live pair for the tile skips its products, and a block
+//   whose keys all lie at or past kv_len writes zeros and stops.
+// * Shared-memory rows have a pitch of DP + 4 floats (dS: BK + 4), so the
+//   fragment loads (8 rows x 4 columns, or 4 rows x 8 columns in the
+//   permuted order) and the dS stores hit 32 different banks; only the
+//   B operand of the fused dQ (K read down its key axis) has 2-way
+//   conflicts.
+// The launch plan (BK, shared bytes) is kernels.py:flash_bwd_plan; each
+// launch recomputes the shared bytes here and refuses a plan that
+// disagrees.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBQ = 32;                  // query rows per tile
-constexpr int kBK = 32;                  // key rows per tile: one per lane
-constexpr int kRows = kBQ / kWarps;      // tile rows per warp
-constexpr unsigned kStaticSmem = 48 * 1024;
+constexpr int kBQ = 32;        // query rows per tile of the fused kernel
+constexpr int kMaxBK = 128;    // keys per fused block at most (8 warps)
+constexpr int kDqBQ = 64;      // query rows per dQ block (4 warps)
+constexpr int kDqBK = 64;      // keys per tile of the dQ kernel
+constexpr int kDqThreads = 32 * kDqBQ / 16;
 
-// s[r] = q_i . k_j and dp[r] = dO_i . v_j for i = warp + 8r, j = lane.
-// qs / dos rows have stride D; ks / vs rows stride D + 1.
-__device__ __forceinline__ void score_tile(const float* qs, const float* dos,
-                                           const float* ks, const float* vs,
-                                           int D, int warp, int lane,
-                                           float s[kRows], float dp[kRows]) {
-  const float* krow = ks + lane * (D + 1);
-  const float* vrow = vs + lane * (D + 1);
+// ---------------------------------------------------------------------------
+// split TF32 on mma.sync.m16n8k8 (row.col, fp32 accumulators)
+// Fragments (g = lane / 4, t = lane % 4):
+//   A 16x8: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B 8x8:  b0 (k = t, n = g), b1 (k = t + 4, n = g)
+//   C 16x8: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[i] += a * b[i] and d[i] += e * f[i] for i < N in split TF32: the
+// small terms first, then hi * hi, each pass over all 2N accumulators so
+// that consecutive mma.sync instructions do not wait on each other
+template <int N>
+__device__ __forceinline__ void mma3x2(float (*c)[4], const uint32_t ah[4],
+                                       const uint32_t al[4],
+                                       uint32_t (*bh)[2],
+                                       uint32_t (*bl)[2],
+                                       float (*d)[4], const uint32_t eh[4],
+                                       const uint32_t el[4],
+                                       uint32_t (*fh)[2],
+                                       uint32_t (*fl)[2]) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
-  for (int c = 0; c < D; ++c) {
-    const float kc = krow[c];
-    const float vc = vrow[c];
+  for (int i = 0; i < N; ++i) {
+    mma_tf32(c[i], al, bh[i]);
+    mma_tf32(d[i], el, fh[i]);
+  }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = warp + kWarps * r;
-      s[r] = fmaf(qs[i * D + c], kc, s[r]);
-      dp[r] = fmaf(dos[i * D + c], vc, dp[r]);
+  for (int i = 0; i < N; ++i) {
+    mma_tf32(c[i], ah, bl[i]);
+    mma_tf32(d[i], eh, fl[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mma_tf32(c[i], ah, bh[i]);
+    mma_tf32(d[i], eh, fh[i]);
+  }
+}
+
+// c[i] += a * b[i] for i < N, likewise
+template <int N>
+__device__ __forceinline__ void mma3x1(float (*c)[4], const uint32_t ah[4],
+                                       const uint32_t al[4],
+                                       uint32_t (*bh)[2],
+                                       uint32_t (*bl)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[i], al, bh[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[i], ah, bl[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[i], ah, bh[i]);
+}
+
+// A fragment of rows [0, 16) x columns [kk, kk + 8) of a shared matrix
+__device__ __forceinline__ void load_a(const float* m, int pitch, int kk,
+                                       int g, int t, uint32_t ah[4],
+                                       uint32_t al[4]) {
+  const float* r0 = m + g * pitch + kk + t;
+  const float* r1 = r0 + 8 * pitch;
+  split(r0[0], ah[0], al[0]);
+  split(r1[0], ah[1], al[1]);
+  split(r0[4], ah[2], al[2]);
+  split(r1[4], ah[3], al[3]);
+}
+
+// B fragment whose k runs along a row: B[k][n] = m[n][k]; `m` points at
+// element (n = 0, k = kk)
+__device__ __forceinline__ void load_b_rows(const float* m, int pitch,
+                                            int g, int t, uint32_t bh[2],
+                                            uint32_t bl[2]) {
+  const float* r = m + g * pitch + t;
+  split(r[0], bh[0], bl[0]);
+  split(r[4], bh[1], bl[1]);
+}
+
+// B fragment whose k runs down the rows in the permuted order (k = t is
+// row 2t, k = t + 4 is row 2t + 1): B[k][n] = m[row(k)][n]; `m` points at
+// element (row 0, n = 0)
+__device__ __forceinline__ void load_b_perm(const float* m, int pitch,
+                                            int g, int t, uint32_t bh[2],
+                                            uint32_t bl[2]) {
+  const float* r = m + 2 * t * pitch + g;
+  split(r[0], bh[0], bl[0]);
+  split(r[pitch], bh[1], bl[1]);
+}
+
+// the C fragment of one 16 x 8 score tile as the A fragment of the
+// permuted contraction (columns 2t, 2t + 1 become k = t, t + 4)
+__device__ __forceinline__ void c_as_a(const float c[4], uint32_t ah[4],
+                                       uint32_t al[4]) {
+  split(c[0], ah[0], al[0]);
+  split(c[2], ah[1], al[1]);
+  split(c[1], ah[2], al[2]);
+  split(c[3], ah[3], al[3]);
+}
+
+// ---------------------------------------------------------------------------
+// asynchronous copies
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// rows [r0, r0 + n) of a (limit, D) fp32 matrix into shared rows of
+// `pitch` floats; rows past `limit` are zero-filled (the source address
+// then stays at `src`, which is valid). vec: D % 4 == 0 and `src` 16-byte
+// aligned, so each row goes in 16-byte pieces.
+__device__ __forceinline__ void copy_rows(float* dst, int pitch,
+                                          const float* src, int r0, int n,
+                                          int limit, int D, bool vec,
+                                          int tid, int nthreads) {
+  if (vec) {
+    const int per_row = D / 4;
+    for (int idx = tid; idx < n * per_row; idx += nthreads) {
+      const int r = idx / per_row;
+      const int c = (idx - r * per_row) * 4;
+      const bool ok = r0 + r < limit;
+      cp_async16(dst + r * pitch + c,
+                 ok ? src + (size_t)(r0 + r) * D + c : src, ok);
+    }
+  } else {
+    for (int idx = tid; idx < n * D; idx += nthreads) {
+      const int r = idx / D;
+      const int c = idx - r * D;
+      const bool ok = r0 + r < limit;
+      cp_async4(dst + r * pitch + c,
+                ok ? src + (size_t)(r0 + r) * D + c : src, ok);
     }
   }
 }
 
-// rows [r0, r0 + n) of a (rows, D) matrix into shared rows of stride
-// `pitch`; rows past `limit` are zeros
-__device__ __forceinline__ void load_rows(float* dst, int pitch,
-                                          const float* src, int r0, int n,
-                                          int limit, int D, int tid) {
-  for (int idx = tid; idx < n * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    dst[r * pitch + c] = (r0 + r < limit) ? src[(size_t)(r0 + r) * D + c]
-                                          : 0.f;
+// entries [r0, r0 + n) of a vector, zero past `limit`
+__device__ __forceinline__ void copy_vec(float* dst, const float* src,
+                                         int r0, int n, int limit, int tid,
+                                         int nthreads) {
+  for (int i = tid; i < n; i += nthreads) {
+    const bool ok = r0 + i < limit;
+    cp_async4(dst + i, ok ? src + r0 + i : src, ok);
   }
 }
 
+// columns [D, DP) of `rows` shared rows are zeros (never copied into)
+__device__ __forceinline__ void zero_pad(float* m, int pitch, int rows,
+                                         int D, int DP, int tid,
+                                         int nthreads) {
+  const int w = DP - D;
+  for (int idx = tid; idx < rows * w; idx += nthreads) {
+    const int r = idx / w;
+    m[r * pitch + D + (idx - r * w)] = 0.f;
+  }
+}
+
+__host__ __device__ constexpr int pitch_of(int DP) { return DP + 4; }
+
+__host__ __device__ constexpr size_t fused_smem(int DP, int BK, int dq) {
+  return sizeof(float) *
+         ((size_t)2 * BK * pitch_of(DP) + (size_t)4 * kBQ * pitch_of(DP) +
+          4 * kBQ + (dq ? (size_t)kBQ * (BK + 4) : 0));
+}
+
+__host__ __device__ constexpr size_t dq_smem(int DP) {
+  return sizeof(float) *
+         ((size_t)2 * kDqBQ * pitch_of(DP) +
+          (size_t)4 * kDqBK * pitch_of(DP) + 2 * kDqBQ);
+}
+
+// the largest block of either kernel fits the card's 227 KB a block
+static_assert(fused_smem(128, kMaxBK, 1) <= 227 * 1024 &&
+                  dq_smem(128) <= 227 * 1024,
+              "a block's shared memory exceeds 227 KB");
+
 // ---------------------------------------------------------------------------
-// dK / dV: grid (B*H, ceil(Sk / BK))
+// fused: grid (B*H, ceil(Sk / BK)), BK / 16 warps; dK, dV and (with_dq,
+// which needs Sk <= BK) dQ
 // ---------------------------------------------------------------------------
-template <int DCH>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const int* __restrict__ kv_len,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int Sq, int Sk, int D, int causal,
-                         float sm_scale) {
-  extern __shared__ float smem[];
-  const int dpad = D + 1;
-  float* ks = smem;                   // kBK x (D + 1)
-  float* vs = ks + kBK * dpad;        // kBK x (D + 1)
-  float* qs = vs + kBK * dpad;        // kBQ x D
-  float* dos = qs + kBQ * D;          // kBQ x D
-  float* ps = dos + kBQ * D;          // kBQ x kBK
-  float* dss = ps + kBQ * kBK;        // kBQ x kBK
-  float* lse_s = dss + kBQ * kBK;     // kBQ
-  float* delta_s = lse_s + kBQ;       // kBQ
+template <int DP>
+__global__ void __launch_bounds__(32 * kMaxBK / 16)
+flash_bwd_fused_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const int* __restrict__ kv_len,
+                       float* __restrict__ dq, float* __restrict__ dk,
+                       float* __restrict__ dv, int H, int Sq, int Sk, int D,
+                       int causal, float sm_scale, int BK, int with_dq,
+                       int vec) {
+  constexpr int NT = DP / 8;          // 8-wide column tiles of D
+  constexpr int QT = kBQ / 8;         // 8-wide query tiles of a tile
+  constexpr int P = pitch_of(DP);
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                   // BK x P
+  float* vs = ks + BK * P;            // BK x P
+  float* qs = vs + BK * P;            // 2 x kBQ x P
+  float* dos = qs + 2 * kBQ * P;      // 2 x kBQ x P
+  float* lse_s = dos + 2 * kBQ * P;   // 2 x kBQ
+  float* delta_s = lse_s + 2 * kBQ;   // 2 x kBQ
+  float* dss = delta_s + 2 * kBQ;     // kBQ x (BK + 4), with_dq only
+  const int dsp = BK + 4;
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBK;
+  const int k0 = blockIdx.y * BK;
   const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int nwarps = nthreads / 32;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const size_t qbase = (size_t)bh * Sq * D;
   const size_t kbase = (size_t)bh * Sk * D;
+  const int ntd = (D + 7) / 8;        // column tiles holding real columns
+  const int kw0 = k0 + 16 * warp;     // this warp's first key
 
   int kend = Sk;
   if (kv_len != nullptr) kend = max(0, min(kend, kv_len[bh / H]));
 
-  float dk_acc[kRows][DCH], dv_acc[kRows][DCH];
+  float dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int c = 0; c < DCH; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
   if (k0 < kend) {
-    load_rows(ks, dpad, k + kbase, k0, kBK, Sk, D, tid);
-    load_rows(vs, dpad, v + kbase, k0, kBK, Sk, D, tid);
-    // causal: query tiles wholly above this key tile see none of its keys
+    zero_pad(ks, P, 2 * BK + 4 * kBQ, D, DP, tid, nthreads);
     const int qstart = causal ? (k0 / kBQ) * kBQ : 0;
-    for (int q0 = qstart; q0 < Sq; q0 += kBQ) {
-      __syncthreads();  // the previous query tile is consumed
-      load_rows(qs, D, q + qbase, q0, kBQ, Sq, D, tid);
-      load_rows(dos, D, dout + qbase, q0, kBQ, Sq, D, tid);
-      if (tid < kBQ) {
-        const bool in = q0 + tid < Sq;
-        lse_s[tid] = in ? lse[(size_t)bh * Sq + q0 + tid] : 0.f;
-        delta_s[tid] = in ? delta[(size_t)bh * Sq + q0 + tid] : 0.f;
+    copy_rows(ks, P, k + kbase, k0, BK, Sk, D, vec, tid, nthreads);
+    copy_rows(vs, P, v + kbase, k0, BK, Sk, D, vec, tid, nthreads);
+    auto load_tile = [&](int q0, int buf) {
+      copy_rows(qs + buf * kBQ * P, P, q + qbase, q0, kBQ, Sq, D, vec, tid,
+                nthreads);
+      copy_rows(dos + buf * kBQ * P, P, dout + qbase, q0, kBQ, Sq, D, vec,
+                tid, nthreads);
+      copy_vec(lse_s + buf * kBQ, lse + (size_t)bh * Sq, q0, kBQ, Sq, tid,
+               nthreads);
+      copy_vec(delta_s + buf * kBQ, delta + (size_t)bh * Sq, q0, kBQ, Sq,
+               tid, nthreads);
+    };
+    load_tile(qstart, 0);
+    cp_commit();
+
+    int buf = 0;
+    for (int q0 = qstart; q0 < Sq; q0 += kBQ, buf ^= 1) {
+      if (q0 + kBQ < Sq) {
+        load_tile(q0 + kBQ, buf ^ 1);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
       }
       __syncthreads();
+      const float* qt = qs + buf * kBQ * P;
+      const float* dot = dos + buf * kBQ * P;
+      const float* lt = lse_s + buf * kBQ;
+      const float* dt = delta_s + buf * kBQ;
 
-      float s[kRows], dp[kRows];
-      score_tile(qs, dos, ks, vs, D, warp, lane, s, dp);
-      const int kj = k0 + lane;
+      // a warp whose keys hold no live pair for this tile does nothing
+      const bool live = kw0 < kend && !(causal && kw0 > q0 + kBQ - 1);
+      if (live) {
+        // S^T and dP^T of this warp's 16 keys x the tile's queries
+        float s[QT][4], dp[QT][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = warp + kWarps * r;
-        const int qi = q0 + i;
-        const bool keep = qi < Sq && kj < kend && (!causal || kj <= qi);
-        const float p = keep ? expf(s[r] * sm_scale - lse_s[i]) : 0.f;
-        ps[i * kBK + lane] = p;
-        dss[i * kBK + lane] = p * (dp[r] - delta_s[i]) * sm_scale;
+        for (int j = 0; j < QT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        const float* kw = ks + 16 * warp * P;
+        const float* vw = vs + 16 * warp * P;
+        for (int kk = 0; kk < 8 * ntd; kk += 8) {
+          uint32_t kh[4], kl[4], vh[4], vl[4];
+          uint32_t qh[QT][2], ql[QT][2], oh[QT][2], ol[QT][2];
+          load_a(kw, P, kk, g, t, kh, kl);
+          load_a(vw, P, kk, g, t, vh, vl);
+#pragma unroll
+          for (int j = 0; j < QT; ++j) {
+            load_b_rows(qt + 8 * j * P + kk, P, g, t, qh[j], ql[j]);
+            load_b_rows(dot + 8 * j * P + kk, P, g, t, oh[j], ol[j]);
+          }
+          mma3x2<QT>(s, kh, kl, qh, ql, dp, vh, vl, oh, ol);
+        }
+        // p and dS in place (rows: keys g, g + 8; columns: queries 2t, 2t+1)
+#pragma unroll
+        for (int j = 0; j < QT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = g + ((e & 2) ? 8 : 0);
+            const int col = 8 * j + 2 * t + (e & 1);
+            const int kj = kw0 + row;
+            const int qi = q0 + col;
+            const bool keep = qi < Sq && kj < kend && (!causal || kj <= qi);
+            const float p = keep ? expf(s[j][e] * sm_scale - lt[col]) : 0.f;
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - dt[col]) * sm_scale;
+            if (with_dq) dss[col * dsp + 16 * warp + row] = dp[j][e];
+          }
+        }
+        // dV += P^T dO, dK += dS^T Q over the tile's queries (permuted)
+#pragma unroll
+        for (int j = 0; j < QT; ++j) {
+          uint32_t ph[4], pl[4], sh[4], sl[4];
+          c_as_a(s[j], ph, pl);
+          c_as_a(dp[j], sh, sl);
+          const float* dor = dot + 8 * j * P;
+          const float* qr = qt + 8 * j * P;
+          // four column tiles at a time (DP is a multiple of 32, so each
+          // group holds real columns; the padding reads zeros)
+#pragma unroll
+          for (int n0 = 0; n0 < NT; n0 += 4) {
+            uint32_t oh[4][2], ol[4][2], qh[4][2], ql[4][2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              load_b_perm(dor + 8 * (n0 + i), P, g, t, oh[i], ol[i]);
+              load_b_perm(qr + 8 * (n0 + i), P, g, t, qh[i], ql[i]);
+            }
+            mma3x2<4>(dv_acc + n0, ph, pl, oh, ol, dk_acc + n0, sh, sl, qh,
+                      ql);
+          }
+        }
       }
-      __syncthreads();
 
-      // dV[j] += sum_i p[i][j] dO[i];  dK[j] += sum_i dS[i][j] Q[i]
-      const int ni = min(kBQ, Sq - q0);
-      for (int i = 0; i < ni; ++i) {
-        const float* qrow = qs + i * D;
-        const float* dorow = dos + i * D;
+      if (with_dq) {
+        __syncthreads();  // dS of every warp is in place
+        // dQ of the tile = dS K over the live keys; a warp takes 16 rows
+        // x 32 columns at a time
+        int klive = min(kend, k0 + BK) - k0;
+        if (causal) klive = min(klive, q0 + kBQ - k0);
+        const int ksteps = (klive + 7) / 8;
+        const int ngroups = (ntd + 3) / 4;
+        const int items = (kBQ / 16) * ngroups;
+        for (int it = warp; it < items; it += nwarps) {
+          const int m = it % (kBQ / 16);
+          const int grp = it / (kBQ / 16);
+          float acc[4][4];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int j = warp + kWarps * r;
-          const float pij = ps[i * kBK + j];
-          const float dsij = dss[i * kBK + j];
+          for (int n = 0; n < 4; ++n)
 #pragma unroll
-          for (int c = 0; c < DCH; ++c) {
-            const int d = lane + 32 * c;
-            if (d < D) {
-              dv_acc[r][c] = fmaf(pij, dorow[d], dv_acc[r][c]);
-              dk_acc[r][c] = fmaf(dsij, qrow[d], dk_acc[r][c]);
+            for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+          const float* dsm = dss + 16 * m * dsp;
+          for (int ks8 = 0; ks8 < ksteps; ++ks8) {
+            uint32_t ah[4], al[4], bh_[4][2], bl_[4][2];
+            load_a(dsm, dsp, 8 * ks8, g, t, ah, al);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              // B[k = key][n = d] = K[key][d]
+              const float* kr =
+                  ks + (8 * ks8 + t) * P + 8 * (4 * grp + n) + g;
+              split(kr[0], bh_[n][0], bl_[n][0]);
+              split(kr[4 * P], bh_[n][1], bl_[n][1]);
+            }
+            mma3x1<4>(acc, ah, al, bh_, bl_);
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int nt = 4 * grp + n;
+            if (nt >= ntd) continue;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = q0 + 16 * m + g + ((e & 2) ? 8 : 0);
+              const int d = 8 * nt + 2 * t + (e & 1);
+              if (qi < Sq && d < D) dq[qbase + (size_t)qi * D + d] = acc[n][e];
             }
           }
         }
       }
+      __syncthreads();  // this buffer (and dS) is consumed
     }
+  } else if (with_dq) {
+    // no live key in the (b, h): every row of dQ is 0
+    for (int i = tid; i < Sq * D; i += nthreads) dq[qbase + i] = 0.f;
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int kj = k0 + warp + kWarps * r;
-    if (kj >= Sk) continue;
+  for (int n = 0; n < NT; ++n) {
+    if (n >= ntd) continue;
 #pragma unroll
-    for (int c = 0; c < DCH; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) {
-        dk[kbase + (size_t)kj * D + d] = dk_acc[r][c];
-        dv[kbase + (size_t)kj * D + d] = dv_acc[r][c];
+    for (int e = 0; e < 4; ++e) {
+      const int kj = kw0 + g + ((e & 2) ? 8 : 0);
+      const int d = 8 * n + 2 * t + (e & 1);
+      if (kj < Sk && d < D) {
+        dk[kbase + (size_t)kj * D + d] = dk_acc[n][e];
+        dv[kbase + (size_t)kj * D + d] = dv_acc[n][e];
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dQ: grid (B*H, ceil(Sq / BQ))
+// dQ (Sk > BK): grid (B*H, ceil(Sq / 64)), 4 warps of 16 query rows
 // ---------------------------------------------------------------------------
-template <int DCH>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ kv_len,
-                        float* __restrict__ dq, int H, int Sq, int Sk, int D,
-                        int causal, float sm_scale) {
-  extern __shared__ float smem[];
-  const int dpad = D + 1;
-  float* ks = smem;                   // kBK x (D + 1)
-  float* vs = ks + kBK * dpad;        // kBK x (D + 1)
-  float* qs = vs + kBK * dpad;        // kBQ x D
-  float* dos = qs + kBQ * D;          // kBQ x D
-  float* dss = dos + kBQ * D;         // kBQ x kBK
-  float* lse_s = dss + kBQ * kBK;     // kBQ
-  float* delta_s = lse_s + kBQ;       // kBQ
+template <int DP>
+__global__ void __launch_bounds__(kDqThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ kv_len, float* __restrict__ dq,
+                    int H, int Sq, int Sk, int D, int causal,
+                    float sm_scale, int vec) {
+  constexpr int NT = DP / 8;
+  constexpr int KT = kDqBK / 8;       // 8-wide key tiles of a tile
+  constexpr int P = pitch_of(DP);
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // kDqBQ x P
+  float* dos = qs + kDqBQ * P;        // kDqBQ x P
+  float* ks = dos + kDqBQ * P;        // 2 x kDqBK x P
+  float* vs = ks + 2 * kDqBK * P;     // 2 x kDqBK x P
+  float* lse_s = vs + 2 * kDqBK * P;  // kDqBQ
+  float* delta_s = lse_s + kDqBQ;     // kDqBQ
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * kDqBQ;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const size_t qbase = (size_t)bh * Sq * D;
   const size_t kbase = (size_t)bh * Sk * D;
+  const int ntd = (D + 7) / 8;
+  const int qw0 = q0 + 16 * warp;     // this warp's first query row
 
   int kend = Sk;
   if (kv_len != nullptr) kend = max(0, min(kend, kv_len[bh / H]));
   // key tiles starting at or past kstop hold no live key for these rows
   int kstop = kend;
-  if (causal) kstop = min(kstop, q0 + kBQ);
+  if (causal) kstop = min(kstop, q0 + kDqBQ);
 
-  load_rows(qs, D, q + qbase, q0, kBQ, Sq, D, tid);
-  load_rows(dos, D, dout + qbase, q0, kBQ, Sq, D, tid);
-  if (tid < kBQ) {
-    const bool in = q0 + tid < Sq;
-    lse_s[tid] = in ? lse[(size_t)bh * Sq + q0 + tid] : 0.f;
-    delta_s[tid] = in ? delta[(size_t)bh * Sq + q0 + tid] : 0.f;
-  }
+  zero_pad(qs, P, 2 * kDqBQ + 4 * kDqBK, D, DP, tid, kDqThreads);
+  copy_rows(qs, P, q + qbase, q0, kDqBQ, Sq, D, vec, tid, kDqThreads);
+  copy_rows(dos, P, dout + qbase, q0, kDqBQ, Sq, D, vec, tid, kDqThreads);
+  copy_vec(lse_s, lse + (size_t)bh * Sq, q0, kDqBQ, Sq, tid, kDqThreads);
+  copy_vec(delta_s, delta + (size_t)bh * Sq, q0, kDqBQ, Sq, tid,
+           kDqThreads);
+  auto load_tile = [&](int k0, int buf) {
+    copy_rows(ks + buf * kDqBK * P, P, k + kbase, k0, kDqBK, Sk, D, vec, tid,
+              kDqThreads);
+    copy_rows(vs + buf * kDqBK * P, P, v + kbase, k0, kDqBK, Sk, D, vec,
+              tid, kDqThreads);
+  };
+  if (kstop > 0) load_tile(0, 0);
+  cp_commit();
 
-  float dq_acc[kRows][DCH];
+  float dq_acc[NT][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int c = 0; c < DCH; ++c) dq_acc[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
 
-  for (int k0 = 0; k0 < kstop; k0 += kBK) {
-    __syncthreads();  // the previous key tile is consumed (q is staged)
-    load_rows(ks, dpad, k + kbase, k0, kBK, Sk, D, tid);
-    load_rows(vs, dpad, v + kbase, k0, kBK, Sk, D, tid);
-    __syncthreads();
-
-    float s[kRows], dp[kRows];
-    score_tile(qs, dos, ks, vs, D, warp, lane, s, dp);
-    const int kj = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = warp + kWarps * r;
-      const int qi = q0 + i;
-      const bool keep = qi < Sq && kj < kend && (!causal || kj <= qi);
-      const float p = keep ? expf(s[r] * sm_scale - lse_s[i]) : 0.f;
-      dss[i * kBK + lane] = p * (dp[r] - delta_s[i]) * sm_scale;
+  int buf = 0;
+  for (int k0 = 0; k0 < kstop; k0 += kDqBK, buf ^= 1) {
+    if (k0 + kDqBK < kstop) {
+      load_tile(k0 + kDqBK, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-
-    // dQ[i] += sum_j dS[i][j] K[j], over the keys of the tile below kend
-    const int nj = min(kBK, kend - k0);
-    for (int j = 0; j < nj; ++j) {
-      const float* krow = ks + j * dpad;
+    const float* kt = ks + buf * kDqBK * P;
+    const float* vt = vs + buf * kDqBK * P;
+    const bool live = qw0 < Sq && !(causal && k0 > qw0 + 15);
+    if (live) {
+      // S and dP of this warp's 16 rows x the tile's keys
+      float s[KT][4], dp[KT][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float dsij = dss[(warp + kWarps * r) * kBK + j];
+      for (int j = 0; j < KT; ++j)
 #pragma unroll
-        for (int c = 0; c < DCH; ++c) {
-          const int d = lane + 32 * c;
-          if (d < D) dq_acc[r][c] = fmaf(dsij, krow[d], dq_acc[r][c]);
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      const float* qw = qs + 16 * warp * P;
+      const float* dow = dos + 16 * warp * P;
+      for (int kk = 0; kk < 8 * ntd; kk += 8) {
+        uint32_t qh[4], ql[4], oh[4], ol[4];
+        load_a(qw, P, kk, g, t, qh, ql);
+        load_a(dow, P, kk, g, t, oh, ol);
+#pragma unroll
+        for (int j0 = 0; j0 < KT; j0 += 4) {
+          uint32_t kh[4][2], kl[4][2], vh[4][2], vl[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            load_b_rows(kt + 8 * (j0 + i) * P + kk, P, g, t, kh[i], kl[i]);
+            load_b_rows(vt + 8 * (j0 + i) * P + kk, P, g, t, vh[i], vl[i]);
+          }
+          mma3x2<4>(s + j0, qh, ql, kh, kl, dp + j0, oh, ol, vh, vl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * warp + g + ((e & 2) ? 8 : 0);
+          const int qi = q0 + row;
+          const int kj = k0 + 8 * j + 2 * t + (e & 1);
+          const bool keep = qi < Sq && kj < kend && (!causal || kj <= qi);
+          const float p =
+              keep ? expf(s[j][e] * sm_scale - lse_s[row]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - delta_s[row]) * sm_scale;
+        }
+      }
+      // dQ += dS K over the tile's keys (permuted)
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        uint32_t ah[4], al[4];
+        c_as_a(dp[j], ah, al);
+        const float* kr = kt + 8 * j * P;
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += 4) {
+          uint32_t bh_[4][2], bl_[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            load_b_perm(kr + 8 * (n0 + i), P, g, t, bh_[i], bl_[i]);
+          mma3x1<4>(dq_acc + n0, ah, al, bh_, bl_);
         }
       }
     }
+    __syncthreads();  // this buffer is consumed
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + warp + kWarps * r;
-    if (qi >= Sq) continue;
+  for (int n = 0; n < NT; ++n) {
+    if (n >= ntd) continue;
 #pragma unroll
-    for (int c = 0; c < DCH; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) dq[qbase + (size_t)qi * D + d] = dq_acc[r][c];
+    for (int e = 0; e < 4; ++e) {
+      const int qi = qw0 + g + ((e & 2) ? 8 : 0);
+      const int d = 8 * n + 2 * t + (e & 1);
+      if (qi < Sq && d < D) dq[qbase + (size_t)qi * D + d] = dq_acc[n][e];
     }
   }
 }
 
+// Raise a kernel's dynamic shared-memory limit to the most any plan gives
+// it, once per kernel instance and device (`ready` holds one bit per
+// device): the attribute is a host call, and every backward of the
+// training step launches a kernel above the 48 KB default.
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem <= kStaticSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+cudaError_t prepare(Kernel kernel, size_t most,
+                    std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (ready.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(most));
+  if (err == cudaSuccess) ready.fetch_or(bit);
+  return err;
 }
 
-template <int DCH>
-int launch_dkv(const float* q, const float* k, const float* v,
-               const float* dout, const float* lse, const float* delta,
-               const int* kv_len, float* dk, float* dv, int B, int H, int Sq,
-               int Sk, int D, int causal, float sm_scale,
-               cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * kBK * (D + 1) + 2 * kBQ * D +
-                                       2 * kBQ * kBK + 2 * kBQ);
-  cudaError_t err = prepare(flash_bwd_dkv_f32_kernel<DCH>, smem);
+template <int DP>
+int launch_fused(const float* q, const float* k, const float* v,
+                 const float* dout, const float* lse, const float* delta,
+                 const int* kv_len, float* dq, float* dk, float* dv, int B,
+                 int H, int Sq, int Sk, int D, int causal, float sm_scale,
+                 int BK, int with_dq, int vec, long long smem,
+                 cudaStream_t stream) {
+  if (BK < 16 || BK > kMaxBK || BK % 16 != 0 || (with_dq && Sk > BK) ||
+      smem != static_cast<long long>(fused_smem(DP, BK, with_dq)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = prepare(flash_bwd_fused_kernel<DP>,
+                            fused_smem(DP, kMaxBK, 1), ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (Sk + kBK - 1) / kBK);
-  flash_bwd_dkv_f32_kernel<DCH><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, kv_len, dk, dv, H, Sq, Sk, D, causal,
-      sm_scale);
+  const dim3 grid(B * H, (Sk + BK - 1) / BK);
+  flash_bwd_fused_kernel<DP><<<grid, 32 * (BK / 16), smem, stream>>>(
+      q, k, v, dout, lse, delta, kv_len, dq, dk, dv, H, Sq, Sk, D, causal,
+      sm_scale, BK, with_dq, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DCH>
+template <int DP>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* lse, const float* delta,
               const int* kv_len, float* dq, int B, int H, int Sq, int Sk,
-              int D, int causal, float sm_scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * kBK * (D + 1) + 2 * kBQ * D +
-                                       kBQ * kBK + 2 * kBQ);
-  cudaError_t err = prepare(flash_bwd_dq_f32_kernel<DCH>, smem);
+              int D, int causal, float sm_scale, int vec, long long smem,
+              cudaStream_t stream) {
+  if (smem != static_cast<long long>(dq_smem(DP)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = prepare(flash_bwd_dq_kernel<DP>, dq_smem(DP), ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_bwd_dq_f32_kernel<DCH><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, kv_len, dq, H, Sq, Sk, D, causal, sm_scale);
+  const dim3 grid(B * H, (Sq + kDqBQ - 1) / kDqBQ);
+  flash_bwd_dq_kernel<DP><<<grid, kDqThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, kv_len, dq, H, Sq, Sk, D, causal, sm_scale,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Each returns cudaGetLastError() after its launch (0 = launched).
-extern "C" int mxtt_flash_bwd_dkv_f32(const float* q, const float* k,
-                                      const float* v, const float* dout,
-                                      const float* lse, const float* delta,
-                                      const int* kv_len, float* dk,
-                                      float* dv, int B, int H, int Sq,
-                                      int Sk, int D, int causal,
-                                      float sm_scale, void* stream) {
+// Each returns cudaGetLastError() after its launch (0 = launched), or
+// cudaErrorInvalidValue for a plan this file would not have made.
+extern "C" int mxtt_flash_bwd_f32(const float* q, const float* k,
+                                  const float* v, const float* dout,
+                                  const float* lse, const float* delta,
+                                  const int* kv_len, float* dq, float* dk,
+                                  float* dv, int B, int H, int Sq, int Sk,
+                                  int D, int causal, float sm_scale, int BK,
+                                  int with_dq, int vec, long long smem,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MXTT_DKV(DCH)                                                        \
-  launch_dkv<DCH>(q, k, v, dout, lse, delta, kv_len, dk, dv, B, H, Sq, Sk, \
-                  D, causal, sm_scale, st)
-  if (D <= 32) return MXTT_DKV(1);
-  if (D <= 64) return MXTT_DKV(2);
-  if (D <= 96) return MXTT_DKV(3);
-  if (D <= 128) return MXTT_DKV(4);
-#undef MXTT_DKV
+#define MXTT_FUSED(DP)                                                      \
+  launch_fused<DP>(q, k, v, dout, lse, delta, kv_len, dq, dk, dv, B, H, Sq, \
+                   Sk, D, causal, sm_scale, BK, with_dq, vec, smem, st)
+  if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 32) return MXTT_FUSED(32);
+  if (D <= 64) return MXTT_FUSED(64);
+  if (D <= 96) return MXTT_FUSED(96);
+  if (D <= 128) return MXTT_FUSED(128);
+#undef MXTT_FUSED
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -367,15 +743,17 @@ extern "C" int mxtt_flash_bwd_dq_f32(const float* q, const float* k,
                                      const float* lse, const float* delta,
                                      const int* kv_len, float* dq, int B,
                                      int H, int Sq, int Sk, int D, int causal,
-                                     float sm_scale, void* stream) {
+                                     float sm_scale, int vec, long long smem,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MXTT_DQ(DCH)                                                         \
-  launch_dq<DCH>(q, k, v, dout, lse, delta, kv_len, dq, B, H, Sq, Sk, D,   \
-                 causal, sm_scale, st)
-  if (D <= 32) return MXTT_DQ(1);
-  if (D <= 64) return MXTT_DQ(2);
-  if (D <= 96) return MXTT_DQ(3);
-  if (D <= 128) return MXTT_DQ(4);
+#define MXTT_DQ(DP)                                                          \
+  launch_dq<DP>(q, k, v, dout, lse, delta, kv_len, dq, B, H, Sq, Sk, D,    \
+                causal, sm_scale, vec, smem, st)
+  if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 32) return MXTT_DQ(32);
+  if (D <= 64) return MXTT_DQ(64);
+  if (D <= 96) return MXTT_DQ(96);
+  if (D <= 128) return MXTT_DQ(128);
 #undef MXTT_DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,11 +6,14 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
   * `flash_attention` — every attention of the model, forward and
     backward, as a `torch.autograd.Function`. Its forward launches
     `csrc/flash_fwd.cu` (replaces `_flash_fwd_kernel`) and keeps q, k, v,
-    the output and the row log-sum-exp; its backward launches the two
-    kernels of `csrc/flash_bwd.cu` (replace `_flash_bwd_dkv_kernel` and
-    `_flash_bwd_dq_kernel`). `flash_attention_fwd` / `flash_attention_bwd`
-    are the two halves on their own; the backward takes
-    delta = rowsum(dO * O) as an input, which its caller computes.
+    the output and the row log-sum-exp; its backward launches
+    `csrc/flash_bwd.cu` (replaces `_flash_bwd_dkv_kernel` and
+    `_flash_bwd_dq_kernel`): one fused dQ/dK/dV kernel when the keys fit
+    one block (`flash_bwd_plan`: Sk <= 128 at D <= 64, every attention
+    of the training step), else that kernel for dK/dV and a dQ kernel
+    after it. `flash_attention_fwd` / `flash_attention_bwd` are the two
+    halves on their own; the backward takes delta = rowsum(dO * O) as an
+    input, which its caller computes.
   * `ragged_paged_attention` — the decode step's self-attention over
     the paged KV cache: four kernels of `csrc/ragged_paged_attention.cu`
     — one query row per slot (replaces `_rpa_kernel`) or W rows
@@ -54,6 +57,7 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_bwd_plan",
            "single_query_cached_attention", "ragged_paged_attention",
            "fused_layer_norm", "layer_norm_fwd", "conv1x1_bn_stats",
            "LAUNCHES", "reset_launch_counts"]
@@ -61,7 +65,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 _MASKED = -1e30
 
 # kernel launches per wrapper; bumped only where a kernel is launched
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
             "ragged_paged_attention": 0, "ragged_paged_attention_int8": 0,
             "ragged_paged_attention_multi": 0,
             "ragged_paged_attention_multi_int8": 0, "layer_norm": 0,
@@ -198,7 +202,7 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None,
 # flash attention backward
 # ---------------------------------------------------------------------------
 def _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale, kv_lengths):
-    """The plain version of the two backward kernels: p = exp(s - lse)
+    """The plain version of the backward kernels: p = exp(s - lse)
     where the mask allows it and 0 elsewhere, dS = p (dP - delta) scale;
     returns (dQ, dK, dV)."""
     b, h, sq, _ = q.shape
@@ -238,31 +242,83 @@ def _bwd_pointers(q, k, v, do, lse, delta, kv_lengths):
             None if kv_lengths is None else kv_lengths.data_ptr())
 
 
-def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale,
-                        kv_lengths):
-    b, h, sq, sk, d = _flash_bwd_args(q, k, v, do, lse, delta, causal,
-                                      kv_lengths)
+# query rows per tile of the fused backward kernel; query rows per block
+# and keys per tile of the dQ kernel (`csrc/flash_bwd.cu` kBQ, kDqBQ,
+# kDqBK)
+_BWD_BQ = 32
+_BWD_DQ_TILE = 64
+
+
+def flash_bwd_plan(sk, d):
+    """The launch plan of the flash backward kernels for Sk keys of width
+    D (it does not depend on Sq):
+
+      dp     D zero-padded in shared memory (32, 64, 96 or 128)
+      bk     keys per fused block, one warp per 16
+      bq     query rows per tile of the fused kernel
+      path   "fused" when Sk <= the largest block (128 keys for
+             D <= 64, else 64): one block holds every key of its (b, h)
+             and one launch writes dQ, dK and dV; "split" above that:
+             the fused kernel writes dK and dV, then the dQ kernel runs
+      smem, dq_smem   dynamic shared bytes of the fused kernel and of
+             the dQ kernel (None on the fused path); the kernels
+             recompute them and refuse a plan that disagrees.
+    """
+    _check(0 < d <= 128 and sk > 0,
+           f"flash backward takes 0 < D <= 128 and Sk > 0, got {d}, {sk}")
+    dp = 32 * -(-d // 32)
+    pitch = dp + 4
+    bk_max = 128 if dp <= 64 else 64
+    fused = sk <= bk_max
+    bk = 16 * -(-sk // 16) if fused else bk_max
+    smem = 4 * (2 * bk * pitch + 4 * _BWD_BQ * pitch + 4 * _BWD_BQ
+                + (_BWD_BQ * (bk + 4) if fused else 0))
+    dq_smem = None if fused else 4 * (6 * _BWD_DQ_TILE * pitch
+                                      + 2 * _BWD_DQ_TILE)
+    return dict(path="fused" if fused else "split", dp=dp, bk=bk,
+                bq=_BWD_BQ, smem=smem, dq_smem=dq_smem)
+
+
+def _vec_copies(d, *tensors):
+    """The kernels copy rows in 16-byte pieces when D % 4 == 0 and every
+    base address is 16-byte aligned, else float by float."""
+    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+                          kv_lengths, plan):
+    """The fused kernel on the arguments `flash_attention_bwd` checked:
+    (dQ, dK, dV) on the plan's fused path, (None, dK, dV) on its split
+    path."""
+    b, h, sq, d = q.shape
+    with_dq = plan["path"] == "fused"
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq = torch.empty_like(q) if with_dq else None
     lib = _build.library()
     with torch.cuda.device(q.device):
-        rc = lib.mxtt_flash_bwd_dkv_f32(
+        rc = lib.mxtt_flash_bwd_f32(
             *_bwd_pointers(q, k, v, do, lse, delta, kv_lengths),
-            dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, int(causal),
-            float(sm_scale), torch.cuda.current_stream().cuda_stream)
-    _launched("flash_bwd_dkv", rc)
-    return dk, dv
+            None if dq is None else dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, sq, k.shape[2], d, int(causal),
+            float(sm_scale), plan["bk"], int(with_dq),
+            _vec_copies(d, q, k, v, do), plan["smem"],
+            torch.cuda.current_stream().cuda_stream)
+    _launched("flash_bwd", rc)
+    return dq, dk, dv
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale,
-                       kv_lengths):
-    b, h, sq, sk, d = _flash_bwd_args(q, k, v, do, lse, delta, causal,
-                                      kv_lengths)
+                       kv_lengths, plan):
+    """The dQ kernel of the plan's split path, on the arguments
+    `flash_attention_bwd` checked."""
+    b, h, sq, d = q.shape
     dq = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
         rc = lib.mxtt_flash_bwd_dq_f32(
             *_bwd_pointers(q, k, v, do, lse, delta, kv_lengths),
-            dq.data_ptr(), b, h, sq, sk, d, int(causal), float(sm_scale),
+            dq.data_ptr(), b, h, sq, k.shape[2], d, int(causal),
+            float(sm_scale), _vec_copies(d, q, k, v, do), plan["dq_smem"],
             torch.cuda.current_stream().cuda_stream)
     _launched("flash_bwd_dq", rc)
     return dq
@@ -274,24 +330,29 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
     do: (B, H, Sq, D) output gradient; lse, delta: (B*H, Sq) fp32, with
     delta = rowsum(dO * O) (a caller may shift it, as the JAX package's
     `flash_block_attention` does to fold in an lse gradient). The dK and
-    dV rows of keys at or past kv_lengths[b] are exactly 0."""
+    dV rows of keys at or past kv_lengths[b] are exactly 0. On the card
+    one fused launch writes all three when Sk fits one block
+    (`flash_bwd_plan`), else the fused kernel writes dK / dV and the dQ
+    kernel follows."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dev = _device_of(q, k, v, do, lse, delta, kv_lengths)
-    if dev.type == "cuda":
-        dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
-                                     sm_scale, kv_lengths)
-        dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+    _, _, _, sk, d = _flash_bwd_args(q, k, v, do, lse, delta, causal,
+                                     kv_lengths)
+    if dev.type != "cuda":
+        return _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
                                 kv_lengths)
-        return dq, dk, dv
-    _flash_bwd_args(q, k, v, do, lse, delta, causal, kv_lengths)
-    return _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
-                            kv_lengths)
+    args = (q, k, v, do, lse, delta, causal, sm_scale, kv_lengths,
+            flash_bwd_plan(sk, d))
+    dq, dk, dv = _flash_bwd_fused_cuda(*args)
+    if dq is None:
+        dq = _flash_bwd_dq_cuda(*args)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: the flash forward, keeping what the backward needs;
-    backward: delta in torch, then the dK/dV and dQ launches."""
+    backward: delta in torch, then `flash_attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lengths, causal, sm_scale):
