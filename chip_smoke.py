@@ -20,8 +20,10 @@ Phases (any failure raises and the script exits non-zero):
                  table), the flash backward (training shapes on its fused
                  path, edge shapes, and Sk above one block on its split
                  path; also against float64 autograd and a repeated
-                 launch, bit for bit) and LayerNorm (training shape;
-                 D = 512 only). The long-sequence path drives
+                 launch, bit for bit) and LayerNorm (every width its
+                 paths give it: 512, BERT's 768, 1024, 200, and 1032,
+                 4096, 8192 on its one-block-a-row form; timed at each
+                 under `per_shape`). The long-sequence path drives
                  `flash_attention` forward and backward at B=4, H=8,
                  S=1024, D=64, causal and not (counters zeroed just
                  before, read just after: 2 launches of the forward, the
@@ -106,6 +108,31 @@ Phases (any failure raises and the script exits non-zero):
                  weights (a saved file) on the card and on the CPU: the
                  loss, every gradient and every running statistic agree
                  within the stated limits.
+ 10. bert attention — the flash kernels at BERT-base's attention shape
+                 (B=16, H=12, S=512, D=64) with key lengths mid-block
+                 (300), on a block edge (384), full (512), very short (3)
+                 and from numpy seed 0 in [256, 512]: the forward against
+                 its plain version, the backward on its split path (the
+                 fused kernel for dK / dV, then the dQ kernel) against
+                 its plain version and float64 autograd, dK / dV exactly
+                 0 past each length; the forward, the kernel pair, each
+                 kernel and SDPA timed there (the rows' `per_shape`).
+ 11. bert train — examples/bert_pretrain.py's Gluon loop on full-width
+                 `BERTForPretraining(bert_base(max_length=512,
+                 dropout=0.0))`, fp32, `initialize(ctx=mx.gpu(0))` after
+                 `mx.random.seed(0)`, Adam at 1e-4, the MLM + NSP
+                 SoftmaxCrossEntropyLoss, 10 steps on one batch at
+                 bench_bert.py's shape (B=16, S=512, 76 masked positions;
+                 lengths, segment ids and labels from numpy seed 0). The
+                 counters are zeroed just before and read just after:
+                 every step must launch 12 flash forwards, 12 fused and
+                 12 dQ backward kernels and 26 LayerNorms. Tokens/s (B*S
+                 over each step's wall time, steps 3-10) and its spread,
+                 peak memory, then one step under torch.profiler.
+ 12. bert card vs CPU — phase 11's initial weights, cut to 2 layers at
+                 full width, one step at B=2, S=512, lengths (300, 512)
+                 on the card and on the CPU: the loss and every gradient
+                 within phase 6's limits.
 
 Output: progress lines, then `nvidia-smi`'s name and power limit, then
 one JSON line `{"kernels": [...]}`, then the last line
@@ -129,9 +156,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # kernels' work is fp32
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-# the flash backward's products run on the tensor cores in split TF32:
-# three TF32 products for each fp32 one, so its fp32 operations have the
-# dense TF32 tensor-core rate over 3
+# fp32-class products on the tensor cores in split TF32 (the flash
+# backward runs them so): three TF32 products for each fp32 one, so the
+# dense TF32 tensor-core rate over 3. The least time of every fp32
+# attention product, the forward's too, whatever unit its kernel uses
 PEAK_TF32X3_FLOPS = 495e12 / 3
 # the dense bf16 tensor-core rate: the least time of the bf16 conv1x1
 # product, though its first kernel runs it through fp32 FMAs
@@ -142,9 +170,14 @@ RPA_TOL = dict(rtol=2e-5, atol=2e-6)     # another order than torch's
 BWD_TOL = dict(rtol=2e-4, atol=2e-5)     # (the flash backward pair and
 LN_TOL = dict(rtol=1e-5, atol=1e-5)      # LayerNorm likewise)
 # the flash backward against float64 autograd: fp32 rounding (the
-# kernels' products in split TF32, fp32-class) of sums over at most 300
+# kernels' products in split TF32, fp32-class) of sums over at most 512
 # keys or queries
 BWD_F64_TOL = dict(rtol=2e-4, atol=2e-5)
+# and the kernels' distance from float64 at most this multiple of the fp32
+# plain version's: split TF32 drops the small x small part of each
+# product, and measured 1.4x to 7.2x of the plain version's distance over
+# the backward cases here (NVIDIA H100 80GB HBM3, 700 W)
+BWD_F64_RATIO = 10.0
 # card vs CPU logits: fp32 through 12 layers (cuBLAS vs the CPU BLAS sum
 # in different orders; TF32 off)
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -172,6 +205,12 @@ TRAIN_B, TRAIN_S = 32, 64        # bench_nmt.py's seq: 64 src + 64 tgt
 # the flash backward's long-sequence path (Sk above one block: the fused
 # kernel for dK / dV, then the dQ kernel)
 LONG_B, LONG_H, LONG_S = 4, 8, 1024
+# the LayerNorm kernel's timed shapes (rows, D): TransformerNMT's training
+# shape first (the row's own numbers), then BERT-base's (B=16 x S=512
+# rows of 768), bert_large's width, a width no multiple of 128, and the
+# one-block-a-row form at 4096 and 8192
+LN_TIMED = [(TRAIN_B * TRAIN_S, 512), (16 * 512, 768), (16 * 512, 1024),
+            (4099, 200), (2048, 4096), (1024, 8192)]
 
 # the conv1x1 kernel: the probe's four ResNet-50 shapes at batch 128
 # (tools/probe_fused_convbn.py:121-126) and an odd one
@@ -201,6 +240,11 @@ RESNET_B, RESNET_STEPS = 128, 10
 RESNET_LOSS_RTOL = 1e-4
 RESNET_SPREAD_FACTOR = 10
 RESNET_GRAD_FLOOR, RESNET_STAT_FLOOR = 1e-4, 1e-5
+
+# BERT-base MLM pretraining at bench_bert.py's shape: batch 16
+# (bench_bert.py:113), seq 512 and 76 masked positions (:25), fp32
+BERT_VOCAB, BERT_B, BERT_S, BERT_H, BERT_P = 30522, 16, 512, 12, 76
+BERT_STEPS = 10
 
 BOS, EOS = 2, 3
 
@@ -358,7 +402,7 @@ def phase_flash(mx, torch):
     # rows only, in the bytes (q, live k/v, out, lse, len) as in the flops
     nbytes = 4 * (2 * b * h * s * d + 2 * b * h * kv_len * d + b * h * s + b)
     flops = 4 * b * h * s * kv_len * d                 # QK^T + PV
-    bms, by = bound(nbytes, flops)
+    bms, by = bound(nbytes, flops, PEAK_TF32X3_FLOPS)
     log(f"flash serving shape {(b, h, s, d)} kv_len={kv_len}: per call "
         f"(host launch included) {call}; device (CUDA graph) {dev_ms}; "
         f"bound {bms:.6f} ms ({by})")
@@ -419,7 +463,7 @@ def phase_rpa(mx, torch):
     S, live = len(serve_lens), sum(serve_lens)
     nbytes = 4 * (2 * S * H * dh + 2 * live * H * dh + pt.numel() + S)
     flops = 4 * live * H * dh
-    bms, by = bound(nbytes, flops)
+    bms, by = bound(nbytes, flops, PEAK_TF32X3_FLOPS)
     log(f"rpa serving shape S={S} H={H} dh={dh} psize={psize} "
         f"lens={serve_lens}: per call (host launch included) {call}; "
         f"device (CUDA graph) {dev_ms}; bound {bms:.6f} ms ({by})")
@@ -525,7 +569,7 @@ def phase_rpa_fastpath(mx, torch):
                   + 4 * S)
         flops = 4 * sum(map(sum, vis)) * H * dh \
             + (2 * live * H * dh if quant else 0)
-        bms, by = bound(nbytes, flops)
+        bms, by = bound(nbytes, flops, PEAK_TF32X3_FLOPS)
         log(f"{name} serving shape S={S} W={w} H={H} dh={dh} psize={psize}"
             f" lens={SERVE_LENS}: per call (host launch included) {call}; "
             f"device (CUDA graph) {dev_ms}; bound {bms:.6f} ms ({by}); "
@@ -958,10 +1002,24 @@ def _attention_grads_f64(torch, q, k, v, do, causal, scale, lens):
     return torch.autograd.grad(p @ v, (q, k, v), do.cpu().double())
 
 
-def _bwd_check(torch, K, case, got, worst, tags):
+def _within(torch, g, ref, tol, scaled):
+    """allclose(g, ref, **tol); with `scaled`, the absolute part of the
+    limit is multiplied by each (b, h) slice's largest |ref|, at least
+    1 (see `phase_bert_attention`)."""
+    if not scaled:
+        return torch.allclose(g, ref, **tol)
+    scale = ref.abs().amax(dim=(-2, -1), keepdim=True).clamp(min=1.0)
+    return bool(((g - ref).abs()
+                 <= tol["atol"] * scale + tol["rtol"] * ref.abs()).all())
+
+
+def _bwd_check(torch, K, case, got, worst, tags, scaled=False):
     """One backward case's (dQ, dK, dV) against `_flash_bwd_plain` and
-    float64 autograd; exact zeros past kv_len. `tags` names the kernel
-    that wrote each gradient, for the worst-error record."""
+    float64 autograd (BWD_TOL, BWD_F64_TOL; `scaled`: their absolute
+    part scaled per (b, h) slice, `_within`), and no further from float64
+    than BWD_F64_RATIO times the plain version; exact zeros past kv_len.
+    `tags` names the kernel that wrote each gradient, for the
+    worst-error record."""
     q, k, v, do, vl, lse, delta, (b, h, sq, sk, d, causal, lens) = case
     refs = K._flash_bwd_plain(q, k, v, do, lse, delta, causal, d ** -0.5,
                               vl)
@@ -971,7 +1029,7 @@ def _bwd_check(torch, K, case, got, worst, tags):
         check(torch.isfinite(g).all().item(), f"{name} not finite")
         check(ref.abs().max().item() > 0, f"plain {name} is all zeros")
         errs[name] = (g - ref).abs().max().item()
-        check(torch.allclose(g, ref, **BWD_TOL),
+        check(_within(torch, g, ref, BWD_TOL, scaled),
               f"flash bwd {name} kernel vs plain: max abs err "
               f"{errs[name]} at {(b, h, sq, sk, d, causal)}")
     dq, dk, dv = got
@@ -982,19 +1040,25 @@ def _bwd_check(torch, K, case, got, worst, tags):
               f"dK/dV of keys past kv_len {n} must be exactly 0")
     # a second yardstick: torch autograd through float64 softmax
     # attention on the CPU (the fp32 plain version shares the kernels'
-    # formula, so it would not show an error common to both)
-    errs64 = {}
-    for name, g, ref in zip(("dq", "dk", "dv"), got,
-                            _attention_grads_f64(torch, q, k, v, do, causal,
-                                                 d ** -0.5, lens)):
+    # formula, so it would not show an error common to both); the plain
+    # version's own distance from it is recorded beside the kernels'
+    errs64, plain64 = {}, {}
+    for name, g, p, ref in zip(("dq", "dk", "dv"), got, refs,
+                               _attention_grads_f64(torch, q, k, v, do,
+                                                    causal, d ** -0.5, lens)):
         g = g.cpu().double()
         errs64[name] = (g - ref).abs().max().item()
-        check(torch.allclose(g, ref, **BWD_F64_TOL),
+        plain64[name] = (p.cpu().double() - ref).abs().max().item()
+        check(_within(torch, g, ref, BWD_F64_TOL, scaled),
               f"flash bwd {name} kernel vs float64 autograd: max abs err "
               f"{errs64[name]} at {(b, h, sq, sk, d, causal)}")
+        check(errs64[name] <= BWD_F64_RATIO * plain64[name],
+              f"flash bwd {name} kernel {errs64[name]} from float64, more "
+              f"than {BWD_F64_RATIO}x the plain version's {plain64[name]} "
+              f"at {(b, h, sq, sk, d, causal)}")
     for name, tag in zip(("dq", "dk", "dv"), tags):
         worst[tag] = max(worst[tag], errs[name])
-    return errs, errs64
+    return errs, errs64, plain64
 
 
 def _long_attention(mx, torch, g):
@@ -1134,13 +1198,14 @@ def phase_flash_bwd(mx, torch):
               f"{case}: a repeated launch gave other bits")
         tags = ("flash_bwd_dq" if path == "split" else "flash_bwd",
                 "flash_bwd", "flash_bwd")
-        errs, errs64 = _bwd_check(torch, K, (q, k, v, do, vl, lse, delta,
-                                             case), got, worst, tags)
+        errs, errs64, plain64 = _bwd_check(
+            torch, K, (q, k, v, do, vl, lse, delta, case), got, worst, tags)
         log(f"flash bwd {(b, h, sq, sk, d)} causal={causal} {path} "
             f"lens={None if lens is None else lens[:4]}...: max abs err "
             f"{errs} (tol rtol={BWD_TOL['rtol']} atol={BWD_TOL['atol']}); "
             f"vs float64 {errs64} (tol rtol={BWD_F64_TOL['rtol']} "
-            f"atol={BWD_F64_TOL['atol']}); repeat bit-identical")
+            f"atol={BWD_F64_TOL['atol']}, and at most {BWD_F64_RATIO}x the "
+            f"plain version's {plain64}); repeat bit-identical")
 
     long_launches = _long_attention(mx, torch, g)
 
@@ -1197,23 +1262,27 @@ def phase_flash_bwd(mx, torch):
 
 
 def phase_ln(mx, torch):
-    """The LayerNorm kernel against `_ln_plain` at the training shape
-    (rows = 32 x 64, D = 512) and at row counts that leave a block part
-    full; the kernel takes D = 512 only and must refuse another width."""
+    """The LayerNorm kernel against `_ln_plain` at every width its paths
+    give it and at edge shapes: TransformerNMT's training shape (rows =
+    32 x 64, D = 512), BERT's (16 x 512 rows, D = 768), bert_large's
+    (D = 1024), a width that is no multiple of 32 or 128 (D = 200) and
+    widths past the one-warp form (1032, 4096, 8192), at row counts that
+    leave a block part full. Each shape of LN_TIMED is timed (kernel,
+    plain version, `F.layer_norm`) under `per_shape`; the row's own
+    numbers stay those of the training shape."""
     K = mx.ops.kernels
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cpu").manual_seed(3)
-    try:
-        K.layer_norm_fwd(*[torch.ones(shape, device=dev)
-                           for shape in ((4, 768), (768,), (768,))])
-        check(False, "layer norm kernel took D = 768")
-    except mx.MXNetError as e:
-        log(f"layer norm D = 768 refused: {e}")
+    # the kernel's form at width d: one warp a row up to D = 1024, one
+    # block a row above (kWarpMaxD in ops/csrc/layer_norm.cu)
+    form = lambda d: "warp" if d <= 1024 else "row"  # noqa: E731
     worst = 0.0
-    for rows, d in [(TRAIN_B * TRAIN_S, 512), (7, 512), (1, 512),
-                    (4099, 512)]:
+    for rows, d in [*LN_TIMED, (7, 512), (1, 512), (4099, 512), (7, 768),
+                    (1, 1024), (13, 200), (1000, 1032), (3, 8192),
+                    (1, 33)]:
         x, ga, be = [torch.randn(shape, generator=g).to(dev)
                      for shape in ((rows, d), (d,), (d,))]
+        x = 3 * x + 1
         got = K.layer_norm_fwd(x, ga, be, 1e-5)
         ref = K._ln_plain(x, ga, be, 1e-5)
         torch.cuda.synchronize()
@@ -1222,28 +1291,39 @@ def phase_ln(mx, torch):
               f"layer norm kernel vs plain at ({rows}, {d}): max abs errs "
               f"(y, mean, rstd) {errs}")
         worst = max(worst, *errs)
-        log(f"layer norm ({rows}, {d}): max abs err (y, mean, rstd) {errs} "
-            f"(tol rtol={LN_TOL['rtol']} atol={LN_TOL['atol']})")
-    rows, d = TRAIN_B * TRAIN_S, 512
-    x, ga, be = [torch.randn(shape, generator=g).to(dev)
-                 for shape in ((rows, d), (d,), (d,))]
-    fns = {"kernel": lambda: K.layer_norm_fwd(x, ga, be, 1e-5),
-           "plain": lambda: K._ln_plain(x, ga, be, 1e-5),
-           "torch": lambda: torch.nn.functional.layer_norm(x, (d,), ga, be,
-                                                           1e-5)}
-    call = {name: cuda_ms(fn) for name, fn in fns.items()}
-    dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
-    # x and y once each, gamma and beta, mean and rstd; ~8 FLOP an element
-    bms, by = bound(4 * (2 * rows * d + 2 * d + 2 * rows), 8 * rows * d)
-    log(f"layer norm training shape ({rows}, {d}): per call (host launch "
-        f"included) {call}; device (CUDA graph) {dev_ms}; bound "
-        f"{bms:.6f} ms ({by})")
+        log(f"layer norm ({rows}, {d}) {form(d)} form: max abs "
+            f"err (y, mean, rstd) {errs} (tol rtol={LN_TOL['rtol']} "
+            f"atol={LN_TOL['atol']})")
+    per_shape = []
+    for rows, d in LN_TIMED:
+        x, ga, be = [torch.randn(shape, generator=g).to(dev)
+                     for shape in ((rows, d), (d,), (d,))]
+        fns = {"kernel": lambda: K.layer_norm_fwd(x, ga, be, 1e-5),
+               "plain": lambda: K._ln_plain(x, ga, be, 1e-5),
+               "torch": lambda: torch.nn.functional.layer_norm(
+                   x, (d,), ga, be, 1e-5)}
+        call = {name: cuda_ms(fn) for name, fn in fns.items()}
+        dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
+        # x and y once each, gamma and beta, mean and rstd; ~8 FLOP an
+        # element
+        bms, by = bound(4 * (2 * rows * d + 2 * d + 2 * rows), 8 * rows * d)
+        per_shape.append(dict(shape=[rows, d], form=form(d),
+                              ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
+                              library_ms=dev_ms["torch"], bound_ms=bms,
+                              bound_by=by, call_ms=call["kernel"]))
+        log(f"layer norm ({rows}, {d}) {form(d)} form: per call "
+            f"(host launch included) {call}; device (CUDA graph) {dev_ms}; "
+            f"bound {bms:.6f} ms ({by}); kernel / bound "
+            f"{dev_ms['kernel'] / bms:.2f}, kernel / F.layer_norm "
+            f"{dev_ms['kernel'] / dev_ms['torch']:.3f}")
+    top = per_shape[0]
     return dict(name="layer_norm", route="cuda",
                 source="mxnet_tpu_torch/ops/csrc/layer_norm.cu",
                 replaces="mxnet_tpu/ops/pallas_kernels.py:1209",
-                max_abs_err=worst, ms=dev_ms["kernel"],
-                plain_ms=dev_ms["plain"], bound_ms=bms, bound_by=by,
-                library_ms=dev_ms["torch"], call_ms=call["kernel"])
+                max_abs_err=worst, per_shape=per_shape,
+                **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "call_ms")})
 
 
 def _train_batch(mx, b, s, ctx):
@@ -1789,6 +1869,304 @@ def phase_resnet_card_vs_cpu(mx, torch, init_file):
         f"median spread, floor): " + json.dumps(report))
 
 
+# ---------------------------------------------------------------------------
+# BERT slice: BERT-base MLM pretraining through Gluon, fp32
+# ---------------------------------------------------------------------------
+def _bert_lengths(b):
+    """BERT's attention shape's key lengths: one mid-block (300), one on
+    a block edge (384), one full (512), one very short (3), the rest from
+    numpy seed 0 in [256, 512], as examples/bert_pretrain.py draws
+    them."""
+    rest = np.random.RandomState(0).randint(BERT_S // 2, BERT_S + 1, b - 4)
+    return [300, 384, BERT_S, 3] + [int(n) for n in rest]
+
+
+def phase_bert_attention(mx, torch, rows):
+    """The flash kernels at BERT-base's attention shape (B=16, H=12,
+    S=512, D=64) with key lengths (`_bert_lengths`): the forward against
+    `_flash_plain`, the backward on its split path (the fused kernel for
+    dK / dV, then the dQ kernel) against `_flash_bwd_plain` and float64
+    autograd, dK / dV exactly 0 at and past each length. Then the
+    forward, the backward pair, each of its kernels, the plain versions
+    and SDPA (forward, and backward as fwd+bwd - fwd) are timed at that
+    shape and added to the `flash_fwd`, `flash_bwd` and `flash_bwd_dq`
+    rows' `per_shape`."""
+    K = mx.ops.kernels
+    g = torch.Generator(device="cpu").manual_seed(7)
+    B, H, S, D = BERT_B, BERT_H, BERT_S, 64
+    lens = _bert_lengths(B)
+    plan = K.flash_bwd_plan(S, D)
+    check(plan["path"] == "split", f"S = {S} should take the split path")
+    case = (B, H, S, S, D, False, lens)
+    q, k, v, do, vl, out, lse, delta = _bwd_case(torch, K, g, *case)
+    before = dict(K.LAUNCHES)
+    got = K.flash_attention_bwd(q, k, v, do, lse, delta, False, D ** -0.5,
+                                vl)
+    torch.cuda.synchronize()
+    counts = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+    check(counts == dict(dict.fromkeys(K.LAUNCHES, 0), flash_bwd=1,
+                         flash_bwd_dq=1),
+          f"bert attention backward launches {counts}")
+    # The length-3 row puts all 512 queries' gradient on 3 keys: its
+    # |dK|, |dV| reach about 19 and 31 where every other row's stay near
+    # 1. The split-TF32 products err by about 5e-6 of a slice's largest
+    # gradient on every row (the fp32 plain version by about 1e-6), so
+    # that row's absolute errors reach 1e-4: BWD_TOL's and BWD_F64_TOL's
+    # absolute part is scaled by each (b, h) slice's largest |gradient|
+    # (at least 1, so the rows of scale <= 1 keep the unscaled limit)
+    worst = {"flash_bwd": 0.0, "flash_bwd_dq": 0.0}
+    errs, errs64, plain64 = _bwd_check(
+        torch, K, (q, k, v, do, vl, lse, delta, case), got, worst,
+        ("flash_bwd_dq", "flash_bwd", "flash_bwd"), scaled=True)
+    scales = {name: t.abs().amax(dim=(-2, -1)).max().item()
+              for name, t in zip(("dq", "dk", "dv"), got)}
+    log(f"bert attention {(B, H, S, D)} split path lens {lens}: forward "
+        f"out / lse within FLASH_TOL of the plain version; backward max abs "
+        f"err {errs} (tol rtol={BWD_TOL['rtol']} atol={BWD_TOL['atol']} x "
+        f"max(1, the (b, h) slice's largest |gradient|); largest "
+        f"|gradient| {scales}); vs float64 {errs64} (the same with "
+        f"BWD_F64_TOL, and at most {BWD_F64_RATIO}x the plain version's "
+        f"{plain64}); dK / dV exactly 0 past each length")
+    for name, err in worst.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+    scale = D ** -0.5
+    args = (q, k, v, do, lse, delta, False, scale, vl)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < vl[:, None].long())[:, None, None, :]
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(qg, kg, vg, attn_mask=mask), (qg, kg, vg),
+                            do)
+
+    fns = {"fwd": lambda: K.flash_attention_fwd(q, k, v, kv_lengths=vl),
+           "fwd_plain": lambda: K._flash_plain(q, k, v, False, scale, vl),
+           "pair": lambda: K.flash_attention_bwd(*args),
+           "fused_dkv": lambda: K._flash_bwd_fused_cuda(*args, plan),
+           "dq": lambda: K._flash_bwd_dq_cuda(*args, plan),
+           "bwd_plain": lambda: K._flash_bwd_plain(*args),
+           "sdpa_fwd": lambda: sdpa(q, k, v, attn_mask=mask),
+           "sdpa_fwd_bwd": sdpa_fwd_bwd}
+    dev_ms = {name: graph_ms(fn, calls=5, iters=10)
+              for name, fn in fns.items()}
+    sdpa_bwd = dev_ms["sdpa_fwd_bwd"] - dev_ms["sdpa_fwd"]
+    # this run's data: no kernel loads K / V rows at or past a length
+    live = sum(min(n, S) for n in lens)
+    pairs = H * S * live                     # live (q, k) pairs
+    rows_q = 4 * B * H * S * D               # bytes of one (B, H, S, D)
+    rows_kv = 4 * H * live * D               # bytes of the live K (or V)
+    stats = 4 * B * H * S                    # bytes of lse (or delta)
+    shape = [B, H, S, S, D]
+    # forward: q, live K / V, lengths read; out, lse written; QK^T + PV
+    fwd_b = bound(2 * rows_q + 2 * rows_kv + stats + 4 * B, 4 * pairs * D,
+                  PEAK_TF32X3_FLOPS)
+    # the fused kernel on the split path: q, dO, live K / V, lse, delta
+    # read, dK and dV written; S, dP, dV, dK
+    dkv_b = bound(2 * rows_q + 2 * rows_kv + 2 * stats + 4 * B
+                  + 2 * rows_q, 8 * pairs * D, PEAK_TF32X3_FLOPS)
+    # the dQ kernel: the same reads, dQ written; S, dP, dQ
+    dq_b = bound(2 * rows_q + 2 * rows_kv + 2 * stats + 4 * B + rows_q,
+                 6 * pairs * D, PEAK_TF32X3_FLOPS)
+    pair_b = bound(2 * rows_q + 2 * rows_kv + 2 * stats + 4 * B
+                   + 3 * rows_q, 10 * pairs * D, PEAK_TF32X3_FLOPS)
+    tflops = {name: f * pairs * D / (dev_ms[name] * 1e-3) / 1e12
+              for name, f in (("fwd", 4), ("pair", 10), ("fused_dkv", 8),
+                              ("dq", 6))}
+    log(f"bert attention {(B, H, S, D)} lens {lens}: device (CUDA graph) "
+        f"{dev_ms}; SDPA backward (fwd+bwd - fwd) {sdpa_bwd:.5f} ms; split "
+        f"pair / SDPA backward {dev_ms['pair'] / sdpa_bwd:.3f}; forward / "
+        f"SDPA forward {dev_ms['fwd'] / dev_ms['sdpa_fwd']:.3f}; bounds "
+        f"fwd {fwd_b}, fused dK/dV {dkv_b}, dQ {dq_b}, pair {pair_b}; "
+        f"achieved TFLOP/s {tflops}")
+    rows["flash_fwd"].setdefault("per_shape", []).append(dict(
+        shape=shape, lens=lens, ms=dev_ms["fwd"],
+        plain_ms=dev_ms["fwd_plain"], bound_ms=fwd_b[0],
+        bound_by=fwd_b[1], library_ms=dev_ms["sdpa_fwd"]))
+    rows["flash_bwd"].setdefault("per_shape", []).append(dict(
+        shape=shape, lens=lens, path="split", ms=dev_ms["fused_dkv"],
+        bound_ms=dkv_b[0], bound_by=dkv_b[1], pair_ms=dev_ms["pair"],
+        pair_bound_ms=pair_b[0], pair_bound_by=pair_b[1],
+        plain_ms=dev_ms["bwd_plain"], library_ms=None,
+        pair_library_ms=sdpa_bwd))
+    rows["flash_bwd_dq"].setdefault("per_shape", []).append(dict(
+        shape=shape, lens=lens, ms=dev_ms["dq"], bound_ms=dq_b[0],
+        bound_by=dq_b[1], plain_ms=dev_ms["bwd_plain"], library_ms=None))
+    del q, k, v, do, out, qg, kg, vg
+    torch.cuda.empty_cache()
+
+
+def _bert_batch(mx, b, s, ctx, lens=None):
+    """One fixed pretraining batch from numpy seed 0: token ids, segment
+    ids (0, then 1 from a split point inside the valid length), valid
+    lengths in [s/2, s] (or `lens`), BERT_P masked positions inside each
+    length, their labels, and NSP labels."""
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, BERT_VOCAB, (b, s)).astype(np.int32)
+    vl = np.asarray(lens if lens is not None
+                    else rng.randint(s // 2, s + 1, b), np.int32)
+    split = (vl * rng.uniform(0.2, 0.8, b)).astype(np.int32)
+    seg = (np.arange(s)[None, :] >= split[:, None]).astype(np.int32)
+    pos = (rng.uniform(0, 1, (b, BERT_P)) * vl[:, None]).astype(np.int32)
+    mlm_y = rng.randint(0, BERT_VOCAB, (b, BERT_P)).astype(np.int32)
+    nsp_y = rng.randint(0, 2, b).astype(np.int32)
+    return [mx.nd.array(a, ctx=ctx)
+            for a in (tok, seg, vl, pos, mlm_y, nsp_y)]
+
+
+def _bert_step(mx, model, trainer, ce, batch):
+    """examples/bert_pretrain.py's step: the MLM and NSP cross-entropies,
+    backward, and (with a trainer) an update."""
+    tok, seg, vl, pos, mlm_y, nsp_y = batch
+    with mx.autograd.record():
+        mlm, nsp = model(tok, seg, vl, pos)
+        loss = ce(mlm.reshape((-1, BERT_VOCAB)),
+                  mlm_y.reshape((-1,))).mean() + ce(nsp, nsp_y).mean()
+    loss.backward()
+    if trainer is not None:
+        trainer.step(tok.shape[0])
+    return loss
+
+
+def _bert_pretraining(mx, num_layers=None):
+    """BERTForPretraining over bert_base (max_length 512, dropout 0), or
+    a full-width BERT of `num_layers` layers."""
+    if num_layers is None:
+        bert = mx.models.bert_base(max_length=BERT_S, dropout=0.0)
+    else:
+        bert = mx.models.BERTModel(BERT_VOCAB, units=768, hidden_size=3072,
+                                   num_layers=num_layers, num_heads=BERT_H,
+                                   max_length=BERT_S, dropout=0.0)
+    return mx.models.BERTForPretraining(bert)
+
+
+def phase_bert_train(mx, torch, init_file):
+    """examples/bert_pretrain.py's Gluon loop on full-width bert_base in
+    fp32 at bench_bert.py's shape (B=16, S=512, 76 masked positions),
+    Adam at 1e-4, BERT_STEPS steps on one fixed batch. The counters are
+    zeroed just before and read just after: every step must launch 12
+    flash forwards, 12 fused and 12 dQ backward kernels (S = 512 takes
+    the split path) and 2 x 12 + 2 LayerNorms. Tokens/s (B * S a step
+    over the summed wall time of steps 3 on), the per-step spread, peak
+    memory, then one step under torch.profiler. The initial weights go
+    to `init_file` for the card-vs-CPU phase."""
+    K = mx.ops.kernels
+    mx.random.seed(0)
+    model = _bert_pretraining(mx)
+    model.initialize(ctx=mx.gpu(0))
+    model.save_parameters(init_file)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = _bert_batch(mx, BERT_B, BERT_S, mx.gpu(0))
+    trainer = mx.gluon.Trainer(model.collect_params(), "adam",
+                               {"learning_rate": 1e-4})
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    K.reset_launch_counts()
+    losses, per_step, step_s = [], [], []
+    for _ in range(BERT_STEPS):
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        losses.append(_bert_step(mx, model, trainer, ce,
+                                 batch)._data.detach())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({k: K.LAUNCHES[k] - before[k] for k in before})
+    launches = dict(K.LAUNCHES)
+
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite BERT loss: {losses}")
+    check(losses[-1] < losses[0], f"BERT loss did not fall: {losses}")
+    n = len(model.bert.encoder.layers)
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd=n, flash_bwd=n,
+                flash_bwd_dq=n, layer_norm=2 * n + 2)
+    for i, counts in enumerate(per_step):
+        check(counts == want, f"BERT step {i + 1} launches {counts} != "
+                              f"{want}")
+    for name, p in model._collect_params_with_prefix().items():
+        check(p.data()._data.is_cuda and p.grad()._data.is_cuda,
+              f"{name} or its gradient is not on the card")
+    # all the tokens of steps 3 on over all their wall time, as the
+    # other training phases count; the per-step rates give the spread
+    timed = step_s[2:]
+    tok_s = [BERT_B * BERT_S / t for t in timed]
+    summary = dict(params=n_params, batch=BERT_B, seq=BERT_S,
+                   masked=BERT_P, lengths=batch[2].asnumpy().tolist(),
+                   losses=losses,
+                   tokens_per_s=BERT_B * BERT_S * len(timed) / sum(timed),
+                   tokens_per_s_min=min(tok_s), tokens_per_s_max=max(tok_s),
+                   step_ms=[t * 1e3 for t in step_s], launches=launches,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("bert training " + json.dumps(summary))
+
+    got = device_profile(torch, lambda: _bert_step(mx, model, trainer, ce,
+                                                   batch))
+    if got is not None:
+        log_profile("bert profile", *got, "1 training step")
+        busy = sum(r[0] for r in got[1])
+        for tag, words in (("flash forward", ("flash_fwd",)),
+                           ("split backward", ("flash_bwd",)),
+                           ("LayerNorm", ("layer_norm",)),
+                           ("GEMM", ("gemm", "sgemm", "cutlass"))):
+            us = sum(r[0] for r in got[1]
+                     if any(w in r[2].lower() for w in words))
+            log(f"bert profile: {tag} {us / 1e3:.3f} ms, "
+                f"{100 * us / busy:.1f} % of device time")
+        for dev_us, count, key in got[1]:
+            if "flash" in key or "layer_norm" in key:
+                log(f"bert profile: port kernel {dev_us / 1e3:.3f} ms "
+                    f"{count}x {key[:70]}")
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bert_card_vs_cpu(mx, torch, init_file):
+    """One step of a full-width BERT (768 units, 3072 hidden, 12 heads,
+    vocab 30522) cut to 2 layers, at B=2, S=512 (the split backward
+    path), lengths (300, 512), 76 masked positions, from the initial
+    weights of `phase_bert_train` (its first two layers) on the card and
+    on the CPU: the loss and every gradient agree within the limits of
+    `phase_train_card_vs_cpu`."""
+    K = mx.ops.kernels
+    results = {}
+    for tag, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        model = _bert_pretraining(mx, num_layers=2)
+        model.load_parameters(init_file, ctx=ctx, ignore_extra=True)
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        K.reset_launch_counts()
+        loss = _bert_step(mx, model, None, ce,
+                          _bert_batch(mx, 2, BERT_S, ctx, lens=(300, 512)))
+        results[tag] = (model, float(loss.asnumpy()), dict(K.LAUNCHES))
+    (card, card_loss, launches), (cpu, cpu_loss, _) = (results["card"],
+                                                       results["cpu"])
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd=2, flash_bwd=2,
+                flash_bwd_dq=2, layer_norm=6)
+    check(launches == want, f"BERT card step launches {launches} != {want}")
+    check(abs(card_loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss),
+          f"BERT card vs CPU loss {card_loss} vs {cpu_loss}")
+    worst, cpu_params = (0.0, "", 0.0), cpu._collect_params_with_prefix()
+    for name, p in card._collect_params_with_prefix().items():
+        got = p.grad().asnumpy()
+        want_g = cpu_params[name].grad().asnumpy()
+        err = np.abs(got - want_g)
+        lim = TRAIN_GRAD_TOL["atol"] + TRAIN_GRAD_TOL["rtol"] * np.abs(want_g)
+        check(bool((err <= lim).all()),
+              f"BERT card vs CPU gradient of {name}: max abs err "
+              f"{float(err.max())}, worst share of its limit "
+              f"{float((err / lim).max())}")
+        worst = max(worst, (float((err / lim).max()), name,
+                            float(err.max())))
+    log(f"bert card vs cpu (2 layers, B=2, S=512, lengths (300, 512)): loss "
+        f"{card_loss:.7f} vs {cpu_loss:.7f} (rtol {TRAIN_LOSS_RTOL}); all "
+        f"{len(cpu_params)} gradients within |card - cpu| <= "
+        f"{TRAIN_GRAD_TOL['atol']} + {TRAIN_GRAD_TOL['rtol']} |cpu|; worst "
+        f"{worst[1]} at {worst[0]:.3f} of its limit (max abs err "
+        f"{worst[2]:.3e}); card launches {launches}")
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -1835,6 +2213,10 @@ def main():
         del net, images
         torch.cuda.empty_cache()
         phase_resnet_card_vs_cpu(mx, torch, resnet_init)
+        phase_bert_attention(mx, torch, {k["name"]: k for k in kernels})
+        bert_init = os.path.join(tmp, "bert_base_init.params")
+        bert_launches = phase_bert_train(mx, torch, bert_init)
+        phase_bert_card_vs_cpu(mx, torch, bert_init)
     for k in kernels:
         by_path = {"serve": serve_launches[k["name"]],
                    "fastpath": fast_launches[k["name"]],
@@ -1842,7 +2224,8 @@ def main():
                    "rtc": rtc_launches[k["name"]],
                    "long_attention": long_launches[k["name"]],
                    "resnet_train": resnet_launches[k["name"]],
-                   "resnet_conv1x1": conv_launches[k["name"]]}
+                   "resnet_conv1x1": conv_launches[k["name"]],
+                   "bert_train": bert_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         check(k["launches"] > 0, f"{k['name']} never launched on a path")

@@ -3,9 +3,13 @@
 `load_jax_parameters(block, arrays)` takes what the JAX package's
 `save_parameters` writes — `{structural name: numpy array}`, for
 example `dict(np.load("net.params"))` — and puts it into a port block of
-the same architecture (TransformerNMT, or a zoo ResNet in either layout,
-BatchNorm's `running_mean` / `running_var` included). The name sets
-must match exactly and every shape must agree.
+the same architecture (TransformerNMT, a zoo ResNet in either layout,
+BatchNorm's `running_mean` / `running_var` included, or a BERT:
+`BERTModel` and the `BERTForPretraining` / `BERTClassifier` /
+`BERTRegression` heads, with the learned `encoder.position_weight`,
+`mlm_bias`, and the MLM projection tied to `word_embed.weight`, one
+parameter under one name). The name sets must match exactly and every
+shape must agree.
 (`block.load_parameters(filename)` reads such a file directly.)
 
 `from_jax_weights(enc_w, dec_w)` takes the JAX package's serving

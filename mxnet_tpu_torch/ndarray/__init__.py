@@ -11,8 +11,13 @@ from .ndarray import NDArray, _apply, array, ones, zeros
 __all__ = ["NDArray", "array", "zeros", "ones", "FullyConnected",
            "Embedding", "Activation", "Convolution", "relu"]
 
+# "gelu" is the tanh approximation, as the JAX package's `jax.nn.gelu`
+# with its default approximate=True (mxnet_tpu/ops/nn_ops.py:364);
+# "erf_gelu" the exact form
 _ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
-         "softrelu": torch.nn.functional.softplus}
+         "softrelu": torch.nn.functional.softplus,
+         "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+         "erf_gelu": torch.nn.functional.gelu}
 
 
 def _fully_connected(x, w, b, flatten):
@@ -63,4 +68,3 @@ def Convolution(data, weight, bias=None, kernel=None, stride=1, dilate=1,
                                   dilate, num_group, layout)
     inputs = [data, weight] + ([] if no_bias or bias is None else [bias])
     return _apply(conv, inputs)
-

@@ -192,6 +192,14 @@ class NDArray:
         """(N, ...) -> (N, prod(...))."""
         return _apply(lambda a: a.reshape(a.shape[0], -1), [self])
 
+    def slice_axis(self, axis, begin, end):
+        """Elements `begin` to `end` (None = to the end) along `axis`."""
+        def cut(a):
+            idx = [slice(None)] * a.dim()
+            idx[axis] = slice(begin, end)
+            return a[tuple(idx)]
+        return _apply(cut, [self])
+
     # ---------------------------------------------------------- reductions
     def _reduce(self, name, axis, keepdims):
         if axis is None and not keepdims:

@@ -10,10 +10,10 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
     `csrc/flash_bwd.cu` (replaces `_flash_bwd_dkv_kernel` and
     `_flash_bwd_dq_kernel`): one fused dQ/dK/dV kernel when the keys fit
     one block (`flash_bwd_plan`: Sk <= 128 at D <= 64, every attention
-    of the training step), else that kernel for dK/dV and a dQ kernel
-    after it. `flash_attention_fwd` / `flash_attention_bwd` are the two
-    halves on their own; the backward takes delta = rowsum(dO * O) as an
-    input, which its caller computes.
+    of the TransformerNMT training step), else that kernel for dK/dV and
+    a dQ kernel after it (BERT at S = 512). `flash_attention_fwd` /
+    `flash_attention_bwd` are the two halves on their own; the backward
+    takes delta = rowsum(dO * O) as an input, which its caller computes.
   * `ragged_paged_attention` — the decode step's self-attention over
     the paged KV cache: four kernels of `csrc/ragged_paged_attention.cu`
     — one query row per slot (replaces `_rpa_kernel`) or W rows
@@ -23,9 +23,10 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
     cross-attention, as the JAX package's lax path does.
   * `fused_layer_norm` — LayerNorm over the last axis as a
     `torch.autograd.Function`: the forward launches `csrc/layer_norm.cu`
-    (replaces `_ln_kernel`), the backward is the closed form of
-    `_fused_ln_vjp_bwd` in plain torch on both devices (it was XLA in
-    the JAX package).
+    (replaces `_ln_kernel`; any width, one warp a row up to D = 1024 and
+    one block a row above), the backward is the closed
+    form of `_fused_ln_vjp_bwd` in plain torch on both devices (it was
+    XLA in the JAX package).
   * `conv1x1_bn_stats` — a 1x1 convolution as an (M, K) @ (K, N)
     product with BatchNorm's per-column mean and mean square of y in its
     epilogue: `csrc/conv1x1_bn_stats.cu` (replaces
@@ -59,7 +60,8 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_bwd_plan",
            "single_query_cached_attention", "ragged_paged_attention",
-           "fused_layer_norm", "layer_norm_fwd", "conv1x1_bn_stats",
+           "fused_layer_norm", "layer_norm_fwd",
+           "conv1x1_bn_stats",
            "LAUNCHES", "reset_launch_counts"]
 
 _MASKED = -1e30
@@ -579,10 +581,6 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, lengths,
 # ---------------------------------------------------------------------------
 # fused layer norm
 # ---------------------------------------------------------------------------
-# the one width the kernel is built for: transformer_base's units
-_LN_D = 512
-
-
 def _ln_plain(x2, gamma, beta, eps):
     """The plain version of the LayerNorm kernel over (rows, D): mean
     first, then the centred variance, fp32 statistics (the formula of
@@ -604,7 +602,8 @@ def _ln_args(x, gamma, beta):
            f"layer norm: gamma {tuple(gamma.shape)} / beta "
            f"{tuple(beta.shape)} must be ({d},)")
     _check(all(t.dtype == torch.float32 for t in (x, gamma, beta)),
-           "layer norm kernel takes float32 x / gamma / beta")
+           "layer norm kernel takes float32 x / gamma / beta; other dtypes "
+           "come with bf16 / AMP (ROADMAP.md, Queue 1 [2c])")
     _check(all(t.is_contiguous() for t in (x, gamma, beta)),
            "layer norm kernel takes contiguous x / gamma / beta")
     return x.numel() // d, d
@@ -628,14 +627,10 @@ def _ln_cuda(x2, gamma, beta, eps):
 def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     """LayerNorm over the last axis with its statistics: (y shaped as x,
     mean (rows,), rstd (rows,)), rows = x.numel() / D, fp32 statistics.
-    The kernel takes D = 512 only; the plain version any D."""
+    The kernel and the plain version take any rows and any D, in
+    float32."""
     dev = _device_of(x, gamma, beta)
     rows, d = _ln_args(x, gamma, beta)
-    if dev.type == "cuda":
-        _check(d == _LN_D,
-               f"layer norm kernel takes D = {_LN_D}, got {d}; other widths "
-               f"come with the model slices that need them (ROADMAP.md, "
-               f"Queue 2: _ln_kernel)")
     x2 = x.reshape(rows, d)
     run = _ln_cuda if dev.type == "cuda" else _ln_plain
     y, mean, rstd = run(x2, gamma, beta, eps)

@@ -131,6 +131,43 @@ def test_ln_matches_jax_pallas_interpret(interpret):
                                    **LN_TOL, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("rows,d", [
+    (16, 768), (13, 768), (24, 1024), (7, 1024), (11, 200), (16, 1152),
+    (5, 1032),
+], ids=["768-pallas", "768-odd-rows", "1024-pallas", "1024-odd-rows",
+        "200", "1152-pallas", "1032"])
+def test_ln_widths_match_jax(interpret, monkeypatch, rows, d):
+    """The port's LayerNorm at BERT's width (768), bert_large's (1024),
+    a width that is no multiple of 128 (200) and widths above the
+    kernel's one-warp form (1152, 1032), at row counts that are not
+    multiples of 8 too, against the JAX `_fused_ln_fwd_impl`: its Pallas
+    kernel in interpret mode where it takes the shape (D % 128 == 0,
+    rows % 8 == 0), its XLA form elsewhere. y, mean, rstd and the three
+    gradients of sum(LN(x) * w)."""
+    x, g, b, w = _arrays(6, (rows, d), (d,), (d,), (rows, d))
+    x = 3 * x + 1                    # a mean and a scale of their own
+    jx, jg, jb = map(jnp.asarray, (x, g, b))
+    calls, real = [], jk.pl.pallas_call
+    monkeypatch.setattr(jk.pl, "pallas_call",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    want_y, want_m, want_r = jk._fused_ln_fwd_impl(jx, jg, jb, 1e-5)
+    assert bool(calls) == (d % 128 == 0 and rows % 8 == 0)
+    got_y, got_m, got_r = tk.layer_norm_fwd(*map(torch.from_numpy,
+                                                 (x, g, b)), 1e-5)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), **LN_TOL)
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m)[:, 0],
+                               **LN_TOL)
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r)[:, 0],
+                               **LN_TOL)
+    want = jax.grad(lambda *a: (jk.fused_layer_norm(*a) * w).sum(),
+                    argnums=(0, 1, 2))(jx, jg, jb)
+    tx, tg, tb = (torch.tensor(a, requires_grad=True) for a in (x, g, b))
+    (tk.fused_layer_norm(tx, tg, tb) * torch.from_numpy(w)).sum().backward()
+    for name, t, ref in zip(("x", "gamma", "beta"), (tx, tg, tb), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref),
+                                   **LN_TOL, err_msg=f"d{name}")
+
+
 def test_ln_backward_is_autograd_of_the_plain_forward():
     """The closed-form backward == torch autograd through `_ln_plain`,
     on a 3-D input whose row count is not a multiple of 8."""
@@ -149,17 +186,30 @@ def test_training_kernels_check_their_inputs_and_launch_nothing_here(
         monkeypatch):
     """The wrappers refuse, on the CPU too, what the CUDA kernels refuse
     (a non-contiguous dO or x, a wrong lse shape). The LayerNorm kernel
-    takes D = 512 only: a card tensor of another width is refused before
-    any launch, while the plain version takes any width. The CPU path
-    launches no kernel."""
+    takes every width: the card-side checks pass a D = 1032 card tensor
+    on to the launch, while a non-contiguous or non-float32 one is
+    refused before any launch. The CPU path launches no kernel."""
     tk.reset_launch_counts()
     x = torch.randn(4, 1032)
     y = tk.fused_layer_norm(x, torch.ones(1032), torch.zeros(1032))
     assert y.shape == x.shape and torch.isfinite(y).all()
+    launched = []
+
+    def ln_launch(x2, gamma, beta, eps):
+        launched.append(tuple(x2.shape))
+        return tk._ln_plain(x2, gamma, beta, eps)
     with monkeypatch.context() as m:
         m.setattr(tk, "_device_of", lambda *t: torch.device("cuda", 0))
-        with pytest.raises(MXNetError, match="D = 512, got 1032"):
-            tk.fused_layer_norm(x, torch.ones(1032), torch.zeros(1032))
+        m.setattr(tk, "_ln_cuda", ln_launch)
+        got = tk.fused_layer_norm(x, torch.ones(1032), torch.zeros(1032))
+        assert launched == [(4, 1032)]
+        torch.testing.assert_close(got, y)
+        with pytest.raises(MXNetError, match="contiguous"):
+            tk.fused_layer_norm(x[:, :8], torch.ones(8), torch.zeros(8))
+        with pytest.raises(MXNetError, match=r"float32.*\[2c\]"):
+            tk.fused_layer_norm(x.double(), torch.ones(1032).double(),
+                                torch.zeros(1032).double())
+        assert launched == [(4, 1032)]
     with pytest.raises(MXNetError, match="contiguous"):
         tk.fused_layer_norm(x[:, :8], torch.ones(8), torch.zeros(8))
     q = torch.randn(1, 2, 8, 16)
