@@ -12,15 +12,21 @@ Phases (any failure raises and the script exits non-zero):
                  card, on the same inputs, at the shapes its path gives it
                  and a few edge shapes; kernel, plain-version and library
                  times, and the least time the card could take (bound):
-                 flash forward (serving and training shapes), ragged
+                 flash forward (serving and training shapes, causal
+                 with Sq != Sk both ways, S = 512 and 1024 at every
+                 padded width, zero-length rows, a misaligned q; every
+                 case at every plan the kernel takes, and out / lse
+                 also against float64, no further from it than 10x the
+                 plain version; timed at each plan), ragged
                  paged attention (serving shapes), its int8 1-wide, fp32
                  widened and int8 widened forms (the fast path's serving
                  shape: 8 slots, W = 4, H = 8, dh = 64, psize 16, with
                  length-0 slots, rows past the page budget and a long
                  table), the flash backward (training shapes on its fused
                  path, edge shapes, and Sk above one block on its split
-                 path; also against float64 autograd and a repeated
-                 launch, bit for bit) and LayerNorm (every width its
+                 path, causal with Sq != Sk on each; also against
+                 float64 autograd and a repeated launch, bit for bit)
+                 and LayerNorm (every width its
                  paths give it: 512, BERT's 768, 1024, 200, and 1032,
                  4096, 8192 on its one-block-a-row form; timed at each
                  under `per_shape`). The long-sequence path drives
@@ -178,6 +184,10 @@ BWD_F64_TOL = dict(rtol=2e-4, atol=2e-5)
 # product, and measured 1.4x to 7.2x of the plain version's distance over
 # the backward cases here (NVIDIA H100 80GB HBM3, 700 W)
 BWD_F64_RATIO = 10.0
+# the flash forward against float64: its out and lse at most this
+# multiple of the fp32 plain version's distance from float64, as for the
+# backward (the forward's products run in split TF32 too)
+FLASH_F64_RATIO = 10.0
 # card vs CPU logits: fp32 through 12 layers (cuBLAS vs the CPU BLAS sum
 # in different orders; TF32 off)
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -340,7 +350,102 @@ def _train_attention_cases():
             (B, H, 48, 80, D, False, lens80)]
 
 
+def _attention_f64(torch, q, k, v, causal, scale, lens):
+    """(out, lse (B*H, Sq), live (B*H, Sq)) of softmax attention in
+    float64 on the CPU with the kernels' mask; a row with no visible key
+    (live False) is zeros, the kernels' convention, and its lse is not
+    compared."""
+    q, k, v = (t.detach().cpu().double() for t in (q, k, v))
+    b, h, sq, _ = q.shape
+    s = q @ k.transpose(-1, -2) * scale
+    allowed = torch.ones(s.shape, dtype=torch.bool)
+    if lens is not None:
+        keys = torch.arange(s.shape[-1])[None, :] < torch.tensor(lens)[:, None]
+        allowed &= keys[:, None, None, :]
+    if causal:
+        allowed &= torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+    live = allowed.any(-1, keepdim=True)
+    s = torch.where(allowed, s, torch.tensor(-torch.inf, dtype=s.dtype))
+    s = torch.where(live, s, torch.zeros_like(s))
+    out = torch.softmax(s, -1) * live @ v
+    return (out, torch.logsumexp(s, -1).reshape(b * h, sq),
+            live.reshape(b * h, sq))
+
+
+def _fwd_check(torch, K, q, k, v, causal, lens, what):
+    """The forward kernel's (out, lse) against `_flash_plain` (FLASH_TOL)
+    and float64 (no further than FLASH_F64_RATIO times the plain
+    version); a zero-length row exactly 0. Returns the errors."""
+    dev = q.device
+    d = q.shape[-1]
+    vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    out, lse = K.flash_attention_fwd(q, k, v, causal=causal, kv_lengths=vl)
+    ref, ref_lse = K._flash_plain(q, k, v, causal, d ** -0.5, vl)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    check(torch.isfinite(out).all().item(), f"flash {what} not finite")
+    check(torch.allclose(out, ref, **FLASH_TOL),
+          f"flash kernel vs plain: max abs err {err} at {what}")
+    check(torch.allclose(lse, ref_lse, **FLASH_TOL),
+          f"flash lse vs plain at {what}: max abs err "
+          f"{(lse - ref_lse).abs().max().item()}")
+    for bi, n in enumerate(lens or []):
+        if n == 0:
+            check(out[bi].abs().max().item() == 0.0,
+                  f"a zero-length row must be zeros at {what}")
+    o64, l64, live = _attention_f64(torch, q, k, v, causal, d ** -0.5, lens)
+    errs64 = {"out": (out.cpu().double() - o64).abs().max().item(),
+              "lse": (lse.cpu().double() - l64)[live].abs().max().item()}
+    plain64 = {"out": (ref.cpu().double() - o64).abs().max().item(),
+               "lse": (ref_lse.cpu().double() - l64)[live].abs().max()
+               .item()}
+    for name in ("out", "lse"):
+        check(errs64[name] <= FLASH_F64_RATIO * plain64[name],
+              f"flash {name} {errs64[name]} from float64, more than "
+              f"{FLASH_F64_RATIO}x the plain version's {plain64[name]} at "
+              f"{what}")
+    return err, errs64, plain64
+
+
+def _fwd_plan_fns(K, q, k, v, causal, scale, vl):
+    """The forward kernel at other plans than `flash_fwd_plan`'s (rw row
+    warps x ks key-split warps of bk-key tiles), to check and time
+    beside its choice."""
+    b, h, sq, d = q.shape
+    plan = K.flash_fwd_plan(b * h, sq, k.shape[2], d)
+    fns = {}
+    for rw, ks, bk in ((4, 1, 32), (4, 1, 16), (2, 2, 32), (2, 4, 16),
+                       (1, 4, 32), (1, 8, 16), (1, 4, 16)):
+        smem = 4 * (16 * rw + 4 * ks * bk) * (plan["dp"] + 4)
+        if smem > 227 * 1024:
+            continue                  # more than a block's memory
+        p = dict(plan, rw=rw, ks=ks, bk=bk, warps=rw * ks, rows=16 * rw,
+                 smem=smem)
+        fns[f"rw{rw}_ks{ks}_bk{bk}"] = (
+            lambda p=p: K._flash_cuda(q, k, v, causal, scale, vl, p))
+    return fns
+
+
+def _fwd_bound(b, h, sq, d, ends_sum, pairs):
+    """The forward's least time: q, the live K / V rows and the lengths
+    read once, out and lse written once; 4 * pairs * D operations (QK^T,
+    PV) at the split-TF32 rate."""
+    nbytes = 4 * (2 * b * h * sq * d + 2 * h * ends_sum * d + b * h * sq
+                  + b)
+    return bound(nbytes, 4 * pairs * d, PEAK_TF32X3_FLOPS)
+
+
 def phase_flash(mx, torch):
+    """The forward kernel against `_flash_plain` and float64 at the
+    serving and training shapes and cases that stress its design (each
+    case also at every plan the kernel takes): causal
+    with Sq != Sk both ways (the top-left mask), S = 512 and 1024 at
+    every padded width and at D no multiple of 4, lengths that end
+    inside a tile, zero-length rows and a misaligned q (float-by-float
+    copies). Then timed at the serving prefill (the row's own numbers)
+    and the training shape (`per_shape`), with SDPA, each plan the
+    kernel takes, and the achieved TFLOP/s."""
     K = mx.ops.kernels
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -359,59 +464,101 @@ def phase_flash(mx, torch):
              (1, 8, 128, 128, 64, True, [90]),
              (1, 4, 64, 128, 64, False, [100]),
              (2, 2, 48, 48, 128, False, [0, 48]),
-             (1, 2, 33, 33, 32, True, None)]
+             (1, 2, 33, 33, 32, True, None),
+             # causal with Sq != Sk both ways, with and without lengths
+             (1, 4, 64, 200, 64, True, None),
+             (1, 4, 64, 200, 64, True, [150]),
+             (1, 4, 200, 64, 64, True, None),
+             (1, 4, 200, 64, 64, True, [40]),
+             # zero-length rows beside a length inside a tile, several
+             # query blocks
+             (3, 2, 200, 200, 64, False, [0, 131, 200]),
+             (2, 2, 70, 90, 96, True, [0, 61])]
+    # S = 512 (lengths inside a tile) and 1024 (causal) at every padded
+    # width and at D no multiple of 4
+    for d in (32, 64, 96, 128, 18, 30):
+        cases += [(2, 2, 512, 512, d, False, [300, 512]),
+                  (1, 2, 1024, 1024, d, True, None)]
     worst = 0.0
     for b, h, sq, sk, d, causal, lens in cases:
         q, k, v = qkv(b, h, sq, sk, d)
+        what = f"{(b, h, sq, sk, d)} causal={causal} lens={lens}"
+        err, errs64, plain64 = _fwd_check(torch, K, q, k, v, causal, lens,
+                                          what)
+        # every plan the kernel takes, not only the one chosen here
         vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                     device=dev)
-        out, lse = K.flash_attention_fwd(q, k, v, causal=causal,
-                                         kv_lengths=vl)
-        ref, ref_lse = K._flash_plain(q, k, v, causal, 1 / d ** 0.5, vl)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        check(torch.isfinite(out).all().item(), f"flash {lens} not finite")
-        check(torch.allclose(out, ref, **FLASH_TOL),
-              f"flash kernel vs plain: max abs err {err} at "
-              f"{(b, h, sq, sk, d, causal, lens)}")
-        check(torch.allclose(lse, ref_lse, **FLASH_TOL),
-              f"flash lse vs plain at {(b, h, sq, sk, d, causal, lens)}")
-        if lens is not None and 0 in lens:
-            check(out[lens.index(0)].abs().max().item() == 0.0,
-                  "a zero-length row must be zeros")
+        ref, ref_lse = K._flash_plain(q, k, v, causal, d ** -0.5, vl)
+        for name, fn in _fwd_plan_fns(K, q, k, v, causal, d ** -0.5,
+                                      vl).items():
+            out, lse = fn()
+            err = max(err, (out - ref).abs().max().item())
+            check(torch.allclose(out, ref, **FLASH_TOL)
+                  and torch.allclose(lse, ref_lse, **FLASH_TOL),
+                  f"flash plan {name} vs plain at {what}: max abs errs "
+                  f"{(out - ref).abs().max().item()} / "
+                  f"{(lse - ref_lse).abs().max().item()}")
         worst = max(worst, err)
-        log(f"flash {(b, h, sq, sk, d)} causal={causal} "
-            f"lens={None if lens is None else lens[:4]}: "
-            f"max abs err {err:.3e} (tol rtol={FLASH_TOL['rtol']} "
-            f"atol={FLASH_TOL['atol']})")
+        log(f"flash {what}: plan {K.flash_fwd_plan(b * h, sq, sk, d)}; max "
+            f"abs err {err:.3e} (tol rtol={FLASH_TOL['rtol']} "
+            f"atol={FLASH_TOL['atol']}); vs float64 {errs64} (at most "
+            f"{FLASH_F64_RATIO}x the plain version's {plain64})")
+    # a q whose storage starts 4 bytes past a 16-byte boundary: the
+    # kernel copies its rows float by float
+    b, h, s, d = 2, 2, 100, 64
+    base = torch.randn(b * h * s * d + 1, generator=g).to(dev)
+    q = base[1:].view(b, h, s, d)
+    _, k, v = qkv(b, h, s, s, d)
+    check(q.is_contiguous() and q.data_ptr() % 16 != 0, "q not misaligned")
+    err, errs64, plain64 = _fwd_check(torch, K, q, k, v, False, [70, 100],
+                                      "misaligned q")
+    worst = max(worst, err)
+    log(f"flash misaligned q {(b, h, s, s, d)}: max abs err {err:.3e}; vs "
+        f"float64 {errs64} (plain {plain64})")
 
-    # timing at the serving prefill shape
-    b, h, s, d, kv_len = 1, 8, 128, 64, 77
-    q, k, v = qkv(b, h, s, s, d)
-    vl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
-    scale = 1 / d ** 0.5
-    mask = (torch.arange(s, device=dev)[None, :] < vl[:, None].long())
-    mask = mask[:, None, None, :]
-    fns = {"kernel": lambda: K.flash_attention_fwd(q, k, v, kv_lengths=vl),
-           "plain": lambda: K._flash_plain(q, k, v, False, scale, vl),
-           "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
-               q, k, v, attn_mask=mask)}
-    call = {name: cuda_ms(fn) for name, fn in fns.items()}
-    dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
-    # the kernel never loads K/V rows at or past kv_len: count the live
-    # rows only, in the bytes (q, live k/v, out, lse, len) as in the flops
-    nbytes = 4 * (2 * b * h * s * d + 2 * b * h * kv_len * d + b * h * s + b)
-    flops = 4 * b * h * s * kv_len * d                 # QK^T + PV
-    bms, by = bound(nbytes, flops, PEAK_TF32X3_FLOPS)
-    log(f"flash serving shape {(b, h, s, d)} kv_len={kv_len}: per call "
-        f"(host launch included) {call}; device (CUDA graph) {dev_ms}; "
-        f"bound {bms:.6f} ms ({by})")
+    def timed(b, h, s, d, lens):
+        """Device ms of the kernel (as planned and at every plan it
+        takes), the plain version and SDPA, and the bound."""
+        q, k, v = qkv(b, h, s, s, d)
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = 1 / d ** 0.5
+        mask = (torch.arange(s, device=dev)[None, :]
+                < vl[:, None].long())[:, None, None, :]
+        fns = {"kernel": lambda: K.flash_attention_fwd(q, k, v,
+                                                       kv_lengths=vl),
+               "plain": lambda: K._flash_plain(q, k, v, False, scale, vl),
+               "sdpa": lambda: torch.nn.functional
+               .scaled_dot_product_attention(q, k, v, attn_mask=mask)}
+        plan = K.flash_fwd_plan(b * h, s, s, d)
+        fns.update(_fwd_plan_fns(K, q, k, v, False, scale, vl))
+        call = {"kernel": cuda_ms(fns["kernel"])}
+        dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
+        ends = sum(min(n, s) for n in lens)
+        pairs = h * s * ends
+        bms, by = _fwd_bound(b, h, s, d, ends, pairs)
+        tflops = 4 * pairs * d / (dev_ms["kernel"] * 1e-3) / 1e12
+        log(f"flash timed {(b, h, s, d)} lens {lens[:4]}...: plan {plan}; "
+            f"per call (host launch included) {call}; device (CUDA graph) "
+            f"{dev_ms}; bound {bms:.6f} ms ({by}); kernel / SDPA "
+            f"{dev_ms['kernel'] / dev_ms['sdpa']:.3f}; achieved "
+            f"{tflops:.2f} TFLOP/s ({4 * pairs * d} FLOP)")
+        return dict(shape=[b, h, s, s, d], lens=lens, ms=dev_ms["kernel"],
+                    plain_ms=dev_ms["plain"], bound_ms=bms, bound_by=by,
+                    library_ms=dev_ms["sdpa"], call_ms=call["kernel"],
+                    tflops=tflops)
+
+    # the serving prefill shape is the row's own; the training shape's
+    # lengths case (12 of a step's 18 forwards) goes to `per_shape`
+    serve = timed(1, 8, 128, 64, [77])
+    train = _train_attention_cases()[1]
+    per_shape = [timed(train[0], train[1], train[2], train[4], train[6])]
     return dict(name="flash_fwd", route="cuda",
                 source="mxnet_tpu_torch/ops/csrc/flash_fwd.cu",
                 replaces="mxnet_tpu/ops/pallas_kernels.py:219",
-                max_abs_err=worst, ms=dev_ms["kernel"],
-                plain_ms=dev_ms["plain"], bound_ms=bms, bound_by=by,
-                library_ms=dev_ms["sdpa"], call_ms=call["kernel"])
+                max_abs_err=worst, ms=serve["ms"],
+                plain_ms=serve["plain_ms"], bound_ms=serve["bound_ms"],
+                bound_by=serve["bound_by"], library_ms=serve["library_ms"],
+                call_ms=serve["call_ms"], per_shape=per_shape)
 
 
 def phase_rpa(mx, torch):
@@ -1170,14 +1317,18 @@ def phase_flash_bwd(mx, torch):
     lens64 = train_cases[1][-1]
     # Sk above one block at D padded to 32, 64, 96 and 128, and a D that
     # is no multiple of 4 (copies float by float) on either path
+    # (the last, causal with Sq < Sk, and the fused path's causal case
+    # with Sq > Sk: the top-left mask's tile skipping both ways)
     split_cases = [(2, 3, 130, 200, 64, False, [131, 200]),
                    (1, 2, 160, 160, 128, True, [97]),
                    (1, 2, 100, 100, 96, True, None),
                    (2, 2, 70, 140, 32, False, [140, 3]),
-                   (1, 2, 50, 300, 18, False, [260])]
+                   (1, 2, 50, 300, 18, False, [260]),
+                   (2, 2, 130, 300, 64, True, [280, 300])]
     cases = [*train_cases, (2, 2, 33, 33, 128, True, [20, 33]),
              (2, 3, 100, 70, 32, False, [0, 70]),
-             (2, 2, 45, 45, 30, True, [45, 17]), *split_cases]
+             (2, 2, 45, 45, 30, True, [45, 17]),
+             (2, 3, 100, 60, 64, True, [50, 60]), *split_cases]
     worst = {"flash_bwd": 0.0, "flash_bwd_dq": 0.0}
     for case in cases:
         b, h, sq, sk, d, causal, lens = case
@@ -1948,7 +2099,8 @@ def phase_bert_attention(mx, torch, rows):
            "dq": lambda: K._flash_bwd_dq_cuda(*args, plan),
            "bwd_plain": lambda: K._flash_bwd_plain(*args),
            "sdpa_fwd": lambda: sdpa(q, k, v, attn_mask=mask),
-           "sdpa_fwd_bwd": sdpa_fwd_bwd}
+           "sdpa_fwd_bwd": sdpa_fwd_bwd,
+           **_fwd_plan_fns(K, q, k, v, False, scale, vl)}
     dev_ms = {name: graph_ms(fn, calls=5, iters=10)
               for name, fn in fns.items()}
     sdpa_bwd = dev_ms["sdpa_fwd_bwd"] - dev_ms["sdpa_fwd"]
@@ -1974,7 +2126,8 @@ def phase_bert_attention(mx, torch, rows):
     tflops = {name: f * pairs * D / (dev_ms[name] * 1e-3) / 1e12
               for name, f in (("fwd", 4), ("pair", 10), ("fused_dkv", 8),
                               ("dq", 6))}
-    log(f"bert attention {(B, H, S, D)} lens {lens}: device (CUDA graph) "
+    log(f"bert attention {(B, H, S, D)} lens {lens}: forward plan "
+        f"{K.flash_fwd_plan(B * H, S, S, D)}; device (CUDA graph) "
         f"{dev_ms}; SDPA backward (fwd+bwd - fwd) {sdpa_bwd:.5f} ms; split "
         f"pair / SDPA backward {dev_ms['pair'] / sdpa_bwd:.3f}; forward / "
         f"SDPA forward {dev_ms['fwd'] / dev_ms['sdpa_fwd']:.3f}; bounds "

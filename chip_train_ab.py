@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Time the TransformerNMT training phase of two checkouts on one card.
+"""Time a training phase of two checkouts on one card.
 
-    python3 chip_train_ab.py OTHER_CHECKOUT [--rounds N] [--log-dir DIR]
+    python3 chip_train_ab.py OTHER_CHECKOUT [--phase train|bert]
+                             [--rounds N] [--log-dir DIR]
 
-Runs phase 1 (build) and phase 5 (train) of `chip_smoke.py` for
+Runs phase 1 (build) and one training phase of `chip_smoke.py` for
 OTHER_CHECKOUT and for the checkout this file lies in, each run in a
 process of its own, in the order other, this, this, other, repeated
 `--rounds` times (2 by default), so that both sides see the same card
-and the same host. Phase 5 is each checkout's own: full-width
-`transformer_base(36548)`, B=32, S=64 + 64, 10 Adam steps on one fixed
-batch, tokens/s (src + tgt) over steps 3-10, then one step under
-torch.profiler. Prints one line for each run (tokens/s, mean step ms,
-the profiled step's window and device busy time), the card's name and
-power limit, then one JSON line with every run and each side's median
-tokens/s. `--log-dir` keeps each run's whole output there. Exits
-non-zero without a CUDA device or when a run fails.
+and the same host. The phase is each checkout's own:
+  train  phase 5 (`phase_train`): full-width `transformer_base(36548)`,
+         B=32, S=64 + 64, 10 Adam steps on one fixed batch, tokens/s
+         (src + tgt) over steps 3-10;
+  bert   phase 11 (`phase_bert_train`): full-width `bert_base`, fp32,
+         B=16, S=512, 10 Adam steps on one fixed batch, tokens/s (B*S)
+         over steps 3-10;
+each then one step under torch.profiler. Prints one line for each run
+(tokens/s, mean step ms, the profiled step's window and device busy
+time, and for bert the flash forward's share of that device time), the
+card's name and power limit, then one JSON line with every run and
+each side's median tokens/s. `--log-dir` keeps each run's whole output
+there. Exits non-zero without a CUDA device or when a run fails.
 """
 import argparse
 import json
@@ -29,7 +35,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # one run: the checkout's own chip_smoke.py phases, its own package
 _RUN = """
 import os, sys, tempfile
-root = sys.argv[1]
+root, phase = sys.argv[1], sys.argv[2]
 sys.path.insert(0, root)
 import torch
 import chip_smoke as cs
@@ -37,16 +43,22 @@ import mxnet_tpu_torch as mx
 pkg = os.path.dirname(os.path.dirname(os.path.abspath(mx.__file__)))
 assert pkg == root, f"mxnet_tpu_torch imported from {pkg}, not {root}"
 cs.phase_build(mx, torch)
+run = cs.phase_bert_train if phase == "bert" else cs.phase_train
 with tempfile.TemporaryDirectory() as tmp:
-    cs.phase_train(mx, torch, os.path.join(tmp, "init.params"))
+    run(mx, torch, os.path.join(tmp, "init.params"))
 """
-_PROFILE = re.compile(r"^train profile: window ([0-9.]+) ms, .*device busy "
-                      r"([0-9.]+) ms")
+# each phase's summary line and profile tag
+_TAGS = {"train": ("training ", "train profile"),
+         "bert": ("bert training ", "bert profile")}
+_FLASH_SHARE = re.compile(r"^bert profile: flash forward ([0-9.]+) ms, "
+                          r"([0-9.]+) % of device time")
 
 
-def run_once(root, log_path):
-    """(training summary, profiled window ms, busy ms) of one run."""
-    proc = subprocess.run([sys.executable, "-c", _RUN, root], cwd=root,
+def run_once(root, phase, log_path):
+    """(training summary, profiled window ms, busy ms, flash forward
+    share % or None) of one run."""
+    proc = subprocess.run([sys.executable, "-c", _RUN, root, phase],
+                          cwd=root,
                           capture_output=True, text=True, timeout=900)
     if log_path:
         with open(log_path, "w") as f:
@@ -55,21 +67,32 @@ def run_once(root, log_path):
         sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
         raise SystemExit(f"chip_train_ab: the run of {root} failed "
                          f"(exit {proc.returncode})")
-    summary, window, busy = None, None, None
+    head, tag = _TAGS[phase]
+    profile = re.compile(rf"^{tag}: window ([0-9.]+) ms, .*device busy "
+                         rf"([0-9.]+) ms")
+    summary, window, busy, share = None, None, None, None
     for line in proc.stdout.splitlines():
-        if line.startswith("training {"):
-            summary = json.loads(line[len("training "):])
-        m = _PROFILE.match(line)
+        if line.startswith(head + "{"):
+            summary = json.loads(line[len(head):])
+        m = profile.match(line)
         if m:
             window, busy = float(m.group(1)), float(m.group(2))
+        m = _FLASH_SHARE.match(line)
+        if m:
+            share = float(m.group(2))
     if summary is None:
-        raise SystemExit(f"chip_train_ab: no training line from {root}")
-    return summary, window, busy
+        raise SystemExit(f"chip_train_ab: no {head.strip()} line from "
+                         f"{root}")
+    if "mean_step_ms" not in summary:     # bert: the steps that count
+        timed = summary["step_ms"][2:]
+        summary["mean_step_ms"] = sum(timed) / len(timed)
+    return summary, window, busy, share
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
+    ap.add_argument("--phase", choices=sorted(_TAGS), default="train")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--log-dir", default=None)
     args = ap.parse_args()
@@ -83,17 +106,21 @@ def main():
     runs = []
     for r in range(args.rounds):
         for i, side in enumerate(("other", "this", "this", "other")):
-            log_path = (os.path.join(args.log_dir, f"run{r}_{i}_{side}.log")
-                        if args.log_dir else None)
-            summary, window, busy = run_once(sides[side], log_path)
+            log_path = (os.path.join(
+                args.log_dir, f"{args.phase}_run{r}_{i}_{side}.log")
+                if args.log_dir else None)
+            summary, window, busy, share = run_once(sides[side], args.phase,
+                                                    log_path)
             runs.append(dict(side=side, tokens_per_s=summary["tokens_per_s"],
                              mean_step_ms=summary["mean_step_ms"],
                              profiled_window_ms=window, busy_ms=busy,
+                             flash_fwd_share_pct=share,
                              launches=summary["launches"]))
             print(f"{side}: {summary['tokens_per_s']:.1f} tokens/s, "
                   f"{summary['mean_step_ms']:.3f} ms a step; profiled "
-                  f"step window {window} ms, device busy {busy} ms",
-                  flush=True)
+                  f"step window {window} ms, device busy {busy} ms"
+                  + ("" if share is None
+                     else f", flash forward {share} % of it"), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -102,7 +129,7 @@ def main():
     median = {side: statistics.median(r["tokens_per_s"] for r in runs
                                       if r["side"] == side)
               for side in sides}
-    print(json.dumps({"checkouts": sides, "runs": runs,
+    print(json.dumps({"phase": args.phase, "checkouts": sides, "runs": runs,
                       "median_tokens_per_s": median}), flush=True)
     return 0
 

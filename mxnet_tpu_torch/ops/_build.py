@@ -5,8 +5,8 @@ headers), so each compiles in seconds. At first use `library()` starts
 one `nvcc` per source, all together, for `sm_90a`, links the objects
 into one shared library under `mxnet_tpu_torch/_build/` (listed in
 .gitignore) and loads it with `ctypes`. The file name carries a hash of
-the sources and flags, so an edited source is never served by a stale
-build. Nothing here runs at import time: the CPU tests import every
+the sources, the headers they include and the flags, so an edited
+source or header is never served by a stale build. Nothing here runs at import time: the CPU tests import every
 module, and the CPU machine has no `nvcc`.
 """
 from __future__ import annotations
@@ -23,12 +23,14 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-__all__ = ["library", "build_info", "SOURCES"]
+__all__ = ["library", "build_info", "SOURCES", "HEADERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "ragged_paged_attention.cu",
            "layer_norm.cu", "conv1x1_bn_stats.cu")
+# headers the sources include: hashed with them, never compiled alone
+HEADERS = ("tf32_mma.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v: registers, shared memory and spills of each kernel land in
 # the build log (`build_info()["log"]`)
@@ -38,9 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale, stream
+    # q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale, BK,
+    # row warps, key-split warps, vec, smem bytes, stream
     "mxtt_flash_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           ctypes.c_float, _P],
+                           ctypes.c_float, _I, _I, _I, _I, _L, _P],
     # q, k, v, dO, lse, delta, kv_len, dq, dk, dv, B, H, Sq, Sk, D, causal,
     # sm_scale, BK, with_dq, vec, smem bytes, stream
     "mxtt_flash_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -98,7 +101,7 @@ def _nvcc():
 
 def _digest():
     h = hashlib.sha256(" ".join(_ARCH + _FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]

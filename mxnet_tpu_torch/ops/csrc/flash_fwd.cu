@@ -1,196 +1,410 @@
-// Flash-attention forward, fp32, for Hopper (sm_90a).
+// Flash-attention forward, fp32, for Hopper (sm_90a), on the tensor cores
+// in split TF32.
 //
-// Replaces: mxnet_tpu/ops/pallas_kernels.py:_flash_fwd_kernel (launched by
-// _flash_fwd_pallas). Same function: online-softmax attention with fp32
-// m / l / acc, an optional causal mask (qi >= kj), an optional per-batch
-// key-length mask (kj < kv_len[b]), masked scores set to the finite -1e30
-// the JAX package uses, a guarded divide so a row with no visible key
-// writes zeros, and the per-row log-sum-exp m + log(max(l, 1e-30)).
-// Sq may differ from Sk.
+// Replaces: mxnet_tpu/ops/pallas_kernels.py:_flash_fwd_kernel (:219,
+// launched by _flash_fwd_pallas). Same function: online-softmax attention
+// with fp32 m / l / acc, an optional causal mask (kj <= qi in absolute
+// indices: the top-left mask of attention_reference, for any Sq and Sk),
+// an optional per-batch key-length mask (kj < kv_len[b]), masked scores
+// at the finite -1e30 the JAX package uses, a guarded divide so a row
+// with no visible key writes zeros, and the per-row log-sum-exp
+// m + log(max(l, 1e-30)).
 //
 // Layout: q (B, H, Sq, D), k / v (B, H, Sk, D), out (B, H, Sq, D), all
-// contiguous fp32; kv_len (B,) int32 or NULL; lse (B*H, Sq) fp32 — compact:
-// the 128-lane broadcast of the TPU version is a Mosaic tiling constraint
-// and is not copied.
+// contiguous fp32, any Sq and Sk, D <= 128; kv_len (B,) int32 or NULL;
+// lse (B*H, Sq) fp32 — compact: the 128-lane broadcast of the TPU
+// version is a Mosaic tiling constraint and is not copied.
 //
-// What bounds it on this card: at the serving prefill shape (B=1, H=8,
-// S=128, D=64, kv_len 77) the function moves 0.85 MB (q, out, lse and the
-// 77 live K/V rows, once each: 0.25 us at 3.35 TB/s) and does 20 MFLOP
-// (0.30 us at the 67 TFLOP/s fp32 non-tensor-core rate), so its bound is
-// 0.30 us, by operations. What is left is latency: the
-// launch and each warp's serial walk over the key tiles. The data is fp32,
-// so the dots run as fp32 FMAs (the tensor cores would need TF32 or bf16,
-// i.e. other numerics than the plain version).
+// What bounds it on this card. chip_smoke.py counts the live (q, k) pairs
+// (a key tile at or past kv_len is never loaded): 4 * pairs * D FLOP (S =
+// QK^T and O = PV) against q, the live K / V rows, out, lse and kv_len
+// moved once. At BERT's shape (B=16, H=12, S=512, D=64, lengths
+// 256-512) that is 9.4 GFLOP: 0.057 ms at the split-TF32 rate (the H100's
+// dense TF32 tensor-core peak, 495 TFLOP/s, over the 3 passes) against
+// 0.026 ms of bytes, so operations bound it. At the serving prefill (B=1,
+// H=8, S=128, D=64, kv_len 77) the bytes do (0.25 us), and what is left
+// is latency: the launch, the loads and the walk over the key tiles. The
+// SIMT kernel this file replaced ran one warp a query row in fp32 FMAs at
+// 6.3 TFLOP/s (26x its bound at BERT's shape).
 //
-// Design: grid (B*H, ceil(Sq/BQ)); the TPU's sequential kv grid axis
-// becomes a loop inside the block, because Hopper blocks run in no order.
-// Each block stages its BQ = 8 query rows and, tile by tile, BK = 32 keys
-// and values in shared memory (K rows padded by one float so the 32 lanes
-// of a warp, one key each, hit 32 different banks). Each of the 8 warps
-// owns one query row, so the serving shape runs 128 blocks of 8
-// independent warps (PERF.md has the time of a first version with 4 rows
-// per warp and 64 blocks); lane j scores key j of the tile with four
-// partial sums,
-// warp shuffles give the row max and sum, and the P.V update broadcasts
-// p_j by shuffle while each lane owns D/32 output columns, stopping at the
-// last key below the length. Tiles at or past min(Sk, kv_len[b]) and, when
-// causal, tiles entirely above the diagonal are never loaded (the TPU's
-// pl.when skip). The ragged edge (Sq or Sk not a multiple of the tile) is
-// masked here, so every shape launches — no 128-multiple gate.
+// Design:
+// * A warp owns 16 query rows and walks 32-key tiles; a block holds 4
+//   such warps (64 rows) of one (b, h). The TPU's sequential kv grid axis
+//   becomes that walk, because Hopper blocks run in no order. Where 64
+//   rows a block would leave SMs of the card idle (the serving prefill:
+//   B*H = 8, S = 128, 16 blocks), a block takes 32 or 16 rows and up to 8
+//   warps split each row group's keys in 16-key tiles: warp w takes tiles
+//   w, w + ks, ..., and the ks warps merge their (m, l, O) through shared
+//   memory at the end: each warp's walk is short where the latency of
+//   its products, not the card's throughput, sets the time
+//   (kernels.py:flash_fwd_plan chooses rw row warps, ks key warps and
+//   the tile).
+// * K and V tiles (ks of them a step) are double-buffered in shared
+//   memory with cp.async, so the next step loads while the current one
+//   is computed; the first step is requested before kv_len is read.
+// * S = QK^T and O += PV on mma.sync.m16n8k8 in split TF32 (tf32_mma.cuh,
+//   the arithmetic of flash_bwd.cu). At DP <= 64 the warp splits its Q
+//   rows into hi / lo A fragments once and keeps them in registers; wider
+//   rows are read from shared memory at each k-step.
+// * The online softmax runs on the C fragments: a row's values sit in one
+//   quad of lanes, so its max takes two shuffles a tile and its sum is
+//   kept per lane and reduced once at the end. Only tiles that straddle
+//   kv_len or the diagonal are masked, and there a masked p is set to 0
+//   (so a row may meet its first visible key in any tile). Tiles at or
+//   past min(Sk, kv_len[b]) and, when causal, past the block's last row
+//   are never loaded (the TPU's pl.when skip), and a warp skips the
+//   8-key columns and tiles where all of its p are 0.
+// * P feeds PV from registers: the C fragment of an 8-key score tile
+//   (columns 2t, 2t + 1) is the A fragment of the product with the
+//   contraction over the tile's keys permuted (k = t, t + 4), and V's rows
+//   are read in that order (c_as_a, load_b_perm). O stays in registers
+//   (DP / 8 tiles of 4) and is divided by max(l, 1e-30) at the end.
+// * Ragged edges: D is zero-padded to DP = 32, 64, 96 or 128 in shared
+//   memory, rows past Sq or Sk are zero-filled by cp.async and masked, so
+//   any D <= 128 and any Sq, Sk launch; rows go in 16-byte pieces only
+//   when D % 4 == 0 and the bases are aligned (`vec`).
+// Each launch recomputes the plan's shared bytes here and refuses a plan
+// that disagrees.
 #include <cuda_runtime.h>
+
+#include <atomic>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBQ = kWarps;                  // query rows per block: one
-                                             // per warp
-constexpr int kBK = 32;                      // keys per tile: one per lane
-constexpr float kMasked = -1e30f;            // the JAX package's mask value
+using namespace mxtt;
+
+constexpr int kWarpRows = 16;   // query rows a warp owns (the mma's M)
+constexpr int kMaxRowWarps = 4; // row warps a block at most (64 rows)
+constexpr int kMaxWarps = 8;    // warps a block at most
+constexpr int kWideBK = 32;     // keys of a warp's tile: without a key
+constexpr int kSplitBK = 16;    // split, and with one
+constexpr float kMasked = -1e30f;             // the JAX package's mask
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
+// rw warps of rows, each row group split over ks warps of BK keys
+__host__ __device__ constexpr size_t fwd_smem(int DP, int BK, int rw,
+                                              int ks) {
+  // Q rows, then two buffers of K and V tiles (ks warp tiles each)
+  return sizeof(float) * ((size_t)kWarpRows * rw + 4 * ks * BK) *
+         pitch_of(DP);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+// the card's dynamic shared memory a block at most
+constexpr size_t kSmemLimit = 227 * 1024;
+
+static_assert(fwd_smem(128, kWideBK, kMaxRowWarps, 1) <= kSmemLimit,
+              "a block's shared memory exceeds 227 KB");
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
 }
 
-// DCH = ceil(D / 32): output columns per lane
-template <int DCH>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const int* __restrict__ kv_len, float* __restrict__ out,
-                     float* __restrict__ lse, int H, int Sq, int Sk, int D,
-                     int causal, float sm_scale) {
-  extern __shared__ float smem[];
-  const int dpad = D + 1;
-  float* ks = smem;                  // kBK x (D + 1)
-  float* vs = ks + kBK * dpad;       // kBK x D
-  float* qs = vs + kBK * D;          // kBQ x D
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
 
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
+// grid (B*H, ceil(Sq / (16 * rw))), 32 * rw * ks threads: warp w owns
+// rows 16 * (w % rw) of the block and the key tiles w / rw, w / rw + ks,
+// ... of BK keys; with ks > 1 the warps of a row group merge their
+// (m, l, O) at the end
+template <int DP, int BK>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const int* __restrict__ kv_len, float* __restrict__ out,
+                 float* __restrict__ lse, int H, int Sq, int Sk, int D,
+                 int causal, float sm_scale, int ks, int vec) {
+  constexpr int NT = DP / 8;          // 8-wide column tiles of D
+  constexpr int KT = BK / 8;          // 8-key tiles of a warp's tile
+  constexpr int P = pitch_of(DP);
+  constexpr bool kQInRegs = DP <= 64;
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int rw = nthreads / 32 / ks;
+  const int rows = kWarpRows * rw;
+  const int sbk = BK * ks;            // keys a block step loads
+  const int wk = warp / rw;           // this warp's tile of the step
+  float* qs = smem;                   // rows x P
+  float* kb = qs + rows * P;          // 2 x sbk x P
+  float* vb = kb + 2 * sbk * P;       // 2 x sbk x P
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * rows;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const size_t qbase = (size_t)bh * Sq * D;
   const size_t kbase = (size_t)bh * Sk * D;
+  const int ntd = (D + 7) / 8;        // column tiles holding real columns
+  const int qw0 = q0 + kWarpRows * (warp % rw);   // this warp's first row
 
-  // keys at or past kend are masked for every row of the block
   int kend = Sk;
   if (kv_len != nullptr) kend = max(0, min(kend, kv_len[bh / H]));
-  // tiles starting at or past kstop hold no visible key for any row here
+  // key tiles starting at or past kstop hold no visible key for any row
   int kstop = kend;
-  if (causal) kstop = min(kstop, q0 + kBQ);
+  if (causal) kstop = min(kstop, q0 + rows);
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D;
-    qs[i] = (q0 + r < Sq) ? q[qbase + (size_t)q0 * D + i] : 0.f;
+  zero_pad(qs, P, rows + 4 * sbk, D, DP, tid, nthreads);
+  copy_rows(qs, P, q + qbase, q0, rows, Sq, D, vec, tid, nthreads);
+  cp_commit();
+  auto load_step = [&](int k0, int buf) {
+    copy_rows(kb + buf * sbk * P, P, k + kbase, k0, sbk, Sk, D, vec, tid,
+              nthreads);
+    copy_rows(vb + buf * sbk * P, P, v + kbase, k0, sbk, Sk, D, vec, tid,
+              nthreads);
+  };
+  load_step(0, 0);                    // before kv_len is known (Sk > 0)
+  cp_commit();
+
+  const float* qw = qs + (qw0 - q0) * P;
+  uint32_t qh[kQInRegs ? NT : 1][4], ql[kQInRegs ? NT : 1][4];
+  if constexpr (kQInRegs) {
+    cp_wait<1>();                     // the Q rows (and the padding)
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk)
+      load_a(qw, P, 8 * kk, g, t, qh[kk], ql[kk]);
   }
 
-  const int qi = q0 + warp;    // this warp's row; past Sq: never stored
-  const float* qrow = qs + warp * D;
-  float m = kMasked, l = 0.f, acc[DCH];
+  // rows g and g + 8 of the warp: running max and this lane's share of
+  // the running sum; O in the C layout of 16 x DP
+  float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
+  float o[NT][4];
 #pragma unroll
-  for (int c = 0; c < DCH; ++c) acc[c] = 0.f;
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  for (int k0 = 0; k0 < kstop; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (q is staged)
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i - r * D;
-      const bool in = k0 + r < Sk;
-      const size_t g = kbase + (size_t)k0 * D + i;
-      ks[r * dpad + c] = in ? k[g] : 0.f;
-      vs[i] = in ? v[g] : 0.f;
+  int buf = 0;
+  for (int k0 = 0; k0 < kstop; k0 += sbk, buf ^= 1) {
+    if (k0 + sbk < kstop) {
+      load_step(k0 + sbk, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-
-    // lane j scores key k0 + j; four partial sums keep the FMA chain short
-    const int kj = k0 + lane;
-    const float* krow = ks + lane * dpad;
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-    int c = 0;
-    for (; c + 4 <= D; c += 4) {
-      s0 = fmaf(qrow[c], krow[c], s0);
-      s1 = fmaf(qrow[c + 1], krow[c + 1], s1);
-      s2 = fmaf(qrow[c + 2], krow[c + 2], s2);
-      s3 = fmaf(qrow[c + 3], krow[c + 3], s3);
-    }
-    for (; c < D; ++c) s0 = fmaf(qrow[c], krow[c], s0);
-    float s = ((s0 + s1) + (s2 + s3)) * sm_scale;
-    const bool keep = kj < kend && (!causal || kj <= qi);
-    s = keep ? s : kMasked;
-
-    const float m_new = fmaxf(m, warp_max(s));
-    const float alpha = expf(m - m_new);
-    const float p = expf(s - m_new);
-    l = alpha * l + warp_sum(p);
+    const int kw0 = k0 + BK * wk;     // this warp's first key
+    const float* kt = kb + (buf * sbk + BK * wk) * P;
+    const float* vt = vb + (buf * sbk + BK * wk) * P;
+    // keys of this tile that can hold a p > 0 for this warp's rows
+    int klive = min(kend - kw0, BK);
+    if (causal) klive = min(klive, qw0 + kWarpRows - kw0);
+    if (qw0 < Sq && klive > 0) {
+      float s[KT][4];
 #pragma unroll
-    for (int cc = 0; cc < DCH; ++cc) acc[cc] *= alpha;
-    // keys past kend have p == 0 exactly once a visible key set m; the
-    // walk stops at the tile's last key below kend
-    const int nj = min(kBK, kend - k0);
-    for (int j = 0; j < nj; ++j) {
-      const float pj = __shfl_sync(kFull, p, j);
-      const float* vrow = vs + j * D;
+      for (int j = 0; j < KT; ++j)
 #pragma unroll
-      for (int cc = 0; cc < DCH; ++cc) {
-        const int d = lane + 32 * cc;
-        if (d < D) acc[cc] = fmaf(pj, vrow[d], acc[cc]);
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // S = Q K^T over the columns that hold real values
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        if (kk >= ntd) break;
+        uint32_t ah[4], al[4];
+        if constexpr (kQInRegs) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ah[i] = qh[kk][i];
+            al[i] = ql[kk][i];
+          }
+        } else {
+          load_a(qw, P, 8 * kk, g, t, ah, al);
+        }
+        uint32_t bh_[KT][2], bl_[KT][2];
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+          load_b_rows(kt + 8 * j * P + 8 * kk, P, g, t, bh_[j], bl_[j]);
+        mma3x1<KT>(s, ah, al, bh_, bl_);
+      }
+      // scale; mask only a tile that straddles kv_len or the diagonal
+      // (its keys past klive among them)
+      const bool edge = kw0 + BK > kend || (causal && kw0 + BK - 1 > qw0);
+      unsigned keep = ~0u;            // bit 4j + e: entry (j, e) is visible
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] *= sm_scale;
+          if (edge) {
+            const int kj = kw0 + 8 * j + 2 * t + (e & 1);
+            const int qi = qw0 + g + ((e & 2) ? 8 : 0);
+            if (!(kj < kend && (!causal || kj <= qi))) {
+              s[j][e] = kMasked;
+              keep &= ~(1u << (4 * j + e));
+            }
+          }
+        }
+      }
+      // the online softmax; a masked entry's p is 0 whatever the row's
+      // running max, so a row may meet its first visible key in any tile
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float a0 = exp2f((m0 - mx0) * kLog2e);
+      const float a1 = exp2f((m1 - mx1) * kLog2e);
+      m0 = mx0;
+      m1 = mx1;
+      const float ml0 = mx0 * kLog2e, ml1 = mx1 * kLog2e;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(s[j][e], kLog2e, (e & 2) ? -ml1 : -ml0));
+          s[j][e] = (keep >> (4 * j + e)) & 1u ? p : 0.f;
+        }
+        ps0 += s[j][0] + s[j][1];
+        ps1 += s[j][2] + s[j][3];
+      }
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= a0;
+        o[n][1] *= a0;
+        o[n][2] *= a1;
+        o[n][3] *= a1;
+      }
+      // O += P V over the 8-key columns with a live key (permuted)
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        if (8 * j >= klive) break;
+        uint32_t ph[4], pl[4];
+        c_as_a(s[j], ph, pl);
+        const float* vr = vt + 8 * j * P;
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += 4) {
+          if (n0 >= ntd) break;
+          uint32_t bh_[4][2], bl_[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            load_b_perm(vr + 8 * (n0 + i), P, g, t, bh_[i], bl_[i]);
+          mma3x1<4>(o + n0, ph, pl, bh_, bl_);
+        }
       }
     }
-    m = m_new;
+    __syncthreads();  // this buffer is consumed
+  }
+  cp_wait<0>();
+
+  if (ks > 1) {
+    // the warps of a row group merge into its first: each later warp
+    // leaves (m, l, O) of every lane in the tile buffers, lane-minor
+    constexpr int W = 4 * NT + 4;
+    __syncthreads();                  // (the loop may not have run)
+    if (wk > 0) {
+      float* part = kb + (size_t)(warp - rw) * 32 * W + lane;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[32 * (4 * n + e)] = o[n][e];
+      part[32 * (4 * NT)] = m0;
+      part[32 * (4 * NT + 1)] = m1;
+      part[32 * (4 * NT + 2)] = l0;
+      part[32 * (4 * NT + 3)] = l1;
+    }
+    __syncthreads();
+    if (wk > 0) return;
+    for (int w = 1; w < ks; ++w) {
+      const float* pw = kb + (size_t)(warp + (w - 1) * rw) * 32 * W + lane;
+      const float pm0 = pw[32 * (4 * NT)], pm1 = pw[32 * (4 * NT + 1)];
+      const float n0 = fmaxf(m0, pm0), n1 = fmaxf(m1, pm1);
+      const float a0 = exp2f((m0 - n0) * kLog2e);
+      const float b0 = exp2f((pm0 - n0) * kLog2e);
+      const float a1 = exp2f((m1 - n1) * kLog2e);
+      const float b1 = exp2f((pm1 - n1) * kLog2e);
+      l0 = l0 * a0 + pw[32 * (4 * NT + 2)] * b0;
+      l1 = l1 * a1 + pw[32 * (4 * NT + 3)] * b1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n][e] = o[n][e] * ((e & 2) ? a1 : a0) +
+                    pw[32 * (4 * n + e)] * ((e & 2) ? b1 : b0);
+      m0 = n0;
+      m1 = n1;
+    }
   }
 
-  if (qi < Sq) {
-    // a row with every key masked has l == 0: it writes zeros
-    const float denom = fmaxf(l, 1e-30f);
+  // a row with every key masked has l == 0: it writes zeros
+  const float d0 = fmaxf(quad_sum(l0), 1e-30f);
+  const float d1 = fmaxf(quad_sum(l1), 1e-30f);
 #pragma unroll
-    for (int cc = 0; cc < DCH; ++cc) {
-      const int d = lane + 32 * cc;
-      if (d < D) out[qbase + (size_t)qi * D + d] = acc[cc] / denom;
+  for (int n = 0; n < NT; ++n) {
+    if (n >= ntd) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = qw0 + g + ((e & 2) ? 8 : 0);
+      const int d = 8 * n + 2 * t + (e & 1);
+      if (qi < Sq && d < D)
+        out[qbase + (size_t)qi * D + d] = o[n][e] / ((e & 2) ? d1 : d0);
     }
-    if (lane == 0) lse[(size_t)bh * Sq + qi] = m + logf(denom);
+  }
+  if (t == 0) {
+    if (qw0 + g < Sq) lse[(size_t)bh * Sq + qw0 + g] = m0 + logf(d0);
+    if (qw0 + g + 8 < Sq) lse[(size_t)bh * Sq + qw0 + g + 8] = m1 + logf(d1);
   }
 }
 
-template <int DCH>
-void launch(const float* q, const float* k, const float* v, const int* kv_len,
-            float* out, float* lse, int B, int H, int Sq, int Sk, int D,
-            int causal, float sm_scale, cudaStream_t stream) {
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  const size_t smem = sizeof(float) * (kBK * (D + 1) + kBK * D + kBQ * D);
-  flash_fwd_f32_kernel<DCH><<<grid, kThreads, smem, stream>>>(
-      q, k, v, kv_len, out, lse, H, Sq, Sk, D, causal, sm_scale);
+template <int DP, int BK>
+int launch(const float* q, const float* k, const float* v, const int* kv_len,
+           float* out, float* lse, int B, int H, int Sq, int Sk, int D,
+           int causal, float sm_scale, int rw, int ks, int vec,
+           long long smem, cudaStream_t stream) {
+  // the merge leaves (ks - 1) * rw warps' state in the tile buffers
+  const size_t state = sizeof(float) * (ks - 1) * rw * 32 * (DP / 2 + 4);
+  if (rw < 1 || rw > kMaxRowWarps || ks < 1 || rw * ks > kMaxWarps ||
+      smem != static_cast<long long>(fwd_smem(DP, BK, rw, ks)) ||
+      smem > static_cast<long long>(kSmemLimit) ||
+      state > fwd_smem(DP, BK, 0, ks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = prepare(flash_fwd_kernel<DP, BK>, kSmemLimit, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = kWarpRows * rw;
+  const dim3 grid(B * H, (Sq + rows - 1) / rows);
+  flash_fwd_kernel<DP, BK><<<grid, 32 * rw * ks, smem, stream>>>(
+      q, k, v, kv_len, out, lse, H, Sq, Sk, D, causal, sm_scale, ks, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a plan this file would not have made: BK 32
+// or 16, rw row warps (1-4) times ks key warps at most 8, smem their
+// shared bytes within the card's limit.
 extern "C" int mxtt_flash_fwd_f32(const float* q, const float* k,
                                   const float* v, const int* kv_len,
                                   float* out, float* lse, int B, int H,
                                   int Sq, int Sk, int D, int causal,
-                                  float sm_scale, void* stream) {
+                                  float sm_scale, int BK, int rw, int ks,
+                                  int vec, long long smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 32) {
-    launch<1>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale, st);
-  } else if (D <= 64) {
-    launch<2>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale, st);
-  } else if (D <= 96) {
-    launch<3>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale, st);
-  } else if (D <= 128) {
-    launch<4>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale, st);
-  } else {
+#define MXTT_FWD(DP)                                                        \
+  (BK == kWideBK                                                            \
+       ? launch<DP, kWideBK>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D,   \
+                             causal, sm_scale, rw, ks, vec, smem, st)       \
+       : launch<DP, kSplitBK>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D,  \
+                              causal, sm_scale, rw, ks, vec, smem, st))
+  if (D <= 0 || D > 128 || (BK != kWideBK && BK != kSplitBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (D <= 32) return MXTT_FWD(32);
+  if (D <= 64) return MXTT_FWD(64);
+  if (D <= 96) return MXTT_FWD(96);
+  return MXTT_FWD(128);
+#undef MXTT_FWD
 }

@@ -5,8 +5,11 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
 
   * `flash_attention` — every attention of the model, forward and
     backward, as a `torch.autograd.Function`. Its forward launches
-    `csrc/flash_fwd.cu` (replaces `_flash_fwd_kernel`) and keeps q, k, v,
-    the output and the row log-sum-exp; its backward launches
+    `csrc/flash_fwd.cu` (replaces `_flash_fwd_kernel`; split TF32 on
+    the tensor cores, 16 query rows a warp and 4 warps a block, or,
+    where the rows alone would leave the card idle, fewer rows a block
+    and up to 8 warps splitting the keys: `flash_fwd_plan`) and keeps q,
+    k, v, the output and the row log-sum-exp; its backward launches
     `csrc/flash_bwd.cu` (replaces `_flash_bwd_dkv_kernel` and
     `_flash_bwd_dq_kernel`): one fused dQ/dK/dV kernel when the keys fit
     one block (`flash_bwd_plan`: Sk <= 128 at D <= 64, every attention
@@ -40,7 +43,8 @@ is no fallback. Each launch adds one to `LAUNCHES[name]`, so a run can
 show that its path went through the kernels.
 
 Masking follows the JAX package: masked scores are the finite -1e30, and
-the softmax runs in fp32. A row with no visible key (a key length of 0)
+the softmax runs in fp32. The causal mask is `attention_reference`'s
+top-left one, kj <= qi in absolute indices, for any Sq and Sk. A row with no visible key (a key length of 0)
 is zeros in both the kernels and the plain versions — the convention of
 the TPU kernels (`pallas_kernels.py:287-291`) — and its backward is
 zeros too, because the backward masks p itself rather than relying on
@@ -58,7 +62,7 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_bwd_plan",
+           "flash_fwd_plan", "flash_bwd_plan",
            "single_query_cached_attention", "ragged_paged_attention",
            "fused_layer_norm", "layer_norm_fwd",
            "conv1x1_bn_stats",
@@ -145,7 +149,7 @@ def _flash_plain(q, k, v, causal, sm_scale, kv_lengths):
 # ---------------------------------------------------------------------------
 # flash attention forward
 # ---------------------------------------------------------------------------
-def _flash_args(q, k, v, causal, kv_lengths):
+def _flash_args(q, k, v, kv_lengths):
     """What the kernel takes, checked on either device (so the CPU tests
     catch a layout the card would refuse): (B, H, Sq, Sk, D)."""
     _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
@@ -162,7 +166,6 @@ def _flash_args(q, k, v, causal, kv_lengths):
     _check(0 < d <= 128,
            f"flash_attention kernel takes 0 < D <= 128, got {d}")
     _check(b * h > 0 and sq > 0 and sk > 0, "flash_attention: empty input")
-    _check(not causal or sq == sk, "causal flash_attention needs Sq == Sk")
     if kv_lengths is not None:
         _check(kv_lengths.dtype == torch.int32 and kv_lengths.shape == (b,)
                and kv_lengths.is_contiguous(),
@@ -170,8 +173,62 @@ def _flash_args(q, k, v, causal, kv_lengths):
     return b, h, sq, sk, d
 
 
-def _flash_cuda(q, k, v, causal, sm_scale, kv_lengths):
-    b, h, sq, sk, d = _flash_args(q, k, v, causal, kv_lengths)
+# query rows a warp owns, row warps and warps a block holds at most, keys
+# of a warp's tile without a key split and with one (`csrc/flash_fwd.cu`
+# kWarpRows, kMaxRowWarps, kMaxWarps, kWideBK, kSplitBK)
+_FWD_WARP_ROWS, _FWD_MAX_ROW_WARPS, _FWD_MAX_WARPS = 16, 4, 8
+_FWD_WIDE_BK, _FWD_SPLIT_BK = 32, 16
+# the H100's streaming multiprocessors, and its dynamic shared memory a
+# block at most
+_CARD_SMS, _SMEM_LIMIT = 132, 227 * 1024
+
+
+def flash_fwd_plan(bh, sq, sk, d):
+    """The launch plan of the flash forward kernel for B*H = `bh` slices
+    of Sq queries over Sk keys of width D:
+
+      dp     D zero-padded in shared memory (32, 64, 96 or 128)
+      rw     row warps a block, 16 query rows each: 4, halved while the
+             grid (bh x ceil(Sq / rows)) would leave SMs of the card
+             without a block
+      ks     warps each row group's keys are split over: 1 at 4 row
+             warps; else up to 8 warps a block in all, fewer when half
+             of them already cover Sk or their tiles would not fit the
+             block's shared memory. Warp w walks tiles w, w + ks, ...,
+             and the ks warps merge their softmax state at the end
+      bk     keys of a warp's tile: 32, or 16 under a key split (shorter
+             walks where the rows alone leave the card idle)
+      warps  rw x ks
+      rows   query rows a block (16 x rw)
+      smem   dynamic shared bytes (the Q rows and two buffers of ks K and
+             V tiles); the kernel recomputes them and refuses a plan that
+             disagrees.
+    """
+    _check(0 < d <= 128 and bh > 0 and sq > 0 and sk > 0,
+           f"flash forward takes 0 < D <= 128 and a non-empty input, got "
+           f"D {d}, B*H {bh}, Sq {sq}, Sk {sk}")
+    dp = 32 * -(-d // 32)
+    rw = _FWD_MAX_ROW_WARPS
+    while rw > 1 and bh * -(-sq // (_FWD_WARP_ROWS * rw)) < _CARD_SMS:
+        rw //= 2
+    rows = _FWD_WARP_ROWS * rw
+    if rw == _FWD_MAX_ROW_WARPS:
+        ks, bk = 1, _FWD_WIDE_BK
+    else:
+        ks, bk = _FWD_MAX_WARPS // rw, _FWD_SPLIT_BK
+
+    def smem(ks):
+        return 4 * (rows + 4 * ks * bk) * (dp + 4)
+    while ks > 1 and (bk * ks // 2 >= sk or smem(ks) > _SMEM_LIMIT):
+        ks //= 2
+    return dict(dp=dp, rw=rw, ks=ks, bk=bk, warps=rw * ks, rows=rows,
+                smem=smem(ks))
+
+
+def _flash_cuda(q, k, v, causal, sm_scale, kv_lengths, plan):
+    """The forward kernel on the arguments `flash_attention_fwd` checked,
+    launched as `plan` says."""
+    b, h, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     lib = _build.library()
@@ -179,8 +236,10 @@ def _flash_cuda(q, k, v, causal, sm_scale, kv_lengths):
         rc = lib.mxtt_flash_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_lengths is None else kv_lengths.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, int(causal),
-            float(sm_scale), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), lse.data_ptr(), b, h, sq, k.shape[2], d,
+            int(causal), float(sm_scale), plan["bk"], plan["rw"],
+            plan["ks"], _vec_copies(d, q, k, v), plan["smem"],
+            torch.cuda.current_stream().cuda_stream)
     _launched("flash_fwd", rc)
     return out, lse
 
@@ -190,14 +249,17 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None,
     """Attention forward with its per-row log-sum-exp: (out (B, H, Sq,
     D), lse (B*H, Sq) fp32). q: (B, H, Sq, D); k, v: (B, H, Sk, D);
     kv_lengths: optional (B,) int32 — key positions >= kv_lengths[b]
-    are masked. Causal requires Sq == Sk."""
+    are masked. `causal` masks kj > qi in absolute indices (top-left),
+    for any Sq and Sk. On the card one launch as `flash_fwd_plan`
+    says."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dev = _device_of(q, k, v, kv_lengths)
-    if dev.type == "cuda":
-        return _flash_cuda(q, k, v, causal, sm_scale, kv_lengths)
-    _flash_args(q, k, v, causal, kv_lengths)
-    return _flash_plain(q, k, v, causal, sm_scale, kv_lengths)
+    b, h, sq, sk, d = _flash_args(q, k, v, kv_lengths)
+    if dev.type != "cuda":
+        return _flash_plain(q, k, v, causal, sm_scale, kv_lengths)
+    return _flash_cuda(q, k, v, causal, sm_scale, kv_lengths,
+                       flash_fwd_plan(b * h, sq, sk, d))
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +287,8 @@ def _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale, kv_lengths):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _flash_bwd_args(q, k, v, do, lse, delta, causal, kv_lengths):
-    b, h, sq, sk, d = _flash_args(q, k, v, causal, kv_lengths)
+def _flash_bwd_args(q, k, v, do, lse, delta, kv_lengths):
+    b, h, sq, sk, d = _flash_args(q, k, v, kv_lengths)
     _check(do.shape == q.shape and do.dtype == torch.float32
            and do.is_contiguous(),
            "flash_attention_bwd takes a contiguous float32 dO shaped as q")
@@ -339,8 +401,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dev = _device_of(q, k, v, do, lse, delta, kv_lengths)
-    _, _, _, sk, d = _flash_bwd_args(q, k, v, do, lse, delta, causal,
-                                     kv_lengths)
+    _, _, _, sk, d = _flash_bwd_args(q, k, v, do, lse, delta, kv_lengths)
     if dev.type != "cuda":
         return _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
                                 kv_lengths)

@@ -82,6 +82,55 @@ def test_flash_ragged_matches_jax_reference(causal):
     np.testing.assert_allclose(got, np.asarray(want), **FLASH_TOL)
 
 
+@pytest.mark.parametrize("sq,sk,lengths", [
+    (128, 256, None), (128, 256, [200, 31]),
+    (256, 128, None), (256, 128, [100, 128]),
+], ids=["sq<sk", "sq<sk-len", "sq>sk", "sq>sk-len"])
+def test_flash_causal_rectangular_matches_jax_pallas_interpret(
+        interpret, sq, sk, lengths):
+    """Causal with Sq != Sk, both ways, with and without key lengths: the
+    top-left mask (kj <= qi in absolute indices) of the JAX Pallas kernel
+    in interpret mode."""
+    q, k, v = _qkv(6, 2, 2, sq, sk, 32)
+    assert jk._pallas_ok(sq) and jk._pallas_ok(sk)
+    vl = None if lengths is None else jnp.asarray(lengths, jnp.int32)
+    want = jk.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), True, kv_lengths=vl)
+    got = _port_flash(q, k, v, True, lengths)
+    np.testing.assert_allclose(got, np.asarray(want), **FLASH_TOL)
+
+
+@pytest.mark.parametrize("sq,sk,lengths", [
+    (23, 41, None), (23, 41, [30, 7]), (41, 23, None), (41, 23, [5, 23]),
+], ids=["sq<sk", "sq<sk-len", "sq>sk", "sq>sk-len"])
+def test_flash_causal_rectangular_matches_jax_reference(sq, sk, lengths):
+    """Causal with ragged Sq != Sk (the TPU sends them to
+    `attention_reference`): out and the lse agree with the reference's
+    top-left mask."""
+    q, k, v = _qkv(7, 2, 2, sq, sk, 16)
+    mask = None
+    if lengths is not None:
+        mask = jnp.asarray((np.arange(sk)[None, :]
+                            < np.array(lengths)[:, None])[:, None, None, :])
+    want = jk.attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=True, mask=mask)
+    got = _port_flash(q, k, v, True, lengths)
+    np.testing.assert_allclose(got, np.asarray(want), **FLASH_TOL)
+    vl = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    _, lse = tk.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)),
+                                    causal=True, kv_lengths=vl)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / 4.0
+    seen = np.tril(np.ones((sq, sk), bool))[None, None]
+    if lengths is not None:
+        seen = seen & (np.arange(sk) < np.array(lengths)[:, None])[:, None,
+                                                                    None]
+    s = np.where(seen, s, -np.inf)
+    want_lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+        + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want_lse.reshape(4, sq),
+                               **FLASH_TOL)
+
+
 def test_flash_lse_is_row_logsumexp():
     """The forward's compact (B*H, Sq) lse is the log-sum-exp of the
     scaled, masked scores."""

@@ -70,6 +70,55 @@ def test_flash_bwd_matches_jax_pallas_interpret(interpret, b, sq, sk,
                                    err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("sq,sk,lengths", [
+    (128, 256, None), (128, 256, [200, 31]),
+    (256, 128, None), (256, 128, [100, 128]),
+], ids=["sq<sk", "sq<sk-len", "sq>sk", "sq>sk-len"])
+def test_flash_bwd_causal_rectangular_matches_jax_pallas_interpret(
+        interpret, sq, sk, lengths):
+    """Causal with Sq != Sk, both ways, with and without key lengths:
+    dQ/dK/dV of the port == `jax.grad` through the JAX Pallas kernels in
+    interpret mode (the top-left mask)."""
+    q, k, v, w = _arrays(6, (1, 2, sq, 32), (1, 2, sk, 32), (1, 2, sk, 32),
+                         (1, 2, sq, 32))
+    if lengths is not None:
+        q, k, v, w = (np.concatenate([a, a[:, ::-1]]) for a in (q, k, v, w))
+    assert jk._pallas_ok(sq) and jk._pallas_ok(sk)
+    vl = None if lengths is None else jnp.asarray(lengths, jnp.int32)
+
+    def f(q_, k_, v_):
+        return (jk.flash_attention(q_, k_, v_, True, kv_lengths=vl)
+                * w).sum()
+    want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _port_grads(q, k, v, w, True, lengths)
+    for name, g, ref in zip("qkv", got, want):
+        np.testing.assert_allclose(g, np.asarray(ref), **BWD_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("sq,sk,lengths", [
+    (23, 41, None), (23, 41, [30, 7]), (41, 23, None), (41, 23, [5, 23]),
+], ids=["sq<sk", "sq<sk-len", "sq>sk", "sq>sk-len"])
+def test_flash_bwd_causal_rectangular_matches_jax_reference(sq, sk,
+                                                            lengths):
+    """Causal with ragged Sq != Sk: the port's gradients == `jax.vjp` of
+    `attention_reference` with its top-left mask."""
+    q, k, v, w = _arrays(7, (2, 2, sq, 16), (2, 2, sk, 16), (2, 2, sk, 16),
+                         (2, 2, sq, 16))
+    mask = None
+    if lengths is not None:
+        mask = jnp.asarray((np.arange(sk)[None, :]
+                            < np.array(lengths)[:, None])[:, None, None, :])
+    _, vjp = jax.vjp(lambda *a: jk.attention_reference(*a, causal=True,
+                                                       mask=mask),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(w))
+    got = _port_grads(q, k, v, w, True, lengths)
+    for name, g, ref in zip("qkv", got, want):
+        np.testing.assert_allclose(g, np.asarray(ref), **BWD_TOL,
+                                   err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("causal,lengths,sq,sk", [
     (True, [9, 24], 24, 24),
     (False, [3, 40], 17, 40),
