@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (`mxnet_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py --ranks N   # sequence parallelism on N cards
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -139,6 +140,35 @@ Phases (any failure raises and the script exits non-zero):
                  full width, one step at B=2, S=512, lengths (300, 512)
                  on the card and on the CPU: the loss and every gradient
                  within phase 6's limits.
+ 13. long context — examples/long_context.py at its full size (B=1,
+                 S=2048, H=8, D=64, causal, fp32, numpy seed 0) on a
+                 one-rank NCCL group (`kvstore.init_distributed`,
+                 `parallel.make_mesh({"sp": 1})`): (a) Ulysses and ring
+                 forward and backward through their `_sharded` entries
+                 (counters zeroed just before, read just after: 2
+                 launches each of `flash_block`, the forward, the fused
+                 and the dQ kernel), held against `flash_attention` over
+                 the whole sequence (FLASH_TOL, BWD_TOL, and float64 at
+                 most BWD_F64_RATIO x the plain version's distance);
+                 (b) `flash_block_attention` against its plain version
+                 and float64 at that shape, causal and not, with a
+                 nonzero lse cotangent; (c) a ring of four ranks on the
+                 one card, each query shard of 512 meeting the key
+                 blocks its rank would through the ring's `_ring_step`
+                 (10 block forwards and 10 split backwards), against
+                 `flash_attention`; (d) the block's forward and forward
+                 + backward timed beside the plain versions and SDPA;
+                 (e) `flash_attention_fwd` / `_bwd` against float64 at
+                 S = 512, 1024, 2048, 4096 (B=1, H=8), causal and not: out /
+                 lse within FLASH_F64_RATIO and dQ / dK / dV within
+                 BWD_F64_RATIO of the plain version's distance.
+
+`--ranks N` (N > 1 cards) runs phase 13 (a) over N NCCL ranks instead,
+one process a card: each rank's Ulysses and ring output and gradients
+against `flash_attention` over the whole sequence on its card
+(FLASH_TOL, BWD_TOL, float64), its launches checked (Ulysses one block,
+the ring the blocks at or before its shard), then a
+`{"sp_ranks": [...]}` line in place of the kernels line.
 
 Output: progress lines, then `nvidia-smi`'s name and power limit, then
 one JSON line `{"kernels": [...]}`, then the last line
@@ -255,6 +285,15 @@ RESNET_GRAD_FLOOR, RESNET_STAT_FLOOR = 1e-4, 1e-5
 # (bench_bert.py:113), seq 512 and 76 masked positions (:25), fp32
 BERT_VOCAB, BERT_B, BERT_S, BERT_H, BERT_P = 30522, 16, 512, 12, 76
 BERT_STEPS = 10
+# long-context attention at examples/long_context.py's full size (B=1,
+# S=2048, H=8, D=64), and the ranks of the ring run on one card
+LC_B, LC_S, LC_H, LC_D = 1, 2048, 8, 64
+LC_RING = 4
+# the flash kernels' distance from float64 along long walks (B=1, H=8,
+# D=64, causal and not): tf32_mma.cuh's tile sums keep it within the
+# float64 ratios where the tensor cores' running accumulation had let it
+# grow to 13-19x the plain version's at S = 2048-4096
+F64_SWEEP_S = (512, 1024, 2048, 4096)
 
 BOS, EOS = 2, 3
 
@@ -2320,7 +2359,436 @@ def phase_bert_card_vs_cpu(mx, torch, init_file):
         f"{worst[2]:.3e}); card launches {launches}")
 
 
-def main():
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _lc_leaves(torch, arrays, layout_bshd):
+    """Fresh leaves on this process's card from numpy arrays (B, S, H,
+    D); with `layout_bshd` False, transposed to (B, H, S, D)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ts = [torch.tensor(a, device=dev) for a in arrays]
+    if not layout_bshd:
+        ts = [t.transpose(1, 2).contiguous() for t in ts]
+    return [t.requires_grad_(True) for t in ts]
+
+
+def _block_f64(torch, q, k, v, g, g_lse, causal, scale):
+    """(out, lse, dQ, dK, dV) of block attention by float64 autograd on
+    the CPU, for the cotangents g of out and g_lse of lse."""
+    q, k, v = (t.detach().cpu().double().requires_grad_(True)
+               for t in (q, k, v))
+    s = q @ k.transpose(-1, -2) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = torch.where(keep, s, torch.tensor(-torch.inf, dtype=s.dtype))
+    lse = torch.logsumexp(s, -1)
+    out = torch.softmax(s, -1) @ v
+    grads = torch.autograd.grad((out, lse), (q, k, v),
+                                (g.cpu().double(), g_lse.cpu().double()))
+    return [out.detach(), lse.detach(), *grads]
+
+
+def _lc_reference(mx, torch, arrays):
+    """The whole-sequence reference of the long-context checks, (B, H, S,
+    D) on the card: `flash_attention`'s output and gradients of sum(out
+    * w), the plain versions' gradients and float64 autograd's (CPU)."""
+    K = mx.ops.kernels
+    q, k, v, w = _lc_leaves(torch, arrays, False)
+    w = w.detach()
+    ref = K.flash_attention(q, k, v, causal=True)
+    ref_grads = torch.autograd.grad((ref * w).sum(), (q, k, v))
+    scale = LC_D ** -0.5
+    q0, k0, v0 = (t.detach() for t in (q, k, v))
+    out, lse = K._flash_plain(q0, k0, v0, True, scale, None)
+    delta = (out * w).sum(-1).reshape(-1, LC_S)
+    plain = K._flash_bwd_plain(q0, k0, v0, w, lse, delta, True, scale, None)
+    f64 = _attention_grads_f64(torch, q0, k0, v0, w, True, scale, None)
+    return ref.detach(), ref_grads, plain, f64, w
+
+
+def _lc_grads_check(torch, what, got, ref, worst):
+    """Gradients `got` against flash_attention's (BWD_TOL) and float64,
+    no further from it than BWD_F64_RATIO times the plain version."""
+    ref_grads, plain, f64 = ref
+    for name, a, r, p, r64 in zip(("dq", "dk", "dv"), got, ref_grads, plain,
+                                  f64):
+        err = (a - r).abs().max().item()
+        worst[0] = max(worst[0], err)
+        check(torch.isfinite(a).all().item()
+              and torch.allclose(a, r, **BWD_TOL),
+              f"{what} {name} vs flash_attention: max abs err {err}")
+        e64 = (a.cpu().double() - r64).abs().max().item()
+        p64 = (p.cpu().double() - r64).abs().max().item()
+        check(e64 <= BWD_F64_RATIO * p64,
+              f"{what} {name} {e64} from float64, more than "
+              f"{BWD_F64_RATIO}x the plain version's {p64}")
+
+
+def _lc_example(mx, torch, mesh, arrays, ref, want):
+    """(a) examples/long_context.py's flow on the card: both strategies
+    forward and backward through their `_sharded` entries, the counters
+    zeroed just before and read just after (they must equal `want`, the
+    nonzero ones); then held against `flash_attention` over the whole
+    sequence. Returns the launches and the worst error."""
+    K = mx.ops.kernels
+    par = mx.parallel
+    ref_out, ref_grads, plain, f64, w = ref
+    qu, ku, vu, wu = _lc_leaves(torch, arrays, True)
+    qr, kr, vr = _lc_leaves(torch, arrays[:3], False)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    uly = par.ulysses_attention_sharded(qu, ku, vu, mesh, causal=True)
+    (uly * wu.detach()).sum().backward()
+    ring = par.ring_attention_sharded(qr, kr, vr, mesh, causal=True)
+    (ring * w).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(launches == dict(dict.fromkeys(K.LAUNCHES, 0), **want),
+          f"long context launches {launches}, want {want}")
+    uly = uly.detach().transpose(1, 2)
+    ring = ring.detach()
+    worst = [0.0]
+    for what, out in (("ulysses", uly), ("ring", ring)):
+        err = (out - ref_out).abs().max().item()
+        worst[0] = max(worst[0], err)
+        check(torch.isfinite(out).all().item()
+              and torch.allclose(out, ref_out, **FLASH_TOL),
+              f"{what} vs flash_attention: max abs err {err}")
+    check(torch.allclose(uly, ring, **FLASH_TOL),
+          f"ulysses vs ring: max abs err {(uly - ring).abs().max().item()}")
+    _lc_grads_check(torch, "ulysses", [t.grad.transpose(1, 2)
+                                       for t in (qu, ku, vu)],
+                    (ref_grads, plain, f64), worst)
+    _lc_grads_check(torch, "ring", [t.grad for t in (qr, kr, vr)],
+                    (ref_grads, plain, f64), worst)
+    log(f"long context {(LC_B, LC_S, LC_H, LC_D)} causal, sp="
+        f"{mesh.shape['sp']} over NCCL, on {torch.cuda.current_device()}: "
+        f"ulysses and ring within FLASH_TOL of flash_attention and of each "
+        f"other, gradients within BWD_TOL and {BWD_F64_RATIO}x the plain "
+        f"version's distance from float64; worst abs err {worst[0]:.3e}; "
+        f"launches {launches}")
+    return launches, worst[0]
+
+
+def _lc_block_check(mx, torch, g):
+    """(b) `flash_block_attention` against its plain version at the
+    example's shape, causal and not, with random cotangents of out and a
+    nonzero one of lse: out, lse and dQ, dK, dV within FLASH_TOL /
+    BWD_TOL, and no further from float64 than FLASH_F64_RATIO /
+    BWD_F64_RATIO times the plain version. Returns the worst error."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    shape = (LC_B, LC_H, LC_S, LC_D)
+    scale = LC_D ** -0.5
+    worst = 0.0
+    for causal in (False, True):
+        q, k, v, do = (torch.randn(shape, generator=g).to(dev)
+                       for _ in range(4))
+        g_lse = torch.randn(shape[:3], generator=g).to(dev)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out, lse = K.flash_block_attention(qg, kg, vg, causal)
+        got = [out.detach(), lse.detach(),
+               *torch.autograd.grad((out, lse), (qg, kg, vg), (do, g_lse))]
+        p_out, p_lse = K._flash_plain(q, k, v, causal, scale, None)
+        delta = ((p_out * do).sum(-1) - g_lse).reshape(-1, LC_S)
+        plain = [p_out, p_lse.reshape(shape[:3]),
+                 *K._flash_bwd_plain(q, k, v, do, p_lse, delta, causal,
+                                     scale, None)]
+        f64 = _block_f64(torch, q, k, v, do, g_lse, causal, scale)
+        errs, errs64, plain64 = {}, {}, {}
+        for name, a, p, r64 in zip(("out", "lse", "dq", "dk", "dv"), got,
+                                   plain, f64):
+            fwd = name in ("out", "lse")
+            errs[name] = (a - p).abs().max().item()
+            check(torch.isfinite(a).all().item() and torch.allclose(
+                a, p, **(FLASH_TOL if fwd else BWD_TOL)),
+                f"flash_block {name} causal={causal} vs plain: max abs "
+                f"err {errs[name]}")
+            errs64[name] = (a.cpu().double() - r64).abs().max().item()
+            plain64[name] = (p.cpu().double() - r64).abs().max().item()
+            ratio = FLASH_F64_RATIO if fwd else BWD_F64_RATIO
+            check(errs64[name] <= ratio * plain64[name],
+                  f"flash_block {name} causal={causal}: {errs64[name]} "
+                  f"from float64, more than {ratio}x the plain version's "
+                  f"{plain64[name]}")
+        worst = max(worst, *errs.values())
+        log(f"flash_block {shape} causal={causal}, nonzero g_lse: max abs "
+            f"err vs plain {errs} (FLASH_TOL / BWD_TOL); vs float64 "
+            f"{errs64} (plain {plain64})")
+    return worst
+
+
+def _lc_ring_on_one_card(mx, torch, arrays, ref):
+    """(c) A ring of LC_RING ranks on one card: for each query shard r,
+    the key blocks rank r of the ring would meet, in its order (src = r,
+    r - 1, ..., skipping the later shards), through the ring's own
+    `_ring_step`. Real lse cotangents reach the backward kernels here
+    (a ring of one gives them zero). The counters are zeroed just before
+    and read just after; the output and gradients are held against
+    `flash_attention` over the whole sequence."""
+    from mxnet_tpu_torch.parallel.ring_attention import _ring_step
+    K = mx.ops.kernels
+    ref_out, ref_grads, plain, f64, w = ref
+    q, k, v = _lc_leaves(torch, arrays[:3], False)
+    n, sh = LC_RING, LC_S // LC_RING
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    blocks = [(k[:, :, j * sh:(j + 1) * sh].contiguous(),
+               v[:, :, j * sh:(j + 1) * sh].contiguous()) for j in range(n)]
+    outs = []
+    for r in range(n):
+        qr = q[:, :, r * sh:(r + 1) * sh].contiguous()
+        o = torch.zeros(qr.shape, dtype=torch.float32, device=qr.device)
+        lse = torch.full(qr.shape[:3], -1e30, dtype=torch.float32,
+                         device=qr.device)
+        for i in range(n):
+            src = (r - i) % n
+            o, lse = _ring_step(qr, *blocks[src], o, lse, src, r, True,
+                                LC_D ** -0.5)
+        outs.append(o)
+    out = torch.cat(outs, 2)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    pairs = n * (n + 1) // 2          # blocks at or before the diagonal
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want.update(flash_block=pairs, flash_fwd=pairs, flash_bwd=pairs,
+                flash_bwd_dq=pairs)
+    check(launches == want, f"one-card ring launches {launches} != {want}")
+    err = (out.detach() - ref_out).abs().max().item()
+    check(torch.allclose(out.detach(), ref_out, **FLASH_TOL),
+          f"one-card ring vs flash_attention: max abs err {err}")
+    worst = [err]
+    _lc_grads_check(torch, "one-card ring", [t.grad for t in (q, k, v)],
+                    (ref_grads, plain, f64), worst)
+    log(f"one-card ring of {n} (shards of {sh}): output and gradients "
+        f"within FLASH_TOL / BWD_TOL of flash_attention, gradients within "
+        f"{BWD_F64_RATIO}x the plain version's distance from float64; "
+        f"worst abs err {worst[0]:.3e}; launches {launches}")
+    return worst[0]
+
+
+def _lc_times(mx, torch, g):
+    """(d) `flash_block_attention` forward and forward + backward at the
+    example's shape (causal), by CUDA-graph replay, beside the plain
+    versions and SDPA's forward and forward + backward."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    shape = (LC_B, LC_H, LC_S, LC_D)
+    scale = LC_D ** -0.5
+    q, k, v, do = (torch.randn(shape, generator=g).to(dev)
+                   for _ in range(4))
+    g_lse = torch.randn(shape[:3], generator=g).to(dev)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def block_fwd_bwd():
+        torch.autograd.grad(K.flash_block_attention(qg, kg, vg, True),
+                            (qg, kg, vg), (do, g_lse))
+
+    def plain_fwd_bwd():
+        out, lse = K._flash_plain(q, k, v, True, scale, None)
+        delta = ((out * do).sum(-1) - g_lse).reshape(-1, LC_S)
+        K._flash_bwd_plain(q, k, v, do, lse, delta, True, scale, None)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg),
+                            do)
+
+    fns = {"fwd": lambda: K.flash_block_attention(q, k, v, True),
+           "fwd_bwd": block_fwd_bwd,
+           "plain_fwd": lambda: K._flash_plain(q, k, v, True, scale, None),
+           "plain_fwd_bwd": plain_fwd_bwd,
+           "sdpa_fwd": lambda: sdpa(q, k, v, is_causal=True),
+           "sdpa_fwd_bwd": sdpa_fwd_bwd}
+    dev_ms = {name: graph_ms(fn, calls=5, iters=10)
+              for name, fn in fns.items()}
+    pairs = LC_B * LC_H * LC_S * (LC_S + 1) // 2   # causal (q, k) pairs
+    rows_q = 4 * LC_B * LC_H * LC_S * LC_D         # bytes of (B, H, S, D)
+    stats = 4 * LC_B * LC_H * LC_S                 # bytes of lse
+    # forward: q, k, v read, out and lse written; QK^T and PV
+    fwd_b = bound(4 * rows_q + stats, 4 * pairs * LC_D, PEAK_TF32X3_FLOPS)
+    # forward + backward: q, k, v, dO and g_lse read, out, lse, dQ, dK
+    # and dV written; the backward adds S, dP, dV, dQ and dK
+    all_b = bound(8 * rows_q + 2 * stats, 14 * pairs * LC_D,
+                  PEAK_TF32X3_FLOPS)
+    tflops = {name: f * pairs * LC_D / (dev_ms[name] * 1e-3) / 1e12
+              for name, f in (("fwd", 4), ("fwd_bwd", 14))}
+    log(f"flash_block timed {shape} causal: device (CUDA graph) {dev_ms}; "
+        f"bounds fwd {fwd_b}, fwd+bwd {all_b}; fwd / SDPA fwd "
+        f"{dev_ms['fwd'] / dev_ms['sdpa_fwd']:.3f}; fwd+bwd / SDPA fwd+bwd "
+        f"{dev_ms['fwd_bwd'] / dev_ms['sdpa_fwd_bwd']:.3f}; achieved "
+        f"TFLOP/s {tflops}")
+    return dict(ms=dev_ms["fwd_bwd"], plain_ms=dev_ms["plain_fwd_bwd"],
+                bound_ms=all_b[0], bound_by=all_b[1],
+                library_ms=dev_ms["sdpa_fwd_bwd"],
+                per_shape=[dict(shape=list(shape), causal=True,
+                                what="forward", ms=dev_ms["fwd"],
+                                plain_ms=dev_ms["plain_fwd"],
+                                bound_ms=fwd_b[0], bound_by=fwd_b[1],
+                                library_ms=dev_ms["sdpa_fwd"])])
+
+
+def flash_f64_sweep(mx, torch):
+    """{"S<n>_causal" / "S<n>_full": {name: the kernels' largest distance
+    from float64 over the plain version's}} for the forward's out and lse
+    and the backward's dQ, dK and dV (`flash_attention_fwd` /
+    `flash_attention_bwd`, each from its own forward's lse), at B=1,
+    H=8, D=64 and S in F64_SWEEP_S, inputs from a seeded generator. It takes
+    `mx` as given, so another checkout's package can be measured the
+    same way."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    b, h, d = 1, 8, 64
+    scale = d ** -0.5
+    ratios = {}
+    for s in F64_SWEEP_S:
+        for causal in (True, False):
+            q, k, v, do = (torch.randn((b, h, s, d), generator=g).to(dev)
+                           for _ in range(4))
+            out, lse = K.flash_attention_fwd(q, k, v, causal, scale)
+            p_out, p_lse = K._flash_plain(q, k, v, causal, scale, None)
+            got = K.flash_attention_bwd(
+                q, k, v, do, lse, (out * do).sum(-1).reshape(b * h, s),
+                causal, scale)
+            plain = K._flash_bwd_plain(
+                q, k, v, do, p_lse, (p_out * do).sum(-1).reshape(b * h, s),
+                causal, scale, None)
+            o64, l64, _ = _attention_f64(torch, q, k, v, causal, scale,
+                                         None)
+            g64 = _attention_grads_f64(torch, q, k, v, do, causal, scale,
+                                       None)
+            r = {}
+            for name, a, p, ref in (("out", out, p_out, o64),
+                                    ("lse", lse, p_lse, l64),
+                                    *zip(("dq", "dk", "dv"), got, plain,
+                                         g64)):
+                r[name] = ((a.cpu().double() - ref).abs().max().item()
+                           / (p.cpu().double() - ref).abs().max().item())
+            ratios[f"S{s}_{'causal' if causal else 'full'}"] = r
+    return ratios
+
+
+def phase_long_context(mx, torch):
+    """Long-context sequence parallelism at examples/long_context.py's
+    full size (B=1, S=2048, H=8, D=64, causal, fp32, inputs from numpy
+    seed 0) on a one-rank NCCL group: (a) the example's flow through the
+    `_sharded` entries, (b) `flash_block_attention` against its plain
+    version, (c) a four-rank ring on one card, (d) times; then (e) the
+    flash kernels against float64 at S = 512-4096 (`flash_f64_sweep`).
+    Returns the kernels row of `flash_block_attention` and the launches
+    of (a)."""
+    rs = np.random.RandomState(0)
+    arrays = [rs.standard_normal((LC_B, LC_S, LC_H, LC_D)).astype(np.float32)
+              for _ in range(4)]
+    g = torch.Generator(device="cpu").manual_seed(8)
+    mx.kvstore.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              f"backend {torch.distributed.get_backend()}")
+        mesh = mx.parallel.make_mesh({"sp": 1})
+        check(mesh.device_type == "cuda" and mesh.shape == {"sp": 1},
+              f"mesh {mesh}")
+        ref = _lc_reference(mx, torch, arrays)
+        launches, _ = _lc_example(mx, torch, mesh, arrays, ref, dict(
+            flash_block=2, flash_fwd=2, flash_bwd=2, flash_bwd_dq=2))
+        worst = _lc_block_check(mx, torch, g)
+        worst = max(worst, _lc_ring_on_one_card(mx, torch, arrays, ref))
+        row = _lc_times(mx, torch, g)
+    finally:
+        mx.kvstore.reset_distributed()
+    # (e) the kernels' distance from float64 along long walks
+    ratios = flash_f64_sweep(mx, torch)
+    for case, r in ratios.items():
+        for name, x in r.items():
+            limit = FLASH_F64_RATIO if name in ("out", "lse") \
+                else BWD_F64_RATIO
+            check(x <= limit, f"flash {name} at {case}: {x:.2f}x the plain "
+                  f"version's distance from float64, more than {limit}")
+    log(f"flash kernels vs float64 along long walks, (B, H, D) = (1, 8, "
+        f"64): distance over the plain version's "
+        f"{ {c: {n: round(x, 2) for n, x in r.items()} for c, r in ratios.items()} }")
+    torch.cuda.empty_cache()
+    return dict(name="flash_block_attention", counter="flash_block",
+                route="cuda", source="mxnet_tpu_torch/ops/kernels.py",
+                replaces="mxnet_tpu/ops/pallas_kernels.py:741",
+                max_abs_err=worst, **row), launches
+
+
+def _sp_rank(rank, world, port, out_dir):
+    """One NCCL rank of `--ranks N`: phase 13 (a) over an 'sp' axis of
+    `world` cards, against the whole-sequence references on this rank's
+    card; writes its launches and worst error to out_dir."""
+    sys.path.insert(0, HERE)
+    import torch
+    import mxnet_tpu_torch as mx
+    K = mx.ops.kernels
+    rs = np.random.RandomState(0)
+    arrays = [rs.standard_normal((LC_B, LC_S, LC_H, LC_D)).astype(np.float32)
+              for _ in range(4)]
+    mx.kvstore.init_distributed(f"127.0.0.1:{port}", world, rank)
+    try:
+        dev = torch.cuda.current_device()
+        check(dev == rank and torch.distributed.get_backend() == "nccl",
+              f"rank {rank} on cuda:{dev}, "
+              f"{torch.distributed.get_backend()}")
+        mesh = mx.parallel.make_mesh({"sp": world})
+        ref = _lc_reference(mx, torch, arrays)
+        # Ulysses: one block over every key; the ring: the blocks at or
+        # before this rank's shard, each of S / world keys
+        blocks = 1 + (rank + 1)
+        split = K.flash_bwd_plan(LC_S // world, LC_D)["path"] == "split"
+        want = dict(flash_block=blocks, flash_fwd=blocks, flash_bwd=blocks,
+                    flash_bwd_dq=1 + (rank + 1) * split)
+        launches, worst = _lc_example(mx, torch, mesh, arrays, ref, want)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "device": f"cuda:{dev}",
+                       "launches": {n: c for n, c in launches.items() if c},
+                       "max_abs_err": worst}, f)
+    finally:
+        mx.kvstore.reset_distributed()
+
+
+def sp_ranks_main(mx, torch, world):
+    """`--ranks N`: the long-context example over N NCCL ranks, one card
+    each (one process a rank, spawned and joined here)."""
+    import torch.multiprocessing as mp
+    check(torch.cuda.device_count() >= world,
+          f"--ranks {world} needs {world} cards, have "
+          f"{torch.cuda.device_count()}")
+    t_start = time.perf_counter()
+    phase_build(mx, torch)          # the ranks load this build
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(_sp_rank, args=(world, _free_port(), out_dir),
+                           nprocs=world, start_method="spawn")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r in ranks:
+        log(f"sp rank {r['rank']} on {r['device']}: ulysses and ring within "
+            f"FLASH_TOL / BWD_TOL of flash_attention and {BWD_F64_RATIO}x "
+            f"the plain version's distance from float64, worst abs err "
+            f"{r['max_abs_err']:.3e}; launches {r['launches']}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"sp_ranks": ranks}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=()):
     sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
@@ -2338,9 +2806,14 @@ def main():
         print(f"chip_smoke: mxnet_tpu_torch was imported from {pkg_root}, "
               f"not from this checkout", file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    if argv:
+        check(len(argv) == 2 and argv[0] == "--ranks" and argv[1].isdigit()
+              and int(argv[1]) > 1, f"usage: chip_smoke.py [--ranks N>1], "
+              f"got {list(argv)}")
+        return sp_ranks_main(mx, torch, int(argv[1]))
+    t_start = time.perf_counter()
     phase_build(mx, torch)
     bwd_rows, long_launches = phase_flash_bwd(mx, torch)
     kernels = [phase_flash(mx, torch), phase_rpa(mx, torch),
@@ -2370,15 +2843,19 @@ def main():
         bert_init = os.path.join(tmp, "bert_base_init.params")
         bert_launches = phase_bert_train(mx, torch, bert_init)
         phase_bert_card_vs_cpu(mx, torch, bert_init)
+    block_row, lc_launches = phase_long_context(mx, torch)
+    kernels.append(block_row)
     for k in kernels:
-        by_path = {"serve": serve_launches[k["name"]],
-                   "fastpath": fast_launches[k["name"]],
-                   "train": train_launches[k["name"]],
-                   "rtc": rtc_launches[k["name"]],
-                   "long_attention": long_launches[k["name"]],
-                   "resnet_train": resnet_launches[k["name"]],
-                   "resnet_conv1x1": conv_launches[k["name"]],
-                   "bert_train": bert_launches[k["name"]]}
+        # a row's launches are its wrapper's counter (`flash_block_attention`
+        # counts under `flash_block`)
+        c = k.get("counter", k["name"])
+        by_path = {"serve": serve_launches[c], "fastpath": fast_launches[c],
+                   "train": train_launches[c], "rtc": rtc_launches[c],
+                   "long_attention": long_launches[c],
+                   "resnet_train": resnet_launches[c],
+                   "resnet_conv1x1": conv_launches[c],
+                   "bert_train": bert_launches[c],
+                   "long_context": lc_launches[c]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         check(k["launches"] > 0, f"{k['name']} never launched on a path")
@@ -2401,4 +2878,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

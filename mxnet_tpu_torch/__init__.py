@@ -27,15 +27,18 @@ CPU request they raise `MXNetError`. The kernels are CUDA C++ written
 for `sm_90a` (`ops/csrc/`), built with `nvcc` at first use; on CPU
 tensors their plain PyTorch versions run instead.
 
-Four slices are ported: serving (TransformerNMT through `serve.Server`),
-Gluon training (NDArray, autograd, Gluon blocks and layers, losses,
+Ported slices: serving (TransformerNMT through `serve.Server`), Gluon
+training (NDArray, autograd, Gluon blocks and layers, losses,
 optimizers and the Trainer, on the same TransformerNMT), the serving
 fast path (`Server(speculative_k=k, kv_dtype="int8",
-weight_dtype="int8")`) and ResNet training through Gluon
+weight_dtype="int8")`), ResNet training through Gluon
 (`gluon.model_zoo.vision.get_model("resnet50_v1")`, convolution,
 pooling, BatchNorm), with `ops.conv1x1_bn_stats` and runtime CUDA
-compilation (`rtc.CudaModule`). ROADMAP.md lists what is still to be
-ported.
+compilation (`rtc.CudaModule`), BERT pretraining (`models.bert`), and
+long-context sequence parallelism over `torch.distributed`
+(`kvstore.init_distributed`, `parallel.make_mesh`, ring and all-to-all
+attention over `ops.flash_block_attention`). ROADMAP.md lists what is
+still to be ported.
 """
 
 __version__ = "0.1.0"
@@ -47,6 +50,7 @@ from .context import cpu, gpu, num_gpus
 from . import observability
 from . import profiler
 from . import fault
+from . import kvstore
 from . import random
 from . import initializer
 from . import initializer as init
@@ -54,6 +58,7 @@ from . import autograd
 from . import ndarray
 from . import ndarray as nd
 from . import ops
+from . import parallel
 from . import optimizer
 from . import gluon
 from . import models
@@ -63,6 +68,7 @@ from . import rtc
 from . import serve
 
 __all__ = ["MXNetError", "base", "context", "cpu", "gpu", "num_gpus",
-           "observability", "profiler", "fault", "random", "initializer",
-           "init", "autograd", "ndarray", "nd", "ops", "optimizer", "gluon",
+           "observability", "profiler", "fault", "kvstore", "random",
+           "initializer", "init", "autograd", "ndarray", "nd", "ops",
+           "parallel", "optimizer", "gluon",
            "models", "contrib", "convert", "rtc", "serve"]

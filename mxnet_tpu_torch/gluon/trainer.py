@@ -41,13 +41,13 @@ class Trainer:
                              "Parameter")
         if kvstore not in _LOCAL_STORES:
             raise _unported(f"kvstore={kvstore!r}",
-                            "Queue 1: distribution and sharding")
+                            "Queue 1 [5b]: distribution and sharding")
         if update_on_kvstore:
             raise _unported("update_on_kvstore=True",
-                            "Queue 1: distribution and sharding")
+                            "Queue 1 [5b]: distribution and sharding")
         if compression_params:
             raise _unported("gradient compression",
-                            "Queue 1: distribution and sharding")
+                            "Queue 1 [5b]: distribution and sharding")
         for p in params:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"invalid parameter {p}")
@@ -106,4 +106,4 @@ class Trainer:
                         "Queue 1 item 3: CUDA-graph capture")
 
     def shard(self, *args, **kwargs):
-        raise _unported("shard()", "Queue 1: distribution and sharding")
+        raise _unported("shard()", "Queue 1 [5b]: distribution and sharding")

@@ -42,7 +42,10 @@
 //   and lo = tf32(x - hi), and each product is lo*hi + hi*lo + hi*hi
 //   through mma.sync.m16n8k8 with fp32 accumulators. The dropped lo*lo
 //   term is 2^-22 relative: a few times fp32's error, where one-pass
-//   TF32 keeps about 3 digits. The helpers (fragments, cp.async, the
+//   TF32 keeps about 3 digits. dK / dV (over the query tiles) and dQ
+//   (over the key tiles) take each tile's products in zeroed
+//   accumulators and add them by fp32 adds (tile_add), so their error
+//   does not grow with the walk. The helpers (fragments, cp.async, the
 //   ragged-edge copies) are tf32_mma.cuh's, shared with flash_fwd.cu.
 // * One fused launch. A block owns BK keys of one (b, h), one warp per 16
 //   keys, and walks the query tiles (BQ = 32). Each warp computes S^T and
@@ -239,27 +242,30 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
             if (with_dq) dss[col * dsp + 16 * warp + row] = dp[j][e];
           }
         }
-        // dV += P^T dO, dK += dS^T Q over the tile's queries (permuted)
+        // dV += P^T dO, dK += dS^T Q over the tile's queries (permuted),
+        // four column tiles at a time (DP is a multiple of 32, so each
+        // group holds real columns; the padding reads zeros): the tile's
+        // products in zeroed accumulators, then fp32 adds (tile_add)
 #pragma unroll
-        for (int j = 0; j < QT; ++j) {
-          uint32_t ph[4], pl[4], sh[4], sl[4];
-          c_as_a(s[j], ph, pl);
-          c_as_a(dp[j], sh, sl);
-          const float* dor = dot + 8 * j * P;
-          const float* qr = qt + 8 * j * P;
-          // four column tiles at a time (DP is a multiple of 32, so each
-          // group holds real columns; the padding reads zeros)
+        for (int n0 = 0; n0 < NT; n0 += 4) {
+          float tv[4][4] = {}, tk[4][4] = {};
 #pragma unroll
-          for (int n0 = 0; n0 < NT; n0 += 4) {
+          for (int j = 0; j < QT; ++j) {
+            uint32_t ph[4], pl[4], sh[4], sl[4];
+            c_as_a(s[j], ph, pl);
+            c_as_a(dp[j], sh, sl);
+            const float* dor = dot + 8 * j * P;
+            const float* qr = qt + 8 * j * P;
             uint32_t oh[4][2], ol[4][2], qh[4][2], ql[4][2];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               load_b_perm(dor + 8 * (n0 + i), P, g, t, oh[i], ol[i]);
               load_b_perm(qr + 8 * (n0 + i), P, g, t, qh[i], ql[i]);
             }
-            mma3x2<4>(dv_acc + n0, ph, pl, oh, ol, dk_acc + n0, sh, sl, qh,
-                      ql);
+            mma3x2<4>(tv, ph, pl, oh, ol, tk, sh, sl, qh, ql);
           }
+          tile_add<4>(dv_acc + n0, tv, 1.f, 1.f);
+          tile_add<4>(dk_acc + n0, tk, 1.f, 1.f);
         }
       }
 
@@ -443,20 +449,23 @@ flash_bwd_dq_kernel(const float* __restrict__ q,
           dp[j][e] = p * (dp[j][e] - delta_s[row]) * sm_scale;
         }
       }
-      // dQ += dS K over the tile's keys (permuted)
+      // dQ += dS K over the tile's keys (permuted): the tile's product in
+      // zeroed accumulators, then fp32 adds (tile_add)
 #pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        uint32_t ah[4], al[4];
-        c_as_a(dp[j], ah, al);
-        const float* kr = kt + 8 * j * P;
+      for (int n0 = 0; n0 < NT; n0 += 4) {
+        float tq[4][4] = {};
 #pragma unroll
-        for (int n0 = 0; n0 < NT; n0 += 4) {
+        for (int j = 0; j < KT; ++j) {
+          uint32_t ah[4], al[4];
+          c_as_a(dp[j], ah, al);
+          const float* kr = kt + 8 * j * P;
           uint32_t bh_[4][2], bl_[4][2];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             load_b_perm(kr + 8 * (n0 + i), P, g, t, bh_[i], bl_[i]);
-          mma3x1<4>(dq_acc + n0, ah, al, bh_, bl_);
+          mma3x1<4>(tq, ah, al, bh_, bl_);
         }
+        tile_add<4>(dq_acc + n0, tq, 1.f, 1.f);
       }
     }
     __syncthreads();  // this buffer is consumed

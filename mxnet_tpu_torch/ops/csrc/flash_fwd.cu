@@ -43,7 +43,9 @@
 //   memory with cp.async, so the next step loads while the current one
 //   is computed; the first step is requested before kv_len is read.
 // * S = QK^T and O += PV on mma.sync.m16n8k8 in split TF32 (tf32_mma.cuh,
-//   the arithmetic of flash_bwd.cu). At DP <= 64 the warp splits its Q
+//   the arithmetic of flash_bwd.cu); each tile's PV goes to zeroed
+//   accumulators and into O by fp32 fma (tile_add), so O's error does
+//   not grow with the walk. At DP <= 64 the warp splits its Q
 //   rows into hi / lo A fragments once and keeps them in registers; wider
 //   rows are read from shared memory at each k-step.
 // * The online softmax runs on the C fragments: a row's values sit in one
@@ -271,14 +273,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l0 = l0 * a0 + ps0;
       l1 = l1 * a1 + ps1;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        o[n][0] *= a0;
-        o[n][1] *= a0;
-        o[n][2] *= a1;
-        o[n][3] *= a1;
-      }
-      // O += P V over the 8-key columns with a live key (permuted)
+      // O = O alpha + P V over the 8-key columns with a live key
+      // (permuted): the tile's product in zeroed accumulators, then one
+      // fp32 fma into O (tile_add)
+      float pv[NT][4] = {};
 #pragma unroll
       for (int j = 0; j < KT; ++j) {
         if (8 * j >= klive) break;
@@ -292,9 +290,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             load_b_perm(vr + 8 * (n0 + i), P, g, t, bh_[i], bl_[i]);
-          mma3x1<4>(o + n0, ph, pl, bh_, bl_);
+          mma3x1<4>(pv + n0, ph, pl, bh_, bl_);
         }
       }
+      tile_add<NT>(o, pv, a0, a1);
     }
     __syncthreads();  // this buffer is consumed
   }

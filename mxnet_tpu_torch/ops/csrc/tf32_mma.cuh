@@ -6,7 +6,8 @@
 // mma.sync.m16n8k8 with fp32 accumulators ("3xTF32", the arithmetic of
 // CUTLASS's OpMultiplyAddFastF32). The dropped lo*lo term is 2^-22
 // relative: a few times fp32's rounding, where one-pass TF32 keeps about
-// 3 digits. Tiles live in shared memory with rows of DP + 4 floats
+// 3 digits; a long walk adds its tiles' products by fp32 fma
+// (tile_add). Tiles live in shared memory with rows of DP + 4 floats
 // (`pitch_of`), so the fragment loads below hit 32 different banks.
 #pragma once
 
@@ -84,6 +85,24 @@ __device__ __forceinline__ void mma3x1(float (*c)[4], const uint32_t ah[4],
   for (int i = 0; i < N; ++i) mma_tf32(c[i], ah, bl[i]);
 #pragma unroll
   for (int i = 0; i < N; ++i) mma_tf32(c[i], ah, bh[i]);
+}
+
+// acc[i] = acc[i] * (a0 for rows g, a1 for rows g + 8) + tile[i] for i < N,
+// by fp32 fma. A long walk sums its tiles this way, each tile's products
+// taken in zeroed accumulators: mma.sync's own accumulation into a
+// running sum lost accuracy with every tile (on an H100 the kernels'
+// distance from float64 grew with the walk, to 13-19x the fp32 plain
+// version's at S = 2048-4096; at most 3.3x with tile_add)
+template <int N>
+__device__ __forceinline__ void tile_add(float (*acc)[4], float (*tile)[4],
+                                         float a0, float a1) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    acc[i][0] = fmaf(acc[i][0], a0, tile[i][0]);
+    acc[i][1] = fmaf(acc[i][1], a0, tile[i][1]);
+    acc[i][2] = fmaf(acc[i][2], a1, tile[i][2]);
+    acc[i][3] = fmaf(acc[i][3], a1, tile[i][3]);
+  }
 }
 
 // A fragment of rows [0, 16) x columns [kk, kk + 8) of a shared matrix

@@ -62,7 +62,7 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_fwd_plan", "flash_bwd_plan",
+           "flash_fwd_plan", "flash_bwd_plan", "flash_block_attention",
            "single_query_cached_attention", "ragged_paged_attention",
            "fused_layer_norm", "layer_norm_fwd",
            "conv1x1_bn_stats",
@@ -72,6 +72,7 @@ _MASKED = -1e30
 
 # kernel launches per wrapper; bumped only where a kernel is launched
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
+            "flash_block": 0,
             "ragged_paged_attention": 0, "ragged_paged_attention_int8": 0,
             "ragged_paged_attention_multi": 0,
             "ragged_paged_attention_multi_int8": 0, "layer_norm": 0,
@@ -445,6 +446,65 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lengths=None):
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, kv_lengths, causal, sm_scale)
+
+
+# ---------------------------------------------------------------------------
+# flash block attention: (out, lse) with gradients through both
+# ---------------------------------------------------------------------------
+class _FlashBlock(torch.autograd.Function):
+    """Forward: the flash forward, keeping its lse as an output; backward:
+    the flash backward with delta = rowsum(dO * O) - g_lse. Since
+    d lse / d s = p, an lse cotangent adds g_lse * p to dS = p (dP -
+    delta), which is the same as shifting delta by -g_lse (the JAX
+    package's `delta_shift`, `pallas_kernels.py:563-566`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        b, h, sq, _ = q.shape
+        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        if q.is_cuda:
+            LAUNCHES["flash_block"] += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out, lse.view(b, h, sq)
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        # a cotangent the loss does not reach arrives as zeros (Ulysses
+        # drops lse; a ring of one rank gives it a zero gradient), and
+        # autograd may hand back a view
+        do = dout.contiguous()
+        delta = (out.float() * do.float()).sum(-1).reshape(lse.shape) \
+            - dlse.float().reshape(lse.shape)
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta, ctx.causal,
+                                         ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_block_attention(q, k, v, causal=False, sm_scale=None):
+    """Attention of q over ONLY these keys, with its row log-sum-exp:
+    (out (B, H, Sq, D), lse (B, H, Sq) fp32), differentiable through
+    both. q: (B, H, Sq, D); k, v: (B, H, Sk, D), float32, contiguous.
+    Partials over disjoint key sets merge exactly:
+
+        lse = logaddexp(lse_a, lse_b)
+        out = out_a * exp(lse_a - lse) + out_b * exp(lse_b - lse)
+
+    the combine of `parallel.ring_attention`. On the card the forward is
+    one launch of `csrc/flash_fwd.cu` and the backward the kernels of
+    `csrc/flash_bwd.cu` (`flash_bwd_plan`); each forward on the card adds
+    one to `LAUNCHES["flash_block"]`. On the CPU the plain versions run
+    (the counterparts of `_block_fwd_xla` / `_block_bwd_xla`).
+
+    A row with no visible key is zeros here (the kernels' convention),
+    where the JAX package's XLA form spreads p uniformly (ROADMAP.md,
+    Queue 3 #4). Neither caller makes such a row: a ring's causal block
+    is its diagonal one, whose query i sees key i, and the blocks past
+    it are skipped."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashBlock.apply(q, k, v, causal, sm_scale)
 
 
 # ---------------------------------------------------------------------------

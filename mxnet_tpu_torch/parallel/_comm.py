@@ -1,0 +1,220 @@
+"""Differentiable collectives over a process group: what `lax` gives the
+JAX package inside `shard_map` (`ppermute`, tiled `all_to_all`) and the
+pair of conversions between a global tensor and this rank's slice that
+`shard_map`'s in / out specs make.
+
+Every function is the identity on a group of one, and then runs no
+collective at all. Gradients equal `shard_map`'s global ones when every
+rank holds the same global input and the same loss: `_shard` all-gathers
+its cotangent and `_gather` slices it, so nothing is summed over ranks
+(`torch.distributed.nn.functional.all_gather` would sum them, and with
+the same loss on every rank that multiplies gradients by the group
+size).
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from ..base import MXNetError
+
+__all__ = ["ppermute_start", "ppermute", "keep_in_graph", "all_to_all",
+           "shard", "gather", "check_devices"]
+
+
+def check_devices(mesh, *tensors):
+    """Raise unless every tensor lies on the mesh's device type (NCCL
+    takes CUDA tensors, gloo CPU ones)."""
+    for t in tensors:
+        if t.device.type != mesh.device_type:
+            raise MXNetError(f"a {t.device.type} tensor on a "
+                             f"{mesh.device_type} mesh")
+
+
+def _send_recv(xs, group, shift):
+    """Post the sends of `xs` to rank + shift and the receives from rank -
+    shift (ranks within `group`); returns (received, works)."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    outs = [torch.empty_like(x) for x in xs]
+    ops = [dist.P2POp(dist.isend, x, dst, group) for x in xs]
+    ops += [dist.P2POp(dist.irecv, y, src, group) for y in outs]
+    return outs, dist.batch_isend_irecv(ops)
+
+
+def _wait(works):
+    for w in works:
+        w.wait()
+
+
+class _Pending:
+    """The receives of a started `ppermute_start`: `wait()` before the
+    received tensors are read."""
+
+    def __init__(self):
+        self.works = []
+
+    def wait(self):
+        _wait(self.works)
+        self.works = []
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, shift, pending, *xs):
+        ctx.group, ctx.shift = group, shift
+        outs, pending.works = _send_recv(
+            [x.contiguous() for x in xs], group, shift)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        outs, works = _send_recv([g.contiguous() for g in gs], ctx.group,
+                                 -ctx.shift)
+        _wait(works)
+        return (None, None, None, *outs)
+
+
+def ppermute_start(xs, group, shift):
+    """Start sending each tensor of `xs` to rank + shift of `group` and
+    receiving its counterpart from rank - shift: returns (received,
+    pending). The received tensors hold their data only after
+    `pending.wait()`; the caller computes in between (`ring_attention`
+    overlaps the next K/V block's transfer with the current block).
+    Differentiable: the backward sends the cotangents the other way (and
+    waits for them)."""
+    pending = _Pending()
+    if dist.get_world_size(group) == 1 or shift % dist.get_world_size(
+            group) == 0:
+        return list(xs), pending
+    return list(_PPermute.apply(group, shift, pending, *xs)), pending
+
+
+def ppermute(x, group, shift):
+    """`x` of rank - shift, received here: `lax.ppermute` with the
+    permutation i -> i + shift."""
+    (y,), pending = ppermute_start([x], group, shift)
+    pending.wait()
+    return y
+
+
+class _KeepInGraph(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, *deps):
+        ctx.n_deps = len(deps)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *[None] * ctx.n_deps)
+
+
+def keep_in_graph(x, *deps):
+    """`x`, with `deps` made part of its backward graph at a zero
+    cotangent. A collective's backward is itself a collective that every
+    rank must join, but autograd runs a node only where a gradient
+    reaches it: a causal ring rank that skips the blocks it receives
+    would leave its peers waiting in the rotation's backward. Tying the
+    last blocks received to the output pulls the whole rotation chain
+    into every rank's backward."""
+    return _KeepInGraph.apply(x, *deps)
+
+
+def _all_to_all(x, group, split_axis, concat_axis):
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise MXNetError(f"all_to_all: axis {split_axis} of size "
+                         f"{x.shape[split_axis]} does not split over "
+                         f"{n} ranks")
+    # chunk i of the split axis goes to rank i: move that axis to the
+    # front, where all_to_all_single splits
+    send = x.movedim(split_axis, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # recv holds the chunks of ranks 0..n-1 in order; put each back in
+    # its own layout and concatenate them along concat_axis in rank order
+    pieces = recv.reshape(n, send.shape[0] // n, *send.shape[1:])
+    pieces = pieces.movedim(1, split_axis + 1)       # (n, *chunk shape)
+    out = pieces.movedim(0, concat_axis)              # n beside the axis
+    shape = list(x.shape)
+    shape[split_axis] //= n
+    shape[concat_axis] *= n
+    return out.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _all_to_all(g, group, concat_axis, split_axis), None, None, \
+            None
+
+
+def all_to_all(x, group, split_axis, concat_axis):
+    """`lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)`:
+    split `split_axis` into one chunk a rank, send chunk i to rank i, and
+    concatenate the chunks received along `concat_axis` in rank order.
+    Differentiable: the backward is the inverse all-to-all."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_axis % x.dim(),
+                           concat_axis % x.dim())
+
+
+def _slice(x, group, dim):
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % n:
+        raise MXNetError(f"axis {dim} of size {x.shape[dim]} does not shard "
+                         f"over {n} ranks")
+    return x.chunk(n, dim)[me].contiguous()
+
+
+def _all_gather(x, group, dim):
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _slice(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, *ctx.args), None, None
+
+
+def shard(x, group, dim):
+    """This rank's slice of the global `x` along `dim` (a `shard_map` in
+    spec); the backward all-gathers the cotangent."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _Shard.apply(x, group, dim)
+
+
+def gather(x, group, dim):
+    """The global tensor from every rank's slice along `dim` (a
+    `shard_map` out spec); the backward takes this rank's slice of the
+    cotangent."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _Gather.apply(x, group, dim)

@@ -66,7 +66,8 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
+def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path,
+                                                monkeypatch):
     """Without a CUDA device and without an explicit CPU request, every
     entry point raises instead of carrying on on the CPU."""
     kw = dict(units=16, hidden=16, num_layers=1, num_heads=2, max_length=16)
@@ -114,3 +115,27 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
         fresh.load_parameters(str(tmp_path / "m.params"))
     fresh.load_parameters(str(tmp_path / "m.params"), ctx=mx.cpu())
     assert fresh.device.type == "cpu"
+    # sequence parallelism: the default group is NCCL on the card, and a
+    # mesh or a `_sharded` entry without one forms it
+    for name in ("MXTPU_COORDINATOR", "MXTPU_NUM_WORKERS",
+                 "MXTPU_WORKER_ID", "DMLC_PS_ROOT_URI", "DMLC_NUM_WORKER",
+                 "DMLC_WORKER_ID"):
+        monkeypatch.delenv(name, raising=False)
+    q = torch.zeros((1, 2, 8, 4))
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.kvstore.init_distributed()
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.parallel.make_mesh({"sp": 1})
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.parallel.ring_attention_sharded(q, q, q, None)
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.parallel.ulysses_attention_sharded(q, q, q, None)
+    # the explicit CPU request forms a gloo group of one
+    mx.kvstore.init_distributed(device="cpu")
+    try:
+        mesh = mx.parallel.make_mesh({"sp": 1})
+        assert mesh.device_type == "cpu"
+        assert mx.parallel.ring_attention_sharded(q, q, q, mesh).shape \
+            == q.shape
+    finally:
+        mx.kvstore.reset_distributed()
