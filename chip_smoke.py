@@ -38,8 +38,10 @@ Phases (any failure raises and the script exits non-zero):
                  against SDPA's backward.
   2b. conv1x1  — the conv1x1 + BN-stats kernel, fp32 and bf16, against a
                  float64 evaluation on the card at the probe's four
-                 ResNet-50 shapes (batch 128) and an odd shape; kernel,
-                 plain and library (`torch.matmul` + the two means) times.
+                 ResNet-50 shapes (batch 128) and an odd shape (fp32 also
+                 no further from it than 10x the plain version), two calls
+                 bit-identical in mean / meansq; kernel, plain and
+                 library (`torch.matmul` + the two means) times.
   2c. rtc      — `mx.rtc.CudaModule` compiles an axpy and a templated
                  block sum (dynamic shared memory) with NVRTC; both launch
                  (counters zeroed just before, read just after) and match
@@ -106,7 +108,8 @@ Phases (any failure raises and the script exits non-zero):
                  step ms over steps 3-10, peak memory, the cuDNN settings,
                  then one step under torch.profiler.
   8. resnet conv1x1 — one training-mode forward of that net at B=128
-                 with a hook on each of the 30 stride-1 1x1 convolutions;
+                 with a hook on each of the 30 stride-1 1x1 convolutions
+                 (their shapes must be RESNET_CONV1X1's nine);
                  with the counters zeroed, each one's input and weight go
                  through the conv1x1 kernel as (B*H*W, Cin) @ (Cin, Cout)
                  in fp32 and in bf16 (30 launches each); y must match the
@@ -193,12 +196,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 # fp32-class products on the tensor cores in split TF32 (the flash
-# backward runs them so): three TF32 products for each fp32 one, so the
-# dense TF32 tensor-core rate over 3. The least time of every fp32
-# attention product, the forward's too, whatever unit its kernel uses
+# kernels and the fp32 conv1x1 kernel run them so): three TF32 products
+# for each fp32 one, so the dense TF32 tensor-core rate over 3. The least
+# time of every fp32 attention and conv1x1 product, whatever unit its
+# kernel uses
 PEAK_TF32X3_FLOPS = 495e12 / 3
 # the dense bf16 tensor-core rate: the least time of the bf16 conv1x1
-# product, though its first kernel runs it through fp32 FMAs
+# product (its kernel runs on the tensor cores)
 PEAK_BF16_FLOPS = 989e12
 
 FLASH_TOL = dict(rtol=2e-4, atol=2e-5)   # kernel vs plain: fp32, sums in
@@ -257,6 +261,14 @@ LN_TIMED = [(TRAIN_B * TRAIN_S, 512), (16 * 512, 768), (16 * 512, 1024),
 CONV1X1_SHAPES = [(128 * 56 * 56, 64, 256), (128 * 28 * 28, 512, 128),
                   (128 * 14 * 14, 1024, 256), (128 * 7 * 7, 512, 2048)]
 CONV1X1_ODD = (300, 77, 50)
+# phase 8: the 30 stride-1 1x1 convolutions of ResNet-50 v1 at B = 128,
+# (B*H*W, Cin, Cout) -> how many (tests/test_torch_conv1x1_design.py
+# holds it against the model)
+RESNET_CONV1X1 = {(401408, 64, 64): 1, (401408, 256, 64): 2,
+                  (401408, 64, 256): 4, (100352, 128, 512): 4,
+                  (100352, 512, 128): 3, (25088, 256, 1024): 6,
+                  (25088, 1024, 256): 5, (6272, 512, 2048): 3,
+                  (6272, 2048, 512): 2}
 # conv1x1 kernel vs float64 on the card: fp32 y within 1e-5 x max|y| (fp32
 # sums of at most 2048 products); mean and meansq within 1e-5 x
 # max|meansq| + 1e-6, the JAX test's rtol / atol (tests/test_pallas.py:
@@ -264,6 +276,10 @@ CONV1X1_ODD = (300, 77, 50)
 # the float64 value plus the fp32 limit
 CONV1X1_Y_RTOL = 1e-5
 CONV1X1_STATS_RTOL, CONV1X1_STATS_ATOL = 1e-5, 1e-6
+# and the fp32 kernel's y, mean and meansq at most this multiple of the
+# fp32 plain version's distance from float64, as FLASH_F64_RATIO holds the
+# flash kernels (its products run in split TF32 too)
+CONV1X1_F64_RATIO = 10.0
 # rtc: axpy is exact up to one fp32 rounding of 2x + y (|x|, |y| < 6);
 # the block sum is fp32 sums over 2^24 values in another order
 RTC_N = 1 << 24
@@ -1663,17 +1679,21 @@ def _conv1x1_errors(torch, x, w, got):
 def phase_conv1x1(mx, torch):
     """The conv1x1 + BN-stats kernel against a float64 evaluation on the
     card, fp32 and bf16, at the probe's four ResNet-50 shapes (batch 128)
-    and an odd one; the kernel, its plain version and the library pair
+    and an odd one: within the CONV1X1_* limits, the fp32 kernel also
+    within CONV1X1_F64_RATIO times its plain version's distance from
+    float64, and a second call's mean and meansq bit-identical to the
+    first's. The kernel, its plain version and the library pair
     (`torch.matmul`, then the two means: the probe's `xla_conv_stats`)
     timed by CUDA-graph replay. `ms` in the row is the sum over the four
     probe shapes, as the probe's TOTAL line; so are the bound and the
-    plain and library times."""
+    plain and library times. The fp32 bound takes the split-TF32 rate
+    (PEAK_TF32X3_FLOPS); the SIMT rate's bound is logged beside it."""
     K = mx.ops.kernels
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(5)
     rows = []
     for dt, name, peak, replaces in (
-            (torch.float32, "conv1x1_bn_stats", PEAK_FP32_FLOPS,
+            (torch.float32, "conv1x1_bn_stats", PEAK_TF32X3_FLOPS,
              "mxnet_tpu/ops/pallas_kernels.py:1305"),
             (torch.bfloat16, "conv1x1_bn_stats_bf16", PEAK_BF16_FLOPS,
              "tools/probe_fused_convbn.py:31")):
@@ -1684,13 +1704,30 @@ def phase_conv1x1(mx, torch):
             x = torch.randn((m, k), generator=g, device=dev).to(dt)
             w = (torch.randn((k, n), generator=g, device=dev) * 0.05).to(dt)
             got = K.conv1x1_bn_stats(x, w)
+            again = K.conv1x1_bn_stats(x, w)
             torch.cuda.synchronize()
             ok, errs, lims = _conv1x1_errors(torch, x, w, got)
             check(ok, f"{name} ({m}, {k}, {n}) vs float64: max abs errs "
                       f"{errs}, limits (y, stats) {lims}")
+            check(all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])),
+                  f"{name} ({m}, {k}, {n}): a second call's mean / meansq "
+                  f"differ from the first's")
             worst = max(worst, *errs.values())
             log(f"{name} ({m}, {k}, {n}): max abs err vs float64 {errs} "
-                f"(limits: y {lims[0]}, stats {lims[1]:.3e})")
+                f"(limits: y {lims[0]}, stats {lims[1]:.3e}); two calls "
+                f"bit-identical")
+            if dt == torch.float32:
+                _, plain64, _ = _conv1x1_errors(
+                    torch, x, w, K._conv1x1_stats_plain(x, w))
+                for key, e in errs.items():
+                    check(e <= CONV1X1_F64_RATIO * plain64[key],
+                          f"{name} ({m}, {k}, {n}) {key}: {e} from float64,"
+                          f" over {CONV1X1_F64_RATIO}x the plain version's "
+                          f"{plain64[key]}")
+                ratios = {key: e / max(plain64[key], 1e-30)
+                          for key, e in errs.items()}
+                log(f"{name} ({m}, {k}, {n}): distance from float64 over "
+                    f"the plain version's {ratios}")
             if (m, k, n) == CONV1X1_ODD:
                 continue
 
@@ -1704,18 +1741,22 @@ def phase_conv1x1(mx, torch):
                       for key, fn in fns.items()}
             # x, w read once, y written once, two (N,) fp32 outputs; the
             # product's 2MKN and the statistics' 3 FLOP an output
-            bms, by = bound(item * (m * k + k * n + m * n) + 8 * n,
-                            2 * m * k * n + 3 * m * n, peak)
+            nbytes = item * (m * k + k * n + m * n) + 8 * n
+            flops = 2 * m * k * n + 3 * m * n
+            bms, by = bound(nbytes, flops, peak)
+            tflops = 2 * m * k * n / dev_ms["kernel"] / 1e9
             tot["ms"] += dev_ms["kernel"]
             tot["plain_ms"] += dev_ms["plain"]
             tot["library_ms"] += dev_ms["library"]
             tot["bound_ms"] += bms
             per_shape.append(dict(shape=[m, k, n], bound_by=by,
-                                  bound_ms=bms, **dev_ms))
+                                  bound_ms=bms, tflops=tflops, **dev_ms))
+            simt = ("" if dt != torch.float32 else
+                    f"; at the SIMT fp32 rate ({PEAK_FP32_FLOPS / 1e12:.0f} "
+                    f"TFLOP/s) {bound(nbytes, flops)[0]:.6f} ms")
             log(f"{name} ({m}, {k}, {n}): device (CUDA graph) {dev_ms}; "
-                f"bound {bms:.6f} ms ({by}); "
-                f"{2 * m * k * n / dev_ms['kernel'] / 1e9:.2f} TFLOP/s")
-            del x, w, got
+                f"bound {bms:.6f} ms ({by}){simt}; {tflops:.2f} TFLOP/s")
+            del x, w, got, again
         # the summed bound is bound by what bounds most of it
         by_bytes = sum(r["bound_ms"] for r in per_shape
                        if r["bound_by"] == "bytes")
@@ -1936,6 +1977,12 @@ def phase_resnet_conv1x1(mx, torch, net, x):
             h.remove()
     torch.cuda.synchronize()
     check(len(seen) == 30, f"{len(seen)} hooked convolutions ran")
+    live = {}
+    for xin, w, _ in seen:
+        shape = (xin.numel() // xin.shape[-1], xin.shape[-1], w.shape[0])
+        live[shape] = live.get(shape, 0) + 1
+    check(live == RESNET_CONV1X1,
+          f"live 1x1 convolutions {live} != RESNET_CONV1X1")
     operands = []
     for xin, w, yconv in seen:
         cin, cout = xin.shape[-1], w.shape[0]

@@ -74,11 +74,12 @@ _SIGNATURES = {
     # sm_scale, stream
     "mxtt_rpa_multi_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _L, _L, _L, ctypes.c_float, _P],
-    # x, w, y, part_s, part_q, mean, meansq, M, K, N, grid_m, stream
+    # x, w, y, part_s, part_q, mean, meansq, M, K, N, BN, grid_m, vec,
+    # smem bytes, stream
     "mxtt_conv1x1_stats_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                               _P],
+                               _I, _I, _L, _P],
     "mxtt_conv1x1_stats_bf16": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                                _P],
+                                _I, _I, _L, _P],
 }
 
 _lock = threading.Lock()

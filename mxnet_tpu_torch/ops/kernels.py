@@ -34,8 +34,10 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
     product with BatchNorm's per-column mean and mean square of y in its
     epilogue: `csrc/conv1x1_bn_stats.cu` (replaces
     `_conv1x1_stats_kernel` and the probe kernel of
-    `tools/probe_fused_convbn.py`), fp32 or bf16. As in the JAX package
-    it is an entry of its own: no model calls it.
+    `tools/probe_fused_convbn.py`), on the tensor cores through wgmma:
+    bf16, or fp32 in split TF32; the statistics in a fixed order, so
+    repeated calls agree bit for bit (`conv1x1_plan`). As in the JAX
+    package it is an entry of its own: no model calls it.
 
 A wrapper takes the plain version only because the tensors it was given
 lie on the CPU. On CUDA tensors it launches its kernel or raises: there
@@ -65,7 +67,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_fwd_plan", "flash_bwd_plan", "flash_block_attention",
            "single_query_cached_attention", "ragged_paged_attention",
            "fused_layer_norm", "layer_norm_fwd",
-           "conv1x1_bn_stats",
+           "conv1x1_bn_stats", "conv1x1_plan",
            "LAUNCHES", "reset_launch_counts"]
 
 _MASKED = -1e30
@@ -796,18 +798,62 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5):
 # 1x1 convolution with BatchNorm statistics
 # ---------------------------------------------------------------------------
 _CONV1X1_DTYPES = (torch.float32, torch.bfloat16)
-# the kernel's output tile is 128 rows x 64 columns; a block walks the row
-# tiles t, t + grid_m, ... and writes one row of partial sums, so grid_m
-# is also the scratch's row count. About three blocks per SM on 132 SMs:
-# enough blocks in flight, few scratch rows. It depends on (M, N) only,
-# so a shape always sums in the same order.
-_CONV1X1_BM, _CONV1X1_BN, _CONV1X1_BLOCKS = 128, 64, 396
+# `csrc/conv1x1_bn_stats.cu`: 8 warps a block as two warpgroups, each 64
+# rows x BN columns of y on wgmma (kWarps, kBM). fp32 (split TF32): K
+# chunks of 32, 3 ring stages of raw tiles, raw x rows of 32 + 4 and w
+# rows of BN + 8 floats (kF32*). bf16: K chunks of 64, 5 stages (kBF16*)
+_C1_WARPS, _C1_BM = 8, 128
+_C1_F32 = dict(bk=32, stages=3, pad_a=4, pad_b=8)
+_C1_BF16 = dict(bk=64, stages=5)
 
 
-def _conv1x1_grid(m, n):
-    tiles_m = -(-m // _CONV1X1_BM)
-    tiles_n = -(-n // _CONV1X1_BN)
-    return max(1, min(tiles_m, -(-_CONV1X1_BLOCKS // tiles_n)))
+def _conv1x1_smem(bf16, bn):
+    """The kernel's `conv_smem`: 1024 bytes to align the swizzled tiles;
+    fp32: the ring of raw x and w tiles and the four split planes (x hi /
+    lo, w^T hi / lo: BM or BN rows of 128 bytes); bf16: the ring of
+    swizzled x and w tiles (128-byte rows); both: the y staging (8 rows
+    of BN + 8 a warp) and the warps' column sums (a row each 16 rows)."""
+    if bf16:
+        c, esize = _C1_BF16, 2
+        tiles = c["stages"] * (_C1_BM + bn) * 128
+    else:
+        c, esize = _C1_F32, 4
+        tiles = (4 * c["stages"] * (_C1_BM * (c["bk"] + c["pad_a"])
+                                    + c["bk"] * (bn + c["pad_b"]))
+                 + 2 * (_C1_BM + bn) * 128)
+    return (1024 + tiles + esize * _C1_WARPS * 8 * (bn + 8)
+            + 2 * (_C1_BM // 16) * bn * 4)
+
+
+def conv1x1_plan(m, k, n, dtype):
+    """The launch plan of the conv1x1 kernel for x (M, K) @ w (K, N) in
+    `dtype`, a function of the shape and dtype only (so a shape always
+    sums its statistics in the same order):
+
+      bn      columns a block: 64 or 128 (x is read ceil(N / 128) times,
+              from L2 mostly: the blocks of a row tile run side by side)
+      bm      rows a block's tile: 128, two warpgroups of 64
+      bk      K chunk through shared memory; stages, the cp.async ring
+      tiles_n column blocks, ceil(N / bn)
+      grid_m  row-tile groups: block (bx, by) walks row tiles bx, bx +
+              grid_m, ...; as many as keep grid_m * tiles_n within the
+              card's 132 SMs (one block an SM: the plan's shared memory),
+              at most the row tiles. Also the scratch's rows
+      vec     16-byte copies and stores: K and N multiples of 16 bytes'
+              worth of elements (the wrapper also needs aligned bases)
+      smem    the block's dynamic shared bytes (the kernel's formula)
+    """
+    bf16 = dtype == torch.bfloat16
+    bn = 64 if n <= 64 else 128
+    bm = _C1_BM
+    cfg = _C1_BF16 if bf16 else _C1_F32
+    tiles_m, tiles_n = -(-m // bm), -(-n // bn)
+    epv = 8 if bf16 else 4
+    return dict(bn=bn, bm=bm, bk=cfg["bk"], stages=cfg["stages"],
+                tiles_n=tiles_n,
+                grid_m=max(1, min(tiles_m, _CARD_SMS // tiles_n)),
+                vec=k % epv == 0 and n % epv == 0,
+                smem=_conv1x1_smem(bf16, bn))
 
 
 def _conv1x1_stats_plain(x2d, w):
@@ -837,7 +883,10 @@ def _conv1x1_args(x2d, w):
 
 def _conv1x1_cuda(x2d, w):
     m, k, n = _conv1x1_args(x2d, w)
-    grid_m = _conv1x1_grid(m, n)
+    plan = conv1x1_plan(m, k, n, x2d.dtype)
+    grid_m = plan["grid_m"]
+    vec = (plan["vec"] and x2d.data_ptr() % 16 == 0
+           and w.data_ptr() % 16 == 0)
     dev = x2d.device
     y = torch.empty((m, n), dtype=x2d.dtype, device=dev)
     part = torch.empty((2, grid_m, n), dtype=torch.float32, device=dev)
@@ -848,8 +897,8 @@ def _conv1x1_cuda(x2d, w):
     with torch.cuda.device(dev):
         rc = fn(x2d.data_ptr(), w.data_ptr(), y.data_ptr(),
                 part[0].data_ptr(), part[1].data_ptr(), stats[0].data_ptr(),
-                stats[1].data_ptr(), m, k, n, grid_m,
-                torch.cuda.current_stream().cuda_stream)
+                stats[1].data_ptr(), m, k, n, plan["bn"], grid_m, int(vec),
+                plan["smem"], torch.cuda.current_stream().cuda_stream)
     _launched("conv1x1_bn_stats" + ("_bf16" if bf16 else ""), rc)
     return y, stats[0], stats[1]
 
@@ -859,8 +908,8 @@ def conv1x1_bn_stats(x2d, w, bm=1024):
     statistics of the result: (y (M, N) in x's dtype, mean (N,) fp32,
     meansq (N,) fp32), the statistics taken from the fp32 product before
     y is cast. x and w are both float32 or both bfloat16, contiguous.
-    `bm` is the JAX signature's row block; the CUDA kernel tiles by 128
-    rows and ignores it."""
+    `bm` is the JAX signature's row block; the CUDA kernel tiles by
+    `conv1x1_plan` and ignores it."""
     dev = _device_of(x2d, w)
     if dev.type == "cuda":
         return _conv1x1_cuda(x2d, w)

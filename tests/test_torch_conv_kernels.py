@@ -91,12 +91,17 @@ def test_conv1x1_bn_stats_refuses_what_the_kernel_does_not_take():
                                  (100352, 128), (25088, 256), (1, 1)])
 def test_conv1x1_grid_is_a_function_of_the_shape(m, n):
     """The kernel's row-tile groups (and the scratch rows it sums in a
-    fixed order) depend on (M, N) only, never exceed the row tiles, and
-    keep the blocks in flight near three per SM of an H100."""
-    g = tk._conv1x1_grid(m, n)
-    tiles_m, tiles_n = -(-m // 128), -(-n // 64)
-    assert 1 <= g <= tiles_m and g == tk._conv1x1_grid(m, n)
-    assert g == tiles_m or g * tiles_n >= tk._CONV1X1_BLOCKS
+    fixed order) depend on the shape and dtype only, never exceed the row
+    tiles, and put one block on each of an H100's 132 SMs as far as whole
+    column strips allow (`conv1x1_plan`)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = tk.conv1x1_plan(m, 64, n, dtype)
+        g = plan["grid_m"]
+        tiles_m, tiles_n = -(-m // plan["bm"]), -(-n // plan["bn"])
+        assert plan["tiles_n"] == tiles_n
+        assert 1 <= g <= tiles_m and plan == tk.conv1x1_plan(m, 64, n, dtype)
+        assert g * tiles_n <= tk._CARD_SMS
+        assert g == tiles_m or g * tiles_n > tk._CARD_SMS - tiles_n
 
 
 # ---------------------------------------------------------------------------
