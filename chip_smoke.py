@@ -21,12 +21,16 @@ Phases (any failure raises and the script exits non-zero):
                  plain version; timed at each plan), ragged
                  paged attention, fp32 and int8 1-wide, fp32 and int8
                  widened (RPA_CASES: the serving shape, 8 slots, H = 8,
-                 dh = 64, psize 16, W = 4 for the widened forms; its
-                 edges, length-0 slots and rows past the page budget;
-                 a long table; two calls bit-identical; the 1-wide forms
-                 also timed at the long case, beside the graph-replay
-                 time of an empty kernel of their serving grid, the
-                 launch floor), the flash backward (training shapes on
+                 dh = 64, psize 16, W = 4 for the widened forms, and
+                 W = 9 too; its edges, length-0 slots and rows past the
+                 page budget; a long table; two calls bit-identical; all
+                 four also timed at the long case, the widened at W = 9,
+                 each beside the graph-replay time of an empty kernel of
+                 its serving grid, the launch floor; each held against
+                 its plain version in float64; the widened int8 form
+                 within RPA_TOL of float64 and of the fp32 plain version
+                 on a fixed witness draw),
+                 the flash backward (training shapes on
                  its fused path, edge shapes, and Sk above one block on
                  its split
                  path, causal with Sq != Sk on each; also against
@@ -672,11 +676,24 @@ def _rpa_plain(K, q, kp, vp, pt, ln, ks, vs):
     return run(q, kp, vp, pt, ln, ks, vs)
 
 
+def _rpa_share(a, ref):
+    """(max abs error of `a` from `ref`, the largest share of RPA_TOL's
+    limit atol + rtol * |ref| that it takes at an element)."""
+    err = (a.double() - ref.double()).abs()
+    limit = RPA_TOL["atol"] + RPA_TOL["rtol"] * ref.double().abs()
+    return err.max().item(), (err / limit).max().item()
+
+
 def _rpa_f64(torch, K, q, kp, vp, pt, ln, ks, vs):
     """The paged kernels' function in float64 throughout (int8 pages
     dequantized in float64): row i of slot s a softmax over the first
     min(lengths[s] + i, npages * psize) positions, zeros where it sees
-    none. The same shape as q."""
+    none. The same shape as q. `_rpa_check` holds the paged kernels
+    against it: the plain version sums each score over dh terms of
+    dequantized keys (up to about 6.5) in one fp32 GEMM, and on the
+    fast-path phase's int8 draws it lay up to 1.745 of RPA_TOL's limit
+    from this function on an NVIDIA H100, so the exact answer would fail
+    against it."""
     d = torch.float64
     qq = q.to(d) if q.dim() == 4 else q.to(d)[:, None]     # (S, W, H, dh)
     pages = (kp, vp) if ks is not None else (kp.to(d), vp.to(d))
@@ -691,15 +708,11 @@ def _rpa_f64(torch, K, q, kp, vp, pt, ln, ks, vs):
     return out if q.dim() == 4 else out[:, 0]
 
 
-def rpa_f64_witness(mx, torch, dev=None):
-    """The widened int8 kernel at the long case on the one draw where it
-    read beyond RPA_TOL from its plain version: `phase_rpa_fastpath`'s
-    generator as it stood when the int8 1-wide row also drew its
-    long-case timing inputs from it. Returns {pair: (max abs error, the
-    largest share of RPA_TOL's limit atol + rtol * |ref| at an element)}
-    for the kernel against the plain version, and each of them against
-    `_rpa_f64`. On CPU tensors the "kernel" is the plain version."""
-    K = mx.ops.kernels
+def rpa_witness_inputs(torch, dev=None):
+    """The widened int8 inputs at the long case on the one draw where the
+    first widened int8 kernel read beyond RPA_TOL from its plain version:
+    `phase_rpa_fastpath`'s generator as it stood when the int8 1-wide row
+    also drew its long-case timing inputs from it."""
     g = torch.Generator(device="cpu").manual_seed(4)
     W = SPEC_K + 1
     for w, quant, cases in (
@@ -708,24 +721,35 @@ def rpa_f64_witness(mx, torch, dev=None):
             (W, True, ("serving", "edge"))):
         for case in cases:
             _rpa_inputs(torch, g, RPA_CASES[case], w, quant, dev=dev)
-    args = _rpa_inputs(torch, g, RPA_CASES["long"], W, True, dev=dev)
+    return _rpa_inputs(torch, g, RPA_CASES["long"], W, True, dev=dev)
+
+
+def rpa_f64_witness(mx, torch, dev=None):
+    """The widened int8 kernel on `rpa_witness_inputs`. Returns {pair:
+    (max abs error, the largest share of RPA_TOL's limit atol + rtol *
+    |ref| at an element)} for the kernel against the plain version, and
+    each of them against `_rpa_f64`; on the card it fails the run unless
+    the kernel is within the limit (a share below 1) of both. On CPU
+    tensors the "kernel" is the plain version, and nothing is held."""
+    K = mx.ops.kernels
+    args = rpa_witness_inputs(torch, dev)
     q, kp, vp, pt, ln, ks, vs = args
     out = K.ragged_paged_attention(q, kp, vp, pt, ln, k_scales=ks,
                                    v_scales=vs)
     plain = _rpa_plain(K, *args)
     exact = _rpa_f64(torch, K, *args)
-
-    def dist(a, ref):
-        err = (a.double() - ref.double()).abs()
-        limit = RPA_TOL["atol"] + RPA_TOL["rtol"] * ref.double().abs()
-        return err.max().item(), (err / limit).max().item()
-    res = {"kernel_vs_plain": dist(out, plain),
-           "kernel_vs_f64": dist(out, exact),
-           "plain_vs_f64": dist(plain, exact)}
+    res = {"kernel_vs_plain": _rpa_share(out, plain),
+           "kernel_vs_f64": _rpa_share(out, exact),
+           "plain_vs_f64": _rpa_share(plain, exact)}
     log("ragged_paged_attention_multi_int8 long, the draw once beyond "
         "RPA_TOL: " + "; ".join(f"{k} max abs {a:.3e} ({r:.3f} of the "
                                 f"RPA_TOL limit)" for k, (a, r) in
                                 res.items()))
+    if q.is_cuda:
+        for pair in ("kernel_vs_plain", "kernel_vs_f64"):
+            check(res[pair][1] < 1.0,
+                  f"ragged_paged_attention_multi_int8 on the witness draw: "
+                  f"{pair} {res[pair][1]:.3f} of RPA_TOL's limit")
     return res
 
 
@@ -763,9 +787,10 @@ def launch_floor_ms(mx, blocks, threads):
 
 
 def _rpa_check(mx, torch, g, name, W, quant, cases):
-    """The paged kernel `name` against its plain version on `cases`
-    (RPA_TOL), a row with no visible key exactly zero, and two calls
-    bit-identical. Returns the largest error."""
+    """The paged kernel `name` against its plain version in float64
+    (`_rpa_f64`) on `cases` (RPA_TOL), a row with no visible key exactly
+    zero, and two calls bit-identical; its distance from the fp32 plain
+    version is logged beside. Returns the largest error."""
     K = mx.ops.kernels
     worst = 0.0
     for case in cases:
@@ -776,12 +801,15 @@ def _rpa_check(mx, torch, g, name, W, quant, cases):
                                        v_scales=vs)
         again = K.ragged_paged_attention(q, kp, vp, pt, ln, k_scales=ks,
                                          v_scales=vs)
-        ref = _rpa_plain(K, q, kp, vp, pt, ln, ks, vs)
+        ref = _rpa_f64(torch, K, q, kp, vp, pt, ln, ks, vs)
+        plain = _rpa_plain(K, q, kp, vp, pt, ln, ks, vs)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
+        err, share = _rpa_share(out, ref)
+        err32, share32 = _rpa_share(out, plain)
         check(torch.isfinite(out).all().item(), f"{name} not finite")
-        check(torch.allclose(out, ref, **RPA_TOL),
-              f"{name} kernel vs plain: max abs err {err} at lens {lens}")
+        check(torch.allclose(out.double(), ref, **RPA_TOL),
+              f"{name} kernel vs plain (float64): max abs err {err} at "
+              f"lens {lens}")
         check(torch.equal(out, again),
               f"{name}: two calls gave other bits at lens {lens}")
         if 0 in lens:
@@ -791,41 +819,44 @@ def _rpa_check(mx, torch, g, name, W, quant, cases):
                   f"{name}: a row with no visible key must be zeros")
         worst = max(worst, err)
         log(f"{name} {case} P={kp.shape[0]} W={W or 1} lens={lens}: max "
-            f"abs err {err:.3e} (tol rtol={RPA_TOL['rtol']} "
-            f"atol={RPA_TOL['atol']}); two calls bit-identical")
+            f"abs err {err:.3e} ({share:.3f} of the limit) from the plain "
+            f"version in float64 (tol rtol={RPA_TOL['rtol']} "
+            f"atol={RPA_TOL['atol']}), {err32:.3e} ({share32:.3f}) from it "
+            f"in fp32, which is {_rpa_share(plain, ref)[1]:.3f} from "
+            f"float64; two calls bit-identical")
     return worst
 
 
-def _rpa_row(mx, torch, g, name, W, quant, line, long_case):
+def _rpa_row(mx, torch, g, name, W, quant, line, extra):
     """The kernels row of paged kernel `name`: checked on the serving,
     edge and long cases, timed (kernel and plain version) at the serving
-    shape and, where `long_case`, at the long case too (`per_shape`, its
-    inputs from a generator of its own, so the other rows' inputs stay
-    the draws of `g` they had before it was timed)."""
+    shape and at each (case, window) of `extra` (`per_shape`, their
+    inputs from a generator of their own, so the other rows' inputs stay
+    the draws of `g` they had before they were timed)."""
     K = mx.ops.kernels
     worst = _rpa_check(mx, torch, g, name, W, quant, RPA_CASES)
-    timed = {}
-    for case in ("serving", "long") if long_case else ("serving",):
-        args = _rpa_inputs(torch, g if case == "serving" else
+    timed = []
+    for case, w in (("serving", W), *extra):
+        args = _rpa_inputs(torch, g if not timed else
                            torch.Generator(device="cpu").manual_seed(10),
-                           RPA_CASES[case], W, quant)
+                           RPA_CASES[case], w, quant)
         q, kp, vp, pt, ln, ks, vs = args
         fns = {"kernel": lambda: K.ragged_paged_attention(
                    q, kp, vp, pt, ln, k_scales=ks, v_scales=vs),
                "plain": lambda: _rpa_plain(K, *args)}
         call = {k: cuda_ms(fn) for k, fn in fns.items()}
         dev_ms = {k: graph_ms(fn) for k, fn in fns.items()}
-        bms, by = _rpa_bound(RPA_CASES[case][2], pt.shape[1], W or 1, quant)
-        log(f"{name} {case} shape S={q.shape[0]} W={W or 1} H=8 dh=64 "
+        bms, by = _rpa_bound(RPA_CASES[case][2], pt.shape[1], w or 1, quant)
+        log(f"{name} {case} shape S={q.shape[0]} W={w or 1} H=8 dh=64 "
             f"psize=16 lens={RPA_CASES[case][2]}: per call (host launch "
             f"included) {call}; device (CUDA graph) {dev_ms}; bound "
             f"{bms:.6f} ms ({by}); library: none (no single PyTorch call "
             f"gathers pages)")
-        timed[case] = dict(lens=RPA_CASES[case][2], ms=dev_ms["kernel"],
-                           plain_ms=dev_ms["plain"], bound_ms=bms,
-                           bound_by=by, library_ms=None,
-                           call_ms=call["kernel"])
-    serve = timed.pop("serving")
+        timed.append(dict(case=case, W=w or 1, lens=RPA_CASES[case][2],
+                          ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
+                          bound_ms=bms, bound_by=by, library_ms=None,
+                          call_ms=call["kernel"]))
+    serve = timed.pop(0)
     row = dict(name=name, route="cuda",
                source="mxnet_tpu_torch/ops/csrc/ragged_paged_attention.cu",
                replaces=f"mxnet_tpu/ops/pallas_kernels.py:{line}",
@@ -833,8 +864,26 @@ def _rpa_row(mx, torch, g, name, W, quant, line, long_case):
                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                    "call_ms")})
     if timed:
-        row["per_shape"] = [dict(case="long", **timed["long"])]
+        row["per_shape"] = timed
     return row
+
+
+def _rpa_floor(mx, W):
+    """The launch floor of a paged kernel's serving grid (8 slots, H = 8,
+    dh = 64, tables of 2 pages of 16): an empty kernel of as many blocks
+    and threads as `rpa_plan` (W = None) or `rpa_multi_plan` give."""
+    K = mx.ops.kernels
+    if W is None:
+        plan = K.rpa_plan(8, 8, 64, 16, 2)
+        blocks = plan["blocks"]
+    else:
+        plan = K.rpa_multi_plan(8, W, 8, 64, 16, 2)
+        blocks = plan["blocks"][0] * plan["blocks"][1]
+    floor = launch_floor_ms(mx, blocks, 32 * plan["warps"])
+    log(f"launch floor: an empty kernel of the W={W or 1} serving grid "
+        f"({blocks} x {32 * plan['warps']}) {floor:.6f} ms by CUDA-graph "
+        f"replay")
+    return floor
 
 
 def phase_rpa(mx, torch):
@@ -844,14 +893,8 @@ def phase_rpa(mx, torch):
     launch floor)."""
     g = torch.Generator(device="cpu").manual_seed(1)
     row = _rpa_row(mx, torch, g, "ragged_paged_attention", None, False,
-                   "872", True)
-    K = mx.ops.kernels
-    plan = K.rpa_plan(8, 8, 64, 16, 2)
-    floor = launch_floor_ms(mx, plan["blocks"], 32 * plan["warps"])
-    log(f"launch floor: an empty kernel of the 1-wide serving grid "
-        f"({plan['blocks']} x {32 * plan['warps']}) {floor:.6f} ms by "
-        f"CUDA-graph replay")
-    row["launch_floor_ms"] = floor
+                   "872", [("long", None)])
+    row["launch_floor_ms"] = _rpa_floor(mx, None)
     return row
 
 
@@ -861,16 +904,27 @@ def phase_rpa_fastpath(mx, torch):
     (8 slots, W = 4, H = 8, dh = 64, psize 16, a 5-D pool) and RPA_CASES'
     edges (slots of length 0, rows past the page budget: row i sees
     lengths + i keys, clamped to the table) and long table; two calls
-    bit-identical. The int8 1-wide kernel is also timed at the long
-    case, and the widened int8 kernel held against float64 on the draw
-    where it once read beyond RPA_TOL (`rpa_f64_witness`)."""
+    bit-identical. The widened kernels are also held at W = 9
+    (speculative_k = 8: three groups of rows) on the same cases, and
+    timed at the long case and at W = 9, each beside the launch floor of
+    its serving grid; the int8 1-wide kernel is timed at the long case;
+    the widened int8 kernel is held against float64 on the draw where
+    its first design read beyond RPA_TOL (`rpa_f64_witness`)."""
     g = torch.Generator(device="cpu").manual_seed(4)
-    rows = [_rpa_row(mx, torch, g, name, W, quant, line, W is None)
-            for name, W, quant, line in (
-                ("ragged_paged_attention_int8", None, True, "872 (quant)"),
-                ("ragged_paged_attention_multi", SPEC_K + 1, False, "1014"),
-                ("ragged_paged_attention_multi_int8", SPEC_K + 1, True,
-                 "1014 (quant)"))]
+    W = SPEC_K + 1
+    rows = [_rpa_row(mx, torch, g, name, w, quant, line, extra)
+            for name, w, quant, line, extra in (
+                ("ragged_paged_attention_int8", None, True, "872 (quant)",
+                 [("long", None)]),
+                ("ragged_paged_attention_multi", W, False, "1014",
+                 [("long", W), ("serving", 9)]),
+                ("ragged_paged_attention_multi_int8", W, True,
+                 "1014 (quant)", [("long", W), ("serving", 9)]))]
+    g9 = torch.Generator(device="cpu").manual_seed(11)
+    for row, quant in zip(rows[1:], (False, True)):
+        worst9 = _rpa_check(mx, torch, g9, row["name"], 9, quant, RPA_CASES)
+        row["max_abs_err"] = max(row["max_abs_err"], worst9)
+        row["launch_floor_ms"] = _rpa_floor(mx, W)
     rpa_f64_witness(mx, torch)
     return rows
 
@@ -879,25 +933,34 @@ def rpa_times(mx, torch):
     """{"<form> <case>": device ms by CUDA-graph replay} of the four
     paged kernels at RPA_CASES' serving and long cases, and of the 1-wide
     ones at RPA_SWEEP's cases too, with "floor" the launch floor of the
-    1-wide serving grid where the package builds the empty kernel. It
-    takes `mx` as given, so another checkout's package is measured the
-    same way (`chip_train_ab.py --phase rpa`)."""
+    1-wide serving grid where the package builds the empty kernel. Where
+    the package's widened kernels take any window (`rpa_multi_plan`),
+    also the widened ones at W = 9 ("w9", three groups of rows) and the
+    floor of that grid ("floor w9"). It takes `mx` as given, so
+    another checkout's package is measured the same way
+    (`chip_train_ab.py --phase rpa`)."""
     K = mx.ops.kernels
     g = torch.Generator(device="cpu").manual_seed(9)
     times = {}
-    for form, W, quant in (("f32", None, False), ("i8", None, True),
-                           ("multi_f32", SPEC_K + 1, False),
-                           ("multi_i8", SPEC_K + 1, True)):
+    forms = [("f32", None, False), ("i8", None, True),
+             ("multi_f32", SPEC_K + 1, False), ("multi_i8", SPEC_K + 1, True)]
+    if hasattr(K, "rpa_multi_plan"):
+        forms += [("multi_f32 w9", 9, False), ("multi_i8 w9", 9, True)]
+    for form, W, quant in forms:
         cases = {k: RPA_CASES[k] for k in ("serving", "long")}
         if W is None:
             cases.update(RPA_SWEEP)
         for case, spec in cases.items():
             q, kp, vp, pt, ln, ks, vs = _rpa_inputs(torch, g, spec, W, quant)
-            times[f"{form} {case}"] = graph_ms(
-                lambda: K.ragged_paged_attention(q, kp, vp, pt, ln,
-                                                 k_scales=ks, v_scales=vs))
+
+            def run():
+                return K.ragged_paged_attention(q, kp, vp, pt, ln,
+                                                k_scales=ks, v_scales=vs)
+            times[f"{form} {case}"] = graph_ms(run)
     if hasattr(mx.ops._build.library(), "mxtt_launch_floor"):
         times["floor"] = launch_floor_ms(mx, 64, 256)
+        if hasattr(K, "rpa_multi_plan"):
+            times["floor w9"] = _rpa_floor(mx, 9)
     return times
 
 

@@ -67,14 +67,15 @@ _SIGNATURES = {
     "mxtt_rpa_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _L, _L, _L, ctypes.c_float, _I, _L, _P],
     # q, k_pages, v_pages, page_tables, lengths, out, S, W, H, dh, psize,
-    # npages, stride_page, stride_row, stride_head, sm_scale, stream
+    # npages, stride_page, stride_row, stride_head, sm_scale, warps, smem
+    # bytes, stream
     "mxtt_rpa_multi_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _L, _L, _L, ctypes.c_float, _P],
+                           _L, _L, _L, ctypes.c_float, _I, _L, _P],
     # q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths, out,
     # S, W, H, dh, psize, npages, stride_page, stride_row, stride_head,
-    # sm_scale, stream
+    # sm_scale, warps, smem bytes, stream
     "mxtt_rpa_multi_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _L, _L, _L, ctypes.c_float, _P],
+                          _I, _I, _L, _L, _L, ctypes.c_float, _I, _L, _P],
     # x, w, y, part_s, part_q, mean, meansq, M, K, N, BN, grid_m, vec,
     # smem bytes, stream
     "mxtt_conv1x1_stats_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,

@@ -21,10 +21,10 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
     the paged KV cache: four kernels of `csrc/ragged_paged_attention.cu`
     — one query row per slot (replaces `_rpa_kernel`; one block per
     (slot, head), each warp loading its positions' K / V rows into
-    registers a chunk ahead, as `rpa_plan` says) or W rows (replaces
-    `_rpa_multi_kernel`),
-    over float32 pages or int8 pages with per-page scales (their
-    `quant=True` paths). Its plain versions
+    registers a chunk ahead, as `rpa_plan` says) or any W >= 2 rows
+    (replaces `_rpa_multi_kernel`; the same design over groups of 4
+    rows, as `rpa_multi_plan` says), over float32 pages or int8 pages
+    with per-page scales (their `quant=True` paths). Its plain versions
     share `single_query_cached_attention` with the decoder's
     cross-attention, as the JAX package's lax path does.
   * `fused_layer_norm` — LayerNorm over the last axis as a
@@ -575,8 +575,8 @@ def _paged_attention_plain_multi(q, k_pages, v_pages, page_tables, lengths,
                                  k_scales=None, v_scales=None):
     """Plain version of the widened paged kernels: the gathered context
     of `_paged_attention_plain` and one more query axis. q: (S, W, H,
-    dh), W query tokens per slot at consecutive positions; query i sees
-    `lengths + i` keys. Returns (S, W, H, dh)."""
+    dh), any W query tokens per slot at consecutive positions; query i
+    sees `lengths + i` keys. Returns (S, W, H, dh)."""
     W = q.shape[1]
     kc, vc, L = _gathered_context(q, k_pages, v_pages, page_tables,
                                   k_scales, v_scales)
@@ -585,10 +585,6 @@ def _paged_attention_plain_multi(q, k_pages, v_pages, page_tables, lengths,
             < vis[:, :, None])[:, None, :, :]          # (S, 1, W, L)
     out = single_query_cached_attention(q.transpose(1, 2), kc, vc, mask)
     return out.transpose(1, 2)
-
-
-# the widest query window the widened kernels take (speculative_k <= 7)
-_RPA_MAX_W = 8
 
 
 def _rpa_args(q, k_pages, v_pages, page_tables, lengths, k_scales,
@@ -627,9 +623,9 @@ def _rpa_args(q, k_pages, v_pages, page_tables, lengths, k_scales,
                    and t.is_contiguous(),
                    f"{name} must be a contiguous ({P}, {H}) float32 tensor")
     _check(q.is_contiguous(), "ragged_paged_attention takes a contiguous q")
-    _check(1 <= W <= _RPA_MAX_W,
-           f"ragged_paged_attention takes 1 <= W <= {_RPA_MAX_W} query rows "
-           f"per slot, got {W}")
+    _check(W >= 1,
+           f"ragged_paged_attention takes W >= 1 query rows per slot, got "
+           f"{W}")
     _check(0 < dh <= 128 and dh % 4 == 0,
            f"ragged_paged_attention kernel takes dh % 4 == 0, dh <= 128, "
            f"got {dh}")
@@ -673,11 +669,36 @@ def rpa_plan(s, h, dh, psize, npages):
     return dict(blocks=s * h, warps=warps, smem=4 * warps * (2 + dh))
 
 
+# the widened kernels (`csrc/ragged_paged_attention.cu` kGroupRows): query
+# rows a block scores together
+_RPA_GROUP_ROWS = 4
+
+
+def rpa_multi_plan(s, w, h, dh, psize, npages):
+    """The launch plan of the widened paged kernels for S = `s` slots of
+    a window of `w` >= 2 query rows, `h` heads of width `dh`, over tables
+    of `npages` pages of `psize` positions; a function of these only:
+
+      blocks  (s * h, groups): one per (slot, head, group of 4 rows), the
+              window's groups on the grid's y axis
+      warps   `rpa_plan`'s: each row of a group sums as the 1-wide
+              kernel does
+      smem    dynamic shared bytes (the kernel's `rpa_multi_smem`): the
+              warps' (m, l) and accumulators of a group's rows; the
+              kernel refuses a plan that disagrees
+    """
+    warps = rpa_plan(s, h, dh, psize, npages)["warps"]
+    groups = -(-w // _RPA_GROUP_ROWS)
+    return dict(blocks=(s * h, groups), warps=warps,
+                smem=4 * warps * _RPA_GROUP_ROWS * (2 + dh))
+
+
 def _rpa_cuda(q, k_pages, v_pages, page_tables, lengths, sm_scale,
               k_scales, v_scales):
     """Launch the one of the four kernels that the query window and the
     page type select: a window of one row (a 3-D q, or a 4-D q with W =
-    1) the 1-wide kernel, as `rpa_plan` says; W >= 2 the widened one."""
+    1) the 1-wide kernel, as `rpa_plan` says; W >= 2 the widened one, as
+    `rpa_multi_plan` says."""
     S, W, H, dh, psize, sp, so, sh = _rpa_args(
         q, k_pages, v_pages, page_tables, lengths, k_scales, v_scales)
     out = torch.empty_like(q)
@@ -694,7 +715,8 @@ def _rpa_cuda(q, k_pages, v_pages, page_tables, lengths, sm_scale,
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
     ptrs += [page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr()]
     if wide:
-        dims, plan = [S, W, H], []
+        p = rpa_multi_plan(S, W, H, dh, psize, npages)
+        dims, plan = [S, W, H], [p["warps"], p["smem"]]
     else:
         # a contiguous (S, 1, H, dh) q and out are (S, H, dh) in memory
         p = rpa_plan(S, H, dh, psize, npages)
@@ -712,7 +734,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, lengths,
     """One shared attention launch per decode step over a paged KV cache.
 
     q: (S, H, dh) — one query token per decode slot — or (S, W, H, dh):
-    W query tokens per slot at consecutive positions (speculative
+    any W >= 1 query tokens per slot at consecutive positions (speculative
     verification), where query i of a slot sees `lengths + i` keys and
     rows past a slot's real window compute values nobody reads.
     k_pages/v_pages: (P, psize, H, dh) page pools, float32, or int8 with

@@ -140,7 +140,7 @@ def test_kv_byte_accounting_matches_jax():
 
 
 # ----------------------------------------------------- paged attention
-def _paged_inputs(seed, psize, wide, quant, S=3, H=2, dh=8, P=9):
+def _paged_inputs(seed, psize, wide, quant, S=3, H=2, dh=8, P=9, W=4):
     """tests/test_serve.py's paged fixtures: a null-page-padded table and
     mixed lengths; int8 pages with scales as at test_serve.py:1366."""
     rng = np.random.RandomState(seed)
@@ -153,7 +153,7 @@ def _paged_inputs(seed, psize, wide, quant, S=3, H=2, dh=8, P=9):
         kp, vp = (rng.randn(P, psize, H, dh).astype(np.float32)
                   for _ in range(2))
         ks = vs = None
-    q = rng.randn(*((S, 4, H, dh) if wide else (S, H, dh))) \
+    q = rng.randn(*((S, W, H, dh) if wide else (S, H, dh))) \
         .astype(np.float32)
     pt = np.array([[1, 2], [3, 0], [4, 5]], np.int32)
     lens = np.array([12, 5, 16] if psize == 8 else [24, 10, 32], np.int32)
@@ -190,6 +190,27 @@ def test_rpa_forms_match_jax(interpret, psize, wide, quant):
     np.testing.assert_allclose(got, np.asarray(want_lax), **RPA_TOL)
 
 
+@pytest.mark.parametrize("psize", [8, 16])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_rpa_window_of_9_matches_jax(interpret, psize, quant):
+    """A window of 9 rows (speculative_k = 8), wider than the JAX
+    kernel's 8-row sublane tile, which pads it to 16: the port == the
+    JAX Pallas kernel (interpret mode) and its lax gather, rows past the
+    page budget included."""
+    args = _paged_inputs(26, psize, True, quant, W=9)
+    jargs = [None if a is None else jnp.asarray(a) for a in args]
+    q, kp, vp, pt, lens, ks, vs = jargs
+    assert jk._rpa_sublanes(9) == 16
+    want_kernel = jk.ragged_paged_attention(q, kp, vp, pt, lens,
+                                            k_scales=ks, v_scales=vs)
+    want_lax = jk._paged_attention_lax_multi(q, kp, vp, pt, lens,
+                                             k_scales=ks, v_scales=vs)
+    got = _port_rpa(*args)
+    assert got.shape == (3, 9, 2, 8)
+    np.testing.assert_allclose(got, np.asarray(want_kernel), **RPA_TOL)
+    np.testing.assert_allclose(got, np.asarray(want_lax), **RPA_TOL)
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
 def test_rpa_widened_rows_are_the_1wide_form(quant):
     """Row i of the widened form == the 1-wide form at lengths + i."""
@@ -217,7 +238,8 @@ def test_rpa_int8_zero_length_row_is_zeros():
 def test_rpa_fast_path_wrappers_check_layout():
     """What the kernels refuse is refused on the CPU too: scales of one
     side only, int8 pages without scales, wrong scale shapes, a
-    non-contiguous widened q and a window wider than the kernels'."""
+    non-contiguous widened q and an empty window. A window of any width
+    computes (W = 9: row i is the 1-wide form at lengths + i)."""
     q, kp, vp, pt, lens, ks, vs = (None if a is None else torch.from_numpy(a)
                                    for a in _paged_inputs(25, 8, True, True))
     with pytest.raises(MXNetError, match="together"):
@@ -231,9 +253,17 @@ def test_rpa_fast_path_wrappers_check_layout():
     with pytest.raises(MXNetError, match="contiguous q"):
         tk.ragged_paged_attention(qkv[..., :8], kp, vp, pt, lens,
                                   k_scales=ks, v_scales=vs)
-    wide = torch.zeros((3, 9, 2, 8))
-    with pytest.raises(MXNetError, match="W <= 8"):
-        tk.ragged_paged_attention(wide, kp, vp, pt, lens, k_scales=ks,
+    wide = torch.from_numpy(np.random.RandomState(25).randn(3, 9, 2, 8)
+                            .astype(np.float32))
+    out = tk.ragged_paged_attention(wide, kp, vp, pt, lens, k_scales=ks,
+                                    v_scales=vs)
+    assert out.shape == wide.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(
+        out[:, 8], tk.ragged_paged_attention(wide[:, 8].contiguous(), kp, vp,
+                                             pt, lens + 8, k_scales=ks,
+                                             v_scales=vs), **RPA_TOL)
+    with pytest.raises(MXNetError, match="W >= 1"):
+        tk.ragged_paged_attention(wide[:, :0], kp, vp, pt, lens, k_scales=ks,
                                   v_scales=vs)
     assert tk.LAUNCHES == dict.fromkeys(tk.LAUNCHES, 0)
 

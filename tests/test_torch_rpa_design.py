@@ -78,12 +78,16 @@ def test_every_plan_fits_one_block(slots, psize, dh, npages):
 
 def _load_widths(dh, esize):
     """Bytes of the 1-wide kernel's loads of a K and a V row at width
-    `dh`, read from the .cu: its `load_raw<T, N>` calls on the K and V
-    pages, with DCH from `launch_1wide`'s dispatch on dh. Returns
-    ({"kp": bytes, "vp": bytes}, DCH)."""
+    `dh`, read from the .cu: the `load_raw<T, N>` calls on the K and V
+    pages of `load_chunk`, the loader the kernel calls, with DCH from
+    `launch_1wide`'s dispatch on dh. Returns ({"kp": bytes, "vp":
+    bytes}, DCH)."""
     src = SRC.read_text()
-    body = src[src.index("rpa1_kernel(const float*"):
-               src.index("__global__ void launch_floor_kernel")]
+    kernel = src[src.index("rpa1_kernel(const float*"):
+                 src.index("__global__ void launch_floor_kernel")]
+    assert "load_chunk<T, DCH>(kp, vp, ks, vs," in kernel
+    body = src[src.index("__device__ __forceinline__ void load_chunk("):
+               src.index("rpa1_kernel(const float*")]
     loads = re.findall(r"load_raw<T, (\w+)>\((\w+) \+", body)
     dispatch = re.findall(r"if \(dh <= (\d+)\) return MXTT_RPA1\((\d)\);",
                           src)
@@ -271,9 +275,8 @@ def test_model_agrees_with_float64_and_the_jax_kernel(interpret, case,
 
 
 def test_model_is_the_plain_version_within_tolerance():
-    """The port's plain version (the card's yardstick) and the model
-    agree within RPA_TOL on the long table, so chip_smoke.py's check of
-    the kernel against the plain version is the model's accuracy."""
+    """The port's plain version (the card tests' yardstick) and the
+    model agree within RPA_TOL on the long table."""
     q, kp, vp, pt, lens, ks, vs = _inputs("long", True, seed=3)
     plain = tk.ragged_paged_attention(
         *(torch.from_numpy(a) for a in (q, kp, vp, pt, lens)),
@@ -284,8 +287,9 @@ def test_model_is_the_plain_version_within_tolerance():
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
 def test_float64_witness_is_float64(quant):
-    """`chip_smoke._rpa_f64`, against which the card holds the widened
-    int8 kernel on the draw where it once read beyond RPA_TOL, is this
+    """`chip_smoke._rpa_f64`, against which the card run holds every
+    paged kernel (and the widened int8 kernel on the draw where it once
+    read beyond RPA_TOL), is this
     file's float64 reference (int8 pages dequantized in float64) for a
     3-D q and for each row of a W-row window, where row i sees lengths
     + i keys, clamped to the table. On CPU tensors the witness replays
@@ -367,8 +371,8 @@ def _pool(quant, L=3, P=17, psize=16, H=8, dh=64):
 def test_wrapper_launches_the_plan(card, quant, W):
     """A 1-wide (3-D) q goes to `mxtt_rpa_f32` / `mxtt_rpa_i8` with the
     plan's warps and shared bytes after the strides; a widened q to the
-    widened entry without a plan. One launch each, counted under its
-    name."""
+    widened entry with `rpa_multi_plan`'s. One launch each, counted
+    under its name."""
     kp, vp, ks, vs = _pool(quant)
     pt = torch.zeros((8, 2), dtype=torch.int32)
     lens = torch.ones(8, dtype=torch.int32)
@@ -380,12 +384,9 @@ def test_wrapper_launches_the_plan(card, quant, W):
     sp, so, sh, _ = kp.stride()
     wide = "_multi" if W > 1 else ""
     assert name == "mxtt_rpa" + wide + ("_i8" if quant else "_f32")
-    if W == 1:
-        plan = tk.rpa_plan(8, 8, 64, 16, 2)
-        assert args[-7:-1] == (sp, so, sh, 0.125, plan["warps"],
-                               plan["smem"])
-    else:
-        assert args[-5:-1] == (sp, so, sh, 0.125)
+    plan = tk.rpa_plan(8, 8, 64, 16, 2) if W == 1 else \
+        tk.rpa_multi_plan(8, W, 8, 64, 16, 2)
+    assert args[-7:-1] == (sp, so, sh, 0.125, plan["warps"], plan["smem"])
     counter = "ragged_paged_attention" + wide + ("_int8" if quant else "")
     assert tk.LAUNCHES == dict(dict.fromkeys(tk.LAUNCHES, 0), **{counter: 1})
 

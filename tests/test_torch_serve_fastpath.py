@@ -111,24 +111,25 @@ def _spec_requests():
 @pytest.fixture(scope="module")
 def spec_ref(tiny):
     """The JAX package's tokens for the speculative requests at k = 0
-    and k = 2, 3 (the oracle)."""
+    and k = 2, 3, 8 (the oracle; k = 8 is a window of 9 rows)."""
     m = tiny[0]
     prompted, solo = _spec_requests()
     kw = dict(max_new_tokens=12, max_prompt_len=12, num_pages=16)
     return {k: (_serve(m, *prompted, jax_side=True, speculative_k=k,
                        **kw)[0],
                 _serve(m, *solo, jax_side=True, speculative_k=k, **kw)[0])
-            for k in (0, 2, 3)}
+            for k in (0, 2, 3, 8)}
 
 
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", [2, 3, 8])
 def test_speculative_tokens_match_k0_and_jax(tiny, spec_ref, k):
     """Speculation changes how many turns a request takes, never its
     tokens: the port at k equals the port at k = 0 and the JAX server at
     k, for a prompted request (prompt chunks run widened) and a solo one;
     on the solo request drafts get accepted and it takes fewer decode
     turns than tokens (test_serve.py:986); profiler.dumps() shows the
-    acceptance row."""
+    acceptance row. k = 8 verifies a window of 9 rows, wider than the
+    JAX kernel's 8-row tile."""
     pm = tiny[1]
     prompted, solo = _spec_requests()
     kw = dict(max_new_tokens=12, max_prompt_len=12, num_pages=16)
@@ -188,22 +189,22 @@ def test_prefix_and_speculate_faults_degrade_identically(tiny):
 @pytest.fixture(scope="module")
 def lp_ref(int8m):
     """The JAX package's tokens for `_lp_requests()`: fp32 at k = 0, and
-    int8 KV at k = 0, 2, 3."""
+    int8 KV at k = 0, 2, 3, 8."""
     m = int8m[0]
     reqs = _lp_requests()
     out = {"fp32": _serve(m, *reqs, jax_side=True, max_prompt_len=8)[0]}
-    for k in (0, 2, 3):
+    for k in (0, 2, 3, 8):
         out[k] = _serve(m, *reqs, jax_side=True, max_prompt_len=8,
                         kv_dtype="int8", speculative_k=k)[0]
     return out
 
 
-@pytest.mark.parametrize("k", [0, 2, 3])
+@pytest.mark.parametrize("k", [0, 2, 3, 8])
 def test_int8_kv_matches_jax_and_fp32(int8m, lp_ref, k):
     """Int8 KV pages across prefix-cache cold/warm traffic at k = 0, 2,
-    3: the port's tokens equal the JAX server's with the same settings,
-    and match fp32 at >= 0.99 (test_serve.py:1235); the pool accounting
-    stays exact."""
+    3, 8 (a window of 9 rows): the port's tokens equal the JAX server's
+    with the same settings, and match fp32 at >= 0.99
+    (test_serve.py:1235); the pool accounting stays exact."""
     pm = int8m[1]
     reqs = _lp_requests()
     fp, _ = _serve(pm, *reqs, max_prompt_len=8)
