@@ -44,6 +44,20 @@ Phases (any failure raises and the script exits non-zero):
                  before, read just after: 2 launches of the forward, the
                  fused and the dQ kernel each), and times the split path
                  against SDPA's backward.
+                 The bfloat16 forms of the three flash kernels and
+                 LayerNorm (their own counters, `*_bf16`): every case of
+                 `_bf16_cases` (serving, the training step's three
+                 attentions, BERT's shape, padded widths 32-128 and D no
+                 multiple of 8, causal with Sq != Sk both ways,
+                 zero-length rows, Sk above one backward block) and a
+                 misaligned q, the forward at every plan it takes,
+                 against the bf16 plain versions (BF16_RTOL,
+                 BF16_OUT_ATOL, BF16_GRAD_ATOL) and float64 (at most
+                 BF16_F64_RATIO x the plain version's distance), two
+                 launches bit-identical; LayerNorm with fp32 and bf16
+                 gamma / beta at every width above (LN_BF16_TOL);
+                 timed at the serving and training shapes and LN_TIMED
+                 beside SDPA and `F.layer_norm` in bf16.
   2b. conv1x1  — the conv1x1 + BN-stats kernel, fp32 and bf16, against a
                  float64 evaluation on the card at the probe's four
                  ResNet-50 shapes (batch 128) and an odd shape (fp32 also
@@ -135,6 +149,10 @@ Phases (any failure raises and the script exits non-zero):
                  its plain version and float64 autograd, dK / dV exactly
                  0 past each length; the forward, the kernel pair, each
                  kernel and SDPA timed there (the rows' `per_shape`).
+ 10b. bert attention, bf16 — the same shape in bf16: the bf16 kernels
+                 against their plain versions and float64, then timed
+                 beside SDPA in bf16 (the dQ kernel's row, `per_shape`
+                 of the others).
  11. bert train — examples/bert_pretrain.py's Gluon loop on full-width
                  `BERTForPretraining(bert_base(max_length=512,
                  dropout=0.0))`, fp32, `initialize(ctx=mx.gpu(0))` after
@@ -147,10 +165,28 @@ Phases (any failure raises and the script exits non-zero):
                  12 dQ backward kernels and 26 LayerNorms. Tokens/s (B*S
                  over each step's wall time, steps 3-10) and its spread,
                  peak memory, then one step under torch.profiler.
+ 11b. bert train, bf16 — phase 11 as bench_bert.py builds it: the same
+                 weights, `model.cast("bfloat16")`, SGD lr 1e-3 momentum
+                 0.9 through `gluon.Trainer` (bf16 weights and momentum),
+                 the losses on logits cast to fp32, the batch-mean
+                 loss's gradient as it is; every step must launch 12
+                 bf16 flash forwards, 12 bf16 fused and 12 bf16 dQ
+                 kernels, 26 bf16 LayerNorms and no fp32 form; the loss
+                 finite and falling. Tokens/s and its spread, peak
+                 memory and one profiled step (busy, GEMM and port
+                 kernels' shares) beside phase 11's, with the state of
+                 cuBLAS's reduced-precision bf16 reductions.
  12. bert card vs CPU — phase 11's initial weights, cut to 2 layers at
                  full width, one step at B=2, S=512, lengths (300, 512)
                  on the card and on the CPU: the loss and every gradient
                  within phase 6's limits.
+ 12b. bert card vs CPU, bf16 — phase 12's weights cast to bf16, one Adam
+                 step with multi_precision=True on the card and on the
+                 CPU, each held against the fp32 step on the CPU: the
+                 card's loss and gradients no further from it than
+                 BF16_F64_RATIO x the CPU bf16 step's distance (plus one
+                 bf16 ulp); every fp32 master Adam's first update of its
+                 own gradient and every weight its master rounded.
  13. long context — examples/long_context.py at its full size (B=1,
                  S=2048, H=8, D=64, causal, fp32, numpy seed 0) on a
                  one-rank NCCL group (`kvstore.init_distributed`,
@@ -339,6 +375,41 @@ LC_RING = 4
 # grow to 13-19x the plain version's at S = 2048-4096
 F64_SWEEP_S = (512, 1024, 2048, 4096)
 
+# The bfloat16 kernels against their bf16 plain versions: both round at
+# the JAX kernels' points, with fp32 sums in other orders. An output's one
+# rounding to bf16 may then land one bf16 ulp apart, at most 2^-7 of its
+# value (BF16_RTOL). The forward also rounds P to bf16 (2^-9 relative)
+# after exp(s - a running max) in the kernel but exp(s - the row's max)
+# in the plain version, which moves out by at most 2 * 2^-9 * sum(p
+# |v|) / l <= 2^-8 max|V| (BF16_OUT_ATOL, times each (b, h) slice's
+# max|V|); the backward's p = exp(s - lse) is the same in both, so its
+# roundings differ only where fp32 order moves a value across a bf16
+# rounding boundary: one ulp of an element of P or dS, at most 2^-7 of
+# the slice's largest gradient (BF16_GRAD_ATOL, times that value)
+BF16_RTOL = 2.0 ** -7
+BF16_OUT_ATOL = 2.0 ** -8
+BF16_GRAD_ATOL = 2.0 ** -7
+# and against float64: the same rounding points as the plain version, so
+# no further from float64 than BF16_F64_RATIO times the plain version's
+# distance, plus a floor of one bf16 ulp (2^-8 relative) of the largest
+# float64 value (a single rounding that lands the other way); lse is
+# fp32 in both, and its floor one fp32 ulp (2^-23) of the largest |lse|
+BF16_F64_RATIO = 2.0
+BF16_F64_FLOOR = 2.0 ** -8
+FP32_F64_FLOOR = 2.0 ** -23
+# the bf16 LayerNorm's y against its plain version: one rounding of an
+# fp32 value computed in another order (BF16_RTOL), and for y near 0 the
+# fp32 part of LN_TOL's absolute limit; mean and rstd are fp32 (LN_TOL)
+LN_BF16_TOL = dict(rtol=BF16_RTOL, atol=LN_TOL["atol"])
+# phase 11b: bench_bert.py's optimizer (SGD, lr 1e-3, momentum 0.9,
+# bench_bert.py:68) on the bf16 model, its loss on logits cast to fp32
+BERT_BF16_LR, BERT_BF16_MOMENTUM = 1e-3, 0.9
+# phase 12b: a bf16 step on the card against one on the CPU, each held
+# against the fp32 step on the CPU from the same weights: the card's
+# distance from it at most BF16_F64_RATIO times the CPU's, plus one bf16
+# ulp (BF16_F64_FLOOR) of its scale
+BERT_MP_LR = 1e-4
+
 BOS, EOS = 2, 3
 
 
@@ -491,23 +562,29 @@ def _fwd_check(torch, K, q, k, v, causal, lens, what):
     return err, errs64, plain64
 
 
-def _fwd_plan_fns(K, q, k, v, causal, scale, vl):
-    """The forward kernel at other plans than `flash_fwd_plan`'s (rw row
-    warps x ks key-split warps of bk-key tiles), to check and time
-    beside its choice."""
+def _fwd_plans(K, q, k):
+    """{name: plan} of the forward kernel at other plans than
+    `flash_fwd_plan`'s (rw row warps x ks key-split warps of bk-key
+    tiles) that fit a block, in q's dtype."""
     b, h, sq, d = q.shape
-    plan = K.flash_fwd_plan(b * h, sq, k.shape[2], d)
-    fns = {}
+    plan = K.flash_fwd_plan(b * h, sq, k.shape[2], d, q.dtype)
+    plans = {}
     for rw, ks, bk in ((4, 1, 32), (4, 1, 16), (2, 2, 32), (2, 4, 16),
                        (1, 4, 32), (1, 8, 16), (1, 4, 16)):
-        smem = 4 * (16 * rw + 4 * ks * bk) * (plan["dp"] + 4)
+        smem = K.flash_fwd_smem(rw, ks, bk, plan["dp"], q.dtype)
         if smem > 227 * 1024:
             continue                  # more than a block's memory
-        p = dict(plan, rw=rw, ks=ks, bk=bk, warps=rw * ks, rows=16 * rw,
-                 smem=smem)
-        fns[f"rw{rw}_ks{ks}_bk{bk}"] = (
-            lambda p=p: K._flash_cuda(q, k, v, causal, scale, vl, p))
-    return fns
+        plans[f"rw{rw}_ks{ks}_bk{bk}"] = dict(
+            plan, rw=rw, ks=ks, bk=bk, warps=rw * ks, rows=16 * rw,
+            smem=smem)
+    return plans
+
+
+def _fwd_plan_fns(K, q, k, v, causal, scale, vl):
+    """The forward kernel at each of `_fwd_plans`, to check and time
+    beside its choice."""
+    return {name: (lambda p=p: K._flash_cuda(q, k, v, causal, scale, vl, p))
+            for name, p in _fwd_plans(K, q, k).items()}
 
 
 def _fwd_bound(b, h, sq, d, ends_sum, pairs):
@@ -1710,6 +1787,439 @@ def phase_ln(mx, torch):
                                        "call_ms")})
 
 
+# ---------------------------------------------------------------------------
+# the bfloat16 forms of the flash and LayerNorm kernels (phase 2, bf16)
+# ---------------------------------------------------------------------------
+def _bf16_share(torch, got, ref, atol):
+    """The largest share of the limit BF16_RTOL * |ref| + atol (a number
+    or a tensor broadcast against ref) that |got - ref| takes."""
+    err = (got.float() - ref.float()).abs()
+    return (err / (BF16_RTOL * ref.float().abs() + atol)).max().item()
+
+
+def _slice_max(t):
+    """Each (b, h) slice's largest |value|, at least the smallest normal
+    fp32 (so a limit scaled by it is never 0)."""
+    return t.float().abs().amax(dim=(-2, -1), keepdim=True).clamp_min(
+        1.17549435e-38)
+
+
+def _bf16_qkv(torch, g, b, h, sq, sk, d, n=3):
+    dev = torch.device("cuda", 0)
+    shapes = [(b, h, sq, d), (b, h, sk, d), (b, h, sk, d), (b, h, sq, d)]
+    return [torch.randn(shape, generator=g).to(dev).to(torch.bfloat16)
+            for shape in shapes[:n]]
+
+
+def _bf16_f64_check(name, e64, p64, scale, what, floor=BF16_F64_FLOOR):
+    check(e64 <= BF16_F64_RATIO * p64 + floor * scale,
+          f"bf16 {name} {e64} from float64, more than {BF16_F64_RATIO}x the "
+          f"plain version's {p64} + {floor} x {scale} at {what}")
+
+
+def _bf16_fwd_check(torch, K, q, k, v, causal, lens, what, plan=None):
+    """The bf16 forward kernel (as `flash_fwd_plan` says, or at `plan`)
+    against `_flash_plain` in bf16 (BF16_RTOL, BF16_OUT_ATOL x each
+    slice's max|V|; lse FLASH_TOL) and, at its own plan, float64
+    (BF16_F64_RATIO), two launches bit-identical, a zero-length row
+    exactly 0. Returns (max abs error, share of the limit, float64
+    distances, the plain version's; None at another plan)."""
+    own = plan is None
+    d = q.shape[-1]
+    scale = d ** -0.5
+    vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=q.device)
+    plan = plan or K.flash_fwd_plan(q.shape[0] * q.shape[1], q.shape[2],
+                                    k.shape[2], d, q.dtype)
+    out, lse = K._flash_cuda(q, k, v, causal, scale, vl, plan)
+    out2, lse2 = K._flash_cuda(q, k, v, causal, scale, vl, plan)
+    ref, ref_lse = K._flash_plain(q, k, v, causal, scale, vl)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16 and lse.dtype == torch.float32,
+          f"bf16 flash output dtypes {out.dtype}, {lse.dtype}")
+    check(torch.isfinite(out).all().item(), f"bf16 flash {what} not finite")
+    check(torch.equal(out, out2) and torch.equal(lse, lse2),
+          f"bf16 flash {what}: two launches gave other bits")
+    err = (out.float() - ref.float()).abs().max().item()
+    share = _bf16_share(torch, out, ref, BF16_OUT_ATOL * _slice_max(v))
+    check(share <= 1.0, f"bf16 flash kernel vs plain at {what}: max abs "
+                        f"err {err}, {share:.3f} of the limit")
+    check(torch.allclose(lse, ref_lse, **FLASH_TOL),
+          f"bf16 flash lse vs plain at {what}: max abs err "
+          f"{(lse - ref_lse).abs().max().item()}")
+    for bi, n in enumerate(lens or []):
+        if n == 0:
+            check(out[bi].abs().max().item() == 0.0,
+                  f"a zero-length row must be zeros at {what}")
+    if not own:
+        return err, share, None, None
+    o64, l64, live = _attention_f64(torch, q, k, v, causal, scale, lens)
+    e64 = {"out": (out.cpu().double() - o64).abs().max().item(),
+           "lse": (lse.cpu().double() - l64)[live].abs().max().item()}
+    p64 = {"out": (ref.cpu().double() - o64).abs().max().item(),
+           "lse": (ref_lse.cpu().double() - l64)[live].abs().max().item()}
+    _bf16_f64_check("out", e64["out"], p64["out"], o64.abs().max().item(),
+                    what)
+    _bf16_f64_check("lse", e64["lse"], p64["lse"],
+                    l64[live].abs().max().item(), what, FP32_F64_FLOOR)
+    return err, share, e64, p64
+
+
+def _bf16_bwd_check(torch, K, q, k, v, do, causal, lens, what):
+    """The bf16 backward kernels (`flash_attention_bwd` as
+    `flash_bwd_plan` says) from the bf16 forward kernel's lse against
+    `_flash_bwd_plain` in bf16 (BF16_RTOL, BF16_GRAD_ATOL x each slice's
+    largest gradient) and float64 autograd (BF16_F64_RATIO), a repeated
+    launch bit-identical, dK / dV exactly 0 past each length, and only
+    the bf16 counters moving. Returns ({name: max abs err}, {name: share
+    of the limit}, float64 distances, the plain version's)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d ** -0.5
+    vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=q.device)
+    path = K.flash_bwd_plan(sk, d, q.dtype)["path"]
+    out, lse = K.flash_attention_fwd(q, k, v, causal, scale, vl)
+    delta = (out.float() * do.float()).sum(-1).reshape(b * h, sq)
+    before = dict(K.LAUNCHES)
+    got = K.flash_attention_bwd(q, k, v, do, lse, delta, causal, scale, vl)
+    again = K.flash_attention_bwd(q, k, v, do, lse, delta, causal, scale,
+                                  vl)
+    refs = K._flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, vl)
+    torch.cuda.synchronize()
+    counts = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_bwd_bf16=2,
+                flash_bwd_dq_bf16=2 * (path == "split"))
+    check(counts == want, f"bf16 bwd {what}: launches {counts} != {want}")
+    check(all(torch.equal(a, r) for a, r in zip(got, again)),
+          f"bf16 bwd {what}: a repeated launch gave other bits")
+    errs, shares, e64, p64 = {}, {}, {}, {}
+    refs64 = _attention_grads_f64(torch, q, k, v, do, causal, scale, lens)
+    for name, g, ref, r64 in zip(("dq", "dk", "dv"), got, refs, refs64):
+        check(g.dtype == torch.bfloat16 and torch.isfinite(g).all().item(),
+              f"bf16 {name} at {what}: dtype {g.dtype} or not finite")
+        errs[name] = (g.float() - ref.float()).abs().max().item()
+        shares[name] = _bf16_share(torch, g, ref,
+                                   BF16_GRAD_ATOL * _slice_max(ref))
+        check(shares[name] <= 1.0,
+              f"bf16 bwd {name} kernel vs plain at {what}: max abs err "
+              f"{errs[name]}, {shares[name]:.3f} of the limit")
+        e64[name] = (g.cpu().double() - r64).abs().max().item()
+        p64[name] = (ref.cpu().double() - r64).abs().max().item()
+        _bf16_f64_check(name, e64[name], p64[name],
+                        r64.abs().max().item(), what)
+    dk, dv = got[1], got[2]
+    for bi, n in enumerate(lens or []):
+        if n < sk:
+            check(dk[bi, :, n:].abs().max().item() == 0.0
+                  and dv[bi, :, n:].abs().max().item() == 0.0,
+                  f"bf16 dK/dV of keys past kv_len {n} must be exactly 0")
+    return errs, shares, e64, p64
+
+
+def _bf16_cases():
+    """(B, H, Sq, Sk, D, causal, kv_lengths) of the bf16 checks: the
+    serving prefill, the training step's three attentions, BERT's shape,
+    padded widths 32-128 and D no multiple of 8, causal with Sq != Sk
+    both ways, zero-length rows, and Sk above one backward block."""
+    g = np.random.RandomState(0)
+    bert = (4, BERT_H, BERT_S, BERT_S, 64, False,
+            [300, 384, 3, int(g.randint(256, 513))])
+    cases = [(1, 8, 128, 128, 64, False, [77]), *_train_attention_cases(),
+             bert, (2, 2, 48, 48, 128, False, [0, 48]),
+             (1, 2, 33, 33, 32, True, None),
+             (1, 4, 64, 200, 64, True, None),
+             (1, 4, 64, 200, 64, True, [150]),
+             (1, 4, 200, 64, 64, True, [40]),
+             (3, 2, 200, 200, 64, False, [0, 131, 200]),
+             (2, 2, 70, 90, 96, True, [0, 61]),
+             (2, 3, 100, 70, 32, False, [0, 70]),
+             (2, 2, 45, 45, 30, True, [45, 17]),
+             (1, 2, 50, 300, 18, False, [260]),
+             (2, 2, 130, 300, 64, True, [280, 300])]
+    for d in (32, 96, 128, 18, 30):
+        cases += [(2, 2, 512, 512, d, False, [300, 512]),
+                  (1, 2, 1024, 1024, d, True, None)]
+    return cases
+
+
+def _bf16_attention_times(torch, K, b, h, s, d, lens, backward=True):
+    """Device ms (CUDA-graph replay) of the bf16 kernels at (B, H, S, S,
+    D) with key lengths `lens`: the forward, the backward as planned,
+    its kernels alone, the plain versions and SDPA in bf16 (forward, and
+    backward as fwd+bwd - fwd), with the bounds of this run's data: the
+    live (q, k) pairs only, every bf16 array read or written once, fp32
+    lse / delta, at the bf16 tensor-core peak."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
+    vl = torch.tensor(lens, dtype=torch.int32, device=q.device)
+    scale = d ** -0.5
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < vl[:, None].long())[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out, lse = K.flash_attention_fwd(q, k, v, kv_lengths=vl)
+    delta = (out.float() * do.float()).sum(-1).reshape(b * h, s)
+    args = (q, k, v, do, lse, delta, False, scale, vl)
+    plan = K.flash_bwd_plan(s, d, torch.bfloat16)
+    fns = {"fwd": lambda: K.flash_attention_fwd(q, k, v, kv_lengths=vl),
+           "fwd_plain": lambda: K._flash_plain(q, k, v, False, scale, vl),
+           "sdpa_fwd": lambda: sdpa(q, k, v, attn_mask=mask)}
+    if backward:
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(qg, kg, vg, attn_mask=mask),
+                                (qg, kg, vg), do)
+        fns.update(
+            bwd=lambda: K.flash_attention_bwd(*args),
+            fused=lambda: K._flash_bwd_fused_cuda(*args, plan),
+            bwd_plain=lambda: K._flash_bwd_plain(*args),
+            sdpa_fwd_bwd=sdpa_fwd_bwd)
+        if plan["path"] == "split":
+            fns["dq"] = lambda: K._flash_bwd_dq_cuda(*args, plan)
+    dev_ms = {name: graph_ms(fn, calls=5, iters=10)
+              for name, fn in fns.items()}
+    call_ms = {name: cuda_ms(fns[name]) for name in ("fwd", "fused")
+               if name in fns}
+    live = sum(min(n, s) for n in lens)
+    pairs = h * s * live
+    rows_q = 2 * b * h * s * d            # bytes of one bf16 (B, H, S, D)
+    rows_kv = 2 * h * live * d            # bytes of the live K (or V) rows
+    stats = 4 * b * h * s                 # bytes of lse (or delta)
+    reads = 2 * rows_q + 2 * rows_kv + 2 * stats + 4 * b
+    bounds = {"fwd": bound(2 * rows_q + 2 * rows_kv + stats + 4 * b,
+                           4 * pairs * d, PEAK_BF16_FLOPS)}
+    if backward:
+        if plan["path"] == "fused":
+            bounds["fused"] = bound(reads + 3 * rows_q, 10 * pairs * d,
+                                    PEAK_BF16_FLOPS)
+        else:
+            bounds["fused"] = bound(reads + 2 * rows_q, 8 * pairs * d,
+                                    PEAK_BF16_FLOPS)
+            bounds["dq"] = bound(reads + rows_q, 6 * pairs * d,
+                                 PEAK_BF16_FLOPS)
+        bounds["bwd"] = bound(reads + 3 * rows_q, 10 * pairs * d,
+                              PEAK_BF16_FLOPS)
+        dev_ms["sdpa_bwd"] = dev_ms["sdpa_fwd_bwd"] - dev_ms["sdpa_fwd"]
+    tflops = {name: f * pairs * d / (dev_ms[name] * 1e-3) / 1e12
+              for name, f in (("fwd", 4), ("bwd", 10), ("fused", 8),
+                              ("dq", 6)) if name in dev_ms}
+    log(f"bf16 flash timed {(b, h, s, d)} lens {lens[:4]}...: plans fwd "
+        f"{K.flash_fwd_plan(b * h, s, s, d, torch.bfloat16)} bwd {plan}; "
+        f"device (CUDA graph) {dev_ms}; per call {call_ms}; bounds "
+        f"{bounds}; achieved TFLOP/s {tflops}; forward / SDPA forward "
+        f"{dev_ms['fwd'] / dev_ms['sdpa_fwd']:.3f}"
+        + (f"; backward / SDPA backward "
+           f"{dev_ms['bwd'] / dev_ms['sdpa_bwd']:.3f}" if backward else ""))
+    return dev_ms, call_ms, bounds
+
+
+def phase_flash_bf16(mx, torch):
+    """The bfloat16 flash kernels against their bf16 plain versions and
+    float64 on `_bf16_cases` (the forward at every plan it takes, the
+    backward on the path `flash_bwd_plan` gives: fused, or the fused
+    kernel for dK / dV and then the dQ kernel), two launches
+    bit-identical, and a misaligned q (element-by-element copies). Then
+    timed: the forward at the serving prefill (its row) and the training
+    shape, the fused backward at the training shape (its row); the dQ
+    kernel's row is filled at BERT's shape by
+    `phase_bert_attention_bf16`. Returns the three rows."""
+    K = mx.ops.kernels
+    g = torch.Generator(device="cpu").manual_seed(10)
+    worst = {"flash_fwd_bf16": 0.0, "flash_bwd_bf16": 0.0,
+             "flash_bwd_dq_bf16": 0.0}
+    for b, h, sq, sk, d, causal, lens in _bf16_cases():
+        q, k, v, do = _bf16_qkv(torch, g, b, h, sq, sk, d, 4)
+        what = f"{(b, h, sq, sk, d)} causal={causal} lens=" \
+               f"{None if lens is None else lens[:4]}"
+        err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, causal,
+                                               lens, what)
+        shares = [share]
+        for name, p in _fwd_plans(K, q, k).items():
+            err_p, share_p, _, _ = _bf16_fwd_check(torch, K, q, k, v, causal,
+                                                   lens, f"{what} {name}", p)
+            err, shares = max(err, err_p), shares + [share_p]
+        worst["flash_fwd_bf16"] = max(worst["flash_fwd_bf16"], err)
+        berrs, bshares, be64, bp64 = _bf16_bwd_check(torch, K, q, k, v, do,
+                                                     causal, lens, what)
+        split = K.flash_bwd_plan(sk, d, torch.bfloat16)["path"] == "split"
+        worst["flash_bwd_bf16"] = max(worst["flash_bwd_bf16"], berrs["dk"],
+                                      berrs["dv"],
+                                      0.0 if split else berrs["dq"])
+        if split:
+            worst["flash_bwd_dq_bf16"] = max(worst["flash_bwd_dq_bf16"],
+                                             berrs["dq"])
+        log(f"bf16 flash {what}: forward max abs err {err:.3e}, at most "
+            f"{max(shares):.3f} of the limit over {len(shares)} plans; vs "
+            f"float64 {e64} (plain {p64}); backward "
+            f"({'split' if split else 'fused'}) max abs err {berrs}, "
+            f"shares {bshares}; vs float64 {be64} (plain {bp64}); repeats "
+            f"bit-identical")
+    b, h, s, d = 2, 2, 100, 64
+    base = torch.randn(b * h * s * d + 1, generator=g).to(
+        torch.device("cuda", 0)).to(torch.bfloat16)
+    q = base[1:].view(b, h, s, d)
+    _, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
+    check(q.is_contiguous() and q.data_ptr() % 16 != 0
+          and K._vec_copies(d, q, k, v) == 0, "q not misaligned")
+    err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, False,
+                                           [70, 100], "misaligned q")
+    berrs, bshares, _, _ = _bf16_bwd_check(torch, K, q, k, v, do, False,
+                                           [70, 100], "misaligned q")
+    log(f"bf16 flash misaligned q {(b, h, s, s, d)}: forward {err:.3e} "
+        f"({share:.3f} of the limit), vs float64 {e64} (plain {p64}); "
+        f"backward {berrs} (shares {bshares})")
+
+    src_f = "mxnet_tpu_torch/ops/csrc/flash_fwd.cu"
+    src_b = "mxnet_tpu_torch/ops/csrc/flash_bwd.cu"
+    serve, serve_call, serve_b = _bf16_attention_times(
+        torch, K, 1, 8, 128, 64, [77], backward=False)
+    tb, th, ts, _, td, _, tl = _train_attention_cases()[1]
+    train, train_call, train_b = _bf16_attention_times(torch, K, tb, th, ts,
+                                                       td, tl)
+    fwd_row = dict(
+        name="flash_fwd_bf16", route="cuda", source=src_f,
+        replaces="mxnet_tpu/ops/pallas_kernels.py:219",
+        max_abs_err=worst["flash_fwd_bf16"], ms=serve["fwd"],
+        plain_ms=serve["fwd_plain"], bound_ms=serve_b["fwd"][0],
+        bound_by=serve_b["fwd"][1], library_ms=serve["sdpa_fwd"],
+        call_ms=serve_call["fwd"],
+        per_shape=[dict(shape=[tb, th, ts, ts, td], lens=tl,
+                        ms=train["fwd"], plain_ms=train["fwd_plain"],
+                        bound_ms=train_b["fwd"][0],
+                        bound_by=train_b["fwd"][1],
+                        library_ms=train["sdpa_fwd"])])
+    bwd_row = dict(
+        name="flash_bwd_bf16", route="cuda", source=src_b,
+        replaces="mxnet_tpu/ops/pallas_kernels.py:417",
+        max_abs_err=worst["flash_bwd_bf16"], ms=train["fused"],
+        plain_ms=train["bwd_plain"], bound_ms=train_b["fused"][0],
+        bound_by=train_b["fused"][1], library_ms=train["sdpa_bwd"],
+        call_ms=train_call["fused"])
+    dq_row = dict(
+        name="flash_bwd_dq_bf16", route="cuda", source=src_b,
+        replaces="mxnet_tpu/ops/pallas_kernels.py:484",
+        max_abs_err=worst["flash_bwd_dq_bf16"], library_ms=None)
+    return [fwd_row, bwd_row, dq_row]
+
+
+def phase_ln_bf16(mx, torch):
+    """The bf16 LayerNorm kernel against `_ln_plain` (y LN_BF16_TOL, mean
+    and rstd LN_TOL) with gamma / beta in fp32 and in bf16, at every
+    width of `phase_ln` and its edge shapes, two launches bit-identical;
+    timed with bf16 gamma / beta (as `Block.cast` leaves them) at
+    LN_TIMED beside `F.layer_norm` in bf16, BERT's shape (8192, 768)
+    the row's own."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(13)
+    worst = 0.0
+    for rows, d in [*LN_TIMED, (7, 512), (1, 512), (4099, 512), (7, 768),
+                    (1, 1024), (13, 200), (1000, 1032), (3, 8192),
+                    (1, 33)]:
+        for gdt in (torch.float32, torch.bfloat16):
+            x = (3 * torch.randn((rows, d), generator=g) + 1).to(dev).to(
+                torch.bfloat16)
+            ga, be = (torch.randn(d, generator=g).to(dev).to(gdt)
+                      for _ in range(2))
+            got = K.layer_norm_fwd(x, ga, be, 1e-5)
+            again = K.layer_norm_fwd(x, ga, be, 1e-5)
+            ref = K._ln_plain(x, ga, be, 1e-5)
+            torch.cuda.synchronize()
+            check(got[0].dtype == torch.bfloat16
+                  and all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"bf16 layer norm ({rows}, {d}): dtype {got[0].dtype} or "
+                  f"two launches gave other bits")
+            errs = [(a.float() - r.float()).abs().max().item()
+                    for a, r in zip(got, ref)]
+            check(torch.allclose(got[0].float(), ref[0].float(),
+                                 **LN_BF16_TOL)
+                  and all(torch.allclose(a, r, **LN_TOL)
+                          for a, r in zip(got[1:], ref[1:])),
+                  f"bf16 layer norm kernel vs plain at ({rows}, {d}) gamma "
+                  f"{gdt}: max abs errs (y, mean, rstd) {errs}")
+            worst = max(worst, *errs)
+            log(f"bf16 layer norm ({rows}, {d}) gamma {gdt}: max abs err "
+                f"(y, mean, rstd) {errs} (y rtol={LN_BF16_TOL['rtol']} "
+                f"atol={LN_BF16_TOL['atol']}; mean, rstd LN_TOL); repeat "
+                f"bit-identical")
+    per_shape = []
+    for rows, d in LN_TIMED:
+        x = torch.randn((rows, d), generator=g).to(dev).to(torch.bfloat16)
+        ga, be = (torch.randn(d, generator=g).to(dev).to(torch.bfloat16)
+                  for _ in range(2))
+        fns = {"kernel": lambda: K.layer_norm_fwd(x, ga, be, 1e-5),
+               "plain": lambda: K._ln_plain(x, ga, be, 1e-5),
+               "torch": lambda: torch.nn.functional.layer_norm(
+                   x, (d,), ga, be, 1e-5)}
+        call = cuda_ms(fns["kernel"])
+        dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
+        # bf16 x and y once each, gamma and beta, fp32 mean and rstd
+        bms, by = bound(2 * (2 * rows * d + 2 * d) + 4 * 2 * rows,
+                        8 * rows * d)
+        per_shape.append(dict(shape=[rows, d], ms=dev_ms["kernel"],
+                              plain_ms=dev_ms["plain"],
+                              library_ms=dev_ms["torch"], bound_ms=bms,
+                              bound_by=by, call_ms=call))
+        log(f"bf16 layer norm ({rows}, {d}): device (CUDA graph) {dev_ms}; "
+            f"per call {call:.5f}; bound {bms:.6f} ms ({by}); kernel / "
+            f"bound {dev_ms['kernel'] / bms:.2f}, kernel / F.layer_norm "
+            f"{dev_ms['kernel'] / dev_ms['torch']:.3f}")
+    top = next(r for r in per_shape if r["shape"] == [BERT_B * BERT_S, 768])
+    return dict(name="layer_norm_bf16", route="cuda",
+                source="mxnet_tpu_torch/ops/csrc/layer_norm.cu",
+                replaces="mxnet_tpu/ops/pallas_kernels.py:1209",
+                max_abs_err=worst,
+                per_shape=[r for r in per_shape if r is not top],
+                **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "call_ms")})
+
+
+def fp32_kernel_times(mx, torch):
+    """{"<kernel> <shape>": device ms by CUDA-graph replay} of the fp32
+    flash and LayerNorm kernels at their paths' shapes: the forward at
+    the serving prefill, the training shape and BERT's; the fused
+    backward at the training shape and, with the dQ kernel, at BERT's;
+    LayerNorm at the training and BERT shapes. It calls only entries
+    that earlier packages have too, so another checkout's package is
+    measured the same way (`chip_train_ab.py --phase fp32`)."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    times = {}
+    train = _train_attention_cases()[1]
+    for tag, (b, h, s, d, lens) in (
+            ("serving", (1, 8, 128, 64, [77])),
+            ("training", (train[0], train[1], train[2], train[4],
+                          train[6])),
+            ("bert", (BERT_B, BERT_H, BERT_S, 64, _bert_lengths(BERT_B)))):
+        q, k, v, do = [torch.randn((b, h, s, d), generator=g).to(dev)
+                       for _ in range(4)]
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        times[f"flash_fwd {tag}"] = graph_ms(
+            lambda: K.flash_attention_fwd(q, k, v, kv_lengths=vl), calls=5,
+            iters=10)
+        if tag == "serving":
+            continue
+        out, lse = K.flash_attention_fwd(q, k, v, kv_lengths=vl)
+        delta = (out * do).sum(-1).reshape(b * h, s)
+        args = (q, k, v, do, lse, delta, False, d ** -0.5, vl)
+        plan = K.flash_bwd_plan(s, d)
+        times[f"flash_bwd {tag}"] = graph_ms(
+            lambda: K._flash_bwd_fused_cuda(*args, plan), calls=5, iters=10)
+        if plan["path"] == "split":
+            times[f"flash_bwd_dq {tag}"] = graph_ms(
+                lambda: K._flash_bwd_dq_cuda(*args, plan), calls=5,
+                iters=10)
+    for rows, d in LN_TIMED[:2]:
+        x, ga, be = [torch.randn(shape, generator=g).to(dev)
+                     for shape in ((rows, d), (d,), (d,))]
+        times[f"layer_norm ({rows}, {d})"] = graph_ms(
+            lambda: K.layer_norm_fwd(x, ga, be, 1e-5))
+    return times
+
+
 def _train_batch(mx, b, s, ctx):
     """One fixed batch from numpy seed 0: source and target tokens,
     labels, and source lengths 16..s (all of them s when s < 16)."""
@@ -2432,17 +2942,22 @@ def _bert_batch(mx, b, s, ctx, lens=None):
             for a in (tok, seg, vl, pos, mlm_y, nsp_y)]
 
 
-def _bert_step(mx, model, trainer, ce, batch):
+def _bert_step(mx, model, trainer, ce, batch, bench=False):
     """examples/bert_pretrain.py's step: the MLM and NSP cross-entropies,
-    backward, and (with a trainer) an update."""
+    backward, and (with a trainer) an update with rescale_grad 1/B. With
+    `bench`, bench_bert.py's: the losses on the logits cast to fp32
+    (bench_bert.py:60-61), and the update on the batch-mean loss's
+    gradient as it is (rescale_grad 1)."""
     tok, seg, vl, pos, mlm_y, nsp_y = batch
     with mx.autograd.record():
         mlm, nsp = model(tok, seg, vl, pos)
+        if bench:
+            mlm, nsp = mlm.astype("float32"), nsp.astype("float32")
         loss = ce(mlm.reshape((-1, BERT_VOCAB)),
                   mlm_y.reshape((-1,))).mean() + ce(nsp, nsp_y).mean()
     loss.backward()
     if trainer is not None:
-        trainer.step(tok.shape[0])
+        trainer.step(1 if bench else tok.shape[0])
     return loss
 
 
@@ -2458,6 +2973,75 @@ def _bert_pretraining(mx, num_layers=None):
     return mx.models.BERTForPretraining(bert)
 
 
+def _bert_train_loop(mx, torch, model, trainer, batch, bench):
+    """BERT_STEPS steps of `_bert_step` on one batch, counters zeroed
+    just before: (losses, each step's launches, each step's wall
+    seconds, all launches)."""
+    K = mx.ops.kernels
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, per_step, step_s = [], [], []
+    for _ in range(BERT_STEPS):
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        losses.append(_bert_step(mx, model, trainer, ce, batch,
+                                 bench)._data.detach())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({k: K.LAUNCHES[k] - before[k] for k in before})
+    return [float(x) for x in losses], per_step, step_s, dict(K.LAUNCHES)
+
+
+def _bert_train_report(mx, torch, tag, model, trainer, batch, bench, losses,
+                       per_step, step_s, launches, want, **extra):
+    """Check a BERT training run (finite and falling loss, `want`
+    launches every step, parameters and gradients on the card), log its
+    summary (tokens/s as B * S a step over the wall time of steps 3 on,
+    the per-step spread, peak memory) and profile one more step: busy
+    share, the GEMM and port kernels' shares and rows."""
+    check(all(np.isfinite(losses)), f"non-finite {tag} loss: {losses}")
+    check(losses[-1] < losses[0], f"{tag} loss did not fall: {losses}")
+    for i, counts in enumerate(per_step):
+        check(counts == want, f"{tag} step {i + 1} launches {counts} != "
+                              f"{want}")
+    for name, p in model._collect_params_with_prefix().items():
+        check(p.data()._data.is_cuda and p.grad()._data.is_cuda,
+              f"{name} or its gradient is not on the card")
+    timed = step_s[2:]
+    tok_s = [BERT_B * BERT_S / t for t in timed]
+    summary = dict(params=sum(p.numel() for p in model.parameters()),
+                   batch=BERT_B, seq=BERT_S, masked=BERT_P,
+                   lengths=batch[2].asnumpy().tolist(), losses=losses,
+                   tokens_per_s=BERT_B * BERT_S * len(timed) / sum(timed),
+                   tokens_per_s_min=min(tok_s), tokens_per_s_max=max(tok_s),
+                   step_ms=[t * 1e3 for t in step_s], launches=launches,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   **extra)
+    log(f"{tag} " + json.dumps(summary))
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    prof = tag.replace("training", "profile")
+    got = device_profile(torch, lambda: _bert_step(mx, model, trainer, ce,
+                                                   batch, bench))
+    if got is not None:
+        log_profile(prof, *got, "1 training step")
+        busy = sum(r[0] for r in got[1])
+        for name, words in (("flash forward", ("flash_fwd",)),
+                            ("split backward", ("flash_bwd",)),
+                            ("LayerNorm", ("layer_norm",)),
+                            ("GEMM", ("gemm", "sgemm", "cutlass",
+                                      "nvjet"))):
+            us = sum(r[0] for r in got[1]
+                     if any(w in r[2].lower() for w in words))
+            log(f"{prof}: {name} {us / 1e3:.3f} ms, "
+                f"{100 * us / busy:.1f} % of device time")
+        for dev_us, count, key in got[1]:
+            if "flash" in key or "layer_norm" in key:
+                log(f"{prof}: port kernel {dev_us / 1e3:.3f} ms "
+                    f"{count}x {key[:70]}")
+
+
 def phase_bert_train(mx, torch, init_file):
     """examples/bert_pretrain.py's Gluon loop on full-width bert_base in
     fp32 at bench_bert.py's shape (B=16, S=512, 76 masked positions),
@@ -2467,77 +3051,114 @@ def phase_bert_train(mx, torch, init_file):
     the split path) and 2 x 12 + 2 LayerNorms. Tokens/s (B * S a step
     over the summed wall time of steps 3 on), the per-step spread, peak
     memory, then one step under torch.profiler. The initial weights go
-    to `init_file` for the card-vs-CPU phase."""
+    to `init_file` for the card-vs-CPU phases."""
     K = mx.ops.kernels
     mx.random.seed(0)
     model = _bert_pretraining(mx)
     model.initialize(ctx=mx.gpu(0))
     model.save_parameters(init_file)
-    n_params = sum(p.numel() for p in model.parameters())
     batch = _bert_batch(mx, BERT_B, BERT_S, mx.gpu(0))
     trainer = mx.gluon.Trainer(model.collect_params(), "adam",
                                {"learning_rate": 1e-4})
-    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    K.reset_launch_counts()
-    losses, per_step, step_s = [], [], []
-    for _ in range(BERT_STEPS):
-        before = dict(K.LAUNCHES)
-        t0 = time.perf_counter()
-        losses.append(_bert_step(mx, model, trainer, ce,
-                                 batch)._data.detach())
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        per_step.append({k: K.LAUNCHES[k] - before[k] for k in before})
-    launches = dict(K.LAUNCHES)
-
-    losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"non-finite BERT loss: {losses}")
-    check(losses[-1] < losses[0], f"BERT loss did not fall: {losses}")
+    losses, per_step, step_s, launches = _bert_train_loop(
+        mx, torch, model, trainer, batch, False)
     n = len(model.bert.encoder.layers)
     want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd=n, flash_bwd=n,
                 flash_bwd_dq=n, layer_norm=2 * n + 2)
-    for i, counts in enumerate(per_step):
-        check(counts == want, f"BERT step {i + 1} launches {counts} != "
-                              f"{want}")
-    for name, p in model._collect_params_with_prefix().items():
-        check(p.data()._data.is_cuda and p.grad()._data.is_cuda,
-              f"{name} or its gradient is not on the card")
-    # all the tokens of steps 3 on over all their wall time, as the
-    # other training phases count; the per-step rates give the spread
-    timed = step_s[2:]
-    tok_s = [BERT_B * BERT_S / t for t in timed]
-    summary = dict(params=n_params, batch=BERT_B, seq=BERT_S,
-                   masked=BERT_P, lengths=batch[2].asnumpy().tolist(),
-                   losses=losses,
-                   tokens_per_s=BERT_B * BERT_S * len(timed) / sum(timed),
-                   tokens_per_s_min=min(tok_s), tokens_per_s_max=max(tok_s),
-                   step_ms=[t * 1e3 for t in step_s], launches=launches,
-                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    log("bert training " + json.dumps(summary))
-
-    got = device_profile(torch, lambda: _bert_step(mx, model, trainer, ce,
-                                                   batch))
-    if got is not None:
-        log_profile("bert profile", *got, "1 training step")
-        busy = sum(r[0] for r in got[1])
-        for tag, words in (("flash forward", ("flash_fwd",)),
-                           ("split backward", ("flash_bwd",)),
-                           ("LayerNorm", ("layer_norm",)),
-                           ("GEMM", ("gemm", "sgemm", "cutlass"))):
-            us = sum(r[0] for r in got[1]
-                     if any(w in r[2].lower() for w in words))
-            log(f"bert profile: {tag} {us / 1e3:.3f} ms, "
-                f"{100 * us / busy:.1f} % of device time")
-        for dev_us, count, key in got[1]:
-            if "flash" in key or "layer_norm" in key:
-                log(f"bert profile: port kernel {dev_us / 1e3:.3f} ms "
-                    f"{count}x {key[:70]}")
+    _bert_train_report(mx, torch, "bert training", model, trainer, batch,
+                       False, losses, per_step, step_s, launches, want)
     del model, trainer, batch
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_bert_train_bf16(mx, torch):
+    """Phase 11 in bf16, as bench_bert.py builds it: the same
+    `bert_base` from `mx.random.seed(0)`, `model.cast("bfloat16")`, SGD
+    at lr 1e-3 with momentum 0.9 through `gluon.Trainer` (the weights
+    and the momentum in bf16, as bench_bert.py's make_sgd_step keeps
+    them), the MLM + NSP losses on logits cast to fp32, the update on
+    the batch-mean loss's gradient; BERT_STEPS steps on phase 11's
+    batch. Every step must launch the bf16 forms only: 12 flash
+    forwards, 12 fused and 12 dQ backward kernels, 2 x 12 + 2
+    LayerNorms. Logged beside phase 11: tokens/s and its spread, peak
+    memory, one profiled step."""
+    K = mx.ops.kernels
+    log(f"bf16: torch.backends.cuda.matmul."
+        f"allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    mx.random.seed(0)
+    model = _bert_pretraining(mx)
+    model.initialize(ctx=mx.gpu(0))
+    model.cast("bfloat16")
+    for name, p in model._collect_params_with_prefix().items():
+        check(p.data()._data.dtype == torch.bfloat16
+              and p.grad()._data.dtype == torch.bfloat16,
+              f"{name} not bf16 after cast")
+    batch = _bert_batch(mx, BERT_B, BERT_S, mx.gpu(0))
+    trainer = mx.gluon.Trainer(model.collect_params(), "sgd",
+                               {"learning_rate": BERT_BF16_LR,
+                                "momentum": BERT_BF16_MOMENTUM})
+    losses, per_step, step_s, launches = _bert_train_loop(
+        mx, torch, model, trainer, batch, True)
+    n = len(model.bert.encoder.layers)
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd_bf16=n,
+                flash_bwd_bf16=n, flash_bwd_dq_bf16=n,
+                layer_norm_bf16=2 * n + 2)
+    _bert_train_report(
+        mx, torch, "bert bf16 training", model, trainer, batch, True, losses,
+        per_step, step_s, launches, want, dtype="bfloat16",
+        optimizer=f"sgd lr {BERT_BF16_LR} momentum {BERT_BF16_MOMENTUM}")
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bert_attention_bf16(mx, torch, rows):
+    """Phase 10 in bf16: the bf16 kernels at BERT-base's attention shape
+    (B=16, H=12, S=512, D=64, `_bert_lengths`) against their bf16 plain
+    versions and float64 (`_bf16_fwd_check`, `_bf16_bwd_check`: the
+    split path), then timed there beside SDPA in bf16: the dQ kernel's
+    row, and `per_shape` entries of the forward's and the fused
+    kernel's rows."""
+    K = mx.ops.kernels
+    B, H, S, D = BERT_B, BERT_H, BERT_S, 64
+    lens = _bert_lengths(B)
+    g = torch.Generator(device="cpu").manual_seed(14)
+    q, k, v, do = _bf16_qkv(torch, g, B, H, S, S, D, 4)
+    what = f"bert {(B, H, S, D)}"
+    err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, False, lens,
+                                           what)
+    berrs, bshares, be64, bp64 = _bf16_bwd_check(torch, K, q, k, v, do,
+                                                 False, lens, what)
+    log(f"bf16 bert attention {(B, H, S, D)} lens {lens}: forward {err:.3e} "
+        f"({share:.3f} of the limit), vs float64 {e64} (plain {p64}); "
+        f"backward (split) {berrs} (shares {bshares}), vs float64 {be64} "
+        f"(plain {bp64})")
+    del q, k, v, do
+    dev_ms, call_ms, b_ = _bf16_attention_times(torch, K, B, H, S, D, lens)
+    shape = [B, H, S, S, D]
+    rows["flash_fwd_bf16"]["max_abs_err"] = max(
+        rows["flash_fwd_bf16"]["max_abs_err"], err)
+    rows["flash_fwd_bf16"]["per_shape"].append(dict(
+        shape=shape, lens=lens, ms=dev_ms["fwd"],
+        plain_ms=dev_ms["fwd_plain"], bound_ms=b_["fwd"][0],
+        bound_by=b_["fwd"][1], library_ms=dev_ms["sdpa_fwd"]))
+    rows["flash_bwd_bf16"]["max_abs_err"] = max(
+        rows["flash_bwd_bf16"]["max_abs_err"], berrs["dk"], berrs["dv"])
+    rows["flash_bwd_bf16"].setdefault("per_shape", []).append(dict(
+        shape=shape, lens=lens, path="split", ms=dev_ms["fused"],
+        bound_ms=b_["fused"][0], bound_by=b_["fused"][1],
+        pair_ms=dev_ms["bwd"], pair_bound_ms=b_["bwd"][0],
+        pair_bound_by=b_["bwd"][1], plain_ms=dev_ms["bwd_plain"],
+        library_ms=None, pair_library_ms=dev_ms["sdpa_bwd"]))
+    dq = rows["flash_bwd_dq_bf16"]
+    dq.update(max_abs_err=max(dq["max_abs_err"], berrs["dq"]),
+              ms=dev_ms["dq"], plain_ms=dev_ms["bwd_plain"],
+              bound_ms=b_["dq"][0], bound_by=b_["dq"][1],
+              shape=shape, pair_ms=dev_ms["bwd"],
+              pair_library_ms=dev_ms["sdpa_bwd"])
+    torch.cuda.empty_cache()
 
 
 def phase_bert_card_vs_cpu(mx, torch, init_file):
@@ -2582,6 +3203,99 @@ def phase_bert_card_vs_cpu(mx, torch, init_file):
         f"{TRAIN_GRAD_TOL['atol']} + {TRAIN_GRAD_TOL['rtol']} |cpu|; worst "
         f"{worst[1]} at {worst[0]:.3f} of its limit (max abs err "
         f"{worst[2]:.3e}); card launches {launches}")
+
+
+def _mp_step(mx, torch, ctx, init_file, bf16):
+    """One Adam step (BERT_MP_LR, multi_precision=True) of the 2-layer
+    full-width BERT from `init_file` on `ctx`, cast to bf16 or not, on
+    the B=2, S=512 batch with lengths (300, 512), the losses on logits
+    cast to fp32: (loss, {name: fp32 gradient on the CPU}, launches).
+    In bf16 each fp32 master must be its start (the weight as cast) plus
+    Adam's first update of the run's own gradient, -lr g / (|g| + eps),
+    evaluated in float64: fp32 rounds about 8 operations of the update
+    (1e-6 of lr) and the sum once (2^-23 of the master); and the weight
+    written back must be the master rounded to bf16, bit for bit."""
+    K = mx.ops.kernels
+    model = _bert_pretraining(mx, num_layers=2)
+    model.load_parameters(init_file, ctx=ctx, ignore_extra=True)
+    params = model._collect_params_with_prefix()
+    if bf16:
+        model.cast("bfloat16")
+    start = {n: p.data()._data.detach().double().cpu()
+             for n, p in params.items()}
+    trainer = mx.gluon.Trainer(model.collect_params(), "adam",
+                               {"learning_rate": BERT_MP_LR,
+                                "multi_precision": True})
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    K.reset_launch_counts()
+    loss = _bert_step(mx, model, trainer, ce,
+                      _bert_batch(mx, 2, BERT_S, ctx, lens=(300, 512)), True)
+    launches = dict(K.LAUNCHES)
+    index = {id(p): i for i, p in enumerate(trainer._params)}
+    grads = {n: p.grad()._data.float().cpu() for n, p in params.items()}
+    worst = (0.0, "")
+    for n, p in params.items():
+        if not bf16:
+            break
+        master = trainer._updater.states[index[id(p)]][0]._data.cpu()
+        check(master.dtype == torch.float32, f"{n}: master {master.dtype}")
+        g = grads[n].double()
+        want = start[n] - BERT_MP_LR * g / (g.abs() + 1e-8)
+        lim = 1e-6 * BERT_MP_LR + 2.0 ** -23 * want.abs()
+        share = ((master.double() - want).abs() / lim).max().item()
+        check(share <= 1.0, f"{n}: the master is not Adam's first update "
+                            f"of its gradient ({share:.3f} of the limit)")
+        check(torch.equal(p.data()._data.cpu(),
+                          master.to(torch.bfloat16)),
+              f"{n}: the bf16 weight is not its master rounded")
+        worst = max(worst, (share, n))
+    if bf16:
+        log(f"bert bf16 step on {ctx}: every master is Adam's first update "
+            f"of its own gradient (worst {worst[0]:.3f} of the limit, "
+            f"{worst[1]}), every weight its master rounded to bf16")
+    return float(loss.asnumpy()), grads, launches
+
+
+def phase_bert_card_vs_cpu_bf16(mx, torch, init_file):
+    """Phase 12 in bf16 with multi_precision: phase 11's initial weights
+    cut to 2 layers at full width, cast to bf16 after loading, one Adam
+    step (BERT_MP_LR, `multi_precision=True`: fp32 masters and states)
+    at B=2, S=512, lengths (300, 512), on the card and on the CPU, each
+    held against the same step in fp32 on the CPU: the card's loss and
+    every gradient no further from the fp32 step than BF16_F64_RATIO
+    times the CPU bf16 step's distance, plus BF16_F64_FLOOR of its scale
+    (in norm, each parameter; the loss as a number), so the card's bf16
+    step is as close to fp32 as the CPU's; every master and weight as
+    `_mp_step` holds them. The card must launch the bf16 forms only."""
+    K = mx.ops.kernels
+    card = _mp_step(mx, torch, mx.gpu(0), init_file, True)
+    cpu = _mp_step(mx, torch, mx.cpu(), init_file, True)
+    ref = _mp_step(mx, torch, mx.cpu(), init_file, False)
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd_bf16=2,
+                flash_bwd_bf16=2, flash_bwd_dq_bf16=2, layer_norm_bf16=6)
+    check(card[2] == want, f"BERT bf16 card step launches {card[2]} != "
+                           f"{want}")
+    check(np.isfinite(card[0]), f"BERT bf16 card loss {card[0]}")
+    d_card, d_cpu = abs(card[0] - ref[0]), abs(cpu[0] - ref[0])
+    check(d_card <= BF16_F64_RATIO * d_cpu + BF16_F64_FLOOR * abs(ref[0]),
+          f"BERT bf16 loss: card {card[0]}, cpu {cpu[0]}, fp32 {ref[0]}")
+    worst = (0.0, "", 0.0, 0.0)
+    for n, r in ref[1].items():
+        c, p = card[1][n], cpu[1][n]
+        scale = r.norm().item()
+        check(scale > 0, f"{n}: the fp32 gradient is 0")
+        dc = (c - r).norm().item() / scale
+        dp = (p - r).norm().item() / scale
+        lim = BF16_F64_RATIO * dp + BF16_F64_FLOOR
+        check(dc <= lim, f"BERT bf16 gradient of {n}: card {dc:.4e}, cpu "
+                         f"{dp:.4e} from the fp32 step (relative norms)")
+        worst = max(worst, (dc / lim, n, dc, dp))
+    log(f"bert bf16 card vs cpu (2 layers, B=2, S=512, lengths (300, 512), "
+        f"Adam multi_precision): loss card {card[0]:.6f}, cpu {cpu[0]:.6f}, "
+        f"fp32 {ref[0]:.6f}; all {len(ref[1])} gradients within "
+        f"{BF16_F64_RATIO}x the cpu bf16 step's distance from fp32 + "
+        f"{BF16_F64_FLOOR} (relative norms); worst (share of the limit, "
+        f"name, card, cpu) {worst}; card launches {card[2]}")
 
 
 def _free_port():
@@ -3043,7 +3757,8 @@ def main(argv=()):
     bwd_rows, long_launches = phase_flash_bwd(mx, torch)
     kernels = [phase_flash(mx, torch), phase_rpa(mx, torch),
                *phase_rpa_fastpath(mx, torch), *bwd_rows,
-               phase_ln(mx, torch), *phase_conv1x1(mx, torch)]
+               phase_ln(mx, torch), *phase_conv1x1(mx, torch),
+               *phase_flash_bf16(mx, torch), phase_ln_bf16(mx, torch)]
     rtc_row, rtc_launches = phase_rtc(mx, torch)
     kernels.append(rtc_row)
     model, srv, reqs, handles, serve_launches = phase_serve(mx, torch)
@@ -3064,10 +3779,14 @@ def main(argv=()):
         del net, images
         torch.cuda.empty_cache()
         phase_resnet_card_vs_cpu(mx, torch, resnet_init)
-        phase_bert_attention(mx, torch, {k["name"]: k for k in kernels})
+        by_name = {k["name"]: k for k in kernels}
+        phase_bert_attention(mx, torch, by_name)
+        phase_bert_attention_bf16(mx, torch, by_name)
         bert_init = os.path.join(tmp, "bert_base_init.params")
         bert_launches = phase_bert_train(mx, torch, bert_init)
+        bert_bf16_launches = phase_bert_train_bf16(mx, torch)
         phase_bert_card_vs_cpu(mx, torch, bert_init)
+        phase_bert_card_vs_cpu_bf16(mx, torch, bert_init)
     block_row, lc_launches = phase_long_context(mx, torch)
     kernels.append(block_row)
     for k in kernels:
@@ -3080,6 +3799,7 @@ def main(argv=()):
                    "resnet_train": resnet_launches[c],
                    "resnet_conv1x1": conv_launches[c],
                    "bert_train": bert_launches[c],
+                   "bert_train_bf16": bert_bf16_launches[c],
                    "long_context": lc_launches[c]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path

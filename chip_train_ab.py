@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time a training phase, or the paged kernels, of two checkouts on one
-card.
+"""Time a training phase, the paged kernels or the fp32 flash and
+LayerNorm kernels, of two checkouts on one card.
 
-    python3 chip_train_ab.py OTHER_CHECKOUT [--phase train|bert|rpa]
+    python3 chip_train_ab.py OTHER_CHECKOUT [--phase train|bert|rpa|fp32]
                              [--rounds N] [--log-dir DIR]
 
 Runs phase 1 (build) and one phase for OTHER_CHECKOUT and for the
@@ -24,6 +24,10 @@ time, and for bert the flash forward's share of that device time).
          serving shape and the long case, the 1-wide ones also at every
          slot of length 1 or 32 and at 32 slots, and the launch floor
          where the package builds the empty kernel; one line a run.
+  fp32   this checkout's `chip_smoke.fp32_kernel_times` on each side's
+         package: the fp32 flash forward, fused backward, dQ kernel and
+         LayerNorm at their paths' shapes (serving, training, BERT); one
+         line a run.
 Then the card's name and power limit, then one JSON line with every run
 and each side's medians. `--log-dir` keeps each run's whole output
 there. Exits non-zero without a CUDA device or when a run fails.
@@ -39,7 +43,8 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # one run: the phases of the chip_smoke.py at argv[3] (the checkout's own
-# for the training phases, this one's for rpa), the checkout's package
+# for the training phases, this one's for the kernel timings), the
+# checkout's package
 _RUN = """
 import importlib.util, json, os, sys, tempfile
 root, phase, smoke = sys.argv[1], sys.argv[2], sys.argv[3]
@@ -55,6 +60,10 @@ cs.phase_build(mx, torch)
 if phase == "rpa":
     print("rpa times " + json.dumps(cs.rpa_times(mx, torch)), flush=True)
     sys.exit(0)
+if phase == "fp32":
+    print("fp32 times " + json.dumps(cs.fp32_kernel_times(mx, torch)),
+          flush=True)
+    sys.exit(0)
 run = cs.phase_bert_train if phase == "bert" else cs.phase_train
 with tempfile.TemporaryDirectory() as tmp:
     run(mx, torch, os.path.join(tmp, "init.params"))
@@ -62,16 +71,19 @@ with tempfile.TemporaryDirectory() as tmp:
 # each phase's summary line and profile tag
 _TAGS = {"train": ("training ", "train profile"),
          "bert": ("bert training ", "bert profile"),
-         "rpa": ("rpa times ", None)}
+         "rpa": ("rpa times ", None), "fp32": ("fp32 times ", None)}
+# the phases that time kernels: a dict of ms a run, medians by key
+_KERNEL_PHASES = ("rpa", "fp32")
 _FLASH_SHARE = re.compile(r"^bert profile: flash forward ([0-9.]+) ms, "
                           r"([0-9.]+) % of device time")
 
 
 def run_once(root, phase, log_path):
     """(summary, profiled window ms, busy ms, flash forward share % or
-    None) of one run; for rpa the summary is `rpa_times`' dict and the
-    rest None."""
-    smoke = os.path.join(HERE if phase == "rpa" else root, "chip_smoke.py")
+    None) of one run; for the kernel phases the summary is the timing
+    function's dict and the rest None."""
+    smoke = os.path.join(HERE if phase in _KERNEL_PHASES else root,
+                         "chip_smoke.py")
     proc = subprocess.run([sys.executable, "-c", _RUN, root, phase, smoke],
                           cwd=root,
                           capture_output=True, text=True, timeout=900)
@@ -98,7 +110,7 @@ def run_once(root, phase, log_path):
     if summary is None:
         raise SystemExit(f"chip_train_ab: no {head.strip()} line from "
                          f"{root}")
-    if phase != "rpa" and "mean_step_ms" not in summary:   # bert
+    if phase not in _KERNEL_PHASES and "mean_step_ms" not in summary:
         timed = summary["step_ms"][2:]
         summary["mean_step_ms"] = sum(timed) / len(timed)
     return summary, window, busy, share
@@ -126,7 +138,7 @@ def main():
                 if args.log_dir else None)
             summary, window, busy, share = run_once(sides[side], args.phase,
                                                     log_path)
-            if args.phase == "rpa":
+            if args.phase in _KERNEL_PHASES:
                 runs.append(dict(side=side, ms=summary))
                 print(f"{side}: " + ", ".join(
                     f"{k} {v:.6f}" for k, v in summary.items()), flush=True)
@@ -146,7 +158,7 @@ def main():
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
           else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
-    if args.phase == "rpa":
+    if args.phase in _KERNEL_PHASES:
         median = {side: {k: statistics.median(r["ms"][k] for r in runs
                                                if r["side"] == side)
                          for k in next(r["ms"] for r in runs

@@ -20,6 +20,13 @@ touches JAX) — and returns a port `TransformerNMT` whose
 `encoder_weights()` / `decoder_weights()` hold the same values. Dense
 weights are `(out, in)` in both frameworks.
 
+The JAX package's bfloat16 arrays (after `model.cast("bfloat16")`) come
+over as numpy hands them out, ml_dtypes' bfloat16, and are read through
+their 16-bit patterns (`base.from_numpy`): this module imports neither
+JAX nor ml_dtypes. `load_jax_parameters` casts each value to its
+parameter's dtype (cast the port block first to keep bfloat16);
+`from_jax_weights` returns a bfloat16 model for bfloat16 snapshots.
+
 `from_jax_snapshot(weights)` carries one such snapshot, as numpy, into
 the port's snapshot layout directly — torch tensors in the same dict
 structure — and takes the int8 snapshots of the JAX package's
@@ -31,9 +38,8 @@ int8 snapshot.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from .base import MXNetError
+from .base import MXNetError, from_numpy
 from .context import resolve_device
 from .models.transformer import TransformerNMT
 
@@ -54,6 +60,11 @@ def load_jax_parameters(block, arrays, ctx=None):
     block._load_arrays(arrays, ctx, allow_missing=False, ignore_extra=False)
 
 
+def _as_f32(x):
+    """A float32 numpy copy of `x`, exact for a bfloat16 array."""
+    return from_numpy(x).float().numpy()
+
+
 def _stack_arrays(prefix, snaps, dense_keys, ln_keys):
     """(structural name -> array, LayerNorm epsilons in layer order)."""
     arrays, eps = {}, []
@@ -64,12 +75,12 @@ def _stack_arrays(prefix, snaps, dense_keys, ln_keys):
             if b is None:
                 raise MXNetError(f"dense {key!r} without a bias is not "
                                  f"supported")
-            arrays[base + path + ".weight"] = np.asarray(w, np.float32)
-            arrays[base + path + ".bias"] = np.asarray(b, np.float32)
+            arrays[base + path + ".weight"] = _as_f32(w)
+            arrays[base + path + ".bias"] = _as_f32(b)
         for key in ln_keys:
             g, b, e = snap[key]
-            arrays[base + key + ".gamma"] = np.asarray(g, np.float32)
-            arrays[base + key + ".beta"] = np.asarray(b, np.float32)
+            arrays[base + key + ".gamma"] = _as_f32(g)
+            arrays[base + key + ".beta"] = _as_f32(b)
             eps.append(float(e))
     return arrays, eps
 
@@ -81,8 +92,8 @@ def from_jax_weights(enc_w, dec_w, device=None):
     if "embed_scale" in dec_w or "embed_scale" in enc_w:
         raise MXNetError("an int8 weight snapshot has no fp32 weights to "
                          "build a model from; use from_jax_snapshot")
-    embed = np.asarray(dec_w["embed"], np.float32)
-    if not np.array_equal(embed, np.asarray(enc_w["embed"])):
+    embed = _as_f32(dec_w["embed"])
+    if not np.array_equal(embed, _as_f32(enc_w["embed"])):
         raise MXNetError("encoder and decoder snapshots must share the "
                          "tied embedding")
     vocab, units = embed.shape
@@ -90,7 +101,7 @@ def from_jax_weights(enc_w, dec_w, device=None):
     if len(enc_w["layers"]) != len(layers):
         raise MXNetError("encoder and decoder layer counts differ")
     hidden = np.asarray(layers[0]["ffn1"][0]).shape[0]
-    pos = np.asarray(dec_w["pos"], np.float32)
+    pos = _as_f32(dec_w["pos"])
     model = TransformerNMT(vocab, units=units, hidden=hidden,
                            num_layers=len(layers),
                            num_heads=int(dec_w["num_heads"]),
@@ -106,10 +117,12 @@ def from_jax_weights(enc_w, dec_w, device=None):
     for stack, snap_pos, eps, names in (
             (model.encoder, enc_w["pos"], enc_eps, ("ln1", "ln2")),
             (model.decoder, pos, dec_eps, ("ln1", "ln2", "ln3"))):
-        stack._pos = np.array(snap_pos, np.float32)
+        stack._pos = _as_f32(snap_pos)
         lns = [getattr(layer, n) for layer in stack.layers for n in names]
         for ln, e in zip(lns, eps):
             ln._epsilon = e
+    if np.asarray(dec_w["embed"]).dtype.name == "bfloat16":
+        model.cast("bfloat16")
     return model
 
 
@@ -130,6 +143,6 @@ def from_jax_snapshot(weights, device=None):
             return x
         if isinstance(x, np.generic):
             return x.item()
-        return torch.from_numpy(np.array(x)).to(device)
+        return from_numpy(x).to(device)
 
     return carry(weights)

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from .. import autograd
-from ..base import MXNetError
+from ..base import MXNetError, from_numpy
 from ..context import resolve_device
 from .parameter import DeferredInitializationError, Parameter, \
     ParameterDict
@@ -187,9 +187,24 @@ class Block(nn.Module):
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        """Cast every parameter to `dtype` ("bfloat16", "float32", ...):
+        the children first, then this block's own (`mxnet_tpu/gluon/
+        block.py:242-247`). A parameter shared by two blocks is cast
+        once per block, to the same dtype."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for p in self._params.values():
+            p.cast(dtype)
+        return self
+
     # ------------------------------------------------------- serialisation
     def save_parameters(self, filename):
-        """npz keyed by structural name (the JAX package's format)."""
+        """npz keyed by structural name (the JAX package's format). A
+        bfloat16 parameter is written as float32 holding its values
+        exactly (numpy has no bfloat16; `NDArray.asnumpy`), where the JAX
+        package writes ml_dtypes' bfloat16; loading casts to the
+        parameter's dtype."""
         arrays = {name: p.data().asnumpy() for name, p in
                   self._collect_params_with_prefix().items()
                   if p._data is not None}
@@ -222,13 +237,13 @@ class Block(nn.Module):
         for name, p in params.items():
             if name not in arrays:
                 continue
-            value = np.asarray(arrays[name])
-            if p._data is not None and p._data.shape != value.shape:
+            value = from_numpy(arrays[name])
+            if p._data is not None and p._data.shape != tuple(value.shape):
                 raise MXNetError(f"shape mismatch for {name}: parameter "
                                  f"{p._data.shape}, {source} "
-                                 f"{value.shape}")
+                                 f"{tuple(value.shape)}")
             p.reset_ctx(device)
-            p.set_data(torch.tensor(value, device=device))
+            p.set_data(value.to(device))
 
     # ----------------------------------------------------------- execution
     def __call__(self, *args, **kwargs):

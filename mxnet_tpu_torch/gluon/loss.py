@@ -52,7 +52,10 @@ class L2Loss(Loss):
 class SoftmaxCrossEntropyLoss(Loss):
     """Softmax cross-entropy; sparse (integer) labels by default, or a
     distribution over `axis` with `sparse_label=False`; `from_logits`
-    takes `pred` as log-probabilities already."""
+    takes `pred` as log-probabilities already. The loss is in pred's
+    dtype, as in the JAX package (`mxnet_tpu/gluon/loss.py:123`): bf16
+    logits give a bf16 loss (torch's log_softmax computes in fp32 and
+    rounds once); cast them to fp32 first for an fp32 loss."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
                  weight=None, batch_axis=0, **kwargs):

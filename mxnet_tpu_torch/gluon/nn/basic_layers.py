@@ -138,8 +138,10 @@ class Embedding(HybridBlock):
 class LayerNorm(HybridBlock):
     """LayerNorm over the last axis through `ops.kernels.
     fused_layer_norm`: the hand-written kernel on the card, its plain
-    version on the CPU (`mxnet_tpu/gluon/nn/basic_layers.py:589-596`).
-    Only the last axis is ported."""
+    version on the CPU (`mxnet_tpu/gluon/nn/basic_layers.py:589-596`);
+    bf16 x (after `cast("bfloat16")`, with bf16 gamma / beta) takes the
+    kernel's bf16 form, fp32 statistics, y in x's dtype. Only the last
+    axis is ported."""
 
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",

@@ -7,6 +7,9 @@ shape that `autograd.backward` writes into. A Parameter created with an
 unknown dimension (0) initialises at the first forward, once its layer
 has inferred the shape. `initialize(ctx=None)` means `mx.gpu(0)`, which
 raises without a card; pass `ctx=mx.cpu()` for the CPU.
+
+`dtype` is a numpy dtype, or torch.bfloat16 for "bfloat16" (numpy has
+none; the JAX package reports ml_dtypes' numpy bfloat16 there).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import initializer as _initializer
-from ..base import MXNetError, torch_dtype
+from ..base import MXNetError, dtype_of, from_numpy, torch_dtype
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
 
@@ -48,7 +51,7 @@ class Parameter:
         if isinstance(shape, int):
             shape = (shape,)
         self.shape = tuple(shape) if shape is not None else None
-        self.dtype = np.dtype(dtype)
+        self.dtype = dtype_of(dtype)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
@@ -170,7 +173,7 @@ class Parameter:
             if src is None:
                 dev = self._deferred_init[1] if self._deferred_init \
                     else resolve_device(None)
-                src = torch.as_tensor(np.asarray(data)).to(dev)
+                src = from_numpy(data).to(dev)
             src = src.detach().to(torch_dtype(self.dtype)).clone()
             if self.shape is not None and len(self.shape) == src.dim():
                 for have, got in zip(self.shape, src.shape):
@@ -186,12 +189,27 @@ class Parameter:
                 self._init_grad()
             return
         if src is None:
-            src = torch.as_tensor(np.asarray(data))
+            src = from_numpy(data)
         if tuple(src.shape) != self._data.shape:
             raise MXNetError(f"shape mismatch for {self.name}: parameter "
                              f"{self._data.shape}, data {tuple(src.shape)}")
         with torch.no_grad():
             self._data._data.copy_(src)
+
+    def cast(self, dtype):
+        """Cast the value and the gradient buffer to `dtype`, the
+        gradient still bound to the value (`mxnet_tpu/gluon/parameter.py:
+        193-199`); a parameter not yet initialised takes the dtype when
+        it is."""
+        self.dtype = dtype_of(dtype)
+        if self._data is None:
+            return
+        dt = torch_dtype(dtype)
+        self._data._data = self._data._data.detach().to(dt) \
+            .requires_grad_(self._grad_req != "null")
+        if self._grad is not None:
+            self._grad._data = self._grad._data.to(dt)
+            self._data._grad = self._grad
 
     def zero_grad(self):
         if self._grad is not None:

@@ -22,6 +22,13 @@ and a JAX `save_parameters` file loads into it and back:
 Only the eager path is ported: `hybridize()` is accepted and the blocks
 run eagerly; the symbolic-export path waits for `symbol/` (ROADMAP.md,
 Queue 1 [8]).
+
+After `model.cast("bfloat16")` (`bench_bert.py:43`) every parameter is
+bf16 and so is every activation: the embeddings, the learned positions,
+the Dense layers (cuBLAS bf16 products), the GELUs, the bf16 forms of the
+flash and LayerNorm kernels, and the heads with the tied projection; the
+key lengths stay int32. A caller takes the loss on logits cast to fp32,
+as `bench_bert.py:60-61` does.
 """
 from __future__ import annotations
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .. import autograd
-from ..base import MXNetError, numpy_dtype, torch_dtype
+from ..base import MXNetError, from_numpy, numpy_dtype, torch_dtype
 from ..context import resolve_device
 
 __all__ = ["NDArray", "array", "zeros", "ones", "_apply"]
@@ -101,8 +101,14 @@ class NDArray:
 
     # ----------------------------------------------------------- transfers
     def asnumpy(self):
-        """Copy to a numpy array (waits for the device)."""
-        return self._data.detach().cpu().numpy()
+        """Copy to a numpy array (waits for the device). numpy has no
+        bfloat16: a bfloat16 array comes back as float32 holding the same
+        values exactly, where the JAX package gives an ml_dtypes bfloat16
+        array."""
+        t = self._data.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
 
     def asscalar(self):
         if self.size != 1:
@@ -112,6 +118,8 @@ class NDArray:
     item = asscalar
 
     def astype(self, dtype):
+        """A copy in `dtype` (a numpy dtype, a name such as "bfloat16",
+        or a torch dtype), differentiable."""
         dt = torch_dtype(dtype)
         return _apply(lambda a: a.to(dt), [self])
 
@@ -221,13 +229,16 @@ class NDArray:
 def array(source_array, ctx=None, dtype=None):
     """An NDArray on `ctx` (None = `mx.gpu(0)`, which raises without a
     card) holding a copy of `source_array`. float64 sources become
-    float32 unless `dtype` says otherwise."""
+    float32 unless `dtype` says otherwise; `dtype` may be "bfloat16", and
+    a bfloat16 numpy array (ml_dtypes') keeps its dtype."""
     dev = resolve_device(ctx)
     if isinstance(source_array, NDArray):
         source_array = source_array.asnumpy()
     arr = np.asarray(source_array)
     if dtype is None:
         dtype = np.float32 if arr.dtype == np.float64 else arr.dtype
+    if torch_dtype(dtype) == torch.bfloat16:
+        return NDArray(from_numpy(arr).to(torch.bfloat16).to(dev))
     return NDArray(torch.as_tensor(np.array(arr, dtype=dtype)).to(dev))
 
 

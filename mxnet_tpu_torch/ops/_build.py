@@ -30,7 +30,7 @@ _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "ragged_paged_attention.cu",
            "layer_norm.cu", "conv1x1_bn_stats.cu")
 # headers the sources include: hashed with them, never compiled alone
-HEADERS = ("tf32_mma.cuh",)
+HEADERS = ("tf32_mma.cuh", "bf16_mma.cuh")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v: registers, shared memory and spills of each kernel land in
 # the build log (`build_info()["log"]`)
@@ -53,9 +53,21 @@ _SIGNATURES = {
     # sm_scale, vec, smem bytes, stream
     "mxtt_flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, ctypes.c_float, _I, _L, _P],
+    # the bfloat16 forms take the same arguments
+    "mxtt_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            ctypes.c_float, _I, _I, _I, _I, _L, _P],
+    "mxtt_flash_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _L,
+                            _P],
+    "mxtt_flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, ctypes.c_float, _I, _L, _P],
     # x, gamma, beta, y, mean, rstd, rows, D, eps, stream
     "mxtt_layer_norm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
                             _P],
+    # the same, then gamma / beta in bf16 (else fp32), 16-byte chunks,
+    # stream
+    "mxtt_layer_norm_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                             _I, _I, _P],
     # q, k_pages, v_pages, page_tables, lengths, out, S, H, dh, psize,
     # npages, stride_page, stride_row, stride_head, sm_scale, warps, smem
     # bytes, stream

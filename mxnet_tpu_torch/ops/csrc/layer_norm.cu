@@ -35,7 +35,23 @@
 //     first read comes from memory and the other two mostly from L1 / L2
 //     (a row of 8192 floats is 32 KB). The two sums reduce across the
 //     block's 8 warps through shared memory.
+//
+// bfloat16 form (mxtt_layer_norm_bf16): bf16 x and y, gamma / beta fp32
+// or bf16 (read as fp32), fp32 statistics; y = ((x - mean) * rstd) *
+// gamma + beta in fp32, rounded once (_ln_kernel's astype(o_ref.dtype),
+// pallas_kernels.py:1216-1217). The same two forms, on chunks of 8 bf16
+// (16 bytes): lane l of the one-warp form (D <= 1024) holds chunks l, l +
+// 32, ... (C of them, the smallest of 1-4 that covers D / 256), thread i
+// of the one-block form strides the row by 256 chunks. A chunk is one
+// 16-byte load or store when D % 8 == 0 and x and y are 16-byte aligned
+// (`vec`), else 8 masked element loads: the element each thread holds,
+// and so every sum's order, is the same either way. Each thread sums its
+// elements in order, then the warp (and the block) as in the fp32 form.
+// At BERT's shape (8192 x 768) the bytes are 25.2 MB, 7.5 us at 3.35
+// TB/s.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -140,6 +156,169 @@ void launch_warp(const float* x, const float* gamma, const float* beta,
       x, gamma, beta, y, mean, rstd, rows, D, eps);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 form
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// the 8 elements of chunk c (elements 8c .. 8c + 7) of a row, zeros past D
+__device__ __forceinline__ void load_chunk(const bf16* xr, int c, int D,
+                                           bool vec, float out[8]) {
+  const int d0 = 8 * c;
+  if (vec) {
+    if (d0 < D) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(xr + d0);
+      const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out[i] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      out[i] = d0 + i < D ? __bfloat162float(xr[d0 + i]) : 0.f;
+  }
+}
+
+// y of chunk c from its centred values v: (v * rs) * gamma + beta,
+// rounded to bf16; the elements past D are not written
+template <typename G>
+__device__ __forceinline__ void store_chunk(bf16* yr, int c, int D, bool vec,
+                                            const float v[8], float rs,
+                                            const G* __restrict__ gamma,
+                                            const G* __restrict__ beta) {
+  const int d0 = 8 * c;
+  if (d0 >= D) return;
+  bf16 h[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int d = min(d0 + i, D - 1);
+    h[i] = __float2bfloat16((v[i] * rs) * to_f32(gamma[d]) + to_f32(beta[d]));
+  }
+  if (vec) {
+    *reinterpret_cast<uint4*>(yr + d0) = *reinterpret_cast<const uint4*>(h);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (d0 + i < D) yr[d0 + i] = h[i];
+  }
+}
+
+// C: chunks of 8 a lane holds (256 * C >= D)
+template <typename G, int C>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_warp_bf16_kernel(const bf16* __restrict__ x,
+                            const G* __restrict__ gamma,
+                            const G* __restrict__ beta, bf16* __restrict__ y,
+                            float* __restrict__ mean,
+                            float* __restrict__ rstd, int rows, int D,
+                            float eps, int vec) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const bf16* xr = x + (size_t)row * D;
+  float vals[C][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    load_chunk(xr, lane + 32 * c, D, vec, vals[c]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += vals[c][i];
+  }
+  const float mu = warp_sum(sum) / D;
+  float sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // masked slots become -mu here: keep them out of the sum
+      vals[c][i] -= mu;
+      if (8 * (lane + 32 * c) + i < D) sq = fmaf(vals[c][i], vals[c][i], sq);
+    }
+  }
+  const float rs = rsqrtf(warp_sum(sq) / D + eps);
+  bf16* yr = y + (size_t)row * D;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    store_chunk(yr, lane + 32 * c, D, vec, vals[c], rs, gamma, beta);
+  if (lane == 0) {
+    mean[row] = mu;
+    rstd[row] = rs;
+  }
+}
+
+template <typename G>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_row_bf16_kernel(const bf16* __restrict__ x,
+                           const G* __restrict__ gamma,
+                           const G* __restrict__ beta, bf16* __restrict__ y,
+                           float* __restrict__ mean, float* __restrict__ rstd,
+                           int D, float eps, int vec) {
+  __shared__ float red[kWarps];
+  const int row = blockIdx.x;
+  const int chunks = (D + 7) / 8;
+  const bf16* xr = x + (size_t)row * D;
+  float v[8];
+  float sum = 0.f;
+  for (int c = threadIdx.x; c < chunks; c += kThreads) {
+    load_chunk(xr, c, D, vec, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += v[i];
+  }
+  const float mu = block_sum(sum, red) / D;
+  float sq = 0.f;
+  for (int c = threadIdx.x; c < chunks; c += kThreads) {
+    load_chunk(xr, c, D, vec, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float u = v[i] - mu;
+      if (8 * c + i < D) sq = fmaf(u, u, sq);
+    }
+  }
+  const float rs = rsqrtf(block_sum(sq, red) / D + eps);
+  bf16* yr = y + (size_t)row * D;
+  for (int c = threadIdx.x; c < chunks; c += kThreads) {
+    load_chunk(xr, c, D, vec, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] -= mu;
+    store_chunk(yr, c, D, vec, v, rs, gamma, beta);
+  }
+  if (threadIdx.x == 0) {
+    mean[row] = mu;
+    rstd[row] = rs;
+  }
+}
+
+template <typename G>
+int launch_bf16(const bf16* x, const G* gamma, const G* beta, bf16* y,
+                float* mean, float* rstd, int rows, int D, float eps,
+                int vec, cudaStream_t s) {
+  const int blocks = (rows + kWarps - 1) / kWarps;
+  const int chunks = (D + 7) / 8;
+#define MXTT_LN_WARP(C)                                                     \
+  layer_norm_warp_bf16_kernel<G, C><<<blocks, kThreads, 0, s>>>(            \
+      x, gamma, beta, y, mean, rstd, rows, D, eps, vec)
+  if (chunks <= 32) {
+    MXTT_LN_WARP(1);
+  } else if (chunks <= 64) {
+    MXTT_LN_WARP(2);
+  } else if (chunks <= 96) {
+    MXTT_LN_WARP(3);
+  } else if (D <= kWarpMaxD) {
+    MXTT_LN_WARP(4);
+  } else {
+    layer_norm_row_bf16_kernel<G><<<rows, kThreads, 0, s>>>(
+        x, gamma, beta, y, mean, rstd, D, eps, vec);
+  }
+#undef MXTT_LN_WARP
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
@@ -166,4 +345,24 @@ extern "C" int mxtt_layer_norm_f32(const float* x, const float* gamma,
                                                      rstd, D, eps);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 form: bf16 x and y, gamma / beta bf16 when gamma_bf16 else
+// fp32, fp32 mean and rstd; vec: D % 8 == 0 and x, y 16-byte aligned.
+// The same return codes.
+extern "C" int mxtt_layer_norm_bf16(const void* x, const void* gamma,
+                                    const void* beta, void* y, float* mean,
+                                    float* rstd, int rows, int D, float eps,
+                                    int gamma_bf16, int vec, void* stream) {
+  if (rows <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* yb = static_cast<bf16*>(y);
+  if (gamma_bf16)
+    return launch_bf16(xb, static_cast<const bf16*>(gamma),
+                       static_cast<const bf16*>(beta), yb, mean, rstd, rows,
+                       D, eps, vec, s);
+  return launch_bf16(xb, static_cast<const float*>(gamma),
+                     static_cast<const float*>(beta), yb, mean, rstd, rows, D,
+                     eps, vec, s);
 }

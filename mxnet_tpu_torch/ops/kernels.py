@@ -56,6 +56,19 @@ zeros too, because the backward masks p itself rather than relying on
 exp(-1e30 - lse) underflowing. The JAX `attention_reference` instead
 averages V over such a row; that divergence is recorded in ROADMAP.md,
 and parity tests use lengths >= 1.
+
+Dtypes. The flash kernels take float32 or bfloat16 q / k / v (one dtype)
+and the LayerNorm kernel float32 x or bfloat16 x (gamma / beta float32 or
+x's dtype), as the JAX kernels read their inputs in the model's dtype.
+The bfloat16 forms have kernels of their own (`mxtt_*_bf16`, counted
+under `*_bf16` names) with bf16 operands and fp32 accumulators on the
+tensor cores; they and their plain versions round where the JAX kernels
+do: S = Q K^T in fp32, P rounded to bf16 before P V, the output rounded
+once (lse fp32); in the backward delta = rowsum(dO * O) in fp32, the dK /
+dV kernel takes P rounded to bf16 for dV and for dS, the dQ kernel P in
+fp32 and dS rounded to bf16 (`pallas_kernels.py:455-461, 521-526`);
+LayerNorm's statistics are fp32 and y is in x's dtype. Any other dtype
+raises on both devices.
 """
 from __future__ import annotations
 
@@ -78,10 +91,12 @@ _MASKED = -1e30
 
 # kernel launches per wrapper; bumped only where a kernel is launched
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
-            "flash_block": 0,
+            "flash_fwd_bf16": 0, "flash_bwd_bf16": 0,
+            "flash_bwd_dq_bf16": 0, "flash_block": 0,
             "ragged_paged_attention": 0, "ragged_paged_attention_int8": 0,
             "ragged_paged_attention_multi": 0,
             "ragged_paged_attention_multi_int8": 0, "layer_norm": 0,
+            "layer_norm_bf16": 0,
             "conv1x1_bn_stats": 0, "conv1x1_bn_stats_bf16": 0, "rtc": 0}
 
 
@@ -106,6 +121,11 @@ def _check(cond, what):
         raise MXNetError(what)
 
 
+def _suffix(dtype):
+    """The kernel-name and counter suffix of a dtype's form."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
+
+
 def _launched(name, rc):
     """Raise on a refused launch (a launch that never ran is not
     reported by `synchronize`); count the one that went out."""
@@ -128,7 +148,7 @@ def _masked_softmax(s, allowed):
 
 
 def _attention_scores(q, k, causal, sm_scale, keep):
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     allowed = keep
     if causal:
         sq, sk = s.shape[-2:]
@@ -141,21 +161,42 @@ def _attention_scores(q, k, causal, sm_scale, keep):
 
 
 def _flash_plain(q, k, v, causal, sm_scale, kv_lengths):
-    """The plain version of the flash kernel: (out, lse (B*H, Sq))."""
+    """The plain version of the flash kernel: (out, lse (B*H, Sq)). In
+    bfloat16 it rounds where the kernels do: p = exp(s - rowmax) in fp32
+    is rounded to bf16 for P V (fp32 sums), l sums the unrounded p, and
+    out = (P V) / l is rounded once."""
     b, h, sq, _ = q.shape
     keep = None
     if kv_lengths is not None:
         pos = torch.arange(k.shape[2], device=k.device)
         keep = (pos[None, :] < kv_lengths.long()[:, None])[:, None, None, :]
     s, allowed = _attention_scores(q, k, causal, sm_scale, keep)
-    p = _masked_softmax(s, allowed).to(v.dtype)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v)
-    return out, torch.logsumexp(s, dim=-1).reshape(b * h, sq)
+    lse = torch.logsumexp(s, dim=-1).reshape(b * h, sq)
+    if q.dtype == torch.float32:
+        p = _masked_softmax(s, allowed).to(v.dtype)
+        return torch.einsum("bhqk,bhkd->bhqd", p, v), lse
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if allowed is not None:
+        p = torch.where(allowed, p, torch.zeros_like(p))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    pv = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return (pv / l).to(v.dtype), lse
 
 
 # ---------------------------------------------------------------------------
 # flash attention forward
 # ---------------------------------------------------------------------------
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _tile_row(dp, dtype):
+    """Bytes of one shared-memory row of a flash kernel's tile: DP
+    elements and a pad of 16 bytes (4 floats, `tf32_mma.cuh` pitch_of;
+    8 bf16, `bf16_mma.cuh` bf16_pitch), so fragment loads of 8 rows hit
+    different banks."""
+    return 4 * (dp + 4) if dtype == torch.float32 else 2 * (dp + 8)
+
+
 def _flash_args(q, k, v, kv_lengths):
     """What the kernel takes, checked on either device (so the CPU tests
     catch a layout the card would refuse): (B, H, Sq, Sk, D)."""
@@ -166,8 +207,10 @@ def _flash_args(q, k, v, kv_lengths):
     _check(k.shape == (b, h, sk, d) and v.shape == k.shape,
            f"flash_attention shapes q {tuple(q.shape)}, k {tuple(k.shape)},"
            f" v {tuple(v.shape)} do not agree")
-    _check(all(t.dtype == torch.float32 for t in (q, k, v)),
-           "flash_attention kernel takes float32 q/k/v")
+    _check(q.dtype in _ATTN_DTYPES and k.dtype == q.dtype
+           and v.dtype == q.dtype,
+           f"flash_attention kernel takes float32 or bfloat16 q/k/v of one "
+           f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     _check(all(t.is_contiguous() for t in (q, k, v)),
            "flash_attention kernel takes contiguous q/k/v")
     _check(0 < d <= 128,
@@ -190,9 +233,17 @@ _FWD_WIDE_BK, _FWD_SPLIT_BK = 32, 16
 _CARD_SMS, _SMEM_LIMIT = 132, 227 * 1024
 
 
-def flash_fwd_plan(bh, sq, sk, d):
-    """The launch plan of the flash forward kernel for B*H = `bh` slices
-    of Sq queries over Sk keys of width D:
+def flash_fwd_smem(rw, ks, bk, dp, dtype=torch.float32):
+    """The forward kernel's dynamic shared bytes (`fwd_smem` of
+    `csrc/flash_fwd.cu`): 16 * rw Q rows and two buffers of ks K and V
+    tiles of bk rows."""
+    return (_FWD_WARP_ROWS * rw + 4 * ks * bk) * _tile_row(dp, dtype)
+
+
+def flash_fwd_plan(bh, sq, sk, d, dtype=torch.float32):
+    """The launch plan of the flash forward kernel in `dtype` (float32
+    or bfloat16) for B*H = `bh` slices of Sq queries over Sk keys of
+    width D:
 
       dp     D zero-padded in shared memory (32, 64, 96 or 128)
       rw     row warps a block, 16 query rows each: 4, halved while the
@@ -208,8 +259,8 @@ def flash_fwd_plan(bh, sq, sk, d):
       warps  rw x ks
       rows   query rows a block (16 x rw)
       smem   dynamic shared bytes (the Q rows and two buffers of ks K and
-             V tiles); the kernel recomputes them and refuses a plan that
-             disagrees.
+             V tiles, `flash_fwd_smem`: half as many in bf16); the kernel
+             recomputes them and refuses a plan that disagrees.
     """
     _check(0 < d <= 128 and bh > 0 and sq > 0 and sk > 0,
            f"flash forward takes 0 < D <= 128 and a non-empty input, got "
@@ -225,7 +276,7 @@ def flash_fwd_plan(bh, sq, sk, d):
         ks, bk = _FWD_MAX_WARPS // rw, _FWD_SPLIT_BK
 
     def smem(ks):
-        return 4 * (rows + 4 * ks * bk) * (dp + 4)
+        return flash_fwd_smem(rw, ks, bk, dp, dtype)
     while ks > 1 and (bk * ks // 2 >= sk or smem(ks) > _SMEM_LIMIT):
         ks //= 2
     return dict(dp=dp, rw=rw, ks=ks, bk=bk, warps=rw * ks, rows=rows,
@@ -239,15 +290,17 @@ def _flash_cuda(q, k, v, causal, sm_scale, kv_lengths, plan):
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     lib = _build.library()
+    sfx = _suffix(q.dtype)
+    fn = getattr(lib, "mxtt_flash_fwd" + (sfx or "_f32"))
     with torch.cuda.device(q.device):
-        rc = lib.mxtt_flash_fwd_f32(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_lengths is None else kv_lengths.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, h, sq, k.shape[2], d,
             int(causal), float(sm_scale), plan["bk"], plan["rw"],
             plan["ks"], _vec_copies(d, q, k, v), plan["smem"],
             torch.cuda.current_stream().cuda_stream)
-    _launched("flash_fwd", rc)
+    _launched("flash_fwd" + sfx, rc)
     return out, lse
 
 
@@ -266,7 +319,7 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None,
     if dev.type != "cuda":
         return _flash_plain(q, k, v, causal, sm_scale, kv_lengths)
     return _flash_cuda(q, k, v, causal, sm_scale, kv_lengths,
-                       flash_fwd_plan(b * h, sq, sk, d))
+                       flash_fwd_plan(b * h, sq, sk, d, q.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +328,9 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None,
 def _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale, kv_lengths):
     """The plain version of the backward kernels: p = exp(s - lse)
     where the mask allows it and 0 elsewhere, dS = p (dP - delta) scale;
-    returns (dQ, dK, dV)."""
+    returns (dQ, dK, dV). In bfloat16, as the kernels: dV = bf16(p)^T dO
+    and dK = bf16(bf16(p) (dP - delta) scale)^T Q, dQ = bf16(p (dP -
+    delta) scale) K, fp32 sums, each gradient rounded once."""
     b, h, sq, _ = q.shape
     keep = None
     if kv_lengths is not None:
@@ -286,19 +341,29 @@ def _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale, kv_lengths):
     if allowed is not None:
         p = torch.where(allowed, p, torch.zeros_like(p))
     dof = do.float()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
-    ds = p * (dp - delta.reshape(b, h, sq, 1)) * sm_scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    if q.dtype == torch.float32:
+        pk = p
+    else:
+        pk = p.to(q.dtype).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", pk, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float()) \
+        - delta.reshape(b, h, sq, 1)
+    ds = pk * dp * sm_scale
+    if q.dtype == torch.float32:
+        dsq = ds
+    else:
+        ds, dsq = (t.to(q.dtype).float() for t in (ds, p * dp * sm_scale))
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsq, k.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _flash_bwd_args(q, k, v, do, lse, delta, kv_lengths):
     b, h, sq, sk, d = _flash_args(q, k, v, kv_lengths)
-    _check(do.shape == q.shape and do.dtype == torch.float32
+    _check(do.shape == q.shape and do.dtype == q.dtype
            and do.is_contiguous(),
-           "flash_attention_bwd takes a contiguous float32 dO shaped as q")
+           f"flash_attention_bwd takes a contiguous dO shaped as q, of q's "
+           f"dtype {q.dtype}")
     for name, t in (("lse", lse), ("delta", delta)):
         _check(t.shape == (b * h, sq) and t.dtype == torch.float32
                and t.is_contiguous(),
@@ -320,9 +385,9 @@ _BWD_BQ = 32
 _BWD_DQ_TILE = 64
 
 
-def flash_bwd_plan(sk, d):
-    """The launch plan of the flash backward kernels for Sk keys of width
-    D (it does not depend on Sq):
+def flash_bwd_plan(sk, d, dtype=torch.float32):
+    """The launch plan of the flash backward kernels in `dtype` (float32
+    or bfloat16) for Sk keys of width D (it does not depend on Sq):
 
       dp     D zero-padded in shared memory (32, 64, 96 or 128)
       bk     keys per fused block, one warp per 16
@@ -332,28 +397,37 @@ def flash_bwd_plan(sk, d):
              and one launch writes dQ, dK and dV; "split" above that:
              the fused kernel writes dK and dV, then the dQ kernel runs
       smem, dq_smem   dynamic shared bytes of the fused kernel and of
-             the dQ kernel (None on the fused path); the kernels
-             recompute them and refuse a plan that disagrees.
+             the dQ kernel (None on the fused path): their K / V / Q / dO
+             tiles (rows of `_tile_row`), fp32 lse and delta, and the
+             fused kernel's dS (queries x keys + pad, fp32; bf16 in the
+             bfloat16 form); the kernels recompute them and refuse a plan
+             that disagrees.
     """
     _check(0 < d <= 128 and sk > 0,
            f"flash backward takes 0 < D <= 128 and Sk > 0, got {d}, {sk}")
     dp = 32 * -(-d // 32)
-    pitch = dp + 4
+    row = _tile_row(dp, dtype)
     bk_max = 128 if dp <= 64 else 64
     fused = sk <= bk_max
     bk = 16 * -(-sk // 16) if fused else bk_max
-    smem = 4 * (2 * bk * pitch + 4 * _BWD_BQ * pitch + 4 * _BWD_BQ
-                + (_BWD_BQ * (bk + 4) if fused else 0))
-    dq_smem = None if fused else 4 * (6 * _BWD_DQ_TILE * pitch
-                                      + 2 * _BWD_DQ_TILE)
+    if dtype == torch.float32:
+        ds_bytes = 4 * _BWD_BQ * (bk + 4)
+    else:
+        ds_bytes = 2 * _BWD_BQ * (bk + 8)
+    smem = (2 * bk + 4 * _BWD_BQ) * row + 4 * 4 * _BWD_BQ \
+        + (ds_bytes if fused else 0)
+    dq_smem = None if fused else 6 * _BWD_DQ_TILE * row \
+        + 4 * 2 * _BWD_DQ_TILE
     return dict(path="fused" if fused else "split", dp=dp, bk=bk,
                 bq=_BWD_BQ, smem=smem, dq_smem=dq_smem)
 
 
 def _vec_copies(d, *tensors):
-    """The kernels copy rows in 16-byte pieces when D % 4 == 0 and every
-    base address is 16-byte aligned, else float by float."""
-    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+    """The kernels copy rows in 16-byte pieces when a row is a whole
+    number of them (D % 4 == 0 in fp32, D % 8 == 0 in bf16) and every
+    base address is 16-byte aligned, else element by element."""
+    return int(d * tensors[0].element_size() % 16 == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, causal, sm_scale,
@@ -366,15 +440,17 @@ def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, causal, sm_scale,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dq = torch.empty_like(q) if with_dq else None
     lib = _build.library()
+    sfx = _suffix(q.dtype)
+    fn = getattr(lib, "mxtt_flash_bwd" + (sfx or "_f32"))
     with torch.cuda.device(q.device):
-        rc = lib.mxtt_flash_bwd_f32(
+        rc = fn(
             *_bwd_pointers(q, k, v, do, lse, delta, kv_lengths),
             None if dq is None else dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, h, sq, k.shape[2], d, int(causal),
             float(sm_scale), plan["bk"], int(with_dq),
             _vec_copies(d, q, k, v, do), plan["smem"],
             torch.cuda.current_stream().cuda_stream)
-    _launched("flash_bwd", rc)
+    _launched("flash_bwd" + sfx, rc)
     return dq, dk, dv
 
 
@@ -385,13 +461,15 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale,
     b, h, sq, d = q.shape
     dq = torch.empty_like(q)
     lib = _build.library()
+    sfx = _suffix(q.dtype)
+    fn = getattr(lib, "mxtt_flash_bwd_dq" + (sfx or "_f32"))
     with torch.cuda.device(q.device):
-        rc = lib.mxtt_flash_bwd_dq_f32(
+        rc = fn(
             *_bwd_pointers(q, k, v, do, lse, delta, kv_lengths),
             dq.data_ptr(), b, h, sq, k.shape[2], d, int(causal),
             float(sm_scale), _vec_copies(d, q, k, v, do), plan["dq_smem"],
             torch.cuda.current_stream().cuda_stream)
-    _launched("flash_bwd_dq", rc)
+    _launched("flash_bwd_dq" + sfx, rc)
     return dq
 
 
@@ -413,7 +491,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
         return _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
                                 kv_lengths)
     args = (q, k, v, do, lse, delta, causal, sm_scale, kv_lengths,
-            flash_bwd_plan(sk, d))
+            flash_bwd_plan(sk, d, q.dtype))
     dq, dk, dv = _flash_bwd_fused_cuda(*args)
     if dq is None:
         dq = _flash_bwd_dq_cuda(*args)
@@ -467,6 +545,9 @@ class _FlashBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
         b, h, sq, _ = q.shape
+        _check(q.dtype == torch.float32,
+               f"flash_block_attention takes float32 q/k/v, got {q.dtype} "
+               f"(its bfloat16 form: ROADMAP.md, Queue 2)")
         out, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
         if q.is_cuda:
             LAUNCHES["flash_block"] += 1
@@ -769,7 +850,8 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, lengths,
 def _ln_plain(x2, gamma, beta, eps):
     """The plain version of the LayerNorm kernel over (rows, D): mean
     first, then the centred variance, fp32 statistics (the formula of
-    `_ln_kernel`). Returns (y, mean (rows,), rstd (rows,))."""
+    `_ln_kernel`), y in fp32 rounded once to x's dtype. Returns (y, mean
+    (rows,), rstd (rows,))."""
     xf = x2.float()
     mean = xf.mean(dim=-1, keepdim=True)
     xc = xf - mean
@@ -786,9 +868,13 @@ def _ln_args(x, gamma, beta):
     _check(gamma.shape == (d,) and beta.shape == (d,),
            f"layer norm: gamma {tuple(gamma.shape)} / beta "
            f"{tuple(beta.shape)} must be ({d},)")
-    _check(all(t.dtype == torch.float32 for t in (x, gamma, beta)),
-           "layer norm kernel takes float32 x / gamma / beta; other dtypes "
-           "come with bf16 / AMP (ROADMAP.md, Queue 1 [2c])")
+    _check((x.dtype == torch.float32 and gamma.dtype == torch.float32
+            or x.dtype == torch.bfloat16
+            and gamma.dtype in (torch.float32, torch.bfloat16))
+           and beta.dtype == gamma.dtype,
+           f"layer norm kernel takes float32 x with float32 gamma / beta, "
+           f"or bfloat16 x with float32 or bfloat16 gamma / beta (one "
+           f"dtype), got {x.dtype}, {gamma.dtype}, {beta.dtype}")
     _check(all(t.is_contiguous() for t in (x, gamma, beta)),
            "layer norm kernel takes contiguous x / gamma / beta")
     return x.numel() // d, d
@@ -800,20 +886,26 @@ def _ln_cuda(x2, gamma, beta, eps):
     mean = torch.empty(rows, dtype=torch.float32, device=x2.device)
     rstd = torch.empty_like(mean)
     lib = _build.library()
+    ptrs = (x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), rows, d, float(eps))
+    stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(x2.device):
-        rc = lib.mxtt_layer_norm_f32(
-            x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), rows, d, float(eps),
-            torch.cuda.current_stream().cuda_stream)
-    _launched("layer_norm", rc)
+        if x2.dtype == torch.float32:
+            rc = lib.mxtt_layer_norm_f32(*ptrs, stream)
+        else:
+            rc = lib.mxtt_layer_norm_bf16(
+                *ptrs, int(gamma.dtype == torch.bfloat16),
+                _vec_copies(d, x2, y), stream)
+    _launched("layer_norm" + _suffix(x2.dtype), rc)
     return y, mean, rstd
 
 
 def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     """LayerNorm over the last axis with its statistics: (y shaped as x,
     mean (rows,), rstd (rows,)), rows = x.numel() / D, fp32 statistics.
-    The kernel and the plain version take any rows and any D, in
-    float32."""
+    The kernel and the plain version take any rows and any D: float32 x
+    with float32 gamma / beta, or bfloat16 x (the bf16 kernel) with
+    float32 or bfloat16 gamma / beta; y is in x's dtype."""
     dev = _device_of(x, gamma, beta)
     rows, d = _ln_args(x, gamma, beta)
     x2 = x.reshape(rows, d)

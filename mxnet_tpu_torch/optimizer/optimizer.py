@@ -4,6 +4,12 @@ The update rules are plain tensor code, as they were XLA in the JAX
 package: no kernel of their own. Each update writes the weight and the
 optimizer state in place (under `torch.no_grad()`), where the JAX
 package rebinds new arrays; the arithmetic is the JAX package's.
+
+A weight that is not float32 (bfloat16 after `Block.cast`) updates in
+its own dtype with states of that dtype, unless the optimizer has
+`multi_precision=True`: then its state is [fp32 master, the states of
+the master], the rule runs on the master in fp32 and the weight gets the
+master rounded to its dtype (`mxnet_tpu/optimizer/optimizer.py:130-180`).
 """
 from __future__ import annotations
 
@@ -40,10 +46,7 @@ class Optimizer:
     def __init__(self, learning_rate=0.01, wd=0.0, rescale_grad=1.0,
                  clip_gradient=None, lr_scheduler=None, param_dict=None,
                  multi_precision=False):
-        if multi_precision:
-            raise MXNetError("multi_precision (bf16 weights with an fp32 "
-                             "master) is not ported yet (ROADMAP.md, "
-                             "Queue 1: bf16 / cast)")
+        self.multi_precision = multi_precision
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad
@@ -99,7 +102,16 @@ class Optimizer:
         """The optimizer state of one parameter (NDArrays on its device)."""
         return ()
 
+    def _master_of(self, weight):
+        return self.multi_precision and weight._data.dtype != torch.float32
+
     def create_state_multi_precision(self, index, weight):
+        """With `multi_precision` and a weight that is not float32:
+        [fp32 master copy, `create_state` of the master] (momentum and
+        variance in fp32); else `create_state(index, weight)`."""
+        if self._master_of(weight):
+            master = NDArray(weight._data.detach().float().clone())
+            return [master, self.create_state(index, master)]
         return self.create_state(index, weight)
 
     def _preprocess(self, grad):
@@ -120,7 +132,20 @@ class Optimizer:
             g = self._preprocess(grad._data.to(weight._data.dtype))
             self._step(weight._data, g, state, lr, wd)
 
-    update_multi_precision = update
+    def update_multi_precision(self, index, weight, grad, state):
+        """`update`, or with a master (`create_state_multi_precision`)
+        the rule on the master in fp32 from the fp32 gradient, and the
+        weight set to the master rounded to its dtype."""
+        if not self._master_of(weight):
+            self.update(index, weight, grad, state)
+            return
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        master, inner = state
+        with torch.no_grad():
+            g = self._preprocess(grad._data.float())
+            self._step(master._data, g, inner, lr, wd)
+            weight._data.copy_(master._data)
 
     def __repr__(self):
         return f"{type(self).__name__}(lr={self.lr}, wd={self.wd})"

@@ -1,6 +1,7 @@
 """The port stands alone: `mxnet_tpu_torch` and `chip_smoke.py` import
-neither JAX nor the JAX package, and the port's entry points run on the
-card unless the caller asks for the CPU."""
+neither JAX, nor ml_dtypes (the card's machine has neither), nor the JAX
+package, and the port's entry points run on the card unless the caller
+asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -20,7 +21,7 @@ PKG = ROOT / "mxnet_tpu_torch"
 
 def test_import_pulls_in_no_jax():
     """Importing the package and every submodule, in a fresh
-    interpreter, loads no `jax*` and no `mxnet_tpu` module."""
+    interpreter, loads no `jax*`, `ml_dtypes` or `mxnet_tpu` module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mxnet_tpu_torch\n"
@@ -28,7 +29,7 @@ def test_import_pulls_in_no_jax():
         "                               'mxnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'mxnet_tpu'))\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu'))\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('mxnet_tpu_torch')]), bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -54,11 +55,12 @@ def _imports(path):
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
-    """AST scan: no `import jax...` and no `mxnet_tpu` / `mxnet_tpu.*`
-    import anywhere in the port or in chip_smoke.py."""
+    """AST scan: no `import jax...`, no `ml_dtypes` and no `mxnet_tpu` /
+    `mxnet_tpu.*` import anywhere in the port or in chip_smoke.py."""
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "mxnet_tpu"), (path, name)
+        assert top not in ("jax", "jaxlib", "ml_dtypes", "mxnet_tpu"), \
+            (path, name)
 
 
 @pytest.fixture

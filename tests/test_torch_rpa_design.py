@@ -451,7 +451,12 @@ def test_wrapper_checks_what_the_kernels_take(card):
 def test_cuda_q_reaches_the_new_entries(quant):
     """On the card a 3-D q and a 4-D q with W = 1 launch the 1-wide
     kernel (the same bits) and a 4-D q with W > 1 the widened one, each
-    matching its plain version."""
+    within RPA_TOL of the function in float64 (`chip_smoke._rpa_f64`,
+    the yardstick `chip_smoke.py` holds every paged kernel to). The fp32
+    plain version, the CPU path's counterpart of the JAX lax path, is
+    logged beside and not asserted against: on int8 pages it lies up to
+    1.745 of RPA_TOL's limit from float64 itself (ROADMAP Queue 3 item
+    8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     dev = torch.device("cuda", 0)
@@ -483,10 +488,14 @@ def test_cuda_q_reaches_the_new_entries(quant):
         name = "ragged_paged_attention" + counter + ("_int8" if quant
                                                      else "")
         assert tk.LAUNCHES[name] == 1 and sum(tk.LAUNCHES.values()) == 1
-        plain = tk._paged_attention_plain_multi if q.dim() == 4 \
-            else tk._paged_attention_plain
-        ref = plain(q, kp, vp, pt, lens, ks, vs)
-        torch.testing.assert_close(out, ref, **RPA_TOL)
+        exact = chip_smoke._rpa_f64(torch, tk, q, kp, vp, pt, lens, ks, vs)
+        plain = chip_smoke._rpa_plain(tk, q, kp, vp, pt, lens, ks, vs)
+        print(f"{form} {'int8' if quant else 'fp32'}: kernel vs float64 "
+              f"{chip_smoke._rpa_share(out, exact)}, fp32 plain vs float64 "
+              f"{chip_smoke._rpa_share(plain, exact)}, kernel vs fp32 plain "
+              f"{chip_smoke._rpa_share(out, plain)} (max abs, share of "
+              f"RPA_TOL's limit)")
+        torch.testing.assert_close(out.double(), exact, **RPA_TOL)
         outs[form] = out
     assert torch.equal(outs["3d"][:, None], outs["4d_w1"])
 

@@ -236,8 +236,9 @@ def test_training_kernels_check_their_inputs_and_launch_nothing_here(
     """The wrappers refuse, on the CPU too, what the CUDA kernels refuse
     (a non-contiguous dO or x, a wrong lse shape). The LayerNorm kernel
     takes every width: the card-side checks pass a D = 1032 card tensor
-    on to the launch, while a non-contiguous or non-float32 one is
-    refused before any launch. The CPU path launches no kernel."""
+    on to the launch, while a non-contiguous one, or one neither float32
+    nor bfloat16 (the kernel's two forms), is refused before any launch.
+    The CPU path launches no kernel."""
     tk.reset_launch_counts()
     x = torch.randn(4, 1032)
     y = tk.fused_layer_norm(x, torch.ones(1032), torch.zeros(1032))
@@ -255,7 +256,8 @@ def test_training_kernels_check_their_inputs_and_launch_nothing_here(
         torch.testing.assert_close(got, y)
         with pytest.raises(MXNetError, match="contiguous"):
             tk.fused_layer_norm(x[:, :8], torch.ones(8), torch.zeros(8))
-        with pytest.raises(MXNetError, match=r"float32.*\[2c\]"):
+        with pytest.raises(MXNetError,
+                           match=r"takes float32 x .* or bfloat16 x"):
             tk.fused_layer_norm(x.double(), torch.ones(1032).double(),
                                 torch.zeros(1032).double())
         assert launched == [(4, 1032)]
