@@ -1921,7 +1921,9 @@ def _bf16_cases():
     """(B, H, Sq, Sk, D, causal, kv_lengths) of the bf16 checks: the
     serving prefill, the training step's three attentions, BERT's shape,
     padded widths 32-128 and D no multiple of 8, causal with Sq != Sk
-    both ways, zero-length rows, and Sk above one backward block."""
+    both ways, zero-length rows, Sk above one backward block, and every
+    plan variant of the wgmma backward (fused over one or two
+    warpgroups, split, DP 64 and 128)."""
     g = np.random.RandomState(0)
     bert = (4, BERT_H, BERT_S, BERT_S, 64, False,
             [300, 384, 3, int(g.randint(256, 513))])
@@ -1936,7 +1938,17 @@ def _bf16_cases():
              (2, 3, 100, 70, 32, False, [0, 70]),
              (2, 2, 45, 45, 30, True, [45, 17]),
              (1, 2, 50, 300, 18, False, [260]),
-             (2, 2, 130, 300, 64, True, [280, 300])]
+             (2, 2, 130, 300, 64, True, [280, 300]),
+             # the wgmma backward's plan variants (`flash_bwd_plan` in
+             # bf16): fused with a second warpgroup idle past kv_len,
+             # fused over two warpgroups causal with Sq != Sk, fused at
+             # DP = 128 (D = 128, and 96 in two swizzle atoms), split at
+             # DP = 128 causal with Sq > Sk
+             (1, 2, 128, 128, 64, False, [40]),
+             (2, 2, 100, 120, 64, True, [0, 77]),
+             (1, 2, 40, 64, 128, True, [50]),
+             (1, 2, 64, 64, 96, True, [33]),
+             (2, 2, 300, 200, 128, True, [150, 200])]
     for d in (32, 96, 128, 18, 30):
         cases += [(2, 2, 512, 512, d, False, [300, 512]),
                   (1, 2, 1024, 1024, d, True, None)]
@@ -2001,17 +2013,22 @@ def _bf16_attention_times(torch, K, b, h, s, d, lens, backward=True):
         bounds["bwd"] = bound(reads + 3 * rows_q, 10 * pairs * d,
                               PEAK_BF16_FLOPS)
         dev_ms["sdpa_bwd"] = dev_ms["sdpa_fwd_bwd"] - dev_ms["sdpa_fwd"]
+    # the operations each computes over the live pairs: the fused kernel
+    # 8 (S, dP, dV, dK) or, writing dQ too, 10; the dQ kernel 6 (S, dP,
+    # dQ); the backward as planned 10 on the fused path, 14 on the split
+    flops = {"fwd": 4, "bwd": 10 if plan["path"] == "fused" else 14,
+             "fused": 10 if plan["path"] == "fused" else 8, "dq": 6}
     tflops = {name: f * pairs * d / (dev_ms[name] * 1e-3) / 1e12
-              for name, f in (("fwd", 4), ("bwd", 10), ("fused", 8),
-                              ("dq", 6)) if name in dev_ms}
+              for name, f in flops.items() if name in dev_ms}
+    of_bound = {name: dev_ms[name] / bounds[name][0] for name in bounds}
     log(f"bf16 flash timed {(b, h, s, d)} lens {lens[:4]}...: plans fwd "
         f"{K.flash_fwd_plan(b * h, s, s, d, torch.bfloat16)} bwd {plan}; "
         f"device (CUDA graph) {dev_ms}; per call {call_ms}; bounds "
-        f"{bounds}; achieved TFLOP/s {tflops}; forward / SDPA forward "
-        f"{dev_ms['fwd'] / dev_ms['sdpa_fwd']:.3f}"
+        f"{bounds}; achieved TFLOP/s {tflops}; kernel / bound {of_bound}; "
+        f"forward / SDPA forward {dev_ms['fwd'] / dev_ms['sdpa_fwd']:.3f}"
         + (f"; backward / SDPA backward "
            f"{dev_ms['bwd'] / dev_ms['sdpa_bwd']:.3f}" if backward else ""))
-    return dev_ms, call_ms, bounds
+    return dev_ms, call_ms, bounds, tflops
 
 
 def phase_flash_bf16(mx, torch):
@@ -2055,28 +2072,32 @@ def phase_flash_bf16(mx, torch):
             f"({'split' if split else 'fused'}) max abs err {berrs}, "
             f"shares {bshares}; vs float64 {be64} (plain {bp64}); repeats "
             f"bit-identical")
-    b, h, s, d = 2, 2, 100, 64
-    base = torch.randn(b * h * s * d + 1, generator=g).to(
-        torch.device("cuda", 0)).to(torch.bfloat16)
-    q = base[1:].view(b, h, s, d)
-    _, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
-    check(q.is_contiguous() and q.data_ptr() % 16 != 0
-          and K._vec_copies(d, q, k, v) == 0, "q not misaligned")
-    err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, False,
-                                           [70, 100], "misaligned q")
-    berrs, bshares, _, _ = _bf16_bwd_check(torch, K, q, k, v, do, False,
-                                           [70, 100], "misaligned q")
-    log(f"bf16 flash misaligned q {(b, h, s, s, d)}: forward {err:.3e} "
-        f"({share:.3f} of the limit), vs float64 {e64} (plain {p64}); "
-        f"backward {berrs} (shares {bshares})")
+    # a misaligned q on both backward paths (fused at S = 100, split at
+    # 200): element-by-element copies into the swizzled tiles
+    for b, h, s, d, causal in ((2, 2, 100, 64, False), (2, 2, 200, 64, True)):
+        base = torch.randn(b * h * s * d + 1, generator=g).to(
+            torch.device("cuda", 0)).to(torch.bfloat16)
+        q = base[1:].view(b, h, s, d)
+        _, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
+        check(q.is_contiguous() and q.data_ptr() % 16 != 0
+              and K._vec_copies(d, q, k, v) == 0, "q not misaligned")
+        lens = [70, s]
+        err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, causal,
+                                               lens, "misaligned q")
+        berrs, bshares, _, _ = _bf16_bwd_check(torch, K, q, k, v, do,
+                                               causal, lens, "misaligned q")
+        worst["flash_fwd_bf16"] = max(worst["flash_fwd_bf16"], err)
+        log(f"bf16 flash misaligned q {(b, h, s, s, d)} causal={causal}: "
+            f"forward {err:.3e} ({share:.3f} of the limit), vs float64 "
+            f"{e64} (plain {p64}); backward {berrs} (shares {bshares})")
 
     src_f = "mxnet_tpu_torch/ops/csrc/flash_fwd.cu"
     src_b = "mxnet_tpu_torch/ops/csrc/flash_bwd.cu"
-    serve, serve_call, serve_b = _bf16_attention_times(
+    serve, serve_call, serve_b, _ = _bf16_attention_times(
         torch, K, 1, 8, 128, 64, [77], backward=False)
     tb, th, ts, _, td, _, tl = _train_attention_cases()[1]
-    train, train_call, train_b = _bf16_attention_times(torch, K, tb, th, ts,
-                                                       td, tl)
+    train, train_call, train_b, _ = _bf16_attention_times(
+        torch, K, tb, th, ts, td, tl)
     fwd_row = dict(
         name="flash_fwd_bf16", route="cuda", source=src_f,
         replaces="mxnet_tpu/ops/pallas_kernels.py:219",
@@ -2217,6 +2238,77 @@ def fp32_kernel_times(mx, torch):
                      for shape in ((rows, d), (d,), (d,))]
         times[f"layer_norm ({rows}, {d})"] = graph_ms(
             lambda: K.layer_norm_fwd(x, ga, be, 1e-5))
+    return times
+
+
+def bf16_kernel_times(mx, torch):
+    """{"<kernel> <shape>": device ms by CUDA-graph replay} of the bf16
+    flash and LayerNorm kernels at their paths' shapes: the forward at
+    the serving prefill, the training shape and BERT's; the backward at
+    the training shape (the fused kernel, the whole backward); at BERT's
+    the dK/dV kernel, the dQ kernel and the pair as `flash_attention_bwd`
+    runs it; LayerNorm (bf16 gamma / beta) at the training and BERT
+    shapes and D = 4096. The counterpart of `fp32_kernel_times`: it calls
+    only entries that earlier packages have too, so another checkout's
+    package is measured the same way (`chip_train_ab.py --phase
+    bf16`)."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(15)
+    times = {}
+    train = _train_attention_cases()[1]
+    for tag, (b, h, s, d, lens) in (
+            ("serving", (1, 8, 128, 64, [77])),
+            ("training", (train[0], train[1], train[2], train[4],
+                          train[6])),
+            ("bert", (BERT_B, BERT_H, BERT_S, 64, _bert_lengths(BERT_B)))):
+        q, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        times[f"flash_fwd_bf16 {tag}"] = graph_ms(
+            lambda: K.flash_attention_fwd(q, k, v, kv_lengths=vl), calls=5,
+            iters=10)
+        if tag == "serving":
+            continue
+        out, lse = K.flash_attention_fwd(q, k, v, kv_lengths=vl)
+        delta = (out.float() * do.float()).sum(-1).reshape(b * h, s)
+        args = (q, k, v, do, lse, delta, False, d ** -0.5, vl)
+        plan = K.flash_bwd_plan(s, d, torch.bfloat16)
+        times[f"flash_bwd_bf16 {tag}"] = graph_ms(
+            lambda: K._flash_bwd_fused_cuda(*args, plan), calls=5, iters=10)
+        if plan["path"] == "split":
+            times[f"flash_bwd_dq_bf16 {tag}"] = graph_ms(
+                lambda: K._flash_bwd_dq_cuda(*args, plan), calls=5,
+                iters=10)
+            times[f"flash_bwd_pair_bf16 {tag}"] = graph_ms(
+                lambda: K.flash_attention_bwd(*args), calls=5, iters=10)
+    for rows, d in (LN_TIMED[0], LN_TIMED[1], LN_TIMED[4]):
+        x = torch.randn((rows, d), generator=g).to(dev).to(torch.bfloat16)
+        ga, be = (torch.randn(d, generator=g).to(dev).to(torch.bfloat16)
+                  for _ in range(2))
+        times[f"layer_norm_bf16 ({rows}, {d})"] = graph_ms(
+            lambda: K.layer_norm_fwd(x, ga, be, 1e-5))
+    return times
+
+
+def conv1x1_kernel_times(mx, torch):
+    """{"<kernel> (M, K, N)": device ms by CUDA-graph replay} of the
+    conv1x1 + BN-stats kernel in fp32 and bf16 at the probe's four
+    ResNet-50 shapes (`CONV1X1_SHAPES`), as `phase_conv1x1` times them;
+    it calls only `conv1x1_bn_stats`, so another checkout's package is
+    measured the same way (`chip_train_ab.py --phase conv`)."""
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    times = {}
+    for dt, name in ((torch.float32, "conv1x1_bn_stats"),
+                     (torch.bfloat16, "conv1x1_bn_stats_bf16")):
+        for m, k, n in CONV1X1_SHAPES:
+            x = torch.randn((m, k), generator=g, device=dev).to(dt)
+            w = (torch.randn((k, n), generator=g, device=dev) * 0.05).to(dt)
+            times[f"{name} ({m}, {k}, {n})"] = graph_ms(
+                lambda x=x, w=w: K.conv1x1_bn_stats(x, w), calls=5, iters=10)
+        times[f"{name} total"] = sum(
+            v for key, v in times.items() if key.startswith(name + " ("))
     return times
 
 
@@ -3136,7 +3228,8 @@ def phase_bert_attention_bf16(mx, torch, rows):
         f"backward (split) {berrs} (shares {bshares}), vs float64 {be64} "
         f"(plain {bp64})")
     del q, k, v, do
-    dev_ms, call_ms, b_ = _bf16_attention_times(torch, K, B, H, S, D, lens)
+    dev_ms, call_ms, b_, tf = _bf16_attention_times(torch, K, B, H, S, D,
+                                                    lens)
     shape = [B, H, S, S, D]
     rows["flash_fwd_bf16"]["max_abs_err"] = max(
         rows["flash_fwd_bf16"]["max_abs_err"], err)
@@ -3151,13 +3244,19 @@ def phase_bert_attention_bf16(mx, torch, rows):
         bound_ms=b_["fused"][0], bound_by=b_["fused"][1],
         pair_ms=dev_ms["bwd"], pair_bound_ms=b_["bwd"][0],
         pair_bound_by=b_["bwd"][1], plain_ms=dev_ms["bwd_plain"],
-        library_ms=None, pair_library_ms=dev_ms["sdpa_bwd"]))
+        library_ms=None, pair_library_ms=dev_ms["sdpa_bwd"],
+        tflops=tf["fused"], pair_tflops=tf["bwd"],
+        of_bound=dev_ms["fused"] / b_["fused"][0],
+        pair_of_bound=dev_ms["bwd"] / b_["bwd"][0],
+        pair_of_library=dev_ms["bwd"] / dev_ms["sdpa_bwd"]))
     dq = rows["flash_bwd_dq_bf16"]
     dq.update(max_abs_err=max(dq["max_abs_err"], berrs["dq"]),
               ms=dev_ms["dq"], plain_ms=dev_ms["bwd_plain"],
               bound_ms=b_["dq"][0], bound_by=b_["dq"][1],
               shape=shape, pair_ms=dev_ms["bwd"],
-              pair_library_ms=dev_ms["sdpa_bwd"])
+              pair_library_ms=dev_ms["sdpa_bwd"],
+              per_shape=[dict(shape=shape, lens=lens, tflops=tf["dq"],
+                              of_bound=dev_ms["dq"] / b_["dq"][0])])
     torch.cuda.empty_cache()
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time a training phase, the paged kernels or the fp32 flash and
-LayerNorm kernels, of two checkouts on one card.
+"""Time a training phase, the paged kernels, the fp32 or bf16 flash and
+LayerNorm kernels or the conv1x1 kernel, of two checkouts on one card.
 
-    python3 chip_train_ab.py OTHER_CHECKOUT [--phase train|bert|rpa|fp32]
+    python3 chip_train_ab.py OTHER_CHECKOUT
+                             [--phase train|bert|bert_bf16|rpa|fp32|bf16|conv]
                              [--rounds N] [--log-dir DIR]
 
 Runs phase 1 (build) and one phase for OTHER_CHECKOUT and for the
@@ -16,9 +17,12 @@ training phases are each checkout's own `chip_smoke.py`'s:
   bert   phase 11 (`phase_bert_train`): full-width `bert_base`, fp32,
          B=16, S=512, 10 Adam steps on one fixed batch, tokens/s (B*S)
          over steps 3-10;
+  bert_bf16  phase 11b (`phase_bert_train_bf16`): the same model cast
+         to bf16, bench_bert.py's SGD, the same batch and steps;
 each then one step under torch.profiler. Prints one line for each run
 (tokens/s, mean step ms, the profiled step's window and device busy
-time, and for bert the flash forward's share of that device time).
+time, and the share of that device time of the flash forward (bert) or
+of the split backward (bert_bf16)).
   rpa    this checkout's `chip_smoke.rpa_times` on each side's package:
          the four paged kernels' device ms (CUDA-graph replay) at the
          serving shape and the long case, the 1-wide ones also at every
@@ -28,6 +32,13 @@ time, and for bert the flash forward's share of that device time).
          package: the fp32 flash forward, fused backward, dQ kernel and
          LayerNorm at their paths' shapes (serving, training, BERT); one
          line a run.
+  bf16   this checkout's `chip_smoke.bf16_kernel_times` on each side's
+         package: the bf16 flash forward, the fused backward, the dK/dV
+         and dQ kernels and their pair at BERT's shape, and LayerNorm;
+         one line a run.
+  conv   this checkout's `chip_smoke.conv1x1_kernel_times` on each side's
+         package: the conv1x1 kernel in fp32 and bf16 at the probe's four
+         ResNet-50 shapes; one line a run.
 Then the card's name and power limit, then one JSON line with every run
 and each side's medians. `--log-dir` keeps each run's whole output
 there. Exits non-zero without a CUDA device or when a run fails.
@@ -64,6 +75,17 @@ if phase == "fp32":
     print("fp32 times " + json.dumps(cs.fp32_kernel_times(mx, torch)),
           flush=True)
     sys.exit(0)
+if phase == "bf16":
+    print("bf16 times " + json.dumps(cs.bf16_kernel_times(mx, torch)),
+          flush=True)
+    sys.exit(0)
+if phase == "conv":
+    print("conv times " + json.dumps(cs.conv1x1_kernel_times(mx, torch)),
+          flush=True)
+    sys.exit(0)
+if phase == "bert_bf16":
+    cs.phase_bert_train_bf16(mx, torch)
+    sys.exit(0)
 run = cs.phase_bert_train if phase == "bert" else cs.phase_train
 with tempfile.TemporaryDirectory() as tmp:
     run(mx, torch, os.path.join(tmp, "init.params"))
@@ -71,17 +93,23 @@ with tempfile.TemporaryDirectory() as tmp:
 # each phase's summary line and profile tag
 _TAGS = {"train": ("training ", "train profile"),
          "bert": ("bert training ", "bert profile"),
-         "rpa": ("rpa times ", None), "fp32": ("fp32 times ", None)}
+         "bert_bf16": ("bert bf16 training ", "bert bf16 profile"),
+         "rpa": ("rpa times ", None), "fp32": ("fp32 times ", None),
+         "bf16": ("bf16 times ", None), "conv": ("conv times ", None)}
 # the phases that time kernels: a dict of ms a run, medians by key
-_KERNEL_PHASES = ("rpa", "fp32")
-_FLASH_SHARE = re.compile(r"^bert profile: flash forward ([0-9.]+) ms, "
-                          r"([0-9.]+) % of device time")
+_KERNEL_PHASES = ("rpa", "fp32", "bf16", "conv")
+# the share of the profiled step's device time that a phase reports
+_SHARES = {"bert": re.compile(r"^bert profile: flash forward ([0-9.]+) ms, "
+                              r"([0-9.]+) % of device time"),
+           "bert_bf16": re.compile(r"^bert bf16 profile: split backward "
+                                   r"([0-9.]+) ms, ([0-9.]+) % of device "
+                                   r"time")}
 
 
 def run_once(root, phase, log_path):
-    """(summary, profiled window ms, busy ms, flash forward share % or
-    None) of one run; for the kernel phases the summary is the timing
-    function's dict and the rest None."""
+    """(summary, profiled window ms, busy ms, (ms, share %) of the
+    phase's reported kernel or None) of one run; for the kernel phases
+    the summary is the timing function's dict and the rest None."""
     smoke = os.path.join(HERE if phase in _KERNEL_PHASES else root,
                          "chip_smoke.py")
     proc = subprocess.run([sys.executable, "-c", _RUN, root, phase, smoke],
@@ -104,9 +132,9 @@ def run_once(root, phase, log_path):
         m = profile.match(line)
         if m:
             window, busy = float(m.group(1)), float(m.group(2))
-        m = _FLASH_SHARE.match(line)
+        m = _SHARES[phase].match(line) if phase in _SHARES else None
         if m:
-            share = float(m.group(2))
+            share = (float(m.group(1)), float(m.group(2)))
     if summary is None:
         raise SystemExit(f"chip_train_ab: no {head.strip()} line from "
                          f"{root}")
@@ -143,16 +171,21 @@ def main():
                 print(f"{side}: " + ", ".join(
                     f"{k} {v:.6f}" for k, v in summary.items()), flush=True)
                 continue
+            what = ("flash forward" if args.phase == "bert"
+                    else "split backward")
             runs.append(dict(side=side, tokens_per_s=summary["tokens_per_s"],
                              mean_step_ms=summary["mean_step_ms"],
                              profiled_window_ms=window, busy_ms=busy,
-                             flash_fwd_share_pct=share,
+                             share_of=None if share is None else what,
+                             share_ms=None if share is None else share[0],
+                             share_pct=None if share is None else share[1],
                              launches=summary["launches"]))
             print(f"{side}: {summary['tokens_per_s']:.1f} tokens/s, "
                   f"{summary['mean_step_ms']:.3f} ms a step; profiled "
                   f"step window {window} ms, device busy {busy} ms"
                   + ("" if share is None
-                     else f", flash forward {share} % of it"), flush=True)
+                     else f", {what} {share[0]} ms, {share[1]} % of it"),
+                  flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -85,25 +85,80 @@
 // launch recomputes the shared bytes here and refuses a plan that
 // disagrees.
 //
-// bfloat16 forms (mxtt_flash_bwd_bf16, mxtt_flash_bwd_dq_bf16): the same
-// two kernels, plans and masks on bf16 q, k, v, dO (lse, delta fp32),
-// with the JAX kernels' rounding points: the dK / dV kernel rounds p to
-// bf16 and uses it for dV = P^T dO and for dS = bf16(p (dP - delta)
-// scale) in dK = dS^T Q (pallas_kernels.py:455-461); dQ uses p in fp32
-// and dS = bf16(p (dP - delta) scale) (:521-526), so where the fused
-// kernel also writes dQ it keeps that second dS in shared memory as
-// bf16. dQ, dK, dV are rounded once, at the end. The products are
-// mma.sync.m16n8k16 with bf16 operands (bf16_mma.cuh): S^T / dP^T from
-// K / V rows (A) and Q / dO rows (B, two 32-bit loads), P^T and dS^T
-// from their C fragments as A, and dO / Q / K as B through
-// ldmatrix.trans. At BERT's shape the pair does about 2.5x the
-// forward's operations, 0.024 ms at 989 TFLOP/s.
+// bfloat16 forms (mxtt_flash_bwd_bf16, mxtt_flash_bwd_dq_bf16), for
+// Hopper on wgmma: the same two kernels (the dK/dV kernel, writing dQ too
+// on the fused path, and the dQ kernel), masks and arguments on bf16 q, k,
+// v, dO (lse, delta fp32), with the JAX kernels' rounding points: the dK/dV
+// kernel (replacing _flash_bwd_dkv_kernel on bf16) rounds p to bf16 and
+// uses it for dV = P^T dO and for dS = bf16(p (dP - delta) scale) in dK =
+// dS^T Q (pallas_kernels.py:455-461); the dQ kernel (replacing
+// _flash_bwd_dq_kernel) uses p in fp32 and dS = bf16(p (dP - delta)
+// scale) (:521-526), so where the fused path also writes dQ it keeps that
+// second dS in shared memory as bf16. dQ, dK, dV are rounded once, at the
+// end.
+//
+// What bounds them on this card. At BERT's shape (B*H = 192, S = 512, D =
+// 64, lengths 256-512, 37.7 M live (q, k) pairs) the function's least time
+// is about 0.024 ms: its bytes (every input read once, every output
+// written once) and its 10 * pairs * D of products at 989 TFLOP/s come out
+// nearly equal. The split pair does 14 * pairs * D (dK/dV 8, dQ 6; S and
+// dP are computed twice), 0.034 ms at that rate. What holds the kernels
+// above it is the chain inside a warpgroup (products, then 32 exp2 a
+// thread on the MUFU unit, then the next products) and, in the mma.sync
+// forms they replace, 32-bit fragment loads and ldmatrix for every
+// product, small 16 x 8 products between barriers and every thread
+// issuing its share of each tile's copies.
+//
+// Design:
+// * Products on wgmma (wgmma.cuh). The dK/dV kernel: a block owns BK =
+//   64 or 128 keys of one (b, h), a warpgroup per 64 (two at DP = 64, one
+//   at DP = 128), K and V loaded once; it walks 64-query tiles. S^T = K
+//   Q^T and dP^T = V dO^T are m64n64k16 with both operands in shared
+//   memory, K-major; p and dS are computed in the accumulators'
+//   registers; dV += P^T dO and dK += dS^T Q take P^T and dS^T from
+//   registers (two 8-column accumulator tiles packed to bf16 are the A
+//   fragment of the next product, c_to_a) with dO / Q read N-major through
+//   the transpose bit, so nothing is transposed in memory; dV's product
+//   runs while dS is computed. The dQ kernel: a block of one warpgroup
+//   owns 64 queries, Q and dO loaded once, and walks 64-key tiles up to
+//   min(kv_len, the causal stop): S = Q K^T and dP = dO V^T (both
+//   operands in shared memory), dS in registers, dQ += dS K with K read
+//   N-major. dK, dV, dQ stay in fp32 accumulators and are written once.
+// * Copies by TMA: one thread asks for a whole tile (Q, dO, K, V as boxes
+//   of 64 columns in the 128-byte swizzle the products read; lse and delta
+//   as a box of 68 floats from the 16-byte boundary at or below the tile's
+//   first entry, since TMA reads from 16-byte boundaries and writes shared
+//   memory at 128-byte ones); rows past Sq or Sk and columns past D arrive
+//   as zeros. The ring (three stages at DP = 64, two at DP = 128) has a
+//   full mbarrier a stage (the bytes counted) and an empty one (each warp
+//   arrives when done with the tile), so the warpgroups of a block drift
+//   apart rather than meeting at a barrier every tile: one's exp2 overlaps
+//   the other's products. Where TMA cannot go (D % 8 != 0, or a base or
+//   lse / delta not 16-byte aligned) every thread copies element by element
+//   into the same layout and arrives on the full barrier instead.
+// * p = 2^(s scale log2(e) - lse log2(e)) (ex2.approx), masked only in a
+//   tile that crosses an edge (the causal diagonal, kv_len, Sq); p, dS
+//   and the masks are the fp32 forms' otherwise.
+// * When Sk fits one block (Sk <= 128 at DP = 64, <= 64 at DP = 128) the
+//   dK/dV kernel also writes dQ (one launch): each warpgroup writes its
+//   keys' dQ-dS to shared memory as bf16 (query rows, K-major, swizzled),
+//   and the first warpgroup computes dQ = dS K for the tile (m64nDPk16,
+//   both operands in shared memory). No block writes what another writes:
+//   no atomics, the same bits on every run.
+// * Keys at or past kv_len contribute p = 0, so their dK / dV rows are
+//   exactly 0; a block whose keys all lie there writes zeros and stops.
+// The launch plan (BK, stages, shared bytes) is kernels.py:flash_bwd_plan
+// in bf16; each launch recomputes the shared bytes and refuses a plan that
+// disagrees.
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -539,235 +594,481 @@ int launch_dq(const float* q, const float* k, const float* v,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 forms
+// bfloat16 forms, on wgmma (wgmma.cuh)
 // ---------------------------------------------------------------------------
-__host__ __device__ constexpr size_t fused_smem_bf16(int DP, int BK,
-                                                     int dq) {
-  return sizeof(bf16) * ((size_t)2 * BK + (size_t)4 * kBQ) *
-             bf16_pitch(DP) +
-         sizeof(float) * 4 * kBQ +
-         (dq ? sizeof(bf16) * (size_t)kBQ * (BK + 8) : 0);
+constexpr int kBf16BQ = 64;       // query rows per tile of the dK/dV kernel
+constexpr int kBf16MaxBK = 128;   // keys per dK/dV block at most, 64 a
+                                  // warpgroup
+constexpr int kBf16DqBK = 64;     // keys per tile of the dQ kernel
+constexpr int kBf16DqBQ = 64;     // queries per dQ block, one warpgroup
+// lse and delta of a query tile: a TMA box of kBf16LVBox entries from the
+// 16-byte boundary at or below the tile's first (TMA reads from 16-byte
+// boundaries), in a stage slot of kBf16LV entries (it writes shared memory
+// at 128-byte boundaries)
+constexpr int kBf16LVBox = kBf16BQ + 4;
+constexpr int kBf16LV = kBf16BQ + 32;
+
+// D is zero-padded to DP = 64 or 128 (one or two 128-byte swizzle atoms);
+// DP = 64 takes two warpgroups of keys a dK/dV block, DP = 128 one (its dK
+// and dV accumulators take 128 registers a thread)
+__host__ __device__ constexpr int bf16_max_bk(int DP) {
+  return DP == 64 ? kBf16MaxBK : 64;
+}
+// ring stages of both kernels: three at DP = 64; two at DP = 128, where a
+// third would leave room for one block an SM
+__host__ __device__ constexpr int bf16_stages(int DP) {
+  return DP == 64 ? 3 : 2;
 }
 
+// 1024 bytes to align the swizzled tiles; K and V (BK rows each); the
+// ring's Q and dO tiles (kBf16BQ rows) and fp32 lse and delta; with dq,
+// the tile's dS (kBf16BQ x BK); the ring's full and empty barriers and
+// one for K and V
+__host__ __device__ constexpr size_t dkv_smem_bf16(int DP, int BK, int dq) {
+  return 1024 +
+         sizeof(bf16) * ((size_t)2 * BK * DP +
+                         (size_t)2 * bf16_stages(DP) * kBf16BQ * DP +
+                         (dq ? (size_t)kBf16BQ * BK : 0)) +
+         sizeof(float) * 2 * bf16_stages(DP) * kBf16LV +
+         sizeof(uint64_t) * (2 * bf16_stages(DP) + 1);
+}
+
+// 1024 to align; the block's Q and dO rows; the ring's K and V tiles; the
+// ring's barriers and one for Q and dO
 __host__ __device__ constexpr size_t dq_smem_bf16(int DP) {
-  return sizeof(bf16) * ((size_t)2 * kDqBQ + (size_t)4 * kDqBK) *
-             bf16_pitch(DP) +
-         sizeof(float) * 2 * kDqBQ;
+  return 1024 +
+         sizeof(bf16) * ((size_t)2 * kBf16DqBQ * DP +
+                         (size_t)2 * bf16_stages(DP) * kBf16DqBK * DP) +
+         sizeof(uint64_t) * (2 * bf16_stages(DP) + 1);
 }
 
-// the grid and warps of flash_bwd_fused_kernel
-template <int DP>
-__global__ void __launch_bounds__(32 * kMaxBK / 16)
-flash_bwd_fused_bf16_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const bf16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            const int* __restrict__ kv_len,
-                            bf16* __restrict__ dq, bf16* __restrict__ dk,
-                            bf16* __restrict__ dv, int H, int Sq, int Sk,
-                            int D, int causal, float sm_scale, int BK,
-                            int with_dq, int vec) {
-  constexpr int NT = DP / 8;
-  constexpr int QT = kBQ / 8;
-  constexpr int P = bf16_pitch(DP);
+static_assert(dkv_smem_bf16(64, kBf16MaxBK, 1) <= 227 * 1024 &&
+                  dkv_smem_bf16(128, bf16_max_bk(128), 1) <= 227 * 1024 &&
+                  dq_smem_bf16(64) <= 227 * 1024 &&
+                  dq_smem_bf16(128) <= 227 * 1024,
+              "a bf16 block's shared memory exceeds 227 KB");
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x (ex2.approx.ftz: relative error about 2^-22, subnormal results 0):
+// exp(s scale - lse) = 2^(s scale log2(e) - lse log2(e)), one FFMA and
+// one MUFU op where expf takes about eight instructions
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// element (r, c) of a tile of `rows` rows in the 128-byte swizzle: 64-
+// column blocks of `rows` rows of 64 bf16, the 16-byte piece q of row r at
+// piece q ^ (r % 8)
+__device__ __forceinline__ int sw_off(int r, int c, int rows) {
+  return (c >> 6) * rows * 64 + r * 64 +
+         ((((c & 63) >> 3) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// rows [r0, r0 + ROWS) of a (limit, D) bf16 matrix into a swizzled tile
+// of ROWS rows element by element, by NT threads (the copy where TMA
+// cannot go: D % 8 != 0 or a base not 16-byte aligned); rows past `limit`
+// are zeros and columns [D, DP) are never written (zero_pad_sw)
+template <int ROWS, int NT>
+__device__ __forceinline__ void copy_rows_sw(bf16* dst, const bf16* src,
+                                             int r0, int limit, int D,
+                                             int tid) {
+  for (int idx = tid; idx < ROWS * D; idx += NT) {
+    const int r = idx / D;
+    const int c = idx - r * D;
+    dst[sw_off(r, c, ROWS)] = r0 + r < limit ? src[(size_t)(r0 + r) * D + c]
+                                             : __float2bfloat16(0.f);
+  }
+}
+
+// entries [r0, r0 + n) of a vector, zero past `limit`, by NT threads
+template <int NT>
+__device__ __forceinline__ void copy_vec_sync(float* dst, const float* src,
+                                              int r0, int n, int limit,
+                                              int tid) {
+  for (int i = tid; i < n; i += NT)
+    dst[i] = r0 + i < limit ? src[r0 + i] : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA (cp.async.bulk.tensor): one thread asks for a whole
+// tile; the copy engine writes it into the 128-byte swizzle and counts its
+// bytes on the stage's barrier
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the producer's arrival, announcing `bytes` still to come by TMA
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// until the barrier's phase `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// box (c0 .., c1 .., c2) of a tensor map into shared memory
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// columns [D, DP) of a swizzled tile of `rows` rows are zeros
+__device__ __forceinline__ void zero_pad_sw(bf16* m, int rows, int D,
+                                            int DP, int tid, int nthreads) {
+  const int w = DP - D;
+  for (int idx = tid; idx < rows * w; idx += nthreads) {
+    const int r = idx / w;
+    m[sw_off(r, D + idx - r * w, rows)] = __float2bfloat16(0.f);
+  }
+}
+
+// dK/dV: grid (B*H, ceil(Sk / BK)), WGS warpgroups, each owning 64 keys
+// (BK = 64 WGS); DQ (Sk <= BK, one block a (b, h)) also dQ
+template <int DP, int WGS, bool DQ>
+__global__ void __launch_bounds__(128 * WGS, 1)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ kv_len,
+                          bf16* __restrict__ dq, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int H, int Sq, int Sk,
+                          int D, int causal, float sm_scale, int vec,
+                          const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_lse,
+                          const __grid_constant__ CUtensorMap tm_delta) {
+  constexpr int BK = 64 * WGS;
+  constexpr int NT = 128 * WGS;   // threads
+  constexpr int BQ = kBf16BQ;
+  constexpr int S = bf16_stages(DP);
+  constexpr int NQ = BQ / 8;   // 8-query column tiles of S^T and dP^T
+  constexpr int ND = DP / 8;   // 8-column tiles of dK, dV and dQ
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // BK x P
-  bf16* vs = ks + BK * P;                         // BK x P
-  bf16* qs = vs + BK * P;                         // 2 x kBQ x P
-  bf16* dos = qs + 2 * kBQ * P;                   // 2 x kBQ x P
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * kBQ * P);  // 2 x kBQ
-  float* delta_s = lse_s + 2 * kBQ;               // 2 x kBQ
-  bf16* dss = reinterpret_cast<bf16*>(delta_s + 2 * kBQ);  // kBQ x dsp
-  const int dsp = BK + 8;
+  // the swizzle pattern repeats every 1024 bytes: align the tiles to it
+  bf16* ks = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - static_cast<uint32_t>(
+                              __cvta_generic_to_shared(smem_raw)) % 1024) %
+                  1024));
+  bf16* vs = ks + BK * DP;                 // BK rows
+  bf16* qs = vs + BK * DP;                 // S tiles of BQ rows
+  bf16* dos = qs + S * BQ * DP;            // S tiles of BQ rows
+  bf16* dss = dos + S * BQ * DP;           // BQ x BK, DQ
+  float* lse_s = reinterpret_cast<float*>(dss + (DQ ? BQ * BK : 0));
+  float* delta_s = lse_s + S * kBf16LV;    // S x kBf16LV each
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + S * kBf16LV);
+  uint64_t* empty = full + S;              // S each
+  uint64_t* kv_bar = empty + S;
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * BK;
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int nwarps = nthreads / 32;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int wg = warp >> 2;
   const int g = lane >> 2;
   const int t = lane & 3;
   const size_t qbase = (size_t)bh * Sq * D;
   const size_t kbase = (size_t)bh * Sk * D;
-  const int ntd = (D + 7) / 8;
-  const int nkd = (D + 15) / 16;
-  const int kw0 = k0 + 16 * warp;
+  const int kw0 = k0 + 64 * wg;                // the warpgroup's keys
+  const int kr = kw0 + 16 * (warp & 3) + g;    // this thread's: kr, kr + 8
   const bool pair = (D & 1) == 0;
+  const float c = sm_scale * kLog2e;
 
   int kend = Sk;
   if (kv_len != nullptr) kend = max(0, min(kend, kv_len[bh / H]));
 
-  float dk_acc[NT][4], dv_acc[NT][4];
+  float dk_acc[ND][4], dv_acc[ND][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
   if (k0 < kend) {
-    zero_pad_bf16(ks, P, 2 * BK + 4 * kBQ, D, DP, tid, nthreads);
-    const int qstart = causal ? (k0 / kBQ) * kBQ : 0;
-    copy_rows_bf16(ks, P, k + kbase, k0, BK, Sk, D, vec, tid, nthreads);
-    copy_rows_bf16(vs, P, v + kbase, k0, BK, Sk, D, vec, tid, nthreads);
-    auto load_tile = [&](int q0, int buf) {
-      copy_rows_bf16(qs + buf * kBQ * P, P, q + qbase, q0, kBQ, Sq, D, vec,
-                     tid, nthreads);
-      copy_rows_bf16(dos + buf * kBQ * P, P, dout + qbase, q0, kBQ, Sq, D,
-                     vec, tid, nthreads);
-      copy_vec(lse_s + buf * kBQ, lse + (size_t)bh * Sq, q0, kBQ, Sq, tid,
-               nthreads);
-      copy_vec(delta_s + buf * kBQ, delta + (size_t)bh * Sq, q0, kBQ, Sq,
-               tid, nthreads);
-    };
-    load_tile(qstart, 0);
-    cp_commit();
-
-    int buf = 0;
-    for (int q0 = qstart; q0 < Sq; q0 += kBQ, buf ^= 1) {
-      if (q0 + kBQ < Sq) {
-        load_tile(q0 + kBQ, buf ^ 1);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
+    // causal: the first query tile holds query k0
+    const int qstart = causal ? (k0 / BQ) * BQ : 0;
+    const int ntiles = (Sq - qstart + BQ - 1) / BQ;
+    // a tile's lse / delta box starts at the 16-byte boundary at or below
+    // its first entry (bh Sq + q0, with q0 a multiple of 4), lv0 entries
+    // before it
+    const int lv0 = (bh * Sq) & 3;
+    // the ring: tile i of the walk in stage i % S; full[st] completes
+    // when its tile is in (TMA: the bytes counted; else every thread's
+    // copies), empty[st] when each warp is done with it
+    if (tid == 0) {
+      for (int st = 0; st < S; ++st) {
+        mbar_init(full + st, vec ? 1 : NT);
+        mbar_init(empty + st, NT / 32);
       }
+      mbar_init(kv_bar, 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    auto fill = [&](int i) {   // tile i into stage i % S
+      const int q0 = qstart + i * BQ;
+      const int st = i % S;
+      if (vec) {
+        mbar_expect_tx(full + st, 2 * BQ * DP * 2 + 2 * kBf16LVBox * 4);
+#pragma unroll
+        for (int cb = 0; cb < DP / 64; ++cb) {
+          tma_load_3d(qs + st * BQ * DP + cb * BQ * 64, &tm_q, full + st,
+                      64 * cb, q0, bh);
+          tma_load_3d(dos + st * BQ * DP + cb * BQ * 64, &tm_do, full + st,
+                      64 * cb, q0, bh);
+        }
+        const int c4 = (bh * Sq + q0) & ~3;
+        tma_load_1d(lse_s + st * kBf16LV, &tm_lse, full + st, c4);
+        tma_load_1d(delta_s + st * kBf16LV, &tm_delta, full + st, c4);
+      } else {
+        copy_rows_sw<BQ, NT>(qs + st * BQ * DP, q + qbase, q0, Sq, D, tid);
+        copy_rows_sw<BQ, NT>(dos + st * BQ * DP, dout + qbase, q0, Sq, D,
+                             tid);
+        copy_vec_sync<NT>(lse_s + st * kBf16LV + lv0, lse + (size_t)bh * Sq,
+                          q0, BQ, Sq, tid);
+        copy_vec_sync<NT>(delta_s + st * kBf16LV + lv0,
+                          delta + (size_t)bh * Sq, q0, BQ, Sq, tid);
+        fence_async_smem();
+        mbar_arrive(full + st);
+      }
+    };
+    if (vec) {
+      // K and V by TMA (rows past Sk and columns past D arrive as zeros),
+      // and the ring's first tiles, from one thread
+      if (tid == 0) {
+        mbar_expect_tx(kv_bar, 2 * BK * DP * 2);
+#pragma unroll
+        for (int cb = 0; cb < DP / 64; ++cb) {
+          tma_load_3d(ks + cb * BK * 64, &tm_k, kv_bar, 64 * cb, k0, bh);
+          tma_load_3d(vs + cb * BK * 64, &tm_v, kv_bar, 64 * cb, k0, bh);
+        }
+        for (int i = 0; i < S - 1 && i < ntiles; ++i) fill(i);
+      }
+      mbar_wait(kv_bar, 0);
+    } else {
+      if (D < DP) {
+        zero_pad_sw(ks, BK, D, DP, tid, NT);
+        zero_pad_sw(vs, BK, D, DP, tid, NT);
+        for (int st = 0; st < S; ++st) {
+          zero_pad_sw(qs + st * BQ * DP, BQ, D, DP, tid, NT);
+          zero_pad_sw(dos + st * BQ * DP, BQ, D, DP, tid, NT);
+        }
+      }
+      copy_rows_sw<BK, NT>(ks, k + kbase, k0, Sk, D, tid);
+      copy_rows_sw<BK, NT>(vs, v + kbase, k0, Sk, D, tid);
+      for (int i = 0; i < S - 1 && i < ntiles; ++i) fill(i);
+      fence_async_smem();
       __syncthreads();
-      const bf16* qt = qs + buf * kBQ * P;
-      const bf16* dot = dos + buf * kBQ * P;
-      const float* lt = lse_s + buf * kBQ;
-      const float* dt = delta_s + buf * kBQ;
+    }
 
-      const bool live = kw0 < kend && !(causal && kw0 > q0 + kBQ - 1);
-      if (live) {
-        // S^T and dP^T of this warp's 16 keys x the tile's queries
-        float s[QT][4], dp[QT][4];
+    for (int i = 0; i < ntiles; ++i) {
+      // refill the stage tile i - 1 used (the first S - 1 went in above)
+      // with tile i + S - 1, once every warp is done with it
+      if (i + S - 1 < ntiles && (!vec || tid == 0)) {
+        if (i >= 1) mbar_wait(empty + (i - 1) % S, ((i - 1) / S) & 1);
+        fill(i + S - 1);
+      }
+      mbar_wait(full + i % S, (i / S) & 1);
+      const int q0 = qstart + i * BQ;
+      const bf16* qt = qs + (i % S) * BQ * DP;
+      const bf16* dot = dos + (i % S) * BQ * DP;
+      const float* lt = lse_s + (i % S) * kBf16LV + lv0;
+      const float* dt = delta_s + (i % S) * kBf16LV + lv0;
+
+      if (kw0 < kend && !(causal && kw0 > q0 + BQ - 1)) {
+        // S^T = K Q^T and dP^T = V dO^T (keys x the tile's queries): a =
+        // the warpgroup's 64 K / V rows, b = the Q / dO rows, both K-major
+        float s[NQ][4], dp[NQ][4];
+        wg_fence();
 #pragma unroll
-        for (int j = 0; j < QT; ++j)
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<64, 0>(
+              s,
+              sw128_desc(ks + (kk >> 2) * BK * 64 + wg * 4096 +
+                             16 * (kk & 3), 16, 1024),
+              sw128_desc(qt + (kk >> 2) * BQ * 64 + 16 * (kk & 3), 16,
+                         1024),
+              kk);
+        wg_commit();
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-        const bf16* kw = ks + 16 * warp * P;
-        const bf16* vw = vs + 16 * warp * P;
-        for (int kk = 0; kk < 16 * nkd; kk += 16) {
-          uint32_t ka[4], va[4];
-          frag_a(kw, P, kk, g, t, ka);
-          frag_a(vw, P, kk, g, t, va);
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<64, 0>(
+              dp,
+              sw128_desc(vs + (kk >> 2) * BK * 64 + wg * 4096 +
+                             16 * (kk & 3), 16, 1024),
+              sw128_desc(dot + (kk >> 2) * BQ * 64 + 16 * (kk & 3), 16,
+                         1024),
+              kk);
+        wg_commit();
+        wg_wait<1>();  // S^T is in
+        pin<NQ>(s);
+        // p = exp(s scale - lse) where the mask allows (qi, kj), else 0;
+        // the mask is evaluated only in a tile that crosses an edge (the
+        // causal diagonal, kv_len, Sq)
+        auto p_of = [&](auto masked) {
 #pragma unroll
-          for (int j = 0; j < QT; ++j) {
-            uint32_t qb[2], ob[2];
-            frag_b_rows(qt + 8 * j * P + kk, P, g, t, qb);
-            frag_b_rows(dot + 8 * j * P + kk, P, g, t, ob);
-            mma_bf16(s[j], ka, qb);
-            mma_bf16(dp[j], va, ob);
-          }
-        }
-        // p (fp32, rounded to bf16 when packed for dV) and dS = bf16(p)
-        // (dP - delta) scale (rounded when packed for dK); dQ's dS from
-        // the fp32 p goes to shared memory as bf16
+          for (int j = 0; j < NQ; ++j) {
 #pragma unroll
-        for (int j = 0; j < QT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = g + ((e & 2) ? 8 : 0);
-            const int col = 8 * j + 2 * t + (e & 1);
-            const int kj = kw0 + row;
-            const int qi = q0 + col;
-            const bool keep = qi < Sq && kj < kend && (!causal || kj <= qi);
-            const float p = keep ? expf(s[j][e] * sm_scale - lt[col]) : 0.f;
-            const float pb = __bfloat162float(__float2bfloat16(p));
-            const float ddp = dp[j][e] - dt[col];
-            s[j][e] = p;
-            dp[j][e] = pb * ddp * sm_scale;
-            if (with_dq)
-              dss[col * dsp + 16 * warp + row] =
-                  __float2bfloat16(p * ddp * sm_scale);
-          }
-        }
-        // dV += bf16(P)^T dO, dK += dS^T Q over the tile's queries, 16 at
-        // a step, four column tiles at a time: the tile's products in
-        // zeroed accumulators, then fp32 adds (tile_add)
-#pragma unroll
-        for (int n0 = 0; n0 < NT; n0 += 4) {
-          float tv[4][4] = {}, tk[4][4] = {};
-#pragma unroll
-          for (int jj = 0; jj < QT / 2; ++jj) {
-            uint32_t pa[4], sa[4];
-            c_to_a(s[2 * jj], s[2 * jj + 1], pa);
-            c_to_a(dp[2 * jj], dp[2 * jj + 1], sa);
-            const bf16* dor = dot + 16 * jj * P + 8 * n0;
-            const bf16* qr = qt + 16 * jj * P + 8 * n0;
-#pragma unroll
-            for (int i = 0; i < 4; i += 2) {
-              uint32_t ob[2][2], qb[2][2];
-              frag_b_trans(dor + 8 * i, P, lane, ob);
-              frag_b_trans(qr + 8 * i, P, lane, qb);
-              mma_bf16(tv[i], pa, ob[0]);
-              mma_bf16(tv[i + 1], pa, ob[1]);
-              mma_bf16(tk[i], sa, qb[0]);
-              mma_bf16(tk[i + 1], sa, qb[1]);
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * t + (e & 1);
+              const float p =
+                  exp2_approx(fmaf(s[j][e], c, -lt[col] * kLog2e));
+              if constexpr (decltype(masked)::value) {
+                const int kj = kr + ((e & 2) ? 8 : 0);
+                const int qi = q0 + col;
+                s[j][e] = qi < Sq && kj < kend && (!causal || kj <= qi)
+                              ? p
+                              : 0.f;
+              } else {
+                s[j][e] = p;
+              }
             }
           }
-          tile_add<4>(dv_acc + n0, tv, 1.f, 1.f);
-          tile_add<4>(dk_acc + n0, tk, 1.f, 1.f);
-        }
-      }
-
-      if (with_dq) {
-        __syncthreads();  // dS of every warp is in place
-        // dQ of the tile = dS K over the live keys, 16 at a step; a warp
-        // takes 16 rows x 32 columns at a time
-        int klive = min(kend, k0 + BK) - k0;
-        if (causal) klive = min(klive, q0 + kBQ - k0);
-        const int ksteps = (klive + 15) / 16;
-        const int ngroups = (ntd + 3) / 4;
-        const int items = (kBQ / 16) * ngroups;
-        for (int it = warp; it < items; it += nwarps) {
-          const int m = it % (kBQ / 16);
-          const int grp = it / (kBQ / 16);
-          float acc[4][4] = {};
-          const bf16* dsm = dss + 16 * m * dsp;
-          for (int st = 0; st < ksteps; ++st) {
-            uint32_t a[4], b[2][2];
-            frag_a(dsm, dsp, 16 * st, g, t, a);
-            const bf16* kr = ks + 16 * st * P + 32 * grp;
-            frag_b_trans(kr, P, lane, b);
-            mma_bf16(acc[0], a, b[0]);
-            mma_bf16(acc[1], a, b[1]);
-            frag_b_trans(kr + 16, P, lane, b);
-            mma_bf16(acc[2], a, b[0]);
-            mma_bf16(acc[3], a, b[1]);
-          }
+        };
+        if ((causal && kw0 + 63 > q0) || kw0 + 64 > kend || q0 + BQ > Sq)
+          p_of(std::true_type{});
+        else
+          p_of(std::false_type{});
+        // dV += bf16(P)^T dO while dP^T finishes: a = P^T's columns of
+        // 16 queries packed from its C fragments, b = those queries' dO
+        // rows (N-major)
+        uint32_t pa[BQ / 16][4];
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const int d = 8 * (4 * grp + n) + 2 * t;
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          c_to_a(s[2 * kk], s[2 * kk + 1], pa[kk]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<DP, 1>(dv_acc, pa[kk],
+                          sw128_desc(dot + kk * 16 * 64, BQ * 128, 1024), 1);
+        wg_commit();
+        wg_wait<1>();  // dP^T is in
+        pin<NQ>(dp);
+        // dK's dS = bf16(p) (dP - delta) scale (rounded when packed);
+        // fused, dQ's dS = bf16(p (dP - delta) scale) into shared memory
+        // as (query, key)
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            const float ddp = dp[j][e] - dt[col];
+            const float pb = __bfloat162float(__float2bfloat16(s[j][e]));
+            if constexpr (DQ)
+              dss[sw_off(col, kr - k0 + ((e & 2) ? 8 : 0), BQ)] =
+                  __float2bfloat16(s[j][e] * ddp * sm_scale);
+            dp[j][e] = pb * ddp * sm_scale;
+          }
+        }
+        // dK += dS^T Q: a = dS^T packed likewise, b = the Q rows
+        uint32_t sa[BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          c_to_a(dp[2 * kk], dp[2 * kk + 1], sa[kk]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<DP, 1>(dk_acc, sa[kk],
+                          sw128_desc(qt + kk * 16 * 64, BQ * 128, 1024), 1);
+        wg_commit();
+        wg_wait<0>();
+        pin<ND>(dv_acc);
+        pin<ND>(dk_acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + i % S);   // the stage is read
+
+      if constexpr (DQ) {
+        fence_async_smem();
+        __syncthreads();  // every warpgroup's dS is in place
+        if (wg == 0) {
+          // dQ of the tile = dS K over the live keys, 16 a k step: a =
+          // dS (K-major), b = K's rows (N-major)
+          int klive = min(kend, k0 + BK) - k0;
+          if (causal) klive = min(klive, q0 + BQ - k0);
+          const int ksteps = (klive + 15) / 16;   // at least 1
+          float acc[ND][4];
+          wg_fence();
+          for (int st = 0; st < ksteps; ++st)
+            wgmma_ss<DP, 1>(
+                acc,
+                sw128_desc(dss + (st >> 2) * BQ * 64 + 16 * (st & 3), 16,
+                           1024),
+                sw128_desc(ks + st * 16 * 64, BK * 128, 1024), st);
+          wg_commit();
+          wg_wait<0>();
+          pin<ND>(acc);
+          const int qw = q0 + 16 * (warp & 3) + g;
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            const int d = 8 * n + 2 * t;
             if (d >= D) continue;
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-              const int qi = q0 + 16 * m + g + 8 * half;
+              const int qi = qw + 8 * half;
               if (qi < Sq)
                 store_pair(dq, qbase + (size_t)qi * D + d, acc[n][2 * half],
                            acc[n][2 * half + 1], pair, d + 1 < D);
             }
           }
         }
+        __syncthreads();  // dS is read before the next tile writes it
       }
-      __syncthreads();  // this buffer (and dS) is consumed
     }
-  } else if (with_dq) {
-    for (int i = tid; i < Sq * D; i += nthreads)
+  } else if (DQ) {
+    for (int i = tid; i < Sq * D; i += NT)
       dq[qbase + i] = __float2bfloat16(0.f);
   }
 
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    if (n >= ntd) continue;
+  for (int n = 0; n < ND; ++n) {
     const int d = 8 * n + 2 * t;
     if (d >= D) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int kj = kw0 + g + 8 * half;
+      const int kj = kr + 8 * half;
       if (kj < Sk) {
         const size_t i = kbase + (size_t)kj * D + d;
         store_pair(dk, i, dk_acc[n][2 * half], dk_acc[n][2 * half + 1],
@@ -779,9 +1080,9 @@ flash_bwd_fused_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
-// the grid and warps of flash_bwd_dq_kernel
+// dQ: grid (B*H, ceil(Sq / 64)), one warpgroup of 64 queries a block
 template <int DP>
-__global__ void __launch_bounds__(kDqThreads)
+__global__ void __launch_bounds__(128, 1)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -790,20 +1091,31 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ delta,
                          const int* __restrict__ kv_len,
                          bf16* __restrict__ dq, int H, int Sq, int Sk, int D,
-                         int causal, float sm_scale, int vec) {
-  constexpr int NT = DP / 8;
-  constexpr int KT = kDqBK / 8;
-  constexpr int P = bf16_pitch(DP);
+                         int causal, float sm_scale, int vec,
+                         const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do) {
+  constexpr int QR = kBf16DqBQ;
+  constexpr int NT = 128;      // threads
+  constexpr int BK = kBf16DqBK;
+  constexpr int S = bf16_stages(DP);
+  constexpr int NK = BK / 8;   // 8-key column tiles of S and dP
+  constexpr int ND = DP / 8;   // 8-column tiles of dQ
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // kDqBQ x P
-  bf16* dos = qs + kDqBQ * P;                     // kDqBQ x P
-  bf16* ks = dos + kDqBQ * P;                     // 2 x kDqBK x P
-  bf16* vs = ks + 2 * kDqBK * P;                  // 2 x kDqBK x P
-  float* lse_s = reinterpret_cast<float*>(vs + 2 * kDqBK * P);  // kDqBQ
-  float* delta_s = lse_s + kDqBQ;                 // kDqBQ
+  bf16* qs = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - static_cast<uint32_t>(
+                              __cvta_generic_to_shared(smem_raw)) % 1024) %
+                  1024));
+  bf16* dos = qs + QR * DP;                // QR rows
+  bf16* kst = dos + QR * DP;               // S tiles of BK rows
+  bf16* vst = kst + S * BK * DP;           // S tiles of BK rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(vst + S * BK * DP);
+  uint64_t* empty = full + S;              // S each
+  uint64_t* q_bar = empty + S;
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kDqBQ;
+  const int q0 = blockIdx.y * QR;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -811,117 +1123,171 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   const int t = lane & 3;
   const size_t qbase = (size_t)bh * Sq * D;
   const size_t kbase = (size_t)bh * Sk * D;
-  const int ntd = (D + 7) / 8;
-  const int nkd = (D + 15) / 16;
-  const int qw0 = q0 + 16 * warp;
+  const int qr = q0 + 16 * warp + g;   // this thread's rows: qr, qr + 8
 
   int kend = Sk;
   if (kv_len != nullptr) kend = max(0, min(kend, kv_len[bh / H]));
-  int kstop = kend;
-  if (causal) kstop = min(kstop, q0 + kDqBQ);
+  const int kstop = causal ? min(kend, q0 + QR) : kend;
+  const int ntiles = (kstop + BK - 1) / BK;
 
-  zero_pad_bf16(qs, P, 2 * kDqBQ + 4 * kDqBK, D, DP, tid, kDqThreads);
-  copy_rows_bf16(qs, P, q + qbase, q0, kDqBQ, Sq, D, vec, tid, kDqThreads);
-  copy_rows_bf16(dos, P, dout + qbase, q0, kDqBQ, Sq, D, vec, tid,
-                 kDqThreads);
-  copy_vec(lse_s, lse + (size_t)bh * Sq, q0, kDqBQ, Sq, tid, kDqThreads);
-  copy_vec(delta_s, delta + (size_t)bh * Sq, q0, kDqBQ, Sq, tid,
-           kDqThreads);
-  auto load_tile = [&](int k0, int buf) {
-    copy_rows_bf16(ks + buf * kDqBK * P, P, k + kbase, k0, kDqBK, Sk, D, vec,
-                   tid, kDqThreads);
-    copy_rows_bf16(vs + buf * kDqBK * P, P, v + kbase, k0, kDqBK, Sk, D, vec,
-                   tid, kDqThreads);
-  };
-  if (kstop > 0) load_tile(0, 0);
-  cp_commit();
-
-  float dq_acc[NT][4];
+  // the ring of key tiles, as the dK/dV kernel's of query tiles
+  if (tid == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full + st, vec ? 1 : NT);
+      mbar_init(empty + st, NT / 32);
+    }
+    mbar_init(q_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fill = [&](int i) {   // key tile i into stage i % S
+    const int st = i % S;
+    if (vec) {
+      mbar_expect_tx(full + st, 2 * BK * DP * 2);
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+      for (int cb = 0; cb < DP / 64; ++cb) {
+        tma_load_3d(kst + st * BK * DP + cb * BK * 64, &tm_k, full + st,
+                    64 * cb, i * BK, bh);
+        tma_load_3d(vst + st * BK * DP + cb * BK * 64, &tm_v, full + st,
+                    64 * cb, i * BK, bh);
+      }
+    } else {
+      copy_rows_sw<BK, NT>(kst + st * BK * DP, k + kbase, i * BK, Sk, D,
+                           tid);
+      copy_rows_sw<BK, NT>(vst + st * BK * DP, v + kbase, i * BK, Sk, D,
+                           tid);
+      fence_async_smem();
+      mbar_arrive(full + st);
+    }
+  };
+  if (vec) {
+    if (tid == 0) {
+      mbar_expect_tx(q_bar, 2 * QR * DP * 2);
+#pragma unroll
+      for (int cb = 0; cb < DP / 64; ++cb) {
+        tma_load_3d(qs + cb * QR * 64, &tm_q, q_bar, 64 * cb, q0, bh);
+        tma_load_3d(dos + cb * QR * 64, &tm_do, q_bar, 64 * cb, q0, bh);
+      }
+      for (int i = 0; i < S - 1 && i < ntiles; ++i) fill(i);
+    }
+  } else {
+    if (D < DP) {
+      zero_pad_sw(qs, QR, D, DP, tid, NT);
+      zero_pad_sw(dos, QR, D, DP, tid, NT);
+      for (int st = 0; st < S; ++st) {
+        zero_pad_sw(kst + st * BK * DP, BK, D, DP, tid, NT);
+        zero_pad_sw(vst + st * BK * DP, BK, D, DP, tid, NT);
+      }
+    }
+    copy_rows_sw<QR, NT>(qs, q + qbase, q0, Sq, D, tid);
+    copy_rows_sw<QR, NT>(dos, dout + qbase, q0, Sq, D, tid);
+    for (int i = 0; i < S - 1 && i < ntiles; ++i) fill(i);
+    fence_async_smem();
+    __syncthreads();
+  }
+  // lse log2(e) and delta of this thread's rows
+  const float c = sm_scale * kLog2e;
+  float lr[2], dr[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = qr + 8 * half;
+    lr[half] = qi < Sq ? lse[(size_t)bh * Sq + qi] * kLog2e : 0.f;
+    dr[half] = qi < Sq ? delta[(size_t)bh * Sq + qi] : 0.f;
+  }
+  if (vec) mbar_wait(q_bar, 0);
+
+  float dq_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
 
-  int buf = 0;
-  for (int k0 = 0; k0 < kstop; k0 += kDqBK, buf ^= 1) {
-    if (k0 + kDqBK < kstop) {
-      load_tile(k0 + kDqBK, buf ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + S - 1 < ntiles && (!vec || tid == 0)) {
+      if (i >= 1) mbar_wait(empty + (i - 1) % S, ((i - 1) / S) & 1);
+      fill(i + S - 1);
     }
-    __syncthreads();
-    const bf16* kt = ks + buf * kDqBK * P;
-    const bf16* vt = vs + buf * kDqBK * P;
-    const bool live = qw0 < Sq && !(causal && k0 > qw0 + 15);
-    if (live) {
-      float s[KT][4], dp[KT][4];
+    mbar_wait(full + i % S, (i / S) & 1);
+    const int k0 = i * BK;
+    const bf16* kt = kst + (i % S) * BK * DP;
+    const bf16* vt = vst + (i % S) * BK * DP;
+    // S = Q K^T and dP = dO V^T (the warpgroup's 64 queries x the
+    // tile's keys): a = its Q / dO rows, b = the K / V rows, K-major
+    float s[NK][4], dp[NK][4];
+    wg_fence();
 #pragma unroll
-      for (int j = 0; j < KT; ++j)
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<64, 0>(
+          s,
+          sw128_desc(qs + (kk >> 2) * QR * 64 + 16 * (kk & 3), 16, 1024),
+          sw128_desc(kt + (kk >> 2) * BK * 64 + 16 * (kk & 3), 16, 1024),
+          kk);
+    wg_commit();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      const bf16* qw = qs + 16 * warp * P;
-      const bf16* dow = dos + 16 * warp * P;
-      for (int kk = 0; kk < 16 * nkd; kk += 16) {
-        uint32_t qa[4], oa[4];
-        frag_a(qw, P, kk, g, t, qa);
-        frag_a(dow, P, kk, g, t, oa);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<64, 0>(
+          dp,
+          sw128_desc(dos + (kk >> 2) * QR * 64 + 16 * (kk & 3), 16, 1024),
+          sw128_desc(vt + (kk >> 2) * BK * 64 + 16 * (kk & 3), 16, 1024),
+          kk);
+    wg_commit();
+    wg_wait<1>();  // S is in
+    pin<NK>(s);
+    // p, masked only in a tile that crosses an edge
+    auto p_of = [&](auto masked) {
 #pragma unroll
-        for (int j = 0; j < KT; ++j) {
-          uint32_t kb_[2], vb_[2];
-          frag_b_rows(kt + 8 * j * P + kk, P, g, t, kb_);
-          frag_b_rows(vt + 8 * j * P + kk, P, g, t, vb_);
-          mma_bf16(s[j], qa, kb_);
-          mma_bf16(dp[j], oa, vb_);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
+      for (int j = 0; j < NK; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int row = 16 * warp + g + ((e & 2) ? 8 : 0);
-          const int qi = q0 + row;
-          const int kj = k0 + 8 * j + 2 * t + (e & 1);
-          const bool keep = qi < Sq && kj < kend && (!causal || kj <= qi);
-          const float p =
-              keep ? expf(s[j][e] * sm_scale - lse_s[row]) : 0.f;
-          dp[j][e] = p * (dp[j][e] - delta_s[row]) * sm_scale;
+          const float p = exp2_approx(fmaf(s[j][e], c, -lr[e >> 1]));
+          if constexpr (decltype(masked)::value) {
+            const int qi = qr + ((e & 2) ? 8 : 0);
+            const int kj = k0 + 8 * j + 2 * t + (e & 1);
+            s[j][e] =
+                qi < Sq && kj < kend && (!causal || kj <= qi) ? p : 0.f;
+          } else {
+            s[j][e] = p;
+          }
         }
       }
-      // dQ += bf16(dS) K over the tile's keys, 16 at a step: the tile's
-      // product in zeroed accumulators, then fp32 adds (tile_add)
+    };
+    if ((causal && k0 + BK - 1 > q0) || k0 + BK > kend || q0 + QR > Sq)
+      p_of(std::true_type{});
+    else
+      p_of(std::false_type{});
+    wg_wait<0>();  // dP is in
+    pin<NK>(dp);
+    // dS = p (dP - delta) scale, rounded when packed; dQ += dS K: a =
+    // dS's columns of 16 keys, b = those keys' K rows (N-major)
+    uint32_t a[BK / 16][4];
 #pragma unroll
-      for (int n0 = 0; n0 < NT; n0 += 4) {
-        float tq[4][4] = {};
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-        for (int jj = 0; jj < KT / 2; ++jj) {
-          uint32_t a[4], b[2][2];
-          c_to_a(dp[2 * jj], dp[2 * jj + 1], a);
-          const bf16* kr = kt + 16 * jj * P + 8 * n0;
-          frag_b_trans(kr, P, lane, b);
-          mma_bf16(tq[0], a, b[0]);
-          mma_bf16(tq[1], a, b[1]);
-          frag_b_trans(kr + 16, P, lane, b);
-          mma_bf16(tq[2], a, b[0]);
-          mma_bf16(tq[3], a, b[1]);
-        }
-        tile_add<4>(dq_acc + n0, tq, 1.f, 1.f);
-      }
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = s[j][e] * (dp[j][e] - dr[e >> 1]) * sm_scale;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      c_to_a(dp[2 * kk], dp[2 * kk + 1], a[kk]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<DP, 1>(dq_acc, a[kk],
+                      sw128_desc(kt + kk * 16 * 64, BK * 128, 1024), 1);
+    wg_commit();
+    wg_wait<0>();
+    pin<ND>(dq_acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + i % S);   // the stage is read
   }
-  cp_wait<0>();
 
   const bool pair = (D & 1) == 0;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    if (n >= ntd) continue;
+  for (int n = 0; n < ND; ++n) {
     const int d = 8 * n + 2 * t;
     if (d >= D) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int qi = qw0 + g + 8 * half;
+      const int qi = qr + 8 * half;
       if (qi < Sq)
         store_pair(dq, qbase + (size_t)qi * D + d, dq_acc[n][2 * half],
                    dq_acc[n][2 * half + 1], pair, d + 1 < D);
@@ -929,25 +1295,113 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int DP>
-int launch_fused_bf16(const bf16* q, const bf16* k, const bf16* v,
-                      const bf16* dout, const float* lse, const float* delta,
-                      const int* kv_len, bf16* dq, bf16* dk, bf16* dv, int B,
-                      int H, int Sq, int Sk, int D, int causal,
-                      float sm_scale, int BK, int with_dq, int vec,
-                      long long smem, cudaStream_t stream) {
-  if (BK < 16 || BK > kMaxBK || BK % 16 != 0 || (with_dq && Sk > BK) ||
-      smem != static_cast<long long>(fused_smem_bf16(DP, BK, with_dq)))
+// ---------------------------------------------------------------------------
+// tensor maps (host): cuTensorMapEncodeTiled from the driver, found
+// through the runtime, so nothing links against libcuda
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault) != cudaSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// a (BH, S, D) bf16 tensor as boxes of `rows` rows x 64 columns (128
+// bytes) in the 128-byte swizzle; rows past S and columns past D read as
+// zeros
+bool map_rows(CUtensorMap* m, const void* base, int BH, int S, int D,
+              int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// an fp32 vector of n entries as boxes of `len`
+bool map_vec(CUtensorMap* m, const float* base, long long n, int len) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {4};
+  const cuuint32_t box[1] = {(cuuint32_t)len};
+  const cuuint32_t step[1] = {1};
+  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                        const_cast<float*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int DP, int WGS, bool DQ>
+int launch_dkv_bf16_as(const bf16* q, const bf16* k, const bf16* v,
+                       const bf16* dout, const float* lse,
+                       const float* delta, const int* kv_len, bf16* dq,
+                       bf16* dk, bf16* dv, int B, int H, int Sq, int Sk,
+                       int D, int causal, float sm_scale, int vec,
+                       long long smem, cudaStream_t stream) {
+  constexpr int BK = 64 * WGS;
+  // TMA: rows of whole 16-byte pieces (the wrapper's vec) and lse / delta
+  // 16-byte aligned; else the element-by-element copies
+  vec = vec && aligned16(lse) && aligned16(delta) && encode_tiled();
+  CUtensorMap tm[6] = {};
+  if (vec &&
+      !(map_rows(tm + 0, q, B * H, Sq, D, kBf16BQ) &&
+        map_rows(tm + 1, k, B * H, Sk, D, BK) &&
+        map_rows(tm + 2, v, B * H, Sk, D, BK) &&
+        map_rows(tm + 3, dout, B * H, Sq, D, kBf16BQ) &&
+        map_vec(tm + 4, lse, (long long)B * H * Sq, kBf16LVBox) &&
+        map_vec(tm + 5, delta, (long long)B * H * Sq, kBf16LVBox)))
     return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<unsigned long long> ready{0};
-  cudaError_t err = prepare(flash_bwd_fused_bf16_kernel<DP>,
-                            fused_smem_bf16(DP, kMaxBK, 1), ready);
+  cudaError_t err = prepare(flash_bwd_dkv_bf16_kernel<DP, WGS, DQ>,
+                            dkv_smem_bf16(DP, BK, DQ), ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Sk + BK - 1) / BK);
-  flash_bwd_fused_bf16_kernel<DP><<<grid, 32 * (BK / 16), smem, stream>>>(
+  flash_bwd_dkv_bf16_kernel<DP, WGS, DQ><<<grid, 128 * WGS, smem, stream>>>(
       q, k, v, dout, lse, delta, kv_len, dq, dk, dv, H, Sq, Sk, D, causal,
-      sm_scale, BK, with_dq, vec);
+      sm_scale, vec, tm[0], tm[1], tm[2], tm[3], tm[4], tm[5]);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
+                    const bf16* dout, const float* lse, const float* delta,
+                    const int* kv_len, bf16* dq, bf16* dk, bf16* dv, int B,
+                    int H, int Sq, int Sk, int D, int causal, float sm_scale,
+                    int BK, int with_dq, int vec, long long smem,
+                    cudaStream_t stream) {
+  if ((BK != 64 && BK != bf16_max_bk(DP)) || (with_dq && Sk > BK) ||
+      smem != static_cast<long long>(dkv_smem_bf16(DP, BK, with_dq)))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define MXTT_DKV_AS(WGS, DQ)                                                \
+  launch_dkv_bf16_as<DP, WGS, DQ>(q, k, v, dout, lse, delta, kv_len, dq,   \
+                                  dk, dv, B, H, Sq, Sk, D, causal,          \
+                                  sm_scale, vec, smem, stream)
+  if (BK == 64) return with_dq ? MXTT_DKV_AS(1, true) : MXTT_DKV_AS(1, false);
+  if constexpr (bf16_max_bk(DP) == 128)
+    return with_dq ? MXTT_DKV_AS(2, true) : MXTT_DKV_AS(2, false);
+#undef MXTT_DKV_AS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int DP>
@@ -958,14 +1412,22 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                    cudaStream_t stream) {
   if (smem != static_cast<long long>(dq_smem_bf16(DP)))
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int QR = kBf16DqBQ;
+  vec = vec && encode_tiled();
+  CUtensorMap tm[4] = {};
+  if (vec && !(map_rows(tm + 0, q, B * H, Sq, D, QR) &&
+               map_rows(tm + 1, k, B * H, Sk, D, kBf16DqBK) &&
+               map_rows(tm + 2, v, B * H, Sk, D, kBf16DqBK) &&
+               map_rows(tm + 3, dout, B * H, Sq, D, QR)))
+    return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<unsigned long long> ready{0};
   cudaError_t err = prepare(flash_bwd_dq_bf16_kernel<DP>, dq_smem_bf16(DP),
                             ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (Sq + kDqBQ - 1) / kDqBQ);
-  flash_bwd_dq_bf16_kernel<DP><<<grid, kDqThreads, smem, stream>>>(
+  const dim3 grid(B * H, (Sq + QR - 1) / QR);
+  flash_bwd_dq_bf16_kernel<DP><<<grid, 128, smem, stream>>>(
       q, k, v, dout, lse, delta, kv_len, dq, H, Sq, Sk, D, causal, sm_scale,
-      vec);
+      vec, tm[0], tm[1], tm[2], tm[3]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1015,8 +1477,8 @@ extern "C" int mxtt_flash_bwd_dq_f32(const float* q, const float* k,
 }
 
 // The bfloat16 forms: bf16 q, k, v, dO, dQ, dK, dV; fp32 lse and delta;
-// the same plans (with fused_smem_bf16 / dq_smem_bf16's bytes) and the
-// same return codes.
+// the same arguments and return codes, on the bf16 plan (BK 64 or 128,
+// dkv_smem_bf16 / dq_smem_bf16's bytes).
 extern "C" int mxtt_flash_bwd_bf16(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
@@ -1033,16 +1495,14 @@ extern "C" int mxtt_flash_bwd_bf16(const void* q, const void* k,
   bf16* dqb = static_cast<bf16*>(dq);
   bf16* dkb = static_cast<bf16*>(dk);
   bf16* dvb = static_cast<bf16*>(dv);
-#define MXTT_FUSED_BF16(DP)                                                 \
-  launch_fused_bf16<DP>(qb, kb, vb, ob, lse, delta, kv_len, dqb, dkb, dvb,  \
-                        B, H, Sq, Sk, D, causal, sm_scale, BK, with_dq, vec,\
-                        smem, st)
+#define MXTT_DKV_BF16(DP)                                                   \
+  launch_dkv_bf16<DP>(qb, kb, vb, ob, lse, delta, kv_len, dqb, dkb, dvb, B, \
+                      H, Sq, Sk, D, causal, sm_scale, BK, with_dq, vec,     \
+                      smem, st)
   if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 32) return MXTT_FUSED_BF16(32);
-  if (D <= 64) return MXTT_FUSED_BF16(64);
-  if (D <= 96) return MXTT_FUSED_BF16(96);
-  if (D <= 128) return MXTT_FUSED_BF16(128);
-#undef MXTT_FUSED_BF16
+  if (D <= 64) return MXTT_DKV_BF16(64);
+  if (D <= 128) return MXTT_DKV_BF16(128);
+#undef MXTT_DKV_BF16
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1063,9 +1523,7 @@ extern "C" int mxtt_flash_bwd_dq_bf16(const void* q, const void* k,
   launch_dq_bf16<DP>(qb, kb, vb, ob, lse, delta, kv_len, dqb, B, H, Sq, Sk, \
                      D, causal, sm_scale, vec, smem, st)
   if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 32) return MXTT_DQ_BF16(32);
   if (D <= 64) return MXTT_DQ_BF16(64);
-  if (D <= 96) return MXTT_DQ_BF16(96);
   if (D <= 128) return MXTT_DQ_BF16(128);
 #undef MXTT_DQ_BF16
   return static_cast<int>(cudaErrorInvalidValue);

@@ -383,14 +383,52 @@ def _bwd_pointers(q, k, v, do, lse, delta, kv_lengths):
 # kDqBK)
 _BWD_BQ = 32
 _BWD_DQ_TILE = 64
+# the bf16 kernels (wgmma): query rows per tile of the dK/dV kernel, keys
+# per dK/dV block at most (64 a warpgroup), keys per tile and queries per
+# block (one warpgroup) of the dQ kernel (`csrc/flash_bwd.cu` kBf16BQ,
+# kBf16MaxBK, kBf16DqBK, kBf16DqBQ)
+_BF16_BWD_BQ = 64
+_BF16_BWD_MAX_BK = 128
+_BF16_DQ_BK = 64
+_BF16_DQ_BQ = 64
+
+
+def _flash_bwd_plan_bf16(sk, d):
+    """`flash_bwd_plan` in bfloat16: the wgmma kernels' tiles in the
+    128-byte swizzle, so D pads to 64 or 128 (one or two swizzle atoms);
+    a warpgroup owns 64 keys of a dK/dV block, two of them at DP = 64
+    and one at DP = 128 (its dK and dV accumulators take 128 registers a
+    thread), and a dQ block is one warpgroup of 64 queries; the rings
+    hold three tiles at DP = 64 and two at DP = 128 (`bf16_stages`)."""
+    dp = 64 if d <= 64 else 128
+    bk_max = _BF16_BWD_MAX_BK if dp == 64 else 64
+    fused = sk <= bk_max
+    bk = 64 * -(-sk // 64) if fused else bk_max
+    bq, stages = _BF16_BWD_BQ, 3 if dp == 64 else 2
+    bars = 8 * (2 * stages + 1)   # the rings' full / empty mbarriers + one
+    # 1024 to align the swizzled tiles; K and V; the ring's Q and dO
+    # tiles and fp32 lse and delta (slots of bq + 32 entries: a TMA box
+    # starts on a 16-byte boundary and lands on a 128-byte one); fused,
+    # the tile's bf16 dS
+    smem = 1024 + 2 * (2 * bk * dp + 2 * stages * bq * dp
+                       + (bq * bk if fused else 0)) \
+        + 4 * 2 * stages * (bq + 32) + bars
+    # 1024; the block's Q and dO rows; the ring's K and V tiles
+    dq_smem = None if fused else 1024 + 2 * (
+        2 * _BF16_DQ_BQ * dp + 2 * stages * _BF16_DQ_BK * dp) + bars
+    return dict(path="fused" if fused else "split", dp=dp, bk=bk, bq=bq,
+                warpgroups=bk // 64, stages=stages, smem=smem,
+                dq_smem=dq_smem)
 
 
 def flash_bwd_plan(sk, d, dtype=torch.float32):
     """The launch plan of the flash backward kernels in `dtype` (float32
     or bfloat16) for Sk keys of width D (it does not depend on Sq):
 
-      dp     D zero-padded in shared memory (32, 64, 96 or 128)
-      bk     keys per fused block, one warp per 16
+      dp     D zero-padded in shared memory (fp32: 32, 64, 96 or 128;
+             bf16: 64 or 128)
+      bk     keys per fused block (fp32: one warp per 16; bf16: one
+             warpgroup per 64)
       bq     query rows per tile of the fused kernel
       path   "fused" when Sk <= the largest block (128 keys for
              D <= 64, else 64): one block holds every key of its (b, h)
@@ -398,24 +436,25 @@ def flash_bwd_plan(sk, d, dtype=torch.float32):
              the fused kernel writes dK and dV, then the dQ kernel runs
       smem, dq_smem   dynamic shared bytes of the fused kernel and of
              the dQ kernel (None on the fused path): their K / V / Q / dO
-             tiles (rows of `_tile_row`), fp32 lse and delta, and the
+             tiles (rows of `_tile_row`; bf16: 128-byte swizzled rows of
+             DP and 1024 bytes to align them), fp32 lse and delta, and the
              fused kernel's dS (queries x keys + pad, fp32; bf16 in the
              bfloat16 form); the kernels recompute them and refuse a plan
              that disagrees.
+      bf16 only: warpgroups (bk / 64) and stages (of the ring the
+             query tiles, or the dQ kernel's key tiles, stream through)
     """
     _check(0 < d <= 128 and sk > 0,
            f"flash backward takes 0 < D <= 128 and Sk > 0, got {d}, {sk}")
+    if dtype != torch.float32:
+        return _flash_bwd_plan_bf16(sk, d)
     dp = 32 * -(-d // 32)
     row = _tile_row(dp, dtype)
     bk_max = 128 if dp <= 64 else 64
     fused = sk <= bk_max
     bk = 16 * -(-sk // 16) if fused else bk_max
-    if dtype == torch.float32:
-        ds_bytes = 4 * _BWD_BQ * (bk + 4)
-    else:
-        ds_bytes = 2 * _BWD_BQ * (bk + 8)
     smem = (2 * bk + 4 * _BWD_BQ) * row + 4 * 4 * _BWD_BQ \
-        + (ds_bytes if fused else 0)
+        + (4 * _BWD_BQ * (bk + 4) if fused else 0)
     dq_smem = None if fused else 6 * _BWD_DQ_TILE * row \
         + 4 * 2 * _BWD_DQ_TILE
     return dict(path="fused" if fused else "split", dp=dp, bk=bk,
@@ -423,9 +462,10 @@ def flash_bwd_plan(sk, d, dtype=torch.float32):
 
 
 def _vec_copies(d, *tensors):
-    """The kernels copy rows in 16-byte pieces when a row is a whole
-    number of them (D % 4 == 0 in fp32, D % 8 == 0 in bf16) and every
-    base address is 16-byte aligned, else element by element."""
+    """The kernels copy rows in 16-byte pieces (the bf16 backward: by
+    TMA) when a row is a whole number of them (D % 4 == 0 in fp32, D % 8
+    == 0 in bf16) and every base address is 16-byte aligned, else element
+    by element."""
     return int(d * tensors[0].element_size() % 16 == 0
                and all(t.data_ptr() % 16 == 0 for t in tensors))
 

@@ -1,14 +1,19 @@
 """The design of the bfloat16 forms of the flash and LayerNorm kernels
 (`mxtt_flash_fwd_bf16`, `mxtt_flash_bwd_bf16`, `mxtt_flash_bwd_dq_bf16`,
 `mxtt_layer_norm_bf16`), checked on the CPU: their launch plans against
-the .cu's shared-memory formulas, and what the build binds. The kernels
-run only on the card: the `card` test holds each against its plain
-version there, within chip_smoke.py's bf16 limits (this file imports no
-JAX, so it runs on the card's machine: `python3 -m pytest --noconftest
--m card tests/test_torch_bf16_design.py`).
+the .cu's constants and shared-memory formulas, the 128-byte swizzle the
+wgmma backward kernels lay their tiles in, what the build binds and what
+the wrapper hands the backward kernels. The kernels run only on the
+card: the `card` tests hold each against its plain version there, within
+chip_smoke.py's bf16 limits (this file imports no JAX, so it runs on the
+card's machine: `python3 -m pytest --noconftest -m card
+tests/test_torch_bf16_design.py`).
 """
+import contextlib
+import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,13 +21,25 @@ from mxnet_tpu_torch.ops import _build
 from mxnet_tpu_torch.ops import kernels as tk
 
 CSRC = Path(tk.__file__).resolve().parent / "csrc"
+BWD = CSRC / "flash_bwd.cu"
+# the most dynamic shared memory one block may take on Hopper
+SMEM_LIMIT = 232448
+WIDTHS = (8, 18, 30, 32, 64, 96, 128)
+BF = torch.bfloat16
+
+
+def _cu_constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         BWD.read_text()).group(1))
 
 
 def test_bf16_sources_and_entries_are_built():
-    """The bf16 header is hashed into the build's name with the sources,
-    and the four bf16 entries are bound with the arguments of their fp32
-    forms (LayerNorm's with gamma's dtype and the 16-byte flag)."""
+    """The bf16 and wgmma headers are hashed into the build's name with
+    the sources, and the four bf16 entries are bound with the arguments
+    of their fp32 forms (LayerNorm's with gamma's dtype and the 16-byte
+    flag)."""
     assert "bf16_mma.cuh" in _build.HEADERS
+    assert "wgmma.cuh" in _build.HEADERS
     sig = _build._SIGNATURES
     for name in ("flash_fwd", "flash_bwd", "flash_bwd_dq"):
         assert sig[f"mxtt_{name}_bf16"] == sig[f"mxtt_{name}_f32"]
@@ -37,38 +54,289 @@ def test_bf16_sources_and_entries_are_built():
             assert f'extern "C" int {e}(' in text
     head = (CSRC / "bf16_mma.cuh").read_text()
     assert "m16n8k16.row.col.f32.bf16.bf16.f32" in head
-    # the plans' byte formulas are the kernels' (rows of DP + 8 bf16)
+    # the forward's byte formula is the plan's (rows of DP + 8 bf16)
     assert "bf16_pitch(int DP) { return DP + 8; }" in head
     assert ("return sizeof(bf16) * ((size_t)kWarpRows * rw + 4 * ks * BK) *"
             in (CSRC / "flash_fwd.cu").read_text())
-    bwd = (CSRC / "flash_bwd.cu").read_text()
-    assert "(dq ? sizeof(bf16) * (size_t)kBQ * (BK + 8) : 0)" in bwd
-    assert "sizeof(float) * 2 * kDqBQ;" in bwd
+    # the backward's byte formulas are `_flash_bwd_plan_bf16`'s
+    bwd = BWD.read_text()
+    for line in ("sizeof(bf16) * ((size_t)2 * BK * DP +",
+                 "(size_t)2 * bf16_stages(DP) * kBf16BQ * DP +",
+                 "(dq ? (size_t)kBf16BQ * BK : 0)) +",
+                 "sizeof(float) * 2 * bf16_stages(DP) * kBf16LV +",
+                 "sizeof(uint64_t) * (2 * bf16_stages(DP) + 1);",
+                 "sizeof(bf16) * ((size_t)2 * kBf16DqBQ * DP +",
+                 "(size_t)2 * bf16_stages(DP) * kBf16DqBK * DP) +"):
+        assert line in bwd, line
 
 
-def test_bf16_plans_halve_the_tiles():
-    """`flash_fwd_plan` / `flash_bwd_plan` in bf16: the same tiling as in
-    fp32 (a function of the shape alone), shared bytes from rows of DP +
-    8 bf16 (the .cu's `bf16_pitch`) with fp32 lse / delta and, fused,
-    a bf16 dS; the forward takes a wider key split where fp32's would
-    not fit."""
-    bf = torch.bfloat16
+def test_bf16_backward_runs_on_wgmma_alone():
+    """The bf16 backward kernels compute every product with
+    wgmma.mma_async (SS for S^T, dP^T, S and dP; RS for dV, dK and dQ),
+    and no mma.sync is left in them; the wgmma helpers are one header's,
+    shared with the conv1x1 kernel."""
+    bwd = BWD.read_text()
+    start = bwd.index("// bfloat16 forms, on wgmma")
+    body = bwd[start:bwd.index("}  // namespace", start)]
+    assert "mma_bf16(" not in body and "mma_tf32(" not in body
+    assert "frag_b_trans" not in body and "frag_a(" not in body
+    for kernel in ("flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel"):
+        assert f"{kernel}(" in body
+    assert body.count("wgmma_ss<64, 0>(") == 4       # S^T, dP^T, S, dP
+    assert body.count("wgmma_rs<DP, 1>(") == 3       # dV, dK, dQ
+    assert body.count("wgmma_ss<DP, 1>(") == 1       # the fused dQ
+    head = (CSRC / "wgmma.cuh").read_text()
+    assert "m64n64k16.f32.bf16.bf16" in head
+    assert "m64n128k16.f32.bf16.bf16" in head
+    assert "{%64, %65, %66, %67}, %68, p, 1, 1, %70;" in head   # RS, N=128
+    conv = (CSRC / "conv1x1_bn_stats.cu").read_text()
+    assert '#include "wgmma.cuh"' in conv and '#include "wgmma.cuh"' in bwd
+    assert "__device__ __forceinline__ uint64_t sw128_desc" not in conv
+
+
+def test_bf16_forward_plans_keep_the_fp32_tiling():
+    """`flash_fwd_plan` in bf16: the same tiling as in fp32 (a function
+    of the shape alone), shared bytes from rows of DP + 8 bf16 (the .cu's
+    `bf16_pitch`), and a wider key split where fp32's would not fit."""
     for bh, sq, sk, d in ((8, 128, 128, 64), (192, 512, 512, 64),
                           (256, 64, 64, 64), (4, 1024, 1024, 128)):
         a, b = tk.flash_fwd_plan(bh, sq, sk, d), tk.flash_fwd_plan(
-            bh, sq, sk, d, bf)
+            bh, sq, sk, d, BF)
         assert (a["rw"], a["bk"], a["dp"]) == (b["rw"], b["bk"], b["dp"])
         assert b["smem"] == 2 * (16 * b["rw"] + 4 * b["ks"] * b["bk"]) \
             * (b["dp"] + 8) <= 227 * 1024
-    for sk, d in ((64, 64), (512, 64), (100, 128), (300, 30)):
-        a, b = tk.flash_bwd_plan(sk, d), tk.flash_bwd_plan(sk, d, bf)
-        assert (a["path"], a["bk"]) == (b["path"], b["bk"])
-        row = 2 * (b["dp"] + 8)
-        ds = 2 * 32 * (b["bk"] + 8) if b["path"] == "fused" else 0
-        assert b["smem"] == (2 * b["bk"] + 4 * 32) * row + 16 * 32 + ds
-        assert b["dq_smem"] in (None, 6 * 64 * row + 8 * 64)
-    assert tk.flash_fwd_plan(8, 128, 128, 128, bf)["ks"] >= \
+    assert tk.flash_fwd_plan(8, 128, 128, 128, BF)["ks"] >= \
         tk.flash_fwd_plan(8, 128, 128, 128)["ks"]
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward's plan
+# ---------------------------------------------------------------------------
+def test_bf16_plan_constants_are_the_kernels():
+    """The bf16 plan's tile sizes, warpgroups and ring stages are the ones
+    `flash_bwd.cu` compiles in."""
+    assert tk._BF16_BWD_BQ == _cu_constant("kBf16BQ") == 64
+    assert tk._BF16_BWD_MAX_BK == _cu_constant("kBf16MaxBK") == 128
+    assert tk._BF16_DQ_BK == _cu_constant("kBf16DqBK") == 64
+    assert tk._BF16_DQ_BQ == _cu_constant("kBf16DqBQ") == 64
+    text = BWD.read_text()
+    assert "return DP == 64 ? kBf16MaxBK : 64;" in text    # bf16_max_bk
+    assert "return DP == 64 ? 3 : 2;" in text              # bf16_stages
+    # the lse / delta slot: a box of 68 from a 16-byte boundary, in 96
+    assert "constexpr int kBf16LVBox = kBf16BQ + 4;" in text
+    assert "constexpr int kBf16LV = kBf16BQ + 32;" in text
+    for d, wgs, stages in ((64, 2, 3), (128, 1, 2)):
+        plan = tk.flash_bwd_plan(4096, d, BF)
+        assert plan["warpgroups"] == wgs and plan["bk"] == 64 * wgs
+        assert (plan["bq"], plan["stages"]) == (64, stages)
+
+
+def _stages(dp):
+    return 3 if dp == 64 else 2
+
+
+def _dkv_smem(dp, bk, fused):
+    """`dkv_smem_bf16` of flash_bwd.cu: 1024 to align, K and V, the
+    ring's Q / dO tiles and lse / delta slots (96 floats), fused the dS
+    tile, the mbarriers."""
+    s = _stages(dp)
+    return 1024 + 2 * (2 * bk * dp + 2 * s * 64 * dp
+                       + (64 * bk if fused else 0)) + 4 * 2 * s * 96 \
+        + 8 * (2 * s + 1)
+
+
+def _dq_smem(dp):
+    """`dq_smem_bf16` of flash_bwd.cu: 1024, 64 Q and dO rows, the ring's
+    K / V tiles, the mbarriers."""
+    s = _stages(dp)
+    return 1024 + 2 * (2 * 64 * dp + 2 * s * 64 * dp) + 8 * (2 * s + 1)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_bf16_plan_shared_bytes_fit_one_block(d):
+    """For every Sk both kernels' shared bytes are the .cu's and stay
+    within Hopper's per-block limit on both paths; D pads to one (64) or
+    two (128) 128-byte swizzle atoms."""
+    seen = set()
+    for sk in range(1, 400, 7):
+        plan = tk.flash_bwd_plan(sk, d, BF)
+        assert plan["dp"] == (64 if d <= 64 else 128)
+        fused = plan["path"] == "fused"
+        assert plan["smem"] == _dkv_smem(plan["dp"], plan["bk"], fused) \
+            <= SMEM_LIMIT
+        if fused:
+            assert plan["dq_smem"] is None
+        else:
+            assert plan["dq_smem"] == _dq_smem(plan["dp"]) <= SMEM_LIMIT
+        seen.add(plan["path"])
+    assert seen == {"fused", "split"}
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_bf16_plan_is_fused_up_to_one_block_and_split_above(d):
+    """Every Sk up to the largest block (128 keys at DP = 64, 64 at DP =
+    128) takes the fused path, its keys rounded up to a warpgroup's 64;
+    above it, the split path with the largest block."""
+    bk_max = 128 if d <= 64 else 64
+    for sk in range(1, bk_max + 1):
+        plan = tk.flash_bwd_plan(sk, d, BF)
+        assert plan["path"] == "fused" and plan["bk"] == 64 * -(-sk // 64)
+        assert plan["warpgroups"] == plan["bk"] // 64
+    for sk in (bk_max + 1, bk_max + 64, 512, 4097):
+        plan = tk.flash_bwd_plan(sk, d, BF)
+        assert plan["path"] == "split" and plan["bk"] == bk_max
+
+
+def test_fp32_plan_is_unchanged():
+    """The fp32 plan keeps its values (mma.sync in split TF32, 16 keys a
+    warp, 32-query tiles): pinned at the shapes the fp32 paths run."""
+    want = {
+        (64, 64): dict(path="fused", dp=64, bk=64, bq=32, smem=78848,
+                       dq_smem=None),
+        (80, 64): dict(path="fused", dp=64, bk=80, bq=32, smem=89600,
+                       dq_smem=None),
+        (512, 64): dict(path="split", dp=64, bk=128, bq=32, smem=104960,
+                        dq_smem=104960),
+        (300, 30): dict(path="split", dp=32, bk=128, bq=32, smem=55808,
+                        dq_smem=55808),
+        (100, 128): dict(path="split", dp=128, bk=64, bq=32, smem=135680,
+                         dq_smem=203264),
+        (33, 128): dict(path="fused", dp=128, bk=48, bq=32, smem=125440,
+                        dq_smem=None),
+    }
+    for (sk, d), plan in want.items():
+        assert tk.flash_bwd_plan(sk, d) == plan
+        assert tk.flash_bwd_plan(sk, d, torch.float32) == plan
+
+
+def _sw_off():
+    """flash_bwd.cu's `sw_off(r, c, rows)` as a Python function (its
+    return expression is valid Python)."""
+    expr = re.search(r"int sw_off\(int r, int c, int rows\) \{\s*return "
+                     r"([^;]+);", BWD.read_text()).group(1)
+    return eval("lambda r, c, rows: " + " ".join(expr.split()))
+
+
+@pytest.mark.parametrize("rows,dp", [(64, 64), (128, 64), (64, 128),
+                                     (128, 128)])
+def test_swizzled_tiles_are_the_hardware_pattern(rows, dp):
+    """`sw_off` lays element (r, c) of a tile where the 128-byte swizzle
+    of a wgmma descriptor reads it: the logical byte address of a
+    row-major tile in 64-column blocks of `rows` rows, with bits 4-6
+    XORed by bits 7-9 (the 16-byte piece q of row r at piece q ^ (r % 8)).
+    It is one-to-one onto the tile, and keeps each 8-element piece in one
+    16-byte word (so a cp.async of 16 bytes lands whole)."""
+    off = _sw_off()
+    r, c = np.meshgrid(np.arange(rows), np.arange(dp), indexing="ij")
+    got = np.vectorize(off)(r, c, rows)
+    logical = 2 * ((c >> 6) * rows * 64 + r * 64 + (c & 63))
+    assert np.array_equal(2 * got, logical ^ (((logical >> 7) & 7) << 4))
+    assert sorted(got.ravel().tolist()) == list(range(rows * dp))
+    pieces = got.reshape(rows, dp // 8, 8)
+    assert np.array_equal(pieces[..., 0] % 8, np.zeros((rows, dp // 8)))
+    assert np.array_equal(pieces - pieces[..., :1],
+                          np.broadcast_to(np.arange(8), pieces.shape))
+
+
+# ---------------------------------------------------------------------------
+# what the wrapper hands the bf16 kernels
+# ---------------------------------------------------------------------------
+class _FakeLibrary:
+    """Records the bf16 backward launches; writes nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def mxtt_flash_bwd_bf16(self, *args):
+        self.calls.append(("dkv", args[7] is not None) + args[10:21])
+        return 0
+
+    def mxtt_flash_bwd_dq_bf16(self, *args):
+        self.calls.append(("dq",) + args[8:17])
+        return 0
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """bf16 CPU tensors dispatched as if they lay on the card, into a
+    fake kernel library; the plain version must not run."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(tk, "_device_of", lambda *t: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+
+    def no_plain(*a):
+        raise AssertionError("a card tensor reached the plain version")
+    monkeypatch.setattr(tk, "_flash_bwd_plain", no_plain)
+    tk.reset_launch_counts()
+    yield lib
+    tk.reset_launch_counts()
+
+
+def _bwd_inputs(b, h, sq, sk, d, offset=0):
+    rng = np.random.RandomState(3)
+    base = torch.from_numpy(rng.randn(b * h * sq * d + offset)
+                            .astype(np.float32)).to(BF)
+    q = base[offset:].view(b, h, sq, d)
+    k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                .to(BF) for shape in ((b, h, sk, d), (b, h, sk, d),
+                                      (b, h, sq, d)))
+    lse = torch.zeros(b * h, sq)
+    return q, k, v, do, lse, lse.clone()
+
+
+# every plan variant: fused with one and two warpgroups, split at DP = 64
+# and 128, D no multiple of 8, Sq != Sk both ways
+@pytest.mark.parametrize("sq,sk,d,path,bk", [
+    (64, 64, 64, "fused", 64), (48, 80, 64, "fused", 128),
+    (128, 128, 64, "fused", 128), (512, 512, 64, "split", 128),
+    (130, 200, 64, "split", 128), (40, 64, 128, "fused", 64),
+    (100, 100, 96, "split", 64), (50, 300, 18, "split", 128),
+    (45, 45, 30, "fused", 64), (300, 200, 128, "split", 64),
+])
+def test_bf16_wrapper_launches_the_plan(card, sq, sk, d, path, bk):
+    """On a bf16 card tensor the backward launches the bf16 dK/dV kernel
+    (writing dQ only on the fused path) and, on the split path, the bf16
+    dQ kernel after it, with the bf16 plan's BK and shared bytes; each
+    launch counts once under its bf16 counter; rows go in 16-byte pieces
+    only when D % 8 == 0."""
+    q, k, v, do, lse, delta = _bwd_inputs(2, 2, sq, sk, d)
+    plan = tk.flash_bwd_plan(sk, d, BF)
+    assert (plan["path"], plan["bk"]) == (path, bk)
+    vl = torch.tensor([sk, 1], dtype=torch.int32)
+    dq, dk, dv = tk.flash_attention_bwd(q, k, v, do, lse, delta, True,
+                                        0.125, vl)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert dq.dtype == dk.dtype == dv.dtype == BF
+    vec = int(d % 8 == 0)
+    want = [("dkv", path == "fused", 2, 2, sq, sk, d, 1, 0.125, bk,
+             int(path == "fused"), vec, plan["smem"])]
+    if path == "split":
+        want.append(("dq", 2, 2, sq, sk, d, 1, 0.125, vec,
+                     plan["dq_smem"]))
+    assert card.calls == want
+    assert tk.LAUNCHES["flash_bwd_bf16"] == 1
+    assert tk.LAUNCHES["flash_bwd_dq_bf16"] == int(path == "split")
+    assert tk.LAUNCHES["flash_bwd"] == tk.LAUNCHES["flash_bwd_dq"] == 0
+
+
+@pytest.mark.parametrize("sk", [64, 512])
+def test_bf16_wrapper_copies_misaligned_rows_element_by_element(card, sk):
+    """A bf16 q whose storage starts 2 bytes past a 16-byte boundary is
+    still taken by the kernels (both paths), with the element-by-element
+    copies; an aligned copy of it takes the 16-byte ones."""
+    q, k, v, do, lse, delta = _bwd_inputs(1, 2, 64, sk, 64, offset=1)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    tk.flash_attention_bwd(q, k, v, do, lse, delta)
+    assert [c[11 if c[0] == "dkv" else 8] for c in card.calls] \
+        == [0] * len(card.calls) and len(card.calls) == 1 + (sk > 128)
+    card.calls.clear()
+    tk.flash_attention_bwd(q.clone(), k, v, do, lse, delta)
+    assert [c[11 if c[0] == "dkv" else 8] for c in card.calls] \
+        == [1] * len(card.calls)
 
 
 # ---------------------------------------------------------------------------
@@ -85,14 +353,14 @@ def test_cuda_bf16_kernels_match_their_plain_versions():
     dev = torch.device("cuda", 0)
     g = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn((2, 4, 300, 64), generator=g).to(dev).to(
-        torch.bfloat16) for _ in range(4))
+        BF) for _ in range(4))
     vl = torch.tensor([300, 77], dtype=torch.int32, device=dev)
     tk.reset_launch_counts()
     out, lse = tk.flash_attention_fwd(q, k, v, kv_lengths=vl)
     delta = (out.float() * do.float()).sum(-1).reshape(8, 300)
     got = tk.flash_attention_bwd(q, k, v, do, lse, delta, kv_lengths=vl)
-    x = torch.randn((64, 768), generator=g).to(dev).to(torch.bfloat16)
-    ga = torch.ones(768, device=dev, dtype=torch.bfloat16)
+    x = torch.randn((64, 768), generator=g).to(dev).to(BF)
+    ga = torch.ones(768, device=dev, dtype=BF)
     y, _, _ = tk.layer_norm_fwd(x, ga, ga * 0)
     torch.cuda.synchronize()
     assert tk.LAUNCHES == dict(dict.fromkeys(tk.LAUNCHES, 0),
@@ -109,3 +377,52 @@ def test_cuda_bf16_kernels_match_their_plain_versions():
             * chip_smoke._slice_max(r)) <= 1
     torch.testing.assert_close(y.float(), tk._ln_plain(x, ga, ga * 0, 1e-5)[0]
                                .float(), **chip_smoke.LN_BF16_TOL)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,lens,offset", [
+    (4, 4, 64, 64, 64, True, None, 0),           # fused, one warpgroup
+    (2, 3, 48, 80, 64, False, [80, 33], 0),      # fused, two
+    (1, 2, 128, 128, 64, False, [40], 0),        # fused, a warpgroup idle
+    (2, 2, 512, 512, 64, False, [300, 0], 0),    # split, DP 64
+    (2, 2, 130, 300, 64, True, [280, 300], 0),   # split, causal Sq < Sk
+    (1, 2, 40, 64, 128, True, [50], 0),          # fused, DP 128
+    (2, 2, 300, 200, 128, True, [150, 200], 0),  # split, causal Sq > Sk
+    (2, 2, 70, 90, 96, True, [0, 61], 0),        # split, DP 96 (two atoms)
+    (2, 2, 512, 512, 32, False, [300, 512], 0),  # DP 32 padded to 64
+    (1, 2, 50, 300, 18, False, [260], 0),        # D % 8 != 0
+    (2, 2, 200, 200, 64, True, [70, 200], 1),    # misaligned q
+])
+def test_cuda_bf16_backward_plans_match_their_plain_versions(
+        b, h, sq, sk, d, causal, lens, offset):
+    """Each bf16 backward plan variant on the card against its plain
+    version (chip_smoke.py's BF16_GRAD_ATOL rule), two launches
+    bit-identical, dK / dV exactly 0 past each key length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    import chip_smoke
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(1)
+    base = torch.randn(b * h * sq * d + offset, generator=g).to(dev).to(BF)
+    q = base[offset:].view(b, h, sq, d)
+    k, v = (torch.randn((b, h, sk, d), generator=g).to(dev).to(BF)
+            for _ in range(2))
+    do = torch.randn((b, h, sq, d), generator=g).to(dev).to(BF)
+    vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    scale = d ** -0.5
+    out, lse = tk.flash_attention_fwd(q, k, v, causal, scale, vl)
+    delta = (out.float() * do.float()).sum(-1).reshape(b * h, sq)
+    args = (q, k, v, do, lse, delta, causal, scale, vl)
+    got = tk.flash_attention_bwd(*args)
+    again = tk.flash_attention_bwd(*args)
+    refs = tk._flash_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, a2, r in zip(got, again, refs):
+        assert torch.equal(a, a2)
+        assert chip_smoke._bf16_share(
+            torch, a, r, chip_smoke.BF16_GRAD_ATOL
+            * chip_smoke._slice_max(r)) <= 1
+    for bi, n in enumerate(lens or []):
+        assert got[1][bi, :, n:].abs().sum().item() == 0
+        assert got[2][bi, :, n:].abs().sum().item() == 0
