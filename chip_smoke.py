@@ -487,7 +487,8 @@ def phase_build(mx, torch):
     log(f"build: {info['seconds']:.2f} s (cached={info['cached']}) "
         f"sources={list(_build.SOURCES)} -> {info['path']}")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or "wgmma" in line
+                or "entry function" in line or line.startswith("==")):
             log(f"  ptxas {line.strip()}")
 
 
@@ -564,14 +565,20 @@ def _fwd_check(torch, K, q, k, v, causal, lens, what):
 
 def _fwd_plans(K, q, k):
     """{name: plan} of the forward kernel at other plans than
-    `flash_fwd_plan`'s (rw row warps x ks key-split warps of bk-key
-    tiles) that fit a block, in q's dtype."""
+    `flash_fwd_plan`'s that fit a block, in q's dtype: fp32, rw row warps
+    x ks key-split warps of bk-key tiles; bf16, both block shapes of the
+    wgmma kernel (`_fwd_bf16_plan`: 128 rows, 64 rows)."""
     b, h, sq, d = q.shape
     plan = K.flash_fwd_plan(b * h, sq, k.shape[2], d, q.dtype)
     plans = {}
+    if q.dtype == K.torch.bfloat16:
+        for rw in (2, 1):
+            p = K._fwd_bf16_plan(plan["dp"], rw)
+            plans[f"rw{rw}_bk{p['bk']}"] = p
+        return plans
     for rw, ks, bk in ((4, 1, 32), (4, 1, 16), (2, 2, 32), (2, 4, 16),
                        (1, 4, 32), (1, 8, 16), (1, 4, 16)):
-        smem = K.flash_fwd_smem(rw, ks, bk, plan["dp"], q.dtype)
+        smem = K.flash_fwd_smem(rw, ks, bk, plan["dp"])
         if smem > 227 * 1024:
             continue                  # more than a block's memory
         plans[f"rw{rw}_ks{ks}_bk{bk}"] = dict(
@@ -1923,7 +1930,9 @@ def _bf16_cases():
     padded widths 32-128 and D no multiple of 8, causal with Sq != Sk
     both ways, zero-length rows, Sk above one backward block, and every
     plan variant of the wgmma backward (fused over one or two
-    warpgroups, split, DP 64 and 128)."""
+    warpgroups, split, DP 64 and 128) and of the wgmma forward (its key
+    tiles' and row blocks' edges); `phase_flash_bf16` runs the forward
+    at each of its block shapes on every case."""
     g = np.random.RandomState(0)
     bert = (4, BERT_H, BERT_S, BERT_S, 64, False,
             [300, 384, 3, int(g.randint(256, 513))])
@@ -1948,7 +1957,25 @@ def _bf16_cases():
              (2, 2, 100, 120, 64, True, [0, 77]),
              (1, 2, 40, 64, 128, True, [50]),
              (1, 2, 64, 64, 96, True, [33]),
-             (2, 2, 300, 200, 128, True, [150, 200])]
+             (2, 2, 300, 200, 128, True, [150, 200]),
+             # the wgmma forward's own tile edges (`flash_fwd_plan` in
+             # bf16: 128-key tiles at DP = 64, 64 at 128; 128-row
+             # blocks): Sk no multiple of a tile with kv_len inside the
+             # last one, causal with Sq > Sk and Sq < Sk across a 128-row
+             # block, D = 96 (two swizzle atoms, part padded) over 64-key
+             # tiles
+             (2, 3, 256, 300, 64, False, [290, 261]),
+             (1, 2, 300, 170, 64, True, None),
+             (2, 2, 150, 400, 64, True, [390, 400]),
+             (2, 2, 200, 150, 96, False, [150, 100]),
+             # many items a persistent block (both Q buffers, the ring's
+             # phases across items of other lengths), causal, and with the
+             # element-by-element copies. (No length of 1: there the true
+             # dQ and dK are 0 and both trees' kernels read noise of about
+             # 1e-6 against a limit scaled by it, ROADMAP Queue 3)
+             (8, 16, 512, 512, 64, True, [512, 3, 0, 257, 130, 64, 511, 2]),
+             (8, 16, 300, 300, 30, False, [300, 2, 299, 150, 0, 44, 200,
+                                           100])]
     for d in (32, 96, 128, 18, 30):
         cases += [(2, 2, 512, 512, d, False, [300, 512]),
                   (1, 2, 1024, 1024, d, True, None)]
@@ -1957,7 +1984,8 @@ def _bf16_cases():
 
 def _bf16_attention_times(torch, K, b, h, s, d, lens, backward=True):
     """Device ms (CUDA-graph replay) of the bf16 kernels at (B, H, S, S,
-    D) with key lengths `lens`: the forward, the backward as planned,
+    D) with key lengths `lens`: the forward (as planned and at each of
+    its block shapes, `_fwd_plans`), the backward as planned,
     its kernels alone, the plain versions and SDPA in bf16 (forward, and
     backward as fwd+bwd - fwd), with the bounds of this run's data: the
     live (q, k) pairs only, every bf16 array read or written once, fp32
@@ -1976,6 +2004,8 @@ def _bf16_attention_times(torch, K, b, h, s, d, lens, backward=True):
     fns = {"fwd": lambda: K.flash_attention_fwd(q, k, v, kv_lengths=vl),
            "fwd_plain": lambda: K._flash_plain(q, k, v, False, scale, vl),
            "sdpa_fwd": lambda: sdpa(q, k, v, attn_mask=mask)}
+    fns.update({f"fwd {name}": fn for name, fn in _fwd_plan_fns(
+        K, q, k, v, False, scale, vl).items()})
     if backward:
         qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
 
@@ -2036,7 +2066,8 @@ def phase_flash_bf16(mx, torch):
     float64 on `_bf16_cases` (the forward at every plan it takes, the
     backward on the path `flash_bwd_plan` gives: fused, or the fused
     kernel for dK / dV and then the dQ kernel), two launches
-    bit-identical, and a misaligned q (element-by-element copies). Then
+    bit-identical, a misaligned q (element-by-element copies), and the
+    forward alone on many items with one-key rows. Then
     timed: the forward at the serving prefill (its row) and the training
     shape, the fused backward at the training shape (its row); the dQ
     kernel's row is filled at BERT's shape by
@@ -2090,6 +2121,25 @@ def phase_flash_bf16(mx, torch):
         log(f"bf16 flash misaligned q {(b, h, s, s, d)} causal={causal}: "
             f"forward {err:.3e} ({share:.3f} of the limit), vs float64 "
             f"{e64} (plain {p64}); backward {berrs} (shares {bshares})")
+    # the forward alone at every plan on many items a block with one-key
+    # rows, which `_bf16_cases` leaves out for the backward's check
+    # (ROADMAP Queue 3 item 9)
+    for b, h, s, d, causal, lens in (
+            (8, 16, 512, 64, True, [512, 1, 0, 257, 1, 64, 511, 130]),
+            (8, 16, 300, 30, False, [1, 300, 2, 1, 150, 0, 44, 299])):
+        q, k, v, _ = _bf16_qkv(torch, g, b, h, s, s, d, 4)
+        what = f"{(b, h, s, s, d)} causal={causal} lens={lens}"
+        err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, causal,
+                                               lens, what)
+        shares = [share]
+        for name, p in _fwd_plans(K, q, k).items():
+            err_p, share_p, _, _ = _bf16_fwd_check(torch, K, q, k, v, causal,
+                                                   lens, f"{what} {name}", p)
+            err, shares = max(err, err_p), shares + [share_p]
+        worst["flash_fwd_bf16"] = max(worst["flash_fwd_bf16"], err)
+        log(f"bf16 flash forward {what}: max abs err {err:.3e}, at most "
+            f"{max(shares):.3f} of the limit over {len(shares)} plans; vs "
+            f"float64 {e64} (plain {p64}); repeats bit-identical")
 
     src_f = "mxnet_tpu_torch/ops/csrc/flash_fwd.cu"
     src_b = "mxnet_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -2127,17 +2177,20 @@ def phase_flash_bf16(mx, torch):
 def phase_ln_bf16(mx, torch):
     """The bf16 LayerNorm kernel against `_ln_plain` (y LN_BF16_TOL, mean
     and rstd LN_TOL) with gamma / beta in fp32 and in bf16, at every
-    width of `phase_ln` and its edge shapes, two launches bit-identical;
-    timed with bf16 gamma / beta (as `Block.cast` leaves them) at
-    LN_TIMED beside `F.layer_norm` in bf16, BERT's shape (8192, 768)
-    the row's own."""
+    width of `phase_ln` and its edge shapes, and at D = 2050, 9001 and
+    12000 (each launch form of `layer_norm.cu` at a checked width: 128
+    threads x 2 or 4 chunks, 256 x 4, strided above 8192), two launches
+    bit-identical; timed with bf16 gamma / beta (as `Block.cast` leaves
+    them) at LN_TIMED beside `F.layer_norm` in bf16 and, for the one-warp form,
+    the launch floor of its grid; BERT's shape (8192, 768) the row's
+    own."""
     K = mx.ops.kernels
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cpu").manual_seed(13)
     worst = 0.0
     for rows, d in [*LN_TIMED, (7, 512), (1, 512), (4099, 512), (7, 768),
                     (1, 1024), (13, 200), (1000, 1032), (3, 8192),
-                    (1, 33)]:
+                    (1, 33), (5, 2050), (3, 9001), (5, 12000)]:
         for gdt in (torch.float32, torch.bfloat16):
             x = (3 * torch.randn((rows, d), generator=g) + 1).to(dev).to(
                 torch.bfloat16)
@@ -2178,13 +2231,18 @@ def phase_ln_bf16(mx, torch):
         # bf16 x and y once each, gamma and beta, fp32 mean and rstd
         bms, by = bound(2 * (2 * rows * d + 2 * d) + 4 * 2 * rows,
                         8 * rows * d)
-        per_shape.append(dict(shape=[rows, d], ms=dev_ms["kernel"],
-                              plain_ms=dev_ms["plain"],
-                              library_ms=dev_ms["torch"], bound_ms=bms,
-                              bound_by=by, call_ms=call))
+        row = dict(shape=[rows, d], ms=dev_ms["kernel"],
+                   plain_ms=dev_ms["plain"], library_ms=dev_ms["torch"],
+                   bound_ms=bms, bound_by=by, call_ms=call)
+        if d <= 1024:
+            # the one-warp form's grid (8 rows a 256-thread block) as an
+            # empty kernel: where the bound lies under it, it is the floor
+            row["launch_floor_ms"] = launch_floor_ms(mx, -(-rows // 8), 256)
+        per_shape.append(row)
         log(f"bf16 layer norm ({rows}, {d}): device (CUDA graph) {dev_ms}; "
-            f"per call {call:.5f}; bound {bms:.6f} ms ({by}); kernel / "
-            f"bound {dev_ms['kernel'] / bms:.2f}, kernel / F.layer_norm "
+            f"per call {call:.5f}; bound {bms:.6f} ms ({by}); launch floor "
+            f"{row.get('launch_floor_ms')}; kernel / bound "
+            f"{dev_ms['kernel'] / bms:.2f}, kernel / F.layer_norm "
             f"{dev_ms['kernel'] / dev_ms['torch']:.3f}")
     top = next(r for r in per_shape if r["shape"] == [BERT_B * BERT_S, 768])
     return dict(name="layer_norm_bf16", route="cuda",
@@ -2193,8 +2251,8 @@ def phase_ln_bf16(mx, torch):
                 max_abs_err=worst,
                 per_shape=[r for r in per_shape if r is not top],
                 **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms",
-                                       "call_ms")})
+                                       "bound_by", "library_ms", "call_ms",
+                                       "launch_floor_ms")})
 
 
 def fp32_kernel_times(mx, torch):
@@ -2248,7 +2306,8 @@ def bf16_kernel_times(mx, torch):
     the training shape (the fused kernel, the whole backward); at BERT's
     the dK/dV kernel, the dQ kernel and the pair as `flash_attention_bwd`
     runs it; LayerNorm (bf16 gamma / beta) at the training and BERT
-    shapes and D = 4096. The counterpart of `fp32_kernel_times`: it calls
+    shapes, D = 4096 and 8192. The counterpart of `fp32_kernel_times`:
+    it calls
     only entries that earlier packages have too, so another checkout's
     package is measured the same way (`chip_train_ab.py --phase
     bf16`)."""
@@ -2281,13 +2340,35 @@ def bf16_kernel_times(mx, torch):
                 iters=10)
             times[f"flash_bwd_pair_bf16 {tag}"] = graph_ms(
                 lambda: K.flash_attention_bwd(*args), calls=5, iters=10)
-    for rows, d in (LN_TIMED[0], LN_TIMED[1], LN_TIMED[4]):
+    for rows, d in (LN_TIMED[0], LN_TIMED[1], LN_TIMED[4], LN_TIMED[5]):
         x = torch.randn((rows, d), generator=g).to(dev).to(torch.bfloat16)
         ga, be = (torch.randn(d, generator=g).to(dev).to(torch.bfloat16)
                   for _ in range(2))
         times[f"layer_norm_bf16 ({rows}, {d})"] = graph_ms(
             lambda: K.layer_norm_fwd(x, ga, be, 1e-5))
     return times
+
+
+def bf16_backward_digest(mx, torch):
+    """The SHA-256 (hex) of the bf16 backward pair's dQ, dK, dV bits at
+    BERT's shape, from seeded inputs and an lse and delta that the plain
+    version computes, so two packages' backward kernels see the same
+    inputs whatever their forward: equal for two packages only if every
+    bit is (`chip_train_ab.py --phase bf16` compares the sides')."""
+    import hashlib
+    K = mx.ops.kernels
+    g = torch.Generator(device="cpu").manual_seed(16)
+    b, h, s, d = BERT_B, BERT_H, BERT_S, 64
+    q, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
+    vl = torch.tensor(_bert_lengths(b), dtype=torch.int32, device=q.device)
+    out, lse = K._flash_plain(q, k, v, False, d ** -0.5, vl)
+    delta = (out.float() * do.float()).sum(-1).reshape(b * h, s)
+    grads = K.flash_attention_bwd(q, k, v, do, lse.contiguous(), delta,
+                                  False, d ** -0.5, vl)
+    h256 = hashlib.sha256()
+    for t in grads:
+        h256.update(t.contiguous().view(torch.int16).cpu().numpy().tobytes())
+    return h256.hexdigest()
 
 
 def conv1x1_kernel_times(mx, torch):
@@ -3236,7 +3317,9 @@ def phase_bert_attention_bf16(mx, torch, rows):
     rows["flash_fwd_bf16"]["per_shape"].append(dict(
         shape=shape, lens=lens, ms=dev_ms["fwd"],
         plain_ms=dev_ms["fwd_plain"], bound_ms=b_["fwd"][0],
-        bound_by=b_["fwd"][1], library_ms=dev_ms["sdpa_fwd"]))
+        bound_by=b_["fwd"][1], library_ms=dev_ms["sdpa_fwd"],
+        tflops=tf["fwd"], of_bound=dev_ms["fwd"] / b_["fwd"][0],
+        of_library=dev_ms["fwd"] / dev_ms["sdpa_fwd"]))
     rows["flash_bwd_bf16"]["max_abs_err"] = max(
         rows["flash_bwd_bf16"]["max_abs_err"], berrs["dk"], berrs["dv"])
     rows["flash_bwd_bf16"].setdefault("per_shape", []).append(dict(

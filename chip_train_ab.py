@@ -22,7 +22,7 @@ training phases are each checkout's own `chip_smoke.py`'s:
 each then one step under torch.profiler. Prints one line for each run
 (tokens/s, mean step ms, the profiled step's window and device busy
 time, and the share of that device time of the flash forward (bert) or
-of the split backward (bert_bf16)).
+of the flash forward and the split backward (bert_bf16)).
   rpa    this checkout's `chip_smoke.rpa_times` on each side's package:
          the four paged kernels' device ms (CUDA-graph replay) at the
          serving shape and the long case, the 1-wide ones also at every
@@ -35,7 +35,9 @@ of the split backward (bert_bf16)).
   bf16   this checkout's `chip_smoke.bf16_kernel_times` on each side's
          package: the bf16 flash forward, the fused backward, the dK/dV
          and dQ kernels and their pair at BERT's shape, and LayerNorm;
-         one line a run.
+         one line a run, with the SHA-256 of the pair's output bits
+         (`chip_smoke.bf16_backward_digest`); the JSON line says whether
+         every run's bits were equal.
   conv   this checkout's `chip_smoke.conv1x1_kernel_times` on each side's
          package: the conv1x1 kernel in fp32 and bf16 at the probe's four
          ResNet-50 shapes; one line a run.
@@ -78,6 +80,8 @@ if phase == "fp32":
 if phase == "bf16":
     print("bf16 times " + json.dumps(cs.bf16_kernel_times(mx, torch)),
           flush=True)
+    print("bf16 backward bits " + cs.bf16_backward_digest(mx, torch),
+          flush=True)
     sys.exit(0)
 if phase == "conv":
     print("conv times " + json.dumps(cs.conv1x1_kernel_times(mx, torch)),
@@ -98,18 +102,17 @@ _TAGS = {"train": ("training ", "train profile"),
          "bf16": ("bf16 times ", None), "conv": ("conv times ", None)}
 # the phases that time kernels: a dict of ms a run, medians by key
 _KERNEL_PHASES = ("rpa", "fp32", "bf16", "conv")
-# the share of the profiled step's device time that a phase reports
-_SHARES = {"bert": re.compile(r"^bert profile: flash forward ([0-9.]+) ms, "
-                              r"([0-9.]+) % of device time"),
-           "bert_bf16": re.compile(r"^bert bf16 profile: split backward "
-                                   r"([0-9.]+) ms, ([0-9.]+) % of device "
-                                   r"time")}
+# the kernels whose share of the profiled step's device time a phase
+# reports
+_SHARES = {"bert": ("flash forward",),
+           "bert_bf16": ("flash forward", "split backward")}
 
 
 def run_once(root, phase, log_path):
-    """(summary, profiled window ms, busy ms, (ms, share %) of the
-    phase's reported kernel or None) of one run; for the kernel phases
-    the summary is the timing function's dict and the rest None."""
+    """(summary, profiled window ms, busy ms, {kernel: (ms, share %)} of
+    the phase's reported kernels, the bf16 backward's bit digest or None)
+    of one run; for the kernel phases the summary is the timing
+    function's dict, the times None and the shares empty."""
     smoke = os.path.join(HERE if phase in _KERNEL_PHASES else root,
                          "chip_smoke.py")
     proc = subprocess.run([sys.executable, "-c", _RUN, root, phase, smoke],
@@ -125,23 +128,29 @@ def run_once(root, phase, log_path):
     head, tag = _TAGS[phase]
     profile = re.compile(rf"^{tag}: window ([0-9.]+) ms, .*device busy "
                          rf"([0-9.]+) ms")
-    summary, window, busy, share = None, None, None, None
+    summary, window, busy, shares, bits = None, None, None, {}, None
+    share_res = {what: re.compile(rf"^{tag}: {what} ([0-9.]+) ms, "
+                                  rf"([0-9.]+) % of device time")
+                 for what in _SHARES.get(phase, ())}
     for line in proc.stdout.splitlines():
         if line.startswith(head + "{"):
             summary = json.loads(line[len(head):])
+        if line.startswith("bf16 backward bits "):
+            bits = line.split()[-1]
         m = profile.match(line)
         if m:
             window, busy = float(m.group(1)), float(m.group(2))
-        m = _SHARES[phase].match(line) if phase in _SHARES else None
-        if m:
-            share = (float(m.group(1)), float(m.group(2)))
+        for what, share_re in share_res.items():
+            m = share_re.match(line)
+            if m:
+                shares[what] = (float(m.group(1)), float(m.group(2)))
     if summary is None:
         raise SystemExit(f"chip_train_ab: no {head.strip()} line from "
                          f"{root}")
     if phase not in _KERNEL_PHASES and "mean_step_ms" not in summary:
         timed = summary["step_ms"][2:]
         summary["mean_step_ms"] = sum(timed) / len(timed)
-    return summary, window, busy, share
+    return summary, window, busy, shares, bits
 
 
 def main():
@@ -164,27 +173,28 @@ def main():
             log_path = (os.path.join(
                 args.log_dir, f"{args.phase}_run{r}_{i}_{side}.log")
                 if args.log_dir else None)
-            summary, window, busy, share = run_once(sides[side], args.phase,
-                                                    log_path)
+            summary, window, busy, shares, bits = run_once(
+                sides[side], args.phase, log_path)
             if args.phase in _KERNEL_PHASES:
                 runs.append(dict(side=side, ms=summary))
+                if bits is not None:
+                    runs[-1]["bits"] = bits
                 print(f"{side}: " + ", ".join(
-                    f"{k} {v:.6f}" for k, v in summary.items()), flush=True)
+                    f"{k} {v:.6f}" for k, v in summary.items())
+                    + ("" if bits is None else f"; backward bits {bits}"),
+                    flush=True)
                 continue
-            what = ("flash forward" if args.phase == "bert"
-                    else "split backward")
             runs.append(dict(side=side, tokens_per_s=summary["tokens_per_s"],
                              mean_step_ms=summary["mean_step_ms"],
                              profiled_window_ms=window, busy_ms=busy,
-                             share_of=None if share is None else what,
-                             share_ms=None if share is None else share[0],
-                             share_pct=None if share is None else share[1],
+                             shares={what: dict(ms=ms, pct=pct)
+                                     for what, (ms, pct) in shares.items()},
                              launches=summary["launches"]))
             print(f"{side}: {summary['tokens_per_s']:.1f} tokens/s, "
                   f"{summary['mean_step_ms']:.3f} ms a step; profiled "
                   f"step window {window} ms, device busy {busy} ms"
-                  + ("" if share is None
-                     else f", {what} {share[0]} ms, {share[1]} % of it"),
+                  + "".join(f", {what} {ms} ms, {pct} % of it"
+                            for what, (ms, pct) in shares.items()),
                   flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -203,8 +213,11 @@ def main():
                                           if r["side"] == side)
                   for side in sides}
         key = "median_tokens_per_s"
-    print(json.dumps({"phase": args.phase, "checkouts": sides, "runs": runs,
-                      key: median}), flush=True)
+    result = {"phase": args.phase, "checkouts": sides, "runs": runs,
+              key: median}
+    if any("bits" in r for r in runs):
+        result["bits_equal"] = len({r.get("bits") for r in runs}) == 1
+    print(json.dumps(result), flush=True)
     return 0
 
 

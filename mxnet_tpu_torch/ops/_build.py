@@ -30,7 +30,7 @@ _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "ragged_paged_attention.cu",
            "layer_norm.cu", "conv1x1_bn_stats.cu")
 # headers the sources include: hashed with them, never compiled alone
-HEADERS = ("tf32_mma.cuh", "bf16_mma.cuh", "wgmma.cuh")
+HEADERS = ("tf32_mma.cuh", "bf16_mma.cuh", "wgmma.cuh", "tma.cuh")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v: registers, shared memory and spills of each kernel land in
 # the build log (`build_info()["log"]`)

@@ -5,10 +5,13 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
 
   * `flash_attention` — every attention of the model, forward and
     backward, as a `torch.autograd.Function`. Its forward launches
-    `csrc/flash_fwd.cu` (replaces `_flash_fwd_kernel`; split TF32 on
-    the tensor cores, 16 query rows a warp and 4 warps a block, or,
+    `csrc/flash_fwd.cu` (replaces `_flash_fwd_kernel`; fp32: split TF32
+    on the tensor cores, 16 query rows a warp and 4 warps a block, or,
     where the rows alone would leave the card idle, fewer rows a block
-    and up to 8 warps splitting the keys: `flash_fwd_plan`) and keeps q,
+    and up to 8 warps splitting the keys; bf16: persistent blocks on
+    wgmma fed by a TMA ring, 64 query rows a warpgroup and two a block
+    taking turns at the tensor cores, or one where that would leave the
+    card idle: `flash_fwd_plan`) and keeps q,
     k, v, the output and the row log-sum-exp; its backward launches
     `csrc/flash_bwd.cu` (replaces `_flash_bwd_dkv_kernel` and
     `_flash_bwd_dq_kernel`): one fused dQ/dK/dV kernel when the keys fit
@@ -189,12 +192,11 @@ def _flash_plain(q, k, v, causal, sm_scale, kv_lengths):
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _tile_row(dp, dtype):
-    """Bytes of one shared-memory row of a flash kernel's tile: DP
-    elements and a pad of 16 bytes (4 floats, `tf32_mma.cuh` pitch_of;
-    8 bf16, `bf16_mma.cuh` bf16_pitch), so fragment loads of 8 rows hit
-    different banks."""
-    return 4 * (dp + 4) if dtype == torch.float32 else 2 * (dp + 8)
+def _tile_row(dp):
+    """Bytes of one shared-memory row of an fp32 flash kernel's tile: DP
+    floats and a pad of 4 (`tf32_mma.cuh` pitch_of), so fragment loads
+    of 8 rows hit different banks."""
+    return 4 * (dp + 4)
 
 
 def _flash_args(q, k, v, kv_lengths):
@@ -233,17 +235,58 @@ _FWD_WIDE_BK, _FWD_SPLIT_BK = 32, 16
 _CARD_SMS, _SMEM_LIMIT = 132, 227 * 1024
 
 
-def flash_fwd_smem(rw, ks, bk, dp, dtype=torch.float32):
-    """The forward kernel's dynamic shared bytes (`fwd_smem` of
+def flash_fwd_smem(rw, ks, bk, dp):
+    """The fp32 forward kernel's dynamic shared bytes (`fwd_smem` of
     `csrc/flash_fwd.cu`): 16 * rw Q rows and two buffers of ks K and V
-    tiles of bk rows."""
-    return (_FWD_WARP_ROWS * rw + 4 * ks * bk) * _tile_row(dp, dtype)
+    tiles of bk rows. (The bf16 kernel's are `_fwd_bf16_plan`'s.)"""
+    return (_FWD_WARP_ROWS * rw + 4 * ks * bk) * _tile_row(dp)
+
+
+# the bf16 kernel (wgmma, TMA): query rows of a consumer warpgroup, row
+# warpgroups of a full block, stages of its ring of key tiles
+# (`csrc/flash_fwd.cu` kBf16WgRows, kBf16RowWgs, kBf16Stages)
+_BF16_FWD_WG_ROWS, _BF16_FWD_ROW_WGS, _BF16_FWD_STAGES = 64, 2, 3
+
+
+def _fwd_bf16_plan(dp, rw):
+    """The bf16 forward's launch plan for one block shape: rw consumer
+    warpgroups of 64 rows (ks = 1: every warpgroup walks every key tile)
+    and the producer; key tiles of 128 where two warpgroups share them
+    at DP = 64, else 64 (`fwd_bf16_bk`); the shared bytes are
+    `fwd_smem_bf16`'s: 1024 to align the swizzled tiles, two buffers of
+    the block's Q rows and one of its O rows, the ring's K and V tiles,
+    its full and empty mbarriers and a full and an empty one for each Q
+    buffer."""
+    stages = _BF16_FWD_STAGES
+    rows = _BF16_FWD_WG_ROWS * rw
+    bk = 128 if dp == 64 and rw == _BF16_FWD_ROW_WGS else 64
+    smem = 1024 + 2 * (3 * rows * dp + 2 * stages * bk * dp) \
+        + 8 * (2 * stages + 4)
+    return dict(dp=dp, bk=bk, rw=rw, ks=1, rows=rows, threads=128 * (rw + 1),
+                stages=stages, smem=smem)
+
+
+def _flash_fwd_plan_bf16(bh, sq, d):
+    """`flash_fwd_plan` in bfloat16: the wgmma kernel's tiles in the
+    128-byte swizzle, so D pads to 64 or 128 (one or two swizzle atoms).
+    Items of two consumer warpgroups (128 rows, taking turns at the
+    tensor cores, sharing key tiles of 128 at DP = 64) where that many
+    items cover the card; else, the small grids (the serving prefill,
+    the training step's S = 64), items of one warpgroup of 64 rows with
+    64-key tiles, two blocks an SM at DP = 64. Either way the blocks are
+    persistent: as many as stay resident, walking the items."""
+    dp = 64 if d <= 64 else 128
+    wide = sq > _BF16_FWD_WG_ROWS and bh * -(-sq // (
+        _BF16_FWD_WG_ROWS * _BF16_FWD_ROW_WGS)) >= _CARD_SMS
+    return _fwd_bf16_plan(dp, _BF16_FWD_ROW_WGS if wide else 1)
 
 
 def flash_fwd_plan(bh, sq, sk, d, dtype=torch.float32):
     """The launch plan of the flash forward kernel in `dtype` (float32
     or bfloat16) for B*H = `bh` slices of Sq queries over Sk keys of
-    width D:
+    width D. bfloat16: `_flash_fwd_plan_bf16` (dp, bk, rw consumer
+    warpgroups of 64 rows, ks = 1, stages, smem).
+    float32:
 
       dp     D zero-padded in shared memory (32, 64, 96 or 128)
       rw     row warps a block, 16 query rows each: 4, halved while the
@@ -259,12 +302,14 @@ def flash_fwd_plan(bh, sq, sk, d, dtype=torch.float32):
       warps  rw x ks
       rows   query rows a block (16 x rw)
       smem   dynamic shared bytes (the Q rows and two buffers of ks K and
-             V tiles, `flash_fwd_smem`: half as many in bf16); the kernel
-             recomputes them and refuses a plan that disagrees.
+             V tiles, `flash_fwd_smem`); the kernel recomputes them and
+             refuses a plan that disagrees.
     """
     _check(0 < d <= 128 and bh > 0 and sq > 0 and sk > 0,
            f"flash forward takes 0 < D <= 128 and a non-empty input, got "
            f"D {d}, B*H {bh}, Sq {sq}, Sk {sk}")
+    if dtype != torch.float32:
+        return _flash_fwd_plan_bf16(bh, sq, d)
     dp = 32 * -(-d // 32)
     rw = _FWD_MAX_ROW_WARPS
     while rw > 1 and bh * -(-sq // (_FWD_WARP_ROWS * rw)) < _CARD_SMS:
@@ -276,7 +321,7 @@ def flash_fwd_plan(bh, sq, sk, d, dtype=torch.float32):
         ks, bk = _FWD_MAX_WARPS // rw, _FWD_SPLIT_BK
 
     def smem(ks):
-        return flash_fwd_smem(rw, ks, bk, dp, dtype)
+        return flash_fwd_smem(rw, ks, bk, dp)
     while ks > 1 and (bk * ks // 2 >= sk or smem(ks) > _SMEM_LIMIT):
         ks //= 2
     return dict(dp=dp, rw=rw, ks=ks, bk=bk, warps=rw * ks, rows=rows,
@@ -449,7 +494,7 @@ def flash_bwd_plan(sk, d, dtype=torch.float32):
     if dtype != torch.float32:
         return _flash_bwd_plan_bf16(sk, d)
     dp = 32 * -(-d // 32)
-    row = _tile_row(dp, dtype)
+    row = _tile_row(dp)
     bk_max = 128 if dp <= 64 else 64
     fused = sk <= bk_max
     bk = 16 * -(-sk // 16) if fused else bk_max

@@ -300,16 +300,15 @@ def test_zero_length_rows_are_zeros_in_bf16():
 # ---------------------------------------------------------------------------
 # LayerNorm
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
-def test_layer_norm_bf16_matches_jax_kernel(interpret, gdtype):
-    """`fused_layer_norm` on bf16 x with fp32 or bf16 gamma / beta
-    against the JAX one (its Pallas kernel in interpret mode: D = 256,
-    64 rows) forward and backward, under the tolerance rule: y, dx in
-    x's dtype, dgamma / dbeta in gamma's, fp32 statistics."""
-    rng = np.random.RandomState(5)
-    x = _bf16(3 * rng.randn(64, 256) + 1)
-    gam, bet = (_bf16(1 + 0.3 * rng.randn(256)) for _ in range(2))
-    dy = _bf16(rng.randn(64, 256))
+def _layer_norm_case(rows, d, gdtype, seed):
+    """`fused_layer_norm` on bf16 x with gamma / beta in `gdtype` against
+    the JAX one (its Pallas kernel in interpret mode) forward and
+    backward at (rows, d), under the tolerance rule: y, dx in x's dtype,
+    dgamma / dbeta in gamma's, fp32 statistics."""
+    rng = np.random.RandomState(seed)
+    x = _bf16(3 * rng.randn(rows, d) + 1)
+    gam, bet = (_bf16(1 + 0.3 * rng.randn(d)) for _ in range(2))
+    dy = _bf16(rng.randn(rows, d))
     gt = torch.bfloat16 if gdtype == "bfloat16" else torch.float32
     gj = jnp.bfloat16 if gdtype == "bfloat16" else jnp.float32
     xt = _t(x).requires_grad_(True)
@@ -335,6 +334,21 @@ def test_layer_norm_bf16_matches_jax_kernel(interpret, gdtype):
                              (xt.grad, gt_.grad, bt.grad), jgrads,
                              (x64.grad, g64.grad, b64.grad)):
         _rule(g, w, e.numpy(), name)
+
+
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+def test_layer_norm_bf16_matches_jax_kernel(interpret, gdtype):
+    """`_layer_norm_case` at D = 256, 64 rows (the one-warp form's
+    width on the card)."""
+    _layer_norm_case(64, 256, gdtype, 5)
+
+
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [4096, 8192])
+def test_layer_norm_bf16_wide_rows_match_jax_kernel(interpret, d, gdtype):
+    """`_layer_norm_case` at the one-block-a-row form's widths on the
+    card (D = 4096, 8192; 8 rows, the Pallas kernel's least block)."""
+    _layer_norm_case(8, d, gdtype, 6)
 
 
 # ---------------------------------------------------------------------------
