@@ -57,7 +57,12 @@ Phases (any failure raises and the script exits non-zero):
                  launches bit-identical; LayerNorm with fp32 and bf16
                  gamma / beta at every width above (LN_BF16_TOL);
                  timed at the serving and training shapes and LN_TIMED
-                 beside SDPA and `F.layer_norm` in bf16.
+                 beside SDPA and `F.layer_norm` in bf16. The fp32
+                 LayerNorm with bf16 gamma / beta (a cast TransformerNMT's
+                 fp32 activations) at LN_BF16_GAMMA (each launch form)
+                 against its plain version (LN_TOL) and bit for bit
+                 against the same gammas in fp32; timed at the cast
+                 NMT's shape beside `F.layer_norm`.
   2b. conv1x1  — the conv1x1 + BN-stats kernel, fp32 and bf16, against a
                  float64 evaluation on the card at the probe's four
                  ResNet-50 shapes (batch 128) and an odd shape (fp32 also
@@ -119,6 +124,19 @@ Phases (any failure raises and the script exits non-zero):
                  through save_parameters / load_parameters, and one step
                  at full width (B=2, S=16) must give the card's loss and
                  every gradient within the stated tolerances.
+  5b. nmt train, bf16 — bench_nmt.py's step: phase 5's weights,
+                 `model.cast("bfloat16")`, SGD lr 1e-3 momentum 0.9, B=64
+                 of 64 + 64 tokens at full length, 10 steps. The
+                 activations stay fp32 as in the JAX package, so every
+                 step must launch the fp32 forms (18 flash forwards, 18
+                 fused backwards, 30 LayerNorms with bf16 gamma) and no
+                 bf16 form; the logits fp32, the loss finite and
+                 falling. Tokens/s and its spread, peak memory, one
+                 profiled step, then 5 steps timed with TF32 matmuls on
+                 (restored after).
+  6b. nmt card vs CPU, bf16 — phase 6 on the cast model cut to 2
+                 layers: the loss within phase 6's limit, each bf16
+                 gradient within a bf16 ulp in norm (NMT_BF16_*).
   7. resnet train — `gluon.model_zoo.vision.get_model("resnet50_v1",
                  layout="NHWC")` at full width and depth, Xavier (gaussian,
                  in, 2) from `mx.random.seed(0)`, SGD (lr 0.1, momentum
@@ -140,6 +158,26 @@ Phases (any failure raises and the script exits non-zero):
                  weights (a saved file) on the card and on the CPU: the
                  loss, every gradient and every running statistic agree
                  within the stated limits.
+ 9c. stem s2d — `ops.nn_ops.stem_conv_s2d` against the plain 7x7 /
+                 stride-2 / pad-3 convolution at (128, 224, 224, 3), fp32
+                 and bf16: y and the weight gradient against float64
+                 (STEM_F32_*, BF16_F64_*); both timed.
+  7b. resnet train, bf16 — bench.py's model: `resnet50_v1(layout=
+                 "NHWC", stem_s2d=True)` on phase 7's weights, cast to
+                 bf16, SGD lr 0.1 momentum 0.9 (no weight decay) on the
+                 mean loss of fp32 logits, 10 steps at B=128 on phase 7's
+                 images in bf16: every parameter bf16 on the card, every
+                 running statistic moving, no port kernel. Images/s and
+                 its spread, peak memory, one profiled step (busy share,
+                 the convolutions' share).
+  8b. resnet conv1x1, bf16 — phase 8 on that bf16 net's live stride-1 1x1
+                 convolutions, through the bf16 kernel only (30
+                 launches).
+  9b. resnet card vs CPU, bf16 — that model cut to one bottleneck a
+                 stage, phase 7's weights, one bf16 SGD step at B=4 on the
+                 card and the CPU, each against the fp32 step on the CPU:
+                 the card no further from it than BF16_F64_RATIO x the
+                 CPU's distance (in norm, each parameter) + BF16_F64_FLOOR.
  10. bert attention — the flash kernels at BERT-base's attention shape
                  (B=16, H=12, S=512, D=64) with key lengths mid-block
                  (300), on a block edge (384), full (512), very short (3)
@@ -409,6 +447,42 @@ BERT_BF16_LR, BERT_BF16_MOMENTUM = 1e-3, 0.9
 # distance from it at most BF16_F64_RATIO times the CPU's, plus one bf16
 # ulp (BF16_F64_FLOOR) of its scale
 BERT_MP_LR = 1e-4
+
+# the fp32 LayerNorm with bf16 gamma / beta, as a TransformerNMT after
+# cast("bfloat16") runs it (fp32 activations, bf16 weights): the cast
+# NMT's shape (nmt_train_bf16: 64 x 64 rows of 512), BERT's, a width no
+# multiple of 32 and the one-block-a-row form; held against `_ln_plain`
+# within LN_TOL, the first timed
+LN_BF16_GAMMA = [(64 * 64, 512), (16 * 512, 768), (4099, 200), (2048, 4096)]
+# phases 5b / 6b: bench_nmt.py's bf16 step (bench_nmt.py:40-61):
+# transformer_base cast to bf16, B = 64 (the smaller of its chip
+# candidates), 64 source and 64 target tokens at full length, SGD lr 1e-3
+# momentum 0.9 on the mean loss's gradient as it is; then a few steps
+# timed again with TF32 on for fp32 matmuls
+NMT_BF16_B, NMT_BF16_LR, NMT_BF16_MOMENTUM = 64, 1e-3, 0.9
+NMT_BF16_STEPS, NMT_TF32_STEPS = 10, 5
+# phase 6b: the cast NMT computes in fp32 on bf16 weights on both
+# devices, so the loss agrees to TRAIN_LOSS_RTOL; each bf16 gradient is
+# an fp32 value rounded once to bf16, which may land one bf16 ulp (2^-7
+# of the value at most) apart, so in norm at most 2^-7 of the CPU's; the
+# tied embedding's sums three bf16 gradients (two gathers and the
+# output projection) in bf16, each of which may land so
+NMT_BF16_GRAD_RTOL = 2.0 ** -7
+NMT_BF16_EMBED_GRAD_RTOL = 3 * 2.0 ** -7
+# phases 7b-9b: bench.py's ResNet-50 (bench.py:226-228): NHWC, the S2D
+# stem, cast to bf16, trained by make_sgd_step's SGD (bench_util.py:
+# 40-64: lr 0.1, momentum 0.9 in the parameter's dtype, no weight decay,
+# the mean loss's gradient as it is), the loss on fp32 logits
+RESNET_BF16_LR, RESNET_BF16_MOMENTUM = 0.1, 0.9
+# phase 9c: stem_conv_s2d against the plain 7x7 / stride-2 / pad-3
+# convolution at bench.py's input (128, 224, 224, 3), y and the weight
+# gradient each against float64 on the card: in fp32, no further from it
+# than STEM_F32_RATIO times the plain convolution's distance plus
+# STEM_F32_FLOOR of the largest value (two cuDNN algorithms summing 147
+# or 192 products, and 1.6 M for the weight gradient, in other orders);
+# in bf16 BF16_F64_RATIO and BF16_F64_FLOOR, as for the bf16 kernels
+STEM_SHAPE = (128, 224, 224, 3)
+STEM_F32_RATIO, STEM_F32_FLOOR = 10.0, 1e-5
 
 BOS, EOS = 2, 3
 
@@ -1762,6 +1836,7 @@ def phase_ln(mx, torch):
         log(f"layer norm ({rows}, {d}) {form(d)} form: max abs "
             f"err (y, mean, rstd) {errs} (tol rtol={LN_TOL['rtol']} "
             f"atol={LN_TOL['atol']})")
+    worst = max(worst, _ln_bf16_gamma_checks(K, torch, g, dev))
     per_shape = []
     for rows, d in LN_TIMED:
         x, ga, be = [torch.randn(shape, generator=g).to(dev)
@@ -1784,6 +1859,7 @@ def phase_ln(mx, torch):
             f"bound {bms:.6f} ms ({by}); kernel / bound "
             f"{dev_ms['kernel'] / bms:.2f}, kernel / F.layer_norm "
             f"{dev_ms['kernel'] / dev_ms['torch']:.3f}")
+    per_shape.append(_ln_bf16_gamma_times(K, torch, g, dev))
     top = per_shape[0]
     return dict(name="layer_norm", route="cuda",
                 source="mxnet_tpu_torch/ops/csrc/layer_norm.cu",
@@ -1792,6 +1868,66 @@ def phase_ln(mx, torch):
                 **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms",
                                        "call_ms")})
+
+
+def _ln_bf16_gamma_checks(K, torch, g, dev):
+    """The fp32 LayerNorm kernel with bf16 gamma / beta (a cast model's
+    fp32 activations) at LN_BF16_GAMMA against `_ln_plain` (LN_TOL), y
+    fp32; and with those gammas widened to fp32 it must give the same
+    bits (the bf16 read is exact, the rest one code). Returns the worst
+    max abs error."""
+    worst = 0.0
+    for rows, d in LN_BF16_GAMMA:
+        x = (3 * torch.randn((rows, d), generator=g) + 1).to(dev)
+        ga, be = (torch.randn(d, generator=g).to(dev).to(torch.bfloat16)
+                  for _ in range(2))
+        got = K.layer_norm_fwd(x, ga, be, 1e-5)
+        wide = K.layer_norm_fwd(x, ga.float(), be.float(), 1e-5)
+        ref = K._ln_plain(x, ga, be, 1e-5)
+        torch.cuda.synchronize()
+        errs = [(a - r).abs().max().item() for a, r in zip(got, ref)]
+        check(got[0].dtype == torch.float32
+              and all(torch.allclose(a, r, **LN_TOL)
+                      for a, r in zip(got, ref)),
+              f"layer norm, fp32 x and bf16 gamma, kernel vs plain at "
+              f"({rows}, {d}): y {got[0].dtype}, max abs errs (y, mean, "
+              f"rstd) {errs}")
+        check(all(torch.equal(a, b) for a, b in zip(got, wide)),
+              f"layer norm ({rows}, {d}): bf16 gamma and the same gamma "
+              f"in fp32 gave other bits")
+        worst = max(worst, *errs)
+        log(f"layer norm ({rows}, {d}) fp32 x, bf16 gamma / beta: max abs "
+            f"err (y, mean, rstd) {errs} (LN_TOL); the same bits as with "
+            f"the gammas in fp32")
+    return worst
+
+
+def _ln_bf16_gamma_times(K, torch, g, dev):
+    """The fp32 LayerNorm with bf16 gamma / beta at the cast NMT's shape
+    (LN_BF16_GAMMA[0]) timed beside its plain version and
+    `F.layer_norm` (which takes gamma in x's dtype: fp32 copies)."""
+    rows, d = LN_BF16_GAMMA[0]
+    x = torch.randn((rows, d), generator=g).to(dev)
+    ga, be = (torch.randn(d, generator=g).to(dev).to(torch.bfloat16)
+              for _ in range(2))
+    ga32, be32 = ga.float(), be.float()
+    fns = {"kernel": lambda: K.layer_norm_fwd(x, ga, be, 1e-5),
+           "plain": lambda: K._ln_plain(x, ga, be, 1e-5),
+           "torch": lambda: torch.nn.functional.layer_norm(
+               x, (d,), ga32, be32, 1e-5)}
+    call = cuda_ms(fns["kernel"])
+    dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
+    # fp32 x and y once each, bf16 gamma and beta, fp32 mean and rstd
+    bms, by = bound(4 * (2 * rows * d + 2 * rows) + 2 * 2 * d,
+                    8 * rows * d)
+    log(f"layer norm ({rows}, {d}) fp32 x, bf16 gamma / beta: device (CUDA "
+        f"graph) {dev_ms}; per call {call:.5f}; bound {bms:.6f} ms ({by}); "
+        f"kernel / bound {dev_ms['kernel'] / bms:.2f}, kernel / "
+        f"F.layer_norm {dev_ms['kernel'] / dev_ms['torch']:.3f}")
+    return dict(shape=[rows, d], form="warp", gamma="bfloat16",
+                ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
+                library_ms=dev_ms["torch"], bound_ms=bms, bound_by=by,
+                call_ms=call)
 
 
 # ---------------------------------------------------------------------------
@@ -2371,6 +2507,24 @@ def bf16_backward_digest(mx, torch):
     return h256.hexdigest()
 
 
+def ln_fp32_digest(mx, torch):
+    """The SHA-256 (hex) of the fp32 LayerNorm kernel's y, mean and rstd
+    bits with fp32 gamma / beta at every width of LN_TIMED, from seeded
+    inputs: equal for two packages only if every bit is
+    (`chip_train_ab.py --phase fp32` compares the sides')."""
+    import hashlib
+    K = mx.ops.kernels
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(17)
+    h256 = hashlib.sha256()
+    for rows, d in LN_TIMED:
+        x, ga, be = [torch.randn(shape, generator=g).to(dev)
+                     for shape in ((rows, d), (d,), (d,))]
+        for t in K.layer_norm_fwd(3 * x + 1, ga, be, 1e-5):
+            h256.update(t.contiguous().cpu().numpy().tobytes())
+    return h256.hexdigest()
+
+
 def conv1x1_kernel_times(mx, torch):
     """{"<kernel> (M, K, N)": device ms by CUDA-graph replay} of the
     conv1x1 + BN-stats kernel in fp32 and bf16 at the probe's four
@@ -2402,14 +2556,20 @@ def _train_batch(mx, b, s, ctx):
     return [mx.nd.array(a, ctx=ctx) for a in (*toks, lens)]
 
 
-def _train_step(mx, model, trainer, ce, batch):
+def _train_step(mx, model, trainer, ce, batch, bench=False):
+    """examples/nmt_translate.py's step (rescale_grad 1/B), or with
+    `bench` bench_nmt.py's: the loss on the logits as fp32 (a cast
+    model's are fp32 already) and the update on the mean loss's gradient
+    as it is."""
     src, tgt, lab, vl = batch
     with mx.autograd.record():
         logits = model(src, tgt, vl)
+        if bench:
+            logits = logits.astype("float32")
         loss = ce(logits.reshape((-1, VOCAB)), lab.reshape((-1,))).mean()
     loss.backward()
     if trainer is not None:
-        trainer.step(src.shape[0])
+        trainer.step(1 if bench else src.shape[0])
     return loss
 
 
@@ -2500,6 +2660,199 @@ def phase_train_card_vs_cpu(mx, torch, init_file):
         f"{len(cpu_params)} gradients within {TRAIN_GRAD_TOL}, worst max "
         f"abs err {worst[0]:.3e} ({worst[1]})")
 
+
+
+# ---------------------------------------------------------------------------
+# bf16 training as bench_nmt.py runs it: TransformerNMT after cast
+# ---------------------------------------------------------------------------
+# kernel-name words of a profiled step's groups
+GEMM_WORDS = ("gemm", "sgemm", "cutlass", "nvjet")
+CONV_WORDS = ("conv", "xmma", "implicit", "fprop", "dgrad", "wgrad",
+              "cudnn")
+
+
+def _timed_steps(torch, K, step, n):
+    """n calls of `step()` (a training step returning its loss), each
+    ending in a synchronize, with the peak memory and the counters reset
+    just before: (losses, each step's launches, each step's wall seconds,
+    all launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, per_step, step_s = [], [], []
+    for _ in range(n):
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        losses.append(step()._data.detach())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({k: K.LAUNCHES[k] - before[k] for k in before})
+    return [float(x) for x in losses], per_step, step_s, dict(K.LAUNCHES)
+
+
+def _profile_shares(tag, rows, groups):
+    """Log each group's device ms and share of a profiled window's
+    device time ({name: kernel-name words}, in order: a kernel counts in
+    the first group one of whose words its name holds); returns {name:
+    share}."""
+    busy = sum(r[0] for r in rows)
+    us = dict.fromkeys(groups, 0.0)
+    for dev_us, _, key in rows:
+        name = next((n for n, words in groups.items()
+                     if any(w in key.lower() for w in words)), None)
+        if name is not None:
+            us[name] += dev_us
+    for name, t in us.items():
+        log(f"{tag}: {name} {t / 1e3:.3f} ms, {100 * t / busy:.1f} % of "
+            f"device time")
+    return {name: t / busy for name, t in us.items()}
+
+
+def _nmt_bf16_batch(mx, b, s, ctx):
+    """bench_nmt.py's batch: `_train_batch`'s tokens, every source at its
+    full length s."""
+    *toks, _ = _train_batch(mx, b, s, ctx)
+    return [*toks, mx.nd.array(np.full(b, s, np.int32), ctx=ctx)]
+
+
+def phase_nmt_train_bf16(mx, torch, init_file):
+    """bench_nmt.py's bf16 training at full width: phase 5's initial
+    weights (`init_file`), `model.cast("bfloat16")`, SGD at lr 1e-3 with
+    momentum 0.9 through `gluon.Trainer` (bf16 weights and momentum), B
+    = 64 of 64 + 64 tokens at full length, NMT_BF16_STEPS steps on one
+    batch. The activations stay fp32, as in the JAX package (the
+    positional add promotes the bf16 embeddings, every product promotes
+    to fp32), so every step must launch the fp32 forms: 18 flash
+    forwards, 18 fused backwards and 30 LayerNorms (bf16 gamma), and no
+    bf16 form. Tokens/s (src + tgt) over steps 3 on and its spread,
+    peak memory, one profiled step (busy share; fp32 GEMMs, the port's
+    kernels), then NMT_TF32_STEPS steps timed again with TF32 matmuls
+    on (restored after)."""
+    K = mx.ops.kernels
+    model = mx.models.transformer_base(VOCAB, max_length=TRAIN_S,
+                                       dropout=0.0)
+    model.load_parameters(init_file, ctx=mx.gpu(0))
+    model.cast("bfloat16")
+    params = model._collect_params_with_prefix()
+    for name, p in params.items():
+        check(p.data()._data.dtype == torch.bfloat16
+              and p.data()._data.is_cuda, f"{name} not bf16 on the card")
+    batch = _nmt_bf16_batch(mx, NMT_BF16_B, TRAIN_S, mx.gpu(0))
+    trainer = mx.gluon.Trainer(model.collect_params(), "sgd",
+                               {"learning_rate": NMT_BF16_LR,
+                                "momentum": NMT_BF16_MOMENTUM})
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        return _train_step(mx, model, trainer, ce, batch, True)
+    losses, per_step, step_s, launches = _timed_steps(torch, K, step,
+                                                      NMT_BF16_STEPS)
+    check(all(np.isfinite(losses)), f"non-finite bf16 NMT loss: {losses}")
+    check(losses[-1] < losses[0], f"bf16 NMT loss did not fall: {losses}")
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd=18, flash_bwd=18,
+                layer_norm=30)
+    for i, counts in enumerate(per_step):
+        check(counts == want, f"bf16 NMT step {i + 1} launches {counts} != "
+                              f"{want}")
+    for name, p in params.items():
+        check(p.grad()._data.dtype == torch.bfloat16
+              and p.grad()._data.is_cuda, f"{name}'s gradient not bf16 on "
+                                          f"the card")
+    tokens = NMT_BF16_B * TRAIN_S * 2
+    timed = step_s[2:]
+    tok_s = [tokens / t for t in timed]
+    summary = dict(params=sum(p.numel() for p in model.parameters()),
+                   dtype="bfloat16", batch=NMT_BF16_B, seq=TRAIN_S,
+                   losses=losses, tokens_per_s=tokens * len(timed) /
+                   sum(timed), tokens_per_s_min=min(tok_s),
+                   tokens_per_s_max=max(tok_s),
+                   step_ms=[t * 1e3 for t in step_s],
+                   mean_step_ms=sum(timed) / len(timed) * 1e3,
+                   launches=launches, attention_dtype="float32",
+                   optimizer=f"sgd lr {NMT_BF16_LR} momentum "
+                             f"{NMT_BF16_MOMENTUM}",
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("nmt bf16 training " + json.dumps(summary))
+    got = device_profile(torch, step)
+    if got is not None:
+        log_profile("nmt bf16 profile", *got, "1 training step")
+        _profile_shares("nmt bf16 profile", got[1],
+                        {"fp32 GEMM": GEMM_WORDS,
+                         "flash forward": ("flash_fwd",),
+                         "flash backward": ("flash_bwd",),
+                         "LayerNorm": ("layer_norm",)})
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, _, tf32_s, _ = _timed_steps(torch, K, step, 1 + NMT_TF32_STEPS)
+        tf32_s = tf32_s[1:]                  # after one warm-up step
+        got = device_profile(torch, step)
+        if got is not None:
+            log_profile("nmt bf16 tf32 profile", *got, "1 training step")
+            _profile_shares("nmt bf16 tf32 profile", got[1],
+                            {"fp32 GEMM (TF32)": GEMM_WORDS})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = [tokens / t for t in tf32_s]
+    log(f"nmt bf16 training, TF32 matmuls on for {NMT_TF32_STEPS} steps "
+        f"after one warm-up step (restored to "
+        f"{torch.backends.cuda.matmul.allow_tf32}): "
+        f"{tokens * len(tf32_s) / sum(tf32_s):.1f} tokens/s "
+        f"({min(tf32):.1f}-{max(tf32):.1f}), against "
+        f"{summary['tokens_per_s']:.1f} with TF32 off")
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_nmt_card_vs_cpu_bf16(mx, torch, init_file):
+    """Phase 6 for the cast model: phase 5's initial weights cut to 2
+    layers at full width, cast to bf16 after loading, one step at B=2,
+    S=16 (full lengths) on the card and on the CPU. Both compute in fp32
+    on the same bf16 weights, so the loss agrees within TRAIN_LOSS_RTOL
+    and each bf16 gradient, in norm, within NMT_BF16_GRAD_RTOL of the
+    CPU's (NMT_BF16_EMBED_GRAD_RTOL for the tied embedding). The card
+    must launch the fp32 forms only: 6 flash forwards, 6 fused
+    backwards, 10 LayerNorms."""
+    K = mx.ops.kernels
+    results = {}
+    for tag, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        model = mx.models.TransformerNMT(VOCAB, units=512, hidden=2048,
+                                         num_layers=2, num_heads=8,
+                                         max_length=TRAIN_S, dropout=0.0)
+        model.load_parameters(init_file, ctx=ctx, ignore_extra=True)
+        model.cast("bfloat16")
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        batch = _nmt_bf16_batch(mx, 2, 16, ctx)
+        check(model(*batch[:2], batch[3])._data.dtype == torch.float32,
+              "the cast NMT's logits are not fp32")
+        K.reset_launch_counts()
+        loss = _train_step(mx, model, None, ce, batch, True)
+        results[tag] = (model, float(loss.asnumpy()), dict(K.LAUNCHES))
+    (card, card_loss, launches), (cpu, cpu_loss, _) = (results["card"],
+                                                       results["cpu"])
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd=6, flash_bwd=6,
+                layer_norm=10)
+    check(launches == want, f"bf16 NMT card step launches {launches} != "
+                            f"{want}")
+    check(abs(card_loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss),
+          f"bf16 NMT card vs CPU loss {card_loss} vs {cpu_loss}")
+    worst, cpu_params = (0.0, "", 0.0), cpu._collect_params_with_prefix()
+    for name, p in card._collect_params_with_prefix().items():
+        got, want_g = p.grad()._data, cpu_params[name].grad()._data
+        check(got.dtype == want_g.dtype == torch.bfloat16,
+              f"{name}: gradients {got.dtype}, {want_g.dtype}")
+        got, want_g = got.double().cpu(), want_g.double()
+        err = ((got - want_g).norm() / want_g.norm()).item()
+        lim = NMT_BF16_EMBED_GRAD_RTOL if name == "embed.weight" \
+            else NMT_BF16_GRAD_RTOL
+        check(err <= lim, f"bf16 NMT card vs CPU gradient of {name}: "
+                          f"norm-relative error {err} > {lim}")
+        worst = max(worst, (err / lim, name, err))
+    log(f"nmt bf16 card vs cpu (2 layers, B=2, S=16): loss {card_loss:.7f} "
+        f"vs {cpu_loss:.7f} (rtol {TRAIN_LOSS_RTOL}); all {len(cpu_params)} "
+        f"bf16 gradients within {NMT_BF16_GRAD_RTOL} in norm (embedding "
+        f"{NMT_BF16_EMBED_GRAD_RTOL}); worst {worst[1]} at {worst[0]:.3f} "
+        f"of its limit ({worst[2]:.3e}); card launches {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -2811,15 +3164,17 @@ def phase_resnet_train(mx, torch, init_file):
     return net, x, launches
 
 
-def phase_resnet_conv1x1(mx, torch, net, x):
+def phase_resnet_conv1x1(mx, torch, net, x, bf16_only=False):
     """The conv1x1 kernel fed the live activations of the ResNet-50 of
-    `phase_resnet_train`: one training-mode forward at B=128 with a hook
-    on every stride-1 1x1 Conv2D (each feeds a BatchNorm in v1: 16
-    expand, 13 reduce and the stage-1 downsample convolutions). With the
-    counters zeroed, each hooked convolution's input goes through the
-    kernel as (B*H*W, Cin) @ (Cin, Cout), in fp32 and in bf16; then y is
-    held against the Conv2D's own output (fp32) or the float64 product
-    of the bf16 operands, and the statistics against float64 ones."""
+    `phase_resnet_train` (or, `bf16_only`, of the bf16 one of
+    `phase_resnet_train_bf16`): one training-mode forward at B=128 with
+    a hook on every stride-1 1x1 Conv2D (each feeds a BatchNorm in v1:
+    16 expand, 13 reduce and the stage-1 downsample convolutions). With
+    the counters zeroed, each hooked convolution's input goes through
+    the kernel as (B*H*W, Cin) @ (Cin, Cout), in fp32 (not `bf16_only`)
+    and in bf16; then y is held against the Conv2D's own output (fp32)
+    or the float64 product of the bf16 operands, and the statistics
+    against float64 ones."""
     K = mx.ops.kernels
     Conv2D = mx.gluon.nn.Conv2D
     convs = [m for m in net.modules() if isinstance(m, Conv2D)
@@ -2851,16 +3206,27 @@ def phase_resnet_conv1x1(mx, torch, net, x):
         w2d = w.reshape(cout, cin).t().contiguous()
         operands.append((x2d, w2d, yconv.reshape(-1, cout)))
     K.reset_launch_counts()
-    outs = [(K.conv1x1_bn_stats(x2d, w2d),
+    outs = [(None if bf16_only else K.conv1x1_bn_stats(x2d, w2d),
              K.conv1x1_bn_stats(x2d.bfloat16(), w2d.bfloat16()))
             for x2d, w2d, _ in operands]
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     want = dict.fromkeys(K.LAUNCHES, 0)
-    want.update(conv1x1_bn_stats=30, conv1x1_bn_stats_bf16=30)
+    want.update(conv1x1_bn_stats_bf16=30)
+    if not bf16_only:
+        want.update(conv1x1_bn_stats=30)
     check(launches == want, f"live conv1x1 launches {launches} != {want}")
     worst = {"f32": {}, "bf16": {}}
     for (x2d, w2d, yconv), (f32, bf16) in zip(operands, outs):
+        shape = tuple(x2d.shape) + (w2d.shape[1],)
+        ok, errs16, lims = _conv1x1_errors(torch, x2d.bfloat16(),
+                                           w2d.bfloat16(), bf16)
+        check(ok, f"live conv1x1 {shape} bf16 vs float64: {errs16}, limits "
+                  f"{lims}")
+        for key, v in errs16.items():
+            worst["bf16"][key] = max(worst["bf16"].get(key, 0.0), v)
+        if f32 is None:
+            continue
         y64 = yconv.double()
         err_y = (f32[0].double() - y64).abs().max().item()
         y_lim = CONV1X1_Y_RTOL * y64.abs().max().item()
@@ -2870,21 +3236,16 @@ def phase_resnet_conv1x1(mx, torch, net, x):
         errs = dict(y=err_y,
                     mean=(f32[1].double() - y64.mean(0)).abs().max().item(),
                     meansq=(f32[2].double() - msq64).abs().max().item())
-        shape = tuple(x2d.shape) + (w2d.shape[1],)
         check(err_y <= y_lim and errs["mean"] <= s_lim
               and errs["meansq"] <= s_lim,
               f"live conv1x1 {shape} fp32 vs the Conv2D output: {errs}, "
               f"limits y {y_lim}, stats {s_lim}")
-        ok, errs16, lims = _conv1x1_errors(torch, x2d.bfloat16(),
-                                           w2d.bfloat16(), bf16)
-        check(ok, f"live conv1x1 {shape} bf16 vs float64: {errs16}, limits "
-                  f"{lims}")
-        for tag, e in (("f32", errs), ("bf16", errs16)):
-            for key, v in e.items():
-                worst[tag][key] = max(worst[tag].get(key, 0.0), v)
+        for key, v in errs.items():
+            worst["f32"][key] = max(worst["f32"].get(key, 0.0), v)
     shapes = sorted({tuple(o[0].shape) + (o[1].shape[1],) for o in operands})
-    log(f"resnet conv1x1: 30 live stride-1 1x1 convolutions, {len(shapes)} "
-        f"shapes {shapes}; worst max abs errs {worst}; launches {launches}")
+    log(f"resnet conv1x1{' (bf16 net)' if bf16_only else ''}: 30 live "
+        f"stride-1 1x1 convolutions, {len(shapes)} shapes {shapes}; worst "
+        f"max abs errs {worst}; launches {launches}")
     return launches
 
 
@@ -2965,6 +3326,231 @@ def phase_resnet_card_vs_cpu(mx, torch, init_file):
         f"(rtol {RESNET_LOSS_RTOL}), one-thread CPU {cpu1[0]:.7f}; norm-"
         f"relative errors within {RESNET_SPREAD_FACTOR} x max(CPU spread, "
         f"median spread, floor): " + json.dumps(report))
+
+
+# ---------------------------------------------------------------------------
+# bf16 training as bench.py runs it: ResNet-50 with the S2D stem, cast
+# ---------------------------------------------------------------------------
+def _resnet_s2d(mx, cut=False):
+    """bench.py's ResNet-50 v1 (NHWC, the S2D stem), or at full width
+    one bottleneck a stage (`cut`)."""
+    vision = mx.gluon.model_zoo.vision
+    if cut:
+        return vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                               [64, 256, 512, 1024, 2048], layout="NHWC",
+                               stem_s2d=True)
+    return vision.resnet50_v1(layout="NHWC", stem_s2d=True)
+
+
+def _resnet_bf16_step(mx, net, trainer, ce, x, y):
+    """bench.py's step: the cross-entropy on the logits cast to fp32,
+    backward and, with a trainer, an update on the mean loss's gradient
+    as it is."""
+    with mx.autograd.record():
+        loss = ce(net(x).astype("float32"), y).mean()
+    loss.backward()
+    if trainer is not None:
+        trainer.step(1)
+    return loss
+
+
+def phase_resnet_train_bf16(mx, torch, init_file):
+    """bench.py's bf16 ResNet-50 at full width and depth on the card:
+    `resnet50_v1(layout="NHWC", stem_s2d=True)` on phase 7's initial
+    weights (`init_file`: the S2D stem has the 7x7 stem's weight and
+    name), `cast("bfloat16")`, SGD at lr 0.1 with momentum 0.9 in bf16,
+    no weight decay, RESNET_STEPS steps at B=128 on phase 7's images in
+    bf16. Every parameter bf16 on the card, the loss finite, every
+    running statistic moving, no port kernel launched (the convolutions
+    are cuDNN's, as XLA's in the JAX package). Images/s over steps 3 on
+    and its spread, step ms, peak memory, one profiled step (busy share,
+    the convolutions' share)."""
+    K = mx.ops.kernels
+    ctx = mx.gpu(0)
+    net = _resnet_s2d(mx)
+    net.load_parameters(init_file, ctx=ctx)
+    net.cast("bfloat16")
+    params = net._collect_params_with_prefix()
+    for name, p in params.items():
+        check(p.data()._data.dtype == torch.bfloat16
+              and p.data()._data.is_cuda, f"{name} not bf16 on the card")
+    x, y = _resnet_batch(mx, RESNET_B, ctx)
+    x = x.astype("bfloat16")
+    stats0 = {n: p.data()._data.clone() for n, p in params.items()
+              if n.endswith(("running_mean", "running_var"))}
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": RESNET_BF16_LR,
+                                "momentum": RESNET_BF16_MOMENTUM})
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        return _resnet_bf16_step(mx, net, trainer, ce, x, y)
+    losses, _, step_s, launches = _timed_steps(torch, K, step, RESNET_STEPS)
+    check(all(np.isfinite(losses)), f"non-finite bf16 ResNet loss: {losses}")
+    check(sum(launches.values()) == 0,
+          f"the bf16 ResNet step launched a port kernel: {launches}")
+    moved = sum(not torch.equal(p.data()._data, stats0[n])
+                for n, p in params.items() if n in stats0)
+    check(moved == len(stats0), f"{len(stats0) - moved} running statistics "
+                                f"did not move")
+    for name, p in params.items():
+        check(p.data()._data.dtype == torch.bfloat16,
+              f"{name} left bf16 in training")
+    timed = step_s[2:]
+    img_s = [RESNET_B / t for t in timed]
+    summary = dict(model="resnet50_v1", layout="NHWC", stem_s2d=True,
+                   dtype="bfloat16", batch=RESNET_B,
+                   params=sum(p.data().size for p in params.values()
+                              if p.grad_req != "null"),
+                   losses=losses,
+                   images_per_s=RESNET_B * len(timed) / sum(timed),
+                   images_per_s_min=min(img_s), images_per_s_max=max(img_s),
+                   step_ms=[t * 1e3 for t in step_s],
+                   mean_step_ms=sum(timed) / len(timed) * 1e3,
+                   launches=launches, running_stats_moved=moved,
+                   optimizer=f"sgd lr {RESNET_BF16_LR} momentum "
+                             f"{RESNET_BF16_MOMENTUM}",
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("resnet bf16 training " + json.dumps(summary))
+    got = device_profile(torch, step)
+    if got is not None:
+        log_profile("resnet bf16 profile", *got, "1 training step")
+        _profile_shares("resnet bf16 profile", got[1],
+                        {"convolutions (cuDNN's kernels, GEMMs included)":
+                         CONV_WORDS + GEMM_WORDS,
+                         "copies (layout and dtype)": ("copy",),
+                         "reductions (BatchNorm statistics)":
+                         ("reduce_kernel",),
+                         "other elementwise (BatchNorm, ReLU, adds, SGD)":
+                         ("elementwise",)})
+    return net, x, launches
+
+
+def _resnet_cut_step(mx, ctx, init_file, bf16):
+    """(loss, {name: fp32 gradient on the CPU}, {name: running statistic
+    after the step}, launches) of one SGD step of the cut S2D ResNet
+    (`_resnet_s2d(cut=True)`) at B=4 from `init_file` on `ctx`, cast to
+    bf16 or not, the loss on fp32 logits."""
+    K = mx.ops.kernels
+    net = _resnet_s2d(mx, cut=True)
+    net.load_parameters(init_file, ctx=ctx, ignore_extra=True)
+    x, y = _resnet_batch(mx, 4, ctx)
+    if bf16:
+        net.cast("bfloat16")
+        x = x.astype("bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": RESNET_BF16_LR,
+                                "momentum": RESNET_BF16_MOMENTUM})
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    K.reset_launch_counts()
+    with mx.autograd.record():
+        loss = ce(net(x).astype("float32"), y).mean()
+    loss.backward()
+    params = net._collect_params_with_prefix()
+    grads = {n: p.grad()._data.double().cpu() for n, p in params.items()
+             if p.grad_req != "null"}
+    trainer.step(1)
+    stats = {n: p.data()._data.double().cpu() for n, p in params.items()
+             if p.grad_req == "null"}
+    return float(loss.asnumpy()), grads, stats, dict(K.LAUNCHES)
+
+
+def phase_resnet_card_vs_cpu_bf16(mx, torch, init_file):
+    """Phase 9 for bench.py's bf16 ResNet, cut to one bottleneck a stage
+    at full width, on phase 7's initial weights: one SGD step at B=4 in
+    bf16 on the card and on the CPU, each held against the same step in
+    fp32 on the CPU. The card's loss, and each gradient and running
+    statistic in norm, no further from the fp32 step than BF16_F64_RATIO
+    times the CPU bf16 step's distance (that parameter's or the median
+    of its kind, the larger: a few ReLU kinks decide one parameter's),
+    plus BF16_F64_FLOOR of its scale. No port kernel launches."""
+    card = _resnet_cut_step(mx, mx.gpu(0), init_file, True)
+    cpu = _resnet_cut_step(mx, mx.cpu(), init_file, True)
+    ref = _resnet_cut_step(mx, mx.cpu(), init_file, False)
+    check(sum(card[3].values()) == 0, f"the bf16 ResNet step launched a "
+                                      f"port kernel: {card[3]}")
+    d_card, d_cpu = abs(card[0] - ref[0]), abs(cpu[0] - ref[0])
+    check(np.isfinite(card[0]) and d_card <= BF16_F64_RATIO * d_cpu
+          + BF16_F64_FLOOR * abs(ref[0]),
+          f"bf16 ResNet loss: card {card[0]}, cpu {cpu[0]}, fp32 {ref[0]}")
+    report = {}
+    for i, kind in ((1, "gradient"), (2, "running statistic")):
+        check(set(card[i]) == set(cpu[i]) == set(ref[i]) and ref[i],
+              f"bf16 ResNet {kind} names differ")
+        rel = {}
+        for n, r in ref[i].items():
+            scale = max(r.norm().item(), 1e-30)
+            rel[n] = ((card[i][n] - r).norm().item() / scale,
+                      (cpu[i][n] - r).norm().item() / scale)
+        typical = float(np.median([dp for _, dp in rel.values()]))
+        worst = (0.0, "", 0.0, 0.0)
+        for n, (dc, dp) in rel.items():
+            lim = BF16_F64_RATIO * max(dp, typical) + BF16_F64_FLOOR
+            check(dc <= lim, f"bf16 ResNet {kind} {n}: card {dc:.4e}, cpu "
+                             f"{dp:.4e} from the fp32 step (relative "
+                             f"norms; median cpu {typical:.4e})")
+            worst = max(worst, (dc / lim, n, dc, dp))
+        report[kind] = dict(count=len(rel), median_cpu=typical,
+                            worst_share=worst[0], worst=worst[1],
+                            card=worst[2], cpu=worst[3])
+    log(f"resnet bf16 card vs cpu (cut to [1, 1, 1, 1], B=4): loss card "
+        f"{card[0]:.6f}, cpu {cpu[0]:.6f}, fp32 {ref[0]:.6f}; within "
+        f"{BF16_F64_RATIO}x max(the cpu bf16 step's distance from fp32, "
+        f"its kind's median) + {BF16_F64_FLOOR} (relative norms): "
+        + json.dumps(report))
+
+
+def phase_stem_s2d(mx, torch):
+    """`ops.nn_ops.stem_conv_s2d` against the plain 7x7 / stride-2 /
+    pad-3 NHWC `convolution` on the card at STEM_SHAPE, fp32 and bf16:
+    y and the weight gradient of sum(y * dy), each against float64
+    (STEM_F32_* / BF16_F64_* rules); both timed forward and forward +
+    backward."""
+    nn_ops = mx.ops.nn_ops
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(15)
+    n, h, w, c = STEM_SHAPE
+    x0 = torch.rand(STEM_SHAPE, generator=g).to(dev)
+    w0 = (torch.randn((64, 7, 7, c), generator=g) * 0.1).to(dev)
+    dy0 = torch.randn((n, h // 2, w // 2, 64), generator=g).to(dev)
+    fns = {"s2d": nn_ops.stem_conv_s2d,
+           "plain": lambda a, b: nn_ops.convolution(a, b, None, 2, 3,
+                                                    layout="NHWC")}
+
+    def run(fn, dt, in_f64=False):
+        """(y, dw) of `fn` on x0, w0 and the cotangent dy0 in `dt`, or
+        (in_f64) on their `dt` values in float64."""
+        cast = (lambda t: t.to(dt).double()) if in_f64 \
+            else (lambda t: t.to(dt))
+        wt = cast(w0).detach().requires_grad_()
+        y = fn(cast(x0), wt)
+        y.backward(cast(dy0))
+        return y.detach(), wt.grad
+    report = {}
+    for dt, ratio, floor in ((torch.float32, STEM_F32_RATIO, STEM_F32_FLOOR),
+                             (torch.bfloat16, BF16_F64_RATIO,
+                              BF16_F64_FLOOR)):
+        ref = run(fns["plain"], dt, in_f64=True)
+        got = {k: run(fn, dt) for k, fn in fns.items()}
+        torch.cuda.synchronize()
+        tag = str(dt).split(".")[-1]
+        for i, what in ((0, "y"), (1, "dw")):
+            e = {k: (v[i].double() - ref[i]).abs().max().item()
+                 for k, v in got.items()}
+            lim = ratio * e["plain"] + floor * ref[i].abs().max().item()
+            check(got["s2d"][i].dtype == dt and e["s2d"] <= lim,
+                  f"stem_conv_s2d {tag} {what}: {e['s2d']} from float64, "
+                  f"plain convolution {e['plain']}, limit {lim}")
+            report[f"{tag} {what}"] = dict(s2d=e["s2d"], plain=e["plain"],
+                                           limit=lim)
+        xs, ws = x0.to(dt), w0.to(dt).detach().requires_grad_()
+        for k, fn in fns.items():
+            report[f"{tag} {k} fwd ms"] = cuda_ms(lambda: fn(xs, ws.detach()),
+                                                  iters=20)
+            report[f"{tag} {k} fwd+bwd ms"] = cuda_ms(
+                lambda: fn(xs, ws).sum().backward(), iters=20)
+    log(f"stem_conv_s2d vs the plain 7x7 convolution at {STEM_SHAPE} "
+        f"(max abs errors from float64): " + json.dumps(report))
 
 
 # ---------------------------------------------------------------------------
@@ -3147,24 +3733,10 @@ def _bert_pretraining(mx, num_layers=None):
 
 
 def _bert_train_loop(mx, torch, model, trainer, batch, bench):
-    """BERT_STEPS steps of `_bert_step` on one batch, counters zeroed
-    just before: (losses, each step's launches, each step's wall
-    seconds, all launches)."""
-    K = mx.ops.kernels
+    """BERT_STEPS steps of `_bert_step` on one batch (`_timed_steps`)."""
     ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    losses, per_step, step_s = [], [], []
-    for _ in range(BERT_STEPS):
-        before = dict(K.LAUNCHES)
-        t0 = time.perf_counter()
-        losses.append(_bert_step(mx, model, trainer, ce, batch,
-                                 bench)._data.detach())
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        per_step.append({k: K.LAUNCHES[k] - before[k] for k in before})
-    return [float(x) for x in losses], per_step, step_s, dict(K.LAUNCHES)
+    return _timed_steps(torch, mx.ops.kernels, lambda: _bert_step(
+        mx, model, trainer, ce, batch, bench), BERT_STEPS)
 
 
 def _bert_train_report(mx, torch, tag, model, trainer, batch, bench, losses,
@@ -3199,16 +3771,10 @@ def _bert_train_report(mx, torch, tag, model, trainer, batch, bench, losses,
                                                    batch, bench))
     if got is not None:
         log_profile(prof, *got, "1 training step")
-        busy = sum(r[0] for r in got[1])
-        for name, words in (("flash forward", ("flash_fwd",)),
-                            ("split backward", ("flash_bwd",)),
-                            ("LayerNorm", ("layer_norm",)),
-                            ("GEMM", ("gemm", "sgemm", "cutlass",
-                                      "nvjet"))):
-            us = sum(r[0] for r in got[1]
-                     if any(w in r[2].lower() for w in words))
-            log(f"{prof}: {name} {us / 1e3:.3f} ms, "
-                f"{100 * us / busy:.1f} % of device time")
+        _profile_shares(prof, got[1], {"flash forward": ("flash_fwd",),
+                                       "split backward": ("flash_bwd",),
+                                       "LayerNorm": ("layer_norm",),
+                                       "GEMM": GEMM_WORDS})
         for dev_us, count, key in got[1]:
             if "flash" in key or "layer_norm" in key:
                 log(f"{prof}: port kernel {dev_us / 1e3:.3f} ms "
@@ -3954,6 +4520,8 @@ def main(argv=()):
         train_launches = phase_train(mx, torch, init_file)
         phase_train_card_vs_cpu(mx, torch, init_file)
         torch.cuda.empty_cache()
+        nmt_bf16_launches = phase_nmt_train_bf16(mx, torch, init_file)
+        phase_nmt_card_vs_cpu_bf16(mx, torch, init_file)
         resnet_init = os.path.join(tmp, "resnet50_v1_init.params")
         net, images, resnet_launches = phase_resnet_train(mx, torch,
                                                           resnet_init)
@@ -3961,6 +4529,15 @@ def main(argv=()):
         del net, images
         torch.cuda.empty_cache()
         phase_resnet_card_vs_cpu(mx, torch, resnet_init)
+        phase_stem_s2d(mx, torch)
+        torch.cuda.empty_cache()
+        net, images, resnet_bf16_launches = phase_resnet_train_bf16(
+            mx, torch, resnet_init)
+        conv_bf16_launches = phase_resnet_conv1x1(mx, torch, net, images,
+                                                  bf16_only=True)
+        del net, images
+        torch.cuda.empty_cache()
+        phase_resnet_card_vs_cpu_bf16(mx, torch, resnet_init)
         by_name = {k["name"]: k for k in kernels}
         phase_bert_attention(mx, torch, by_name)
         phase_bert_attention_bf16(mx, torch, by_name)
@@ -3977,9 +4554,12 @@ def main(argv=()):
         c = k.get("counter", k["name"])
         by_path = {"serve": serve_launches[c], "fastpath": fast_launches[c],
                    "train": train_launches[c], "rtc": rtc_launches[c],
+                   "nmt_train_bf16": nmt_bf16_launches[c],
                    "long_attention": long_launches[c],
                    "resnet_train": resnet_launches[c],
                    "resnet_conv1x1": conv_launches[c],
+                   "resnet_train_bf16": resnet_bf16_launches[c],
+                   "resnet_conv1x1_bf16": conv_bf16_launches[c],
                    "bert_train": bert_launches[c],
                    "bert_train_bf16": bert_bf16_launches[c],
                    "long_context": lc_launches[c]}

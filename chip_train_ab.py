@@ -31,7 +31,9 @@ of the flash forward and the split backward (bert_bf16)).
   fp32   this checkout's `chip_smoke.fp32_kernel_times` on each side's
          package: the fp32 flash forward, fused backward, dQ kernel and
          LayerNorm at their paths' shapes (serving, training, BERT); one
-         line a run.
+         line a run, with the SHA-256 of the fp32 LayerNorm's output bits
+         (`chip_smoke.ln_fp32_digest`); the JSON line says whether every
+         run's bits were equal.
   bf16   this checkout's `chip_smoke.bf16_kernel_times` on each side's
          package: the bf16 flash forward, the fused backward, the dK/dV
          and dQ kernels and their pair at BERT's shape, and LayerNorm;
@@ -76,6 +78,8 @@ if phase == "rpa":
 if phase == "fp32":
     print("fp32 times " + json.dumps(cs.fp32_kernel_times(mx, torch)),
           flush=True)
+    print("fp32 layer norm bits " + cs.ln_fp32_digest(mx, torch),
+          flush=True)
     sys.exit(0)
 if phase == "bf16":
     print("bf16 times " + json.dumps(cs.bf16_kernel_times(mx, torch)),
@@ -110,8 +114,8 @@ _SHARES = {"bert": ("flash forward",),
 
 def run_once(root, phase, log_path):
     """(summary, profiled window ms, busy ms, {kernel: (ms, share %)} of
-    the phase's reported kernels, the bf16 backward's bit digest or None)
-    of one run; for the kernel phases the summary is the timing
+    the phase's reported kernels, the bit digest the phase prints or
+    None) of one run; for the kernel phases the summary is the timing
     function's dict, the times None and the shares empty."""
     smoke = os.path.join(HERE if phase in _KERNEL_PHASES else root,
                          "chip_smoke.py")
@@ -135,7 +139,7 @@ def run_once(root, phase, log_path):
     for line in proc.stdout.splitlines():
         if line.startswith(head + "{"):
             summary = json.loads(line[len(head):])
-        if line.startswith("bf16 backward bits "):
+        if line.startswith(("bf16 backward bits ", "fp32 layer norm bits ")):
             bits = line.split()[-1]
         m = profile.match(line)
         if m:
@@ -181,7 +185,7 @@ def main():
                     runs[-1]["bits"] = bits
                 print(f"{side}: " + ", ".join(
                     f"{k} {v:.6f}" for k, v in summary.items())
-                    + ("" if bits is None else f"; backward bits {bits}"),
+                    + ("" if bits is None else f"; bits {bits}"),
                     flush=True)
                 continue
             runs.append(dict(side=side, tokens_per_s=summary["tokens_per_s"],

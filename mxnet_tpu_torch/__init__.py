@@ -37,8 +37,10 @@ pooling, BatchNorm), with `ops.conv1x1_bn_stats` and runtime CUDA
 compilation (`rtc.CudaModule`), BERT pretraining (`models.bert`), and
 long-context sequence parallelism over `torch.distributed`
 (`kvstore.init_distributed`, `parallel.make_mesh`, ring and all-to-all
-attention over `ops.flash_block_attention`). ROADMAP.md lists what is
-still to be ported.
+attention over `ops.flash_block_attention`), and bf16 training as the
+JAX benches run it (`Block.cast("bfloat16")`; ResNet-50 with the
+space-to-depth stem; `amp`). ROADMAP.md lists what is still to be
+ported.
 """
 
 __version__ = "0.1.0"
@@ -58,6 +60,7 @@ from . import autograd
 from . import ndarray
 from . import ndarray as nd
 from . import ops
+from . import amp
 from . import parallel
 from . import optimizer
 from . import gluon
@@ -70,5 +73,5 @@ from . import serve
 __all__ = ["MXNetError", "base", "context", "cpu", "gpu", "num_gpus",
            "observability", "profiler", "fault", "kvstore", "random",
            "initializer", "init", "autograd", "ndarray", "nd", "ops",
-           "parallel", "optimizer", "gluon",
+           "amp", "parallel", "optimizer", "gluon",
            "models", "contrib", "convert", "rtc", "serve"]

@@ -4,7 +4,8 @@
 `save_parameters` writes — `{structural name: numpy array}`, for
 example `dict(np.load("net.params"))` — and puts it into a port block of
 the same architecture (TransformerNMT, a zoo ResNet in either layout,
-BatchNorm's `running_mean` / `running_var` included, or a BERT:
+with the 7x7 stem or the space-to-depth one, which has its name and
+shape, BatchNorm's `running_mean` / `running_var` included, or a BERT:
 `BERTModel` and the `BERTForPretraining` / `BERTClassifier` /
 `BERTRegression` heads, with the learned `encoder.position_weight`,
 `mlm_bias`, and the MLM projection tied to `word_embed.weight`, one

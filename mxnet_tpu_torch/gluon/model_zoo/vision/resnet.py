@@ -4,8 +4,10 @@ resnet.py`; reference: gluon/model_zoo/vision/resnet.py).
 The same block tree, so the structural parameter names and shapes are
 the JAX package's and a `save_parameters` file crosses in both
 directions. `layout="NHWC"` keeps channels last (the JAX bench path);
-the default stays NCHW. The space-to-depth stem (`stem_s2d=True`) is
-not ported yet.
+the default stays NCHW. `ResNetV1(stem_s2d=True)` (NHWC only) computes
+the 7x7 stem through space-to-depth (`S2DStemConv`), with the stem
+Conv2D's parameter shape and structural name, as `bench.py` builds
+ResNet-50.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
            "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
            "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
-           "get_resnet"]
+           "get_resnet", "S2DStemConv"]
 
 
 def _bn_axis(layout):
@@ -27,6 +29,27 @@ def _bn_axis(layout):
 def _conv3x3(channels, stride, in_channels, layout):
     return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
                      use_bias=False, in_channels=in_channels, layout=layout)
+
+
+class S2DStemConv(HybridBlock):
+    """The NHWC 7x7 / stride-2 / pad-3 stem convolution (no bias)
+    computed through space-to-depth (`ops.nn_ops.stem_conv_s2d`): the
+    same (O, 7, 7, C) weight, C deferred to the first forward, and the
+    same function (`mxnet_tpu/gluon/model_zoo/vision/resnet.py:27-45`)."""
+
+    def __init__(self, channels, in_channels=3, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(channels, 7, 7, in_channels),
+                allow_deferred_init=True)
+
+    def _infer_shapes(self, x):
+        self.weight._finish_deferred_init(
+            (self.weight.shape[0], 7, 7, x.shape[3]))
+
+    def hybrid_forward(self, F, x, weight):
+        return F.StemConvS2D(x, weight, num_filter=self.weight.shape[0])
 
 
 def _downsample(channels, stride, in_channels, layout):
@@ -162,10 +185,9 @@ class ResNetV1(HybridBlock):
         if len(layers) != len(channels) - 1:
             raise MXNetError(f"ResNet: {len(layers)} stages need "
                              f"{len(layers) + 1} channel counts")
-        if stem_s2d:
-            raise MXNetError("ResNet stem_s2d=True (the space-to-depth "
-                             "stem) is not ported yet (ROADMAP.md, Queue 1: "
-                             "S2D stem)")
+        if stem_s2d and layout != "NHWC":
+            raise MXNetError(f"ResNet stem_s2d=True (the space-to-depth "
+                             f"stem) needs layout NHWC, got {layout}")
         ax = _bn_axis(layout)
         self._layout = layout
         with self.name_scope():
@@ -173,8 +195,10 @@ class ResNetV1(HybridBlock):
             if thumbnail:
                 self.features.add(_conv3x3(channels[0], 1, 0, layout))
             else:
-                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
-                                            use_bias=False, layout=layout))
+                self.features.add(
+                    S2DStemConv(channels[0]) if stem_s2d
+                    else nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                                   layout=layout))
                 self.features.add(nn.BatchNorm(axis=ax))
                 self.features.add(nn.Activation("relu"))
                 self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))

@@ -7,7 +7,7 @@ import torch
 
 from ... import autograd
 from ... import random as _random
-from ...base import MXNetError
+from ...base import MXNetError, torch_dtype
 from ...ndarray.ndarray import _apply
 from ...ops import nn_ops
 from ...ops.kernels import fused_layer_norm
@@ -213,6 +213,13 @@ class BatchNorm(HybridBlock):
         c = x.shape[self._axis]
         for p in (self.gamma, self.beta, self.running_mean, self.running_var):
             p._finish_deferred_init((c,))
+
+    def cast(self, dtype):
+        """float16 keeps BatchNorm in fp32 (`mxnet_tpu/gluon/nn/
+        basic_layers.py:526-529`); other dtypes cast as any block."""
+        if torch_dtype(dtype) == torch.float16:
+            dtype = "float32"
+        return super().cast(dtype)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         training = autograd.is_training() and not self._use_global_stats

@@ -1,7 +1,11 @@
 """Gluon Trainer (counterpart of `mxnet_tpu/gluon/trainer.py:46-450`).
 
 Applies an optimizer to a set of Parameters after `backward()`, one
-parameter at a time. Every parameter lives once, on its own device, so
+parameter at a time, behind the guard of `mxnet_tpu/gluon/trainer.py:
+403-419`: with float16 AMP's loss scaler, unscale, judge the overflow,
+move the scale and skip the update on an overflow; without one,
+`skip_nonfinite` skips on inf / nan (`amp.grads_nonfinite`). Every
+parameter lives once, on its own device, so
 the `"device"`, `"local"` and `None` key-value stores are the same no-op
 store and `allreduce_grads()` has nothing to do. The distributed
 stores, updates on the store, gradient compression, the captured step
@@ -9,8 +13,7 @@ and sharding raise, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
-import torch
-
+from .. import amp, profiler
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
@@ -29,7 +32,8 @@ class Trainer:
     """`Trainer(params, optimizer, optimizer_params)`; `step(batch_size)`
     rescales the gradients by 1/batch_size and updates every parameter
     whose grad_req is not "null". `skip_nonfinite=True` skips the whole
-    update when any gradient holds an inf or a nan."""
+    update when any gradient holds an inf or a nan; under float16 AMP
+    the loss scaler's guard does (`update`)."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
@@ -79,14 +83,31 @@ class Trainer:
         self.update(batch_size, ignore_stale_grad)
 
     def update(self, batch_size, ignore_stale_grad=False):
+        """Apply one update with rescale_grad 1/batch_size, unless the
+        guard (`_guard_says_skip`) skips it."""
         self._optimizer.rescale_grad = 1.0 / batch_size
         pairs = self._updatable_pairs(ignore_stale_grad)
-        if self.skip_nonfinite and pairs and not bool(torch.stack(
-                [torch.isfinite(p._grad._data).all()
-                 for _, p in pairs]).all()):
+        if self._guard_says_skip():
             return
         for i, p in pairs:
             self._updater(i, p.grad(), p.data())
+
+    def _guard_says_skip(self):
+        """With AMP's loss scaler: unscale the gradients, judge the
+        overflow, move the scale, and skip on an overflow. Without one,
+        skip on inf / nan if `skip_nonfinite`. One `nonfinite_guard`
+        dispatch either way."""
+        scaler = amp.scaler()
+        if scaler is not None:
+            profiler.record_dispatch("nonfinite_guard")
+            amp.unscale(self)
+            overflow = scaler.has_overflow(self._params)
+            scaler.update_scale(overflow)
+            return overflow
+        if self.skip_nonfinite:
+            profiler.record_dispatch("nonfinite_guard")
+            return amp.grads_nonfinite(self._params)
+        return False
 
     def _updatable_pairs(self, ignore_stale_grad):
         pairs = []

@@ -40,6 +40,7 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..ndarray.ndarray import _apply
 from ..ops.kernels import flash_attention, single_query_cached_attention
+from ..ops.nn_ops import promote
 
 __all__ = ["SelfAttention", "CrossAttention", "EncoderLayer", "DecoderLayer",
            "TransformerEncoder", "TransformerDecoder", "TransformerNMT",
@@ -277,8 +278,14 @@ class TransformerNMT(HybridBlock):
                 src_valid_length)
 
     def project(self, x):
-        """Tied output projection: logits = x @ embed.weight^T."""
-        return _apply(lambda a, w: a @ w.T, [x, self.embed.weight.data()])
+        """Tied output projection: logits = x @ embed.weight^T, in the
+        promoted dtype of the two (fp32 logits for a cast model, whose
+        activations are fp32 after the positional add), as the JAX
+        package's einsum computes them."""
+        def tied(a, w):
+            a, w = promote(a, w)
+            return a @ w.T
+        return _apply(tied, [x, self.embed.weight.data()])
 
     def hybrid_forward(self, F, src, tgt, src_valid_length=None):
         memory, mem_vl = self.encode(src, src_valid_length)

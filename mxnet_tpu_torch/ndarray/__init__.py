@@ -9,7 +9,7 @@ from ..ops import nn_ops
 from .ndarray import NDArray, _apply, array, ones, zeros
 
 __all__ = ["NDArray", "array", "zeros", "ones", "FullyConnected",
-           "Embedding", "Activation", "Convolution", "relu"]
+           "Embedding", "Activation", "Convolution", "StemConvS2D", "relu"]
 
 # "gelu" is the tanh approximation, as the JAX package's `jax.nn.gelu`
 # with its default approximate=True (mxnet_tpu/ops/nn_ops.py:364);
@@ -21,10 +21,16 @@ _ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
 
 
 def _fully_connected(x, w, b, flatten):
+    """x @ w^T + b with `jnp.matmul`'s dtype rule
+    (`mxnet_tpu/ops/nn_ops.py:58-67`): after the AMP autocast, both
+    operands go to their promoted dtype (fp32 x with a bf16 weight, as a
+    cast model's activations meet its weights, computes in fp32) and the
+    bias to y's."""
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
+    x, w = nn_ops.promote(*nn_ops.amp_cast(x, w))
     y = x @ w.T
-    return y if b is None else y + b
+    return y if b is None else y + b.to(y.dtype)
 
 
 def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
@@ -68,3 +74,9 @@ def Convolution(data, weight, bias=None, kernel=None, stride=1, dilate=1,
                                   dilate, num_group, layout)
     inputs = [data, weight] + ([] if no_bias or bias is None else [bias])
     return _apply(conv, inputs)
+
+
+def StemConvS2D(data, weight, **kwargs):
+    """The 7x7 / stride-2 / pad-3 NHWC stem convolution through
+    space-to-depth (`ops.nn_ops.stem_conv_s2d`); weight (O, 7, 7, C)."""
+    return _apply(nn_ops.stem_conv_s2d, [data, weight])

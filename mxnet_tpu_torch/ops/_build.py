@@ -61,11 +61,11 @@ _SIGNATURES = {
                             _P],
     "mxtt_flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, ctypes.c_float, _I, _L, _P],
-    # x, gamma, beta, y, mean, rstd, rows, D, eps, stream
+    # x, gamma, beta, y, mean, rstd, rows, D, eps, gamma / beta in bf16
+    # (else fp32), stream
     "mxtt_layer_norm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
-                            _P],
-    # the same, then gamma / beta in bf16 (else fp32), 16-byte chunks,
-    # stream
+                            _I, _P],
+    # the same, then 16-byte chunks before the stream
     "mxtt_layer_norm_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
                              _I, _I, _P],
     # q, k_pages, v_pages, page_tables, lengths, out, S, H, dh, psize,

@@ -7,8 +7,10 @@
 // and it writes y, mean and rstd (the backward's residuals). The backward
 // (_fused_ln_vjp_bwd) was XLA in the JAX package and is plain torch here.
 //
-// Layout: x, y (rows, D) contiguous fp32; gamma, beta (D,); mean, rstd
-// (rows,). Any row count and any width D >= 1. The TPU kernel takes
+// Layout: x, y (rows, D) contiguous fp32; gamma, beta (D,), fp32 or
+// bf16 (a model after cast("bfloat16") whose activations stay fp32, as
+// the JAX package's do: the kernel reads gamma as fp32,
+// pallas_kernels.py:1216-1217); mean, rstd (rows,). Any row count and any width D >= 1. The TPU kernel takes
 // D % 128 == 0 (and rows % 8 == 0) and leaves other shapes to XLA; here
 // the ragged edge of a row is masked, so one kernel family takes them all.
 //
@@ -35,6 +37,9 @@
 //     first read comes from memory and the other two mostly from L1 / L2
 //     (a row of 8192 floats is 32 KB). The two sums reduce across the
 //     block's 8 warps through shared memory.
+// Both forms are templates on gamma / beta's type G and widen each
+// element to fp32 where y is formed (to_f32); with fp32 G that is the
+// identity, so the fp32 kernels' arithmetic and bits are one code.
 //
 // bfloat16 form (mxtt_layer_norm_bf16): bf16 x and y, gamma / beta fp32
 // or bf16 (read as fp32), fp32 statistics; y = ((x - mean) * rstd) *
@@ -72,18 +77,23 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 
-// VPL: values of a row each lane holds (VPL * 32 >= D)
-template <int VPL>
+// VPL: values of a row each lane holds (VPL * 32 >= D); G: gamma / beta
+template <typename G, int VPL>
 __global__ void __launch_bounds__(kThreads)
 layer_norm_warp_kernel(const float* __restrict__ x,
-                       const float* __restrict__ gamma,
-                       const float* __restrict__ beta, float* __restrict__ y,
+                       const G* __restrict__ gamma,
+                       const G* __restrict__ beta, float* __restrict__ y,
                        float* __restrict__ mean, float* __restrict__ rstd,
                        int rows, int D, float eps) {
   const int lane = threadIdx.x & 31;
@@ -111,7 +121,7 @@ layer_norm_warp_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int c = 0; c < VPL; ++c) {
     const int d = lane + 32 * c;
-    if (d < D) yr[d] = (vals[c] * rs) * gamma[d] + beta[d];
+    if (d < D) yr[d] = (vals[c] * rs) * to_f32(gamma[d]) + to_f32(beta[d]);
   }
   if (lane == 0) {
     mean[row] = mu;
@@ -133,10 +143,11 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
+template <typename G>
 __global__ void __launch_bounds__(kThreads)
 layer_norm_row_kernel(const float* __restrict__ x,
-                      const float* __restrict__ gamma,
-                      const float* __restrict__ beta, float* __restrict__ y,
+                      const G* __restrict__ gamma,
+                      const G* __restrict__ beta, float* __restrict__ y,
                       float* __restrict__ mean, float* __restrict__ rstd,
                       int D, float eps) {
   __shared__ float red[kWarps];
@@ -153,29 +164,43 @@ layer_norm_row_kernel(const float* __restrict__ x,
   const float rs = rsqrtf(block_sum(sq, red) / D + eps);
   float* yr = y + (size_t)row * D;
   for (int d = threadIdx.x; d < D; d += kThreads)
-    yr[d] = ((xr[d] - mu) * rs) * gamma[d] + beta[d];
+    yr[d] = ((xr[d] - mu) * rs) * to_f32(gamma[d]) + to_f32(beta[d]);
   if (threadIdx.x == 0) {
     mean[row] = mu;
     rstd[row] = rs;
   }
 }
 
-template <int VPL>
-void launch_warp(const float* x, const float* gamma, const float* beta,
-                 float* y, float* mean, float* rstd, int rows, int D,
-                 float eps, cudaStream_t stream) {
+template <typename G>
+int launch_f32(const float* x, const G* gamma, const G* beta, float* y,
+               float* mean, float* rstd, int rows, int D, float eps,
+               cudaStream_t s) {
   const int blocks = (rows + kWarps - 1) / kWarps;
-  layer_norm_warp_kernel<VPL><<<blocks, kThreads, 0, stream>>>(
-      x, gamma, beta, y, mean, rstd, rows, D, eps);
+  const int vpl = (D + 31) / 32;
+#define MXTT_LN_WARP(VPL)                                                   \
+  layer_norm_warp_kernel<G, VPL><<<blocks, kThreads, 0, s>>>(               \
+      x, gamma, beta, y, mean, rstd, rows, D, eps)
+  if (vpl <= 4) {
+    MXTT_LN_WARP(4);
+  } else if (vpl <= 8) {
+    MXTT_LN_WARP(8);
+  } else if (vpl <= 16) {
+    MXTT_LN_WARP(16);
+  } else if (vpl <= 24) {
+    MXTT_LN_WARP(24);
+  } else if (D <= kWarpMaxD) {
+    MXTT_LN_WARP(32);
+  } else {
+    layer_norm_row_kernel<G><<<rows, kThreads, 0, s>>>(x, gamma, beta, y,
+                                                        mean, rstd, D, eps);
+  }
+#undef MXTT_LN_WARP
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
 // bfloat16 form
 // ---------------------------------------------------------------------------
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 // the 8 elements of chunk c (elements 8c .. 8c + 7) of a row, zeros past D
 __device__ __forceinline__ void load_chunk(const bf16* xr, int c, int D,
@@ -426,30 +451,23 @@ int launch_bf16(const bf16* x, const G* gamma, const G* beta, bf16* y,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue without launching for rows <= 0 or D <= 0.
-extern "C" int mxtt_layer_norm_f32(const float* x, const float* gamma,
-                                   const float* beta, float* y, float* mean,
+// The fp32 form: fp32 x and y, gamma / beta bf16 when gamma_bf16 else
+// fp32, fp32 mean and rstd. Returns cudaGetLastError() after the launch
+// (0 = launched), or cudaErrorInvalidValue without launching for
+// rows <= 0 or D <= 0.
+extern "C" int mxtt_layer_norm_f32(const float* x, const void* gamma,
+                                   const void* beta, float* y, float* mean,
                                    float* rstd, int rows, int D, float eps,
-                                   void* stream) {
+                                   int gamma_bf16, void* stream) {
   if (rows <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vpl = (D + 31) / 32;
-  if (vpl <= 4) {
-    launch_warp<4>(x, gamma, beta, y, mean, rstd, rows, D, eps, s);
-  } else if (vpl <= 8) {
-    launch_warp<8>(x, gamma, beta, y, mean, rstd, rows, D, eps, s);
-  } else if (vpl <= 16) {
-    launch_warp<16>(x, gamma, beta, y, mean, rstd, rows, D, eps, s);
-  } else if (vpl <= 24) {
-    launch_warp<24>(x, gamma, beta, y, mean, rstd, rows, D, eps, s);
-  } else if (D <= kWarpMaxD) {
-    launch_warp<32>(x, gamma, beta, y, mean, rstd, rows, D, eps, s);
-  } else {
-    layer_norm_row_kernel<<<rows, kThreads, 0, s>>>(x, gamma, beta, y, mean,
-                                                     rstd, D, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (gamma_bf16)
+    return launch_f32(x, static_cast<const bf16*>(gamma),
+                      static_cast<const bf16*>(beta), y, mean, rstd, rows, D,
+                      eps, s);
+  return launch_f32(x, static_cast<const float*>(gamma),
+                    static_cast<const float*>(beta), y, mean, rstd, rows, D,
+                    eps, s);
 }
 
 // The bfloat16 form: bf16 x and y, gamma / beta bf16 when gamma_bf16 else

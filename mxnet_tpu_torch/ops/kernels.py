@@ -33,7 +33,8 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
   * `fused_layer_norm` — LayerNorm over the last axis as a
     `torch.autograd.Function`: the forward launches `csrc/layer_norm.cu`
     (replaces `_ln_kernel`; any width, one warp a row up to D = 1024 and
-    one block a row above), the backward is the closed
+    one block a row above; fp32 or bf16 x, each with fp32 or bf16 gamma
+    / beta), the backward is the closed
     form of `_fused_ln_vjp_bwd` in plain torch on both devices (it was
     XLA in the JAX package).
   * `conv1x1_bn_stats` — a 1x1 convolution as an (M, K) @ (K, N)
@@ -946,6 +947,9 @@ def _ln_plain(x2, gamma, beta, eps):
     return y.to(x2.dtype), mean[:, 0], rstd[:, 0]
 
 
+_LN_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _ln_args(x, gamma, beta):
     """What the kernel takes, checked on either device: (rows, D)."""
     _check(x.dim() >= 1 and x.numel() > 0, "layer norm: empty input")
@@ -953,13 +957,11 @@ def _ln_args(x, gamma, beta):
     _check(gamma.shape == (d,) and beta.shape == (d,),
            f"layer norm: gamma {tuple(gamma.shape)} / beta "
            f"{tuple(beta.shape)} must be ({d},)")
-    _check((x.dtype == torch.float32 and gamma.dtype == torch.float32
-            or x.dtype == torch.bfloat16
-            and gamma.dtype in (torch.float32, torch.bfloat16))
+    _check(x.dtype in _LN_DTYPES and gamma.dtype in _LN_DTYPES
            and beta.dtype == gamma.dtype,
-           f"layer norm kernel takes float32 x with float32 gamma / beta, "
-           f"or bfloat16 x with float32 or bfloat16 gamma / beta (one "
-           f"dtype), got {x.dtype}, {gamma.dtype}, {beta.dtype}")
+           f"layer norm kernel takes float32 x (the fp32 form) or bfloat16 "
+           f"x (the bf16 form), each with float32 or bfloat16 gamma / beta "
+           f"(one dtype), got {x.dtype}, {gamma.dtype}, {beta.dtype}")
     _check(all(t.is_contiguous() for t in (x, gamma, beta)),
            "layer norm kernel takes contiguous x / gamma / beta")
     return x.numel() // d, d
@@ -972,15 +974,15 @@ def _ln_cuda(x2, gamma, beta, eps):
     rstd = torch.empty_like(mean)
     lib = _build.library()
     ptrs = (x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), rows, d, float(eps))
+            mean.data_ptr(), rstd.data_ptr(), rows, d, float(eps),
+            int(gamma.dtype == torch.bfloat16))
     stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(x2.device):
         if x2.dtype == torch.float32:
             rc = lib.mxtt_layer_norm_f32(*ptrs, stream)
         else:
-            rc = lib.mxtt_layer_norm_bf16(
-                *ptrs, int(gamma.dtype == torch.bfloat16),
-                _vec_copies(d, x2, y), stream)
+            rc = lib.mxtt_layer_norm_bf16(*ptrs, _vec_copies(d, x2, y),
+                                          stream)
     _launched("layer_norm" + _suffix(x2.dtype), rc)
     return y, mean, rstd
 
@@ -989,8 +991,9 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     """LayerNorm over the last axis with its statistics: (y shaped as x,
     mean (rows,), rstd (rows,)), rows = x.numel() / D, fp32 statistics.
     The kernel and the plain version take any rows and any D: float32 x
-    with float32 gamma / beta, or bfloat16 x (the bf16 kernel) with
-    float32 or bfloat16 gamma / beta; y is in x's dtype."""
+    (the fp32 kernel) or bfloat16 x (the bf16 kernel), each with float32
+    or bfloat16 gamma / beta (bf16 after `cast`, read as fp32); y is in
+    x's dtype."""
     dev = _device_of(x, gamma, beta)
     rows, d = _ln_args(x, gamma, beta)
     x2 = x.reshape(rows, d)

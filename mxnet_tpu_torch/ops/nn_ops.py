@@ -1,8 +1,10 @@
 """Convolution, pooling and BatchNorm over tensors (counterpart of
-`mxnet_tpu/ops/nn_ops.py:79` `convolution`, `:180-267` `_bn_train` and
-`batch_norm`, `:303` `pooling`, `:350` `global_pooling`).
+`mxnet_tpu/ops/nn_ops.py:79` `convolution`, `:116` `stem_conv_s2d`,
+`:180-267` `_bn_train` and `batch_norm`, `:303` `pooling`, `:350`
+`global_pooling`), and the dtype rules of a product: the AMP autocast
+(`amp_cast`, `:42-55`) and `jnp.matmul`'s promotion (`promote`).
 
-The JAX package computes all four outside any Pallas kernel (XLA), so
+The JAX package computes all of them outside any Pallas kernel (XLA), so
 here they are PyTorch: the convolution is `F.conv2d` (cuDNN on the
 card) and pooling `F.max_pool2d` / `F.avg_pool2d`. BatchNorm keeps the
 JAX package's numerics as a `torch.autograd.Function`: a one-pass
@@ -22,7 +24,8 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 
-__all__ = ["convolution", "pooling", "global_pooling", "batch_norm"]
+__all__ = ["amp_cast", "promote", "convolution", "stem_conv_s2d",
+           "pooling", "global_pooling", "batch_norm"]
 
 _LAYOUTS = ("NCHW", "NHWC")
 
@@ -49,16 +52,41 @@ def _from_nchw(y, layout):
     return y.permute(0, 2, 3, 1) if layout == "NHWC" else y
 
 
+def amp_cast(x, weight):
+    """The op-level AMP autocast (`amp.init()`): with AMP on, an fp32
+    operand of a product or a convolution goes to the AMP target dtype,
+    either side, so a bf16 activation meeting an fp32 master weight does
+    not promote the product back to fp32. No-op when AMP is off."""
+    from ..amp import autocast_dtype
+    dt = autocast_dtype()
+    if dt is None:
+        return x, weight
+    if x.dtype == torch.float32:
+        x = x.to(dt)
+    if weight.dtype == torch.float32:
+        weight = weight.to(dt)
+    return x, weight
+
+
+def promote(x, w):
+    """Both operands in their promoted dtype, as `jnp.matmul` computes a
+    product of two dtypes: fp32 with bf16 gives fp32, and the gradient
+    of the cast operand comes back in its own dtype."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
 def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
                 num_group=1, layout="NCHW"):
     """2-D convolution. x: (N, C, H, W) or (N, H, W, C); weight (O, I/g,
-    kh, kw) or (O, kh, kw, I/g) to match; bias (O,). The weight is cast
-    to x's dtype, as in the JAX package."""
+    kh, kw) or (O, kh, kw, I/g) to match; bias (O,). After the AMP
+    autocast the weight is cast to x's dtype, as in the JAX package."""
     layout = layout or "NCHW"
     _check_layout(x, layout)
     if weight.dim() != 4:
         raise MXNetError(f"a 2-D convolution weight is 4-D, got "
                          f"{tuple(weight.shape)}")
+    x, weight = amp_cast(x, weight)
     w = weight.permute(0, 3, 1, 2) if layout == "NHWC" else weight
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
@@ -67,6 +95,32 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
                  stride=_pair(stride), padding=_pair(pad),
                  dilation=_pair(dilate), groups=num_group)
     return _from_nchw(y, layout)
+
+
+def stem_conv_s2d(x, weight):
+    """The 7x7 / stride-2 / pad-3 NHWC convolution of the ResNet stem
+    computed through space-to-depth (`mxnet_tpu/ops/nn_ops.py:116-148`):
+    x (N, H, W, C) becomes (N, H/2, W/2, 4C), the (O, 7, 7, C) weight is
+    repacked to (O, 4, 4, 4C), and a stride-1 convolution with padding
+    (2, 1) on each spatial axis gives the same (N, H/2, W/2, O). The
+    convolution is cuDNN's on the card, as the JAX package leaves it to
+    XLA; the weight's gradient flows back through the repack. H and W
+    must be even."""
+    n, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(
+            f"stem_conv_s2d needs even spatial dims, got {(h, w)}; use "
+            "convolution(..., stride=2, pad=3) for odd sizes")
+    o = weight.shape[0]
+    xs = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    xs = xs.reshape(n, h // 2, w // 2, 4 * c)
+    # w2[o, ka, kb, (p * 2 + q) * C + c] = w[o, 2 ka + p - 1, 2 kb + q - 1,
+    # c]: the 7x7 kernel padded to 8x8 at the top and left, cut in 2x2
+    wp = F.pad(weight, (0, 0, 1, 0, 1, 0))                  # (O, 8, 8, C)
+    w2 = wp.reshape(o, 4, 2, 4, 2, c).permute(0, 1, 3, 2, 4, 5)
+    w2 = w2.reshape(o, 4, 4, 4 * c).permute(0, 3, 1, 2).to(x.dtype)
+    y = F.conv2d(F.pad(xs.permute(0, 3, 1, 2), (2, 1, 2, 1)), w2)
+    return y.permute(0, 2, 3, 1)
 
 
 def pooling(x, kernel, pool_type="max", stride=None, pad=0, layout="NCHW",

@@ -288,8 +288,8 @@ def test_resnet50_structural_names_match_jax(name):
 def test_zoo_refuses_what_it_does_not_port():
     with pytest.raises(MXNetError, match="model store"):
         mx.gluon.model_zoo.vision.get_model("resnet18_v1", pretrained=True)
-    with pytest.raises(MXNetError, match="S2D"):
-        mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC", stem_s2d=True)
+    with pytest.raises(MXNetError, match="space-to-depth stem.*NHWC"):
+        mx.gluon.model_zoo.vision.resnet50_v1(layout="NCHW", stem_s2d=True)
     with pytest.raises(MXNetError, match="zoo"):
         mx.gluon.model_zoo.vision.get_model("vgg16")
 
