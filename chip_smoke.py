@@ -225,6 +225,33 @@ Phases (any failure raises and the script exits non-zero):
                  BF16_F64_RATIO x the CPU bf16 step's distance (plus one
                  bf16 ulp); every fp32 master Adam's first update of its
                  own gradient and every weight its master rounded.
+ 12c. train fused — 11b's bf16 BERT-base: one backward, then the fused
+                 Trainer's and the per-parameter Trainer's first step on
+                 those gradients from the same weights (momentum bit for
+                 bit, each weight within a bf16 ulp of itself and one of
+                 its step, one `fused_update` dispatch a bucket), then
+                 one whole step of each under torch.profiler (device
+                 kernels, host launch calls).
+ 11c. bert train, bf16, captured — 11b through `trainer.capture`, 10
+                 steps beside three eager fused runs of 10 from the same
+                 weights (`_captured_vs_eager`): the losses and each
+                 parameter no further from the first eager run than
+                 CAPTURE_RATIO x the largest distance between eager runs
+                 plus an ulp, no
+                 fallback, the warm steps' launches equal to the eager
+                 steps', one graph launch and no kernel launch from the
+                 host in a profiled warm step; tokens/s, peak memory and
+                 the busy share of both forms.
+  5c. nmt train, captured — phases 5 (fp32, Adam: t on the device) and 5b
+                 (cast, SGD) the same way.
+  9d. resnet BN, captured — the cut bf16 S2D ResNet (9b's) at B = 16, 3
+                 steps captured and eager: the running statistics moved and
+                 carried.
+ 12d. capture guard — a captured 2-layer bf16 BERT with skip_nonfinite and
+                 `grad.nan` at step 2 (every weight and state bit for bit
+                 through that replay, the streak 0, 1, 0), and float16
+                 AMP on a Dense stack, captured and eager (the same loss
+                 scale after every step).
  13. long context — examples/long_context.py at its full size (B=1,
                  S=2048, H=8, D=64, causal, fp32, numpy seed 0) on a
                  one-rank NCCL group (`kvstore.init_distributed`,
@@ -248,6 +275,8 @@ Phases (any failure raises and the script exits non-zero):
                  lse within FLASH_F64_RATIO and dQ / dK / dV within
                  BWD_F64_RATIO of the plain version's distance.
 
+`--capture` runs the build and the fused-Trainer and captured-step
+phases alone (on fresh weights), with no kernels line and no `ok` line.
 `--ranks N` (N > 1 cards) runs phase 13 (a) over N NCCL ranks instead,
 one process a card: each rank's Ulysses and ring output and gradients
 against `flash_attention` over the whole sequence on its card
@@ -4046,6 +4075,568 @@ def phase_bert_card_vs_cpu_bf16(mx, torch, init_file):
         f"name, card, cpu) {worst}; card launches {card[2]}")
 
 
+
+# ---------------------------------------------------------------------------
+# the fused Trainer and the captured step (Trainer.capture: one CUDA graph)
+# ---------------------------------------------------------------------------
+# host runtime calls that launch work from the host (torch.profiler's CPU
+# events): a warm captured step makes one graph launch and none of these
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx",
+                       "cudaLaunchCooperativeKernel")
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+# captured against eager from the same weights and batch, 10 steps, with
+# two more eager runs as the yardstick: the same kernels on the same
+# values, but a step is not bit for bit repeatable where an atomic sum's
+# order varies (BERT's MLM gather and segment embedding backwards), and
+# the differences grow along the steps. The captured run's largest
+# distance from the first eager run, over the steps' losses and per
+# parameter in norm after the last step, at most CAPTURE_RATIO times the
+# largest distance between two eager runs, plus one ulp (2^-8 relative
+# for bf16, 2^-23 for fp32; the loss is fp32): where the eager step
+# repeats bit for bit, so must the replay
+CAPTURE_RATIO = 3.0
+CAPTURE_EAGER_RUNS = 3
+CAPTURE_STEPS = 10
+
+
+def profile_launches(torch, work):
+    """`work()` under torch.profiler: (window wall us, device rows as
+    `device_profile`, {host runtime call: count} for the launch calls),
+    or None where the profiler cannot trace the card."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            work()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows, calls = [], {}
+        for ev in prof.key_averages():
+            if "CUDA" in str(getattr(ev, "device_type", "")):
+                dev_us = getattr(ev, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(ev, "self_cuda_time_total", 0)
+                rows.append((dev_us, ev.count, ev.key))
+            elif ev.key in KERNEL_LAUNCH_CALLS + GRAPH_LAUNCH_CALLS:
+                calls[ev.key] = calls.get(ev.key, 0) + ev.count
+    except RuntimeError as e:
+        log(f"profile: not measured ({e})")
+        return None
+    rows.sort(reverse=True)
+    return wall_us, rows, calls
+
+
+def _param_tensors(model):
+    return {n: p.data()._data.detach() for n, p in
+            model._collect_params_with_prefix().items()}
+
+
+def _restore(torch, model, saved):
+    """Put the weights (and running statistics) of `saved` back, in
+    place."""
+    with torch.no_grad():
+        for n, p in model._collect_params_with_prefix().items():
+            p.data()._data.copy_(saved[n])
+
+
+def _rel(torch, a, b):
+    return float((a.double() - b.double()).norm() / max(
+        float(b.double().norm()), 1e-30))
+
+
+def _kernel_count(rows):
+    return sum(r[1] for r in rows)
+
+
+def _ulp(torch, dtype):
+    return 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -23
+
+
+def phase_train_fused(mx, torch):
+    """The fused Trainer against the per-parameter one on phase 11b's
+    bf16 BERT-base (`bert_base` from `mx.random.seed(0)`, cast, SGD lr
+    1e-3 momentum 0.9, bench_bert.py's step). (a) The update alone: one
+    backward, then each path's first step on those same gradients from
+    the same weights: the momentum bit for bit (the same two roundings
+    in both), each weight within one bf16 ulp of itself plus one of its
+    step lr * m of the per-parameter one (the fused rule reads lr as a
+    bf16 scalar, as the JAX package's weak-typed lr on a bf16 weight,
+    where the per-parameter path multiplies by the float: the step's
+    rounding may land one of its ulps apart, then the subtraction rounds
+    once); one `fused_update` dispatch a bucket, one
+    `opt_update` a parameter. (b) A whole step of each, profiled: its
+    device kernels and the host's launch calls."""
+    mx.random.seed(0)
+    model = _bert_pretraining(mx)
+    model.initialize(ctx=mx.gpu(0))
+    model.cast("bfloat16")
+    batch = _bert_batch(mx, BERT_B, BERT_S, mx.gpu(0))
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = model._collect_params_with_prefix()
+    start = {n: t.clone() for n, t in _param_tensors(model).items()}
+    _bert_step(mx, model, None, ce, batch, True)
+    grads = {n: p.grad()._data.clone() for n, p in params.items()}
+    res = {}
+    for fused in (True, False):
+        _restore(torch, model, start)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.grad()._data.copy_(grads[n])
+        trainer = mx.gluon.Trainer(model.collect_params(), "sgd",
+                                   {"learning_rate": BERT_BF16_LR,
+                                    "momentum": BERT_BF16_MOMENTUM},
+                                   fused=fused)
+        check(trainer._fused == fused, f"fused={fused} not taken")
+        mx.profiler.reset_dispatches()
+        trainer.step(1)
+        torch.cuda.synchronize()
+        index = {id(p): i for i, p in enumerate(trainer._params)}
+        res[fused] = dict(
+            weights={n: t.clone() for n, t in
+                     _param_tensors(model).items()},
+            moms={n: trainer._updater.states[index[id(p)]][0]._data.clone()
+                  for n, p in params.items()},
+            dispatches={k: mx.profiler.dispatch_count(k)
+                        for k in ("fused_update", "opt_update")},
+            buckets=len(trainer._buckets) if fused else None,
+            bucket_bytes=mx.profiler.bucket_sizes() if fused else None)
+        del trainer
+    f, u = res[True], res[False]
+    check(f["dispatches"]["fused_update"] == f["buckets"] > 0,
+          f"fused_update dispatches {f['dispatches']} != {f['buckets']} "
+          f"buckets")
+    n_params = len(f["weights"])
+    check(u["dispatches"]["opt_update"] == n_params,
+          f"per-parameter dispatches {u['dispatches']} != {n_params}")
+    def bf16_ulp(v):
+        # 2^-7 of the power of two at or below |v|
+        return torch.exp2(torch.floor(torch.log2(
+            torch.clamp(v.abs(), min=2.0 ** -126)))) * 2.0 ** -7
+
+    worst_ulps, mom_equal, w_equal = 0.0, 0, 0
+    for n in f["weights"]:
+        a, b = f["weights"][n].float(), u["weights"][n].float()
+        step = BERT_BF16_LR * u["moms"][n].float()
+        lim = bf16_ulp(b) + bf16_ulp(step)
+        ulps = float(((a - b).abs() / lim).max())
+        worst_ulps = max(worst_ulps, ulps)
+        check(ulps <= 1.0, f"{n}: fused weight {ulps:.2f} of its limit from "
+                           f"the per-parameter one")
+        mom_equal += int(torch.equal(f["moms"][n], u["moms"][n]))
+        w_equal += int(torch.equal(f["weights"][n], u["weights"][n]))
+    check(mom_equal == n_params, f"momentum bit for bit in {mom_equal} of "
+                                 f"{n_params} parameters")
+    summary = dict(params=n_params, buckets=f["buckets"],
+                   bucket_bytes=f["bucket_bytes"],
+                   dispatches_fused=f["dispatches"],
+                   dispatches_per_parameter=u["dispatches"],
+                   worst_weight_share_of_limit=worst_ulps,
+                   weights_bit_equal=w_equal, momentum_bit_equal=mom_equal)
+    for fused in (True, False):
+        tag = "fused" if fused else "per_parameter"
+        _restore(torch, model, start)
+        trainer = mx.gluon.Trainer(model.collect_params(), "sgd",
+                                   {"learning_rate": BERT_BF16_LR,
+                                    "momentum": BERT_BF16_MOMENTUM},
+                                   fused=fused)
+        _bert_step(mx, model, trainer, ce, batch, True)
+        got = profile_launches(torch, lambda: _bert_step(
+            mx, model, trainer, ce, batch, True))
+        if got is not None:
+            wall_us, rows, calls = got
+            summary[f"kernels_per_step_{tag}"] = _kernel_count(rows)
+            summary[f"host_launch_calls_{tag}"] = calls
+            summary[f"busy_share_{tag}"] = sum(x[0] for x in rows) / wall_us
+            log_profile(f"train fused profile ({tag})", wall_us, rows,
+                        "1 bf16 BERT step")
+        del trainer
+    log("train fused " + json.dumps(summary))
+    del model, batch, start, res, grads
+    torch.cuda.empty_cache()
+
+
+def _captured_vs_eager(mx, torch, tag, model, make_trainer, loss_fn,
+                       eager_step, batch, batch_size, tokens, want):
+    """Train `model` CAPTURE_STEPS steps eagerly (`eager_step(trainer)`
+    returns the loss) CAPTURE_EAGER_RUNS times, then through
+    `trainer.capture(loss_fn)`, each from the same weights with a fresh
+    trainer: the steps' losses and each parameter after the last step no
+    further from the first eager run than CAPTURE_RATIO times the
+    largest distance between eager runs plus an ulp, no fallback, the
+    warm steps' launches
+    equal to the eager steps' (`want` counters above 0), one graph
+    launch and no kernel launch from the host in a profiled warm step.
+    Logs tokens/s over steps 3 on with the spread, peak memory and each
+    form's busy share; returns the captured run's launches."""
+    K = mx.ops.kernels
+    start = {n: t.clone() for n, t in _param_tensors(model).items()}
+    forms = [f"eager{k}" for k in range(CAPTURE_EAGER_RUNS)] + ["captured"]
+    runs = {}
+    for form in forms:
+        _restore(torch, model, start)
+        trainer = make_trainer()
+        if form == "captured":
+            step_fn = trainer.capture(loss_fn)
+
+            def step():
+                loss = step_fn(*batch, batch_size=batch_size)
+                check(step_fn.last_fallback_reason is None,
+                      f"{tag}: fell back ({step_fn.last_fallback_reason})")
+                return loss
+        else:
+            def step():
+                return eager_step(trainer)
+        losses, per_step, step_s, launches = _timed_steps(
+            torch, K, step, CAPTURE_STEPS)
+        run = dict(losses=np.asarray(losses), per_step=per_step,
+                   step_s=step_s, launches=launches,
+                   peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   weights={n: t.clone() for n, t in
+                            _param_tensors(model).items()})
+        if form in ("eager0", "captured"):
+            run["profile"] = profile_launches(torch, step)
+        if form == "captured":
+            run["build_s"] = step_fn.last_compile_seconds
+            run["cache_size"] = step_fn.cache_size
+        runs[form] = run
+        del trainer
+    e, c = runs["eager0"], runs["captured"]
+    eagers = [runs[f] for f in forms[:-1]]
+    pairs = [(a, b) for i, a in enumerate(eagers) for b in eagers[i + 1:]]
+    loss_spread = max(float(np.abs(a["losses"] - b["losses"]).max())
+                      for a, b in pairs)
+    loss_dist = float(np.abs(c["losses"] - e["losses"]).max())
+    loss_lim = CAPTURE_RATIO * loss_spread + 2.0 ** -23 * float(
+        np.abs(e["losses"]).max())
+
+    def dist(a, b, n):
+        return float((a["weights"][n].double()
+                      - b["weights"][n].double()).norm())
+    worst, bits, bad = (0.0, ""), 0, []
+    for n, we in e["weights"].items():
+        spread = max(dist(a, b, n) for a, b in pairs)
+        lim = CAPTURE_RATIO * spread + _ulp(torch, we.dtype) * float(
+            we.double().norm())
+        d = dist(c, e, n)
+        worst = max(worst, (d / lim if lim else 0.0, n))
+        if d > lim:
+            bad.append((n, d, spread))
+        bits += int(torch.equal(c["weights"][n], we))
+    summary = dict(steps=CAPTURE_STEPS, tokens_per_step=tokens,
+                   losses_eager=e["losses"].tolist(),
+                   losses_captured=c["losses"].tolist(),
+                   loss_captured_vs_eager=loss_dist,
+                   loss_spread_of_eager_runs=loss_spread,
+                   worst_param_share_of_limit=worst[0],
+                   worst_param=worst[1], params=len(e["weights"]),
+                   params_bit_equal=bits,
+                   launches_per_step={k: v for k, v in
+                                      c["per_step"][-1].items() if v},
+                   first_captured_step_launches={
+                       k: v for k, v in c["per_step"][0].items() if v},
+                   build_s=c["build_s"])
+    for key, r in (("eager", e), ("captured", c)):
+        timed = r["step_s"][2:]
+        tok = [tokens / t for t in timed]
+        summary[f"tokens_per_s_{key}"] = tokens * len(timed) / sum(timed)
+        summary[f"tokens_per_s_{key}_min"] = min(tok)
+        summary[f"tokens_per_s_{key}_max"] = max(tok)
+        summary[f"step_ms_{key}"] = [t * 1e3 for t in r["step_s"]]
+        summary[f"peak_mem_gib_{key}"] = r["peak"]
+        if r["profile"] is not None:
+            wall_us, rows, calls = r["profile"]
+            summary[f"busy_share_{key}"] = sum(x[0] for x in rows) / wall_us
+            summary[f"device_kernels_{key}"] = _kernel_count(rows)
+            summary[f"host_launch_calls_{key}"] = calls
+            log_profile(f"{tag} profile ({key})", wall_us, rows,
+                        "1 warm step")
+    log(f"{tag} " + json.dumps(summary))
+    check(all(np.isfinite(c["losses"])), f"{tag}: non-finite captured "
+                                         f"loss {c['losses']}")
+    check(loss_dist <= loss_lim, f"{tag}: captured losses {loss_dist:.3e} "
+          f"from eager, eager runs {loss_spread:.3e} apart")
+    check(not bad, f"{tag}: parameters beyond their limit (name, distance, "
+                   f"eager spread): {bad[:5]}")
+    for i in range(1, CAPTURE_STEPS):
+        check(c["per_step"][i] == e["per_step"][i],
+              f"{tag}: captured step {i + 1} launches {c['per_step'][i]} "
+              f"!= eager {e['per_step'][i]}")
+    for name in want:
+        check(c["per_step"][-1][name] > 0, f"{tag}: no {name} in a replay")
+    check(c["cache_size"] == 1, f"{tag}: {c['cache_size']} cache entries")
+    if c["profile"] is not None:
+        calls = c["profile"][2]
+        graphs = sum(calls.get(k, 0) for k in GRAPH_LAUNCH_CALLS)
+        kernels = sum(calls.get(k, 0) for k in KERNEL_LAUNCH_CALLS)
+        check(graphs == 1 and kernels == 0,
+              f"{tag}: a warm captured step made {graphs} graph launches "
+              f"and {kernels} kernel launches from the host ({calls})")
+    return c["launches"]
+
+
+def _bert_bench_loss(mx, model, ce):
+    def loss_fn(tok, seg, vl, pos, mlm_y, nsp_y):
+        mlm, nsp = model(tok, seg, vl, pos)
+        mlm, nsp = mlm.astype("float32"), nsp.astype("float32")
+        return ce(mlm.reshape((-1, BERT_VOCAB)),
+                  mlm_y.reshape((-1,))).mean() + ce(nsp, nsp_y).mean()
+    return loss_fn
+
+
+def phase_bert_train_bf16_captured(mx, torch):
+    """Phase 11b through `trainer.capture`: bf16 `bert_base` from
+    `mx.random.seed(0)`, SGD lr 1e-3 momentum 0.9 on the batch-mean
+    loss's gradient (batch_size 1), phase 11's batch;
+    `_captured_vs_eager` against the eager fused step from the same
+    weights. Every replay launches the bf16 forms: 12 flash forwards, 12
+    fused and 12 dQ backward kernels, 26 LayerNorms."""
+    mx.random.seed(0)
+    model = _bert_pretraining(mx)
+    model.initialize(ctx=mx.gpu(0))
+    model.cast("bfloat16")
+    batch = _bert_batch(mx, BERT_B, BERT_S, mx.gpu(0))
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def make_trainer():
+        return mx.gluon.Trainer(model.collect_params(), "sgd",
+                                {"learning_rate": BERT_BF16_LR,
+                                 "momentum": BERT_BF16_MOMENTUM})
+    launches = _captured_vs_eager(
+        mx, torch, "bert bf16 captured", model, make_trainer,
+        _bert_bench_loss(mx, model, ce),
+        lambda tr: _bert_step(mx, model, tr, ce, batch, True), batch, 1,
+        BERT_B * BERT_S, ("flash_fwd_bf16", "flash_bwd_bf16",
+                          "flash_bwd_dq_bf16", "layer_norm_bf16"))
+    del model, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _nmt_loss(mx, model, ce, bench):
+    def loss_fn(src, tgt, lab, vl):
+        logits = model(src, tgt, vl)
+        if bench:
+            logits = logits.astype("float32")
+        return ce(logits.reshape((-1, VOCAB)), lab.reshape((-1,))).mean()
+    return loss_fn
+
+
+def phase_nmt_train_captured(mx, torch, init_file):
+    """Phases 5 and 5b through `trainer.capture`, each beside its eager
+    fused step from phase 5's initial weights (`_captured_vs_eager`):
+    the fp32 `transformer_base` with Adam 3e-4 (the step count t and the
+    bias corrections on the device) at B=32 with rescale 1/B, and the
+    cast one with SGD lr 1e-3 momentum 0.9 at B=64 on the mean loss's
+    gradient. Every replay launches 18 flash forwards, 18 fused
+    backwards and 30 LayerNorms (fp32 forms in both)."""
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    out = {}
+    for tag, bench in (("nmt captured", False), ("nmt bf16 captured",
+                                                  True)):
+        model = mx.models.transformer_base(VOCAB, max_length=TRAIN_S,
+                                           dropout=0.0)
+        model.load_parameters(init_file, ctx=mx.gpu(0))
+        if bench:
+            model.cast("bfloat16")
+            batch = _nmt_bf16_batch(mx, NMT_BF16_B, TRAIN_S, mx.gpu(0))
+
+            def make_trainer(model=model):
+                return mx.gluon.Trainer(model.collect_params(), "sgd",
+                                        {"learning_rate": NMT_BF16_LR,
+                                         "momentum": NMT_BF16_MOMENTUM})
+        else:
+            batch = _train_batch(mx, TRAIN_B, TRAIN_S, mx.gpu(0))
+
+            def make_trainer(model=model):
+                return mx.gluon.Trainer(model.collect_params(), "adam",
+                                        {"learning_rate": 3e-4})
+        b = batch[0].shape[0]
+        out[tag] = _captured_vs_eager(
+            mx, torch, tag, model, make_trainer,
+            _nmt_loss(mx, model, ce, bench),
+            lambda tr, model=model, batch=batch, bench=bench: _train_step(
+                mx, model, tr, ce, batch, bench),
+            batch, 1 if bench else b, b * TRAIN_S * 2,
+            ("flash_fwd", "flash_bwd", "layer_norm"))
+        del model, batch
+        torch.cuda.empty_cache()
+    return out["nmt captured"], out["nmt bf16 captured"]
+
+
+def _snapshot(trainer, model):
+    return ([p.data()._data.detach().clone() for p in trainer._params],
+            [s._data.clone() for st in trainer._updater.states.values()
+             for s in st])
+
+
+def phase_capture_guard(mx, torch):
+    """The guard on the card. (a) A captured 2-layer full-width bf16
+    BERT (SGD with momentum, skip_nonfinite=True) with `grad.nan` at
+    step 2: that replay leaves every weight and state (momentum) bit for
+    bit, the streak goes to 1 and back to 0 on step 3, which updates.
+    (b) float16 AMP's loss scaler on a Dense stack (768 -> 3072 -> 768 ->
+    10; the flash kernels take no float16) with `grad.nan` at step 2,
+    captured against eager from the same weights: the same loss scale
+    after every step, and each weight within one fp32 ulp (2^-23) of the
+    eager one in norm (the same deterministic kernels)."""
+    inj = mx.fault.injection
+    mx.random.seed(0)
+    model = _bert_pretraining(mx, num_layers=2)
+    model.initialize(ctx=mx.gpu(0))
+    model.cast("bfloat16")
+    batch = _bert_batch(mx, 2, BERT_S, mx.gpu(0), lens=(300, 512))
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(model.collect_params(), "sgd",
+                               {"learning_rate": BERT_BF16_LR,
+                                "momentum": BERT_BF16_MOMENTUM},
+                               skip_nonfinite=True)
+    step = trainer.capture(_bert_bench_loss(mx, model, ce))
+    inj.clear()
+    inj.inject("grad.nan", at=[2])
+    streaks = []
+    try:
+        step(*batch, batch_size=1)
+        streaks.append(trainer.consecutive_skipped_steps)
+        before = _snapshot(trainer, model)
+        step(*batch, batch_size=1)
+        streaks.append(trainer.consecutive_skipped_steps)
+        after = _snapshot(trainer, model)
+        step(*batch, batch_size=1)
+        streaks.append(trainer.consecutive_skipped_steps)
+        moved = _snapshot(trainer, model)
+    finally:
+        inj.clear()
+    check(step.last_fallback_reason is None and step.cache_size == 1,
+          f"guard: fell back ({step.last_fallback_reason})")
+    same = sum(int(torch.equal(a, b)) for a, b in zip(before[0] + before[1],
+                                                      after[0] + after[1]))
+    total = len(before[0]) + len(before[1])
+    check(same == total, f"guard: the skipped replay changed "
+                         f"{total - same} of {total} weights and states")
+    check(streaks == [0, 1, 0], f"guard: streaks {streaks} != [0, 1, 0]")
+    changed = sum(int(not torch.equal(a, b)) for a, b in zip(after[0],
+                                                             moved[0]))
+    check(changed > 0, "guard: step 3 moved no weight")
+    log(f"capture guard: bf16 BERT (2 layers, B=2) with grad.nan at step "
+        f"2: {same} of {total} weights and states bit for bit through the "
+        f"skipped replay, streaks {streaks}, step 3 moved {changed} of "
+        f"{len(after[0])} weights")
+    del model, trainer, step, before, after, moved
+    scales = {}
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 768).astype(np.float32)
+    y = rng.randint(0, 10, 64).astype(np.int32)
+    weights = None
+    for captured in (False, True):
+        net = mx.gluon.nn.Sequential()
+        net.add(mx.gluon.nn.Dense(3072, activation="relu"),
+                mx.gluon.nn.Dense(768, activation="relu"),
+                mx.gluon.nn.Dense(10))
+        mx.random.seed(0)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        xb, yb = mx.nd.array(x, ctx=mx.gpu(0)), mx.nd.array(y, ctx=mx.gpu(0))
+        net(xb)
+        mx.amp.init("float16")
+        inj.clear()
+        inj.inject("grad.nan", at=[2])
+        seq = []
+        try:
+            tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": 0.05, "momentum": 0.9})
+            lossf = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+            if captured:
+                cstep = tr.capture(lambda a, b: lossf(net(a), b).mean())
+            for _ in range(4):
+                if captured:
+                    cstep(xb, yb)
+                    check(cstep.last_fallback_reason is None,
+                          f"amp capture fell back "
+                          f"({cstep.last_fallback_reason})")
+                else:
+                    with mx.autograd.record():
+                        loss = mx.amp.scale_loss(lossf(net(xb), yb).mean())
+                    loss.backward()
+                    tr.step(64)
+                seq.append((mx.amp.scaler().loss_scale,
+                            tr.consecutive_skipped_steps))
+        finally:
+            mx.amp.reset()
+            inj.clear()
+        scales[captured] = seq
+        w = {n: t.clone() for n, t in _param_tensors(net).items()}
+        if weights is None:
+            weights = w
+        else:
+            err = max(_rel(torch, w[n], weights[n]) for n in w)
+            check(err <= 2.0 ** -23, f"amp: captured weights {err:.3e} "
+                                     f"from eager in norm")
+    check(scales[True] == scales[False],
+          f"amp: captured scales {scales[True]} != eager {scales[False]}")
+    check(scales[True][1][0] < scales[True][0][0],
+          f"amp: the poisoned step did not halve the scale: {scales[True]}")
+    log(f"capture guard: float16 AMP with grad.nan at step 2, (loss scale, "
+        f"streak) after each step, captured {scales[True]}, eager "
+        f"{scales[False]}; weights within {err:.3e} in norm")
+    torch.cuda.empty_cache()
+
+
+def phase_resnet_captured_bn(mx, torch, init_file):
+    """BatchNorm's running statistics through a captured step: phase
+    9b's cut S2D ResNet (one bottleneck a stage at full width) on phase
+    7's weights, cast to bf16, B=16, 3 steps of bench.py's SGD, captured
+    against eager from the same weights: every running statistic moved,
+    and each one and each weight within one bf16 ulp (2^-8) of the eager
+    one in norm (the same deterministic kernels);
+    no port kernel launches (the JAX ResNet runs none)."""
+    K = mx.ops.kernels
+    x, y = _resnet_batch(mx, 16, mx.gpu(0))
+    x = x.astype("bfloat16")
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    out = {}
+    for captured in (False, True):
+        net = _resnet_s2d(mx, cut=True)
+        net.load_parameters(init_file, ctx=mx.gpu(0), ignore_extra=True)
+        net.cast("bfloat16")
+        start = {n: t.clone() for n, t in _param_tensors(net).items()}
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": RESNET_BF16_LR,
+                                    "momentum": RESNET_BF16_MOMENTUM})
+        K.reset_launch_counts()
+        if captured:
+            step = trainer.capture(
+                lambda a, b: ce(net(a).astype("float32"), b).mean())
+            for _ in range(3):
+                step(x, y, batch_size=1)
+                check(step.last_fallback_reason is None,
+                      f"resnet capture fell back "
+                      f"({step.last_fallback_reason})")
+        else:
+            for _ in range(3):
+                _resnet_bf16_step(mx, net, trainer, ce, x, y)
+        check(dict(K.LAUNCHES) == dict.fromkeys(K.LAUNCHES, 0),
+              f"resnet BN: port kernels launched {dict(K.LAUNCHES)}")
+        params = net._collect_params_with_prefix()
+        out[captured] = {n: t.clone() for n, t in
+                         _param_tensors(net).items()}
+        stats = [n for n, p in params.items() if p.grad_req == "null"]
+        moved = sum(int(not torch.equal(out[captured][n], start[n]))
+                    for n in stats)
+        check(moved == len(stats), f"resnet BN: {len(stats) - moved} "
+                                   f"running statistics did not move")
+        del net, trainer
+    stats_err = max(_rel(torch, out[True][n], out[False][n])
+                    for n in stats)
+    w_err = max(_rel(torch, out[True][n], out[False][n]) for n in out[True])
+    check(w_err <= 2.0 ** -8, f"resnet BN: captured vs eager "
+                                   f"{w_err:.3e} in norm")
+    log(f"capture resnet BN: cut S2D ResNet bf16, B=16, 3 steps: "
+        f"{len(stats)} running statistics moved; captured vs eager worst "
+        f"{stats_err:.3e} (statistics), {w_err:.3e} (all) in norm")
+    torch.cuda.empty_cache()
+
+
 def _free_port():
     import socket
     with socket.socket() as sock:
@@ -4475,6 +5066,40 @@ def sp_ranks_main(mx, torch, world):
     return 0
 
 
+def capture_main(mx, torch):
+    """`--capture`: the build and the fused-Trainer and captured-step
+    phases alone (fresh seed-0 weights for the NMT and ResNet phases in
+    place of phases 5 and 7's), for a quick check of the captured step;
+    no kernels line and no `ok` line."""
+    t_start = time.perf_counter()
+    phase_build(mx, torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        nmt_init = os.path.join(tmp, "transformer_base_init.params")
+        mx.random.seed(0)
+        model = mx.models.transformer_base(VOCAB, max_length=TRAIN_S,
+                                           dropout=0.0)
+        model.initialize(ctx=mx.gpu(0))
+        model.save_parameters(nmt_init)
+        resnet_init = os.path.join(tmp, "resnet50_v1_init.params")
+        net = _resnet50(mx)
+        net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2), ctx=mx.gpu(0))
+        net(_resnet_batch(mx, 1, mx.gpu(0))[0])
+        net.save_parameters(resnet_init)
+        del model, net
+        phase_nmt_train_captured(mx, torch, nmt_init)
+        phase_resnet_captured_bn(mx, torch, resnet_init)
+    phase_bert_train_bf16_captured(mx, torch)
+    phase_capture_guard(mx, torch)
+    phase_train_fused(mx, torch)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    log(f"capture phases {time.perf_counter() - t_start:.1f} s; "
+        f"{smi.stdout.strip()}")
+    return 0
+
+
 def main(argv=()):
     sys.path.insert(0, HERE)
     import torch
@@ -4495,10 +5120,12 @@ def main(argv=()):
         return 1
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    if list(argv) == ["--capture"]:
+        return capture_main(mx, torch)
     if argv:
         check(len(argv) == 2 and argv[0] == "--ranks" and argv[1].isdigit()
-              and int(argv[1]) > 1, f"usage: chip_smoke.py [--ranks N>1], "
-              f"got {list(argv)}")
+              and int(argv[1]) > 1, f"usage: chip_smoke.py [--ranks N>1 | "
+              f"--capture], got {list(argv)}")
         return sp_ranks_main(mx, torch, int(argv[1]))
     t_start = time.perf_counter()
     phase_build(mx, torch)
@@ -4522,6 +5149,8 @@ def main(argv=()):
         torch.cuda.empty_cache()
         nmt_bf16_launches = phase_nmt_train_bf16(mx, torch, init_file)
         phase_nmt_card_vs_cpu_bf16(mx, torch, init_file)
+        nmt_cap_launches, nmt_bf16_cap_launches = phase_nmt_train_captured(
+            mx, torch, init_file)
         resnet_init = os.path.join(tmp, "resnet50_v1_init.params")
         net, images, resnet_launches = phase_resnet_train(mx, torch,
                                                           resnet_init)
@@ -4538,6 +5167,7 @@ def main(argv=()):
         del net, images
         torch.cuda.empty_cache()
         phase_resnet_card_vs_cpu_bf16(mx, torch, resnet_init)
+        phase_resnet_captured_bn(mx, torch, resnet_init)
         by_name = {k["name"]: k for k in kernels}
         phase_bert_attention(mx, torch, by_name)
         phase_bert_attention_bf16(mx, torch, by_name)
@@ -4546,6 +5176,9 @@ def main(argv=()):
         bert_bf16_launches = phase_bert_train_bf16(mx, torch)
         phase_bert_card_vs_cpu(mx, torch, bert_init)
         phase_bert_card_vs_cpu_bf16(mx, torch, bert_init)
+        phase_train_fused(mx, torch)
+        bert_cap_launches = phase_bert_train_bf16_captured(mx, torch)
+        phase_capture_guard(mx, torch)
     block_row, lc_launches = phase_long_context(mx, torch)
     kernels.append(block_row)
     for k in kernels:
@@ -4562,6 +5195,9 @@ def main(argv=()):
                    "resnet_conv1x1_bf16": conv_bf16_launches[c],
                    "bert_train": bert_launches[c],
                    "bert_train_bf16": bert_bf16_launches[c],
+                   "bert_train_bf16_captured": bert_cap_launches[c],
+                   "nmt_train_captured": nmt_cap_launches[c],
+                   "nmt_train_bf16_captured": nmt_bf16_cap_launches[c],
                    "long_context": lc_launches[c]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path

@@ -39,7 +39,9 @@ long-context sequence parallelism over `torch.distributed`
 (`kvstore.init_distributed`, `parallel.make_mesh`, ring and all-to-all
 attention over `ops.flash_block_attention`), and bf16 training as the
 JAX benches run it (`Block.cast("bfloat16")`; ResNet-50 with the
-space-to-depth stem; `amp`). ROADMAP.md lists what is still to be
+space-to-depth stem; `amp`), and the Trainer's fused multi-tensor
+update with `Trainer.capture` / `mx.jit_step`, the whole training step
+as one CUDA graph (`cachedop`). ROADMAP.md lists what is still to be
 ported.
 """
 
@@ -51,6 +53,7 @@ from . import context
 from .context import cpu, gpu, num_gpus
 from . import observability
 from . import profiler
+from . import engine
 from . import fault
 from . import kvstore
 from . import random
@@ -64,6 +67,8 @@ from . import amp
 from . import parallel
 from . import optimizer
 from . import gluon
+from . import cachedop
+from .cachedop import CachedStep, jit_step
 from . import models
 from . import contrib
 from . import convert
@@ -73,5 +78,6 @@ from . import serve
 __all__ = ["MXNetError", "base", "context", "cpu", "gpu", "num_gpus",
            "observability", "profiler", "fault", "kvstore", "random",
            "initializer", "init", "autograd", "ndarray", "nd", "ops",
-           "amp", "parallel", "optimizer", "gluon",
+           "amp", "parallel", "optimizer", "gluon", "engine", "cachedop",
+           "CachedStep", "jit_step",
            "models", "contrib", "convert", "rtc", "serve"]

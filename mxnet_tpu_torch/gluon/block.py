@@ -11,10 +11,11 @@ such as `encoder.layers.0.attn.qkv.weight`) key `save_parameters` /
 `load_parameters`, in the JAX package's npz format, so a file crosses
 between the two packages in both directions.
 
-`hybridize()` is accepted and the block runs eagerly: CUDA-graph
-capture of a step is ROADMAP.md Queue 1 item 3, and there is no symbol
-path. Every call runs with torch's grad mode on only while
-`autograd.record()` is active.
+`hybridize()` is accepted and the block runs eagerly: a forward as a
+CUDA graph is ROADMAP.md Queue 1 [3] (the whole training step already
+is one, `Trainer.capture`), and there is no symbol path. Every call
+runs with torch's grad mode on only while `autograd.record()` is
+active.
 """
 from __future__ import annotations
 
@@ -34,11 +35,19 @@ from .parameter import DeferredInitializationError, Parameter, \
 __all__ = ["Block", "HybridBlock"]
 
 
+# while a captured step runs its trial step (`cachedop.py`), the value each
+# parameter had before its first auxiliary write: id -> (param, tensor)
+_aux_undo = [None]
+
+
 def _report_aux_update(param, new_value):
     """Write a layer's new auxiliary state (BatchNorm's running
     statistics) into its parameter, in place and outside autograd: the
     JAX package rebinds the array, and its traced path returns the
     update instead (`mxnet_tpu/gluon/block.py:154`)."""
+    undo = _aux_undo[0]
+    if undo is not None and id(param) not in undo:
+        undo[id(param)] = (param, param.data()._data.detach().clone())
     with torch.no_grad():
         param.data()._data.copy_(new_value)
 
@@ -182,8 +191,9 @@ class Block(nn.Module):
         return self
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted; the block runs eagerly (ROADMAP.md Queue 1 item 3:
-        CUDA-graph capture)."""
+        """Accepted; the block runs eagerly (ROADMAP.md Queue 1 [3]: a
+        forward as a CUDA graph; `Trainer.capture` captures a whole
+        training step)."""
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 

@@ -211,6 +211,17 @@ class Parameter:
             self._grad._data = self._grad._data.to(dt)
             self._data._grad = self._grad
 
+    def _struct_sig(self):
+        """What the Trainer's bucket layout depends on: the materialised
+        shape and dtype, the gradient's dtype and grad_req, so deferred
+        init, `cast` and grad_req flips rebuild the buckets
+        (`mxnet_tpu/gluon/parameter.py:201-210`)."""
+        return (self.name,
+                None if self._data is None
+                else (self._data.shape, str(self._data._data.dtype)),
+                None if self._grad is None else str(self._grad._data.dtype),
+                self._grad_req)
+
     def zero_grad(self):
         if self._grad is not None:
             with torch.no_grad():

@@ -23,7 +23,24 @@ from .. import autograd
 from ..base import MXNetError, from_numpy, numpy_dtype, torch_dtype
 from ..context import resolve_device
 
-__all__ = ["NDArray", "array", "zeros", "ones", "_apply"]
+__all__ = ["NDArray", "array", "zeros", "ones", "_apply", "CaptureHostRead"]
+
+
+class CaptureHostRead(MXNetError):
+    """A host read of an array (`asnumpy`, `asscalar`, `float()`) inside
+    a training step that is being captured (`cachedop.CachedStep`): a
+    CUDA graph cannot wait for the host, so the step falls back to the
+    imperative path with the reason `trace_error:CaptureHostRead`."""
+
+
+# set by `cachedop.CachedStep` while it builds a step: host reads raise
+_capturing = [False]
+
+
+def _host_read(what):
+    if _capturing[0]:
+        raise CaptureHostRead(f"{what} reads the device from the host inside "
+                              f"a captured training step")
 
 
 def _apply(fn, nd_inputs):
@@ -94,6 +111,7 @@ class NDArray:
                 f"{'x'.join(map(str, self.shape))} @{self.context}>")
 
     def __float__(self):
+        _host_read("float()")
         return float(self._data)
 
     def __hash__(self):
@@ -105,12 +123,14 @@ class NDArray:
         bfloat16: a bfloat16 array comes back as float32 holding the same
         values exactly, where the JAX package gives an ml_dtypes bfloat16
         array."""
+        _host_read("asnumpy()")
         t = self._data.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
 
     def asscalar(self):
+        _host_read("asscalar()")
         if self.size != 1:
             raise ValueError("The current array is not a scalar")
         return self._data.detach().reshape(()).item()

@@ -24,7 +24,10 @@ class Updater:
         return self.states
 
 
-def get_updater(optimizer):
-    """The per-parameter updater; the JAX package's fused multi-tensor
-    updater is ROADMAP.md Queue 1 (Trainer buckets)."""
+def get_updater(optimizer, fused=False):
+    """The per-parameter updater, or with `fused=True` the bucketed
+    `multi_tensor.FusedUpdater`; both keep the same `states` dict."""
+    if fused:
+        from .multi_tensor import FusedUpdater
+        return FusedUpdater(optimizer)
     return Updater(optimizer)

@@ -41,3 +41,21 @@ def generator(device):
             gen = _generators[dev] = torch.Generator(device=dev).manual_seed(
                 _seed)
         return gen
+
+
+def _snapshot():
+    """The state of every generator made so far (for a trial step that
+    must leave the draws as they were)."""
+    with _lock:
+        return {dev: gen.get_state() for dev, gen in _generators.items()}
+
+
+def _restore(snap):
+    """Put the generators back to `_snapshot()`'s states; a generator
+    made since then starts again from the seed."""
+    with _lock:
+        for dev, gen in _generators.items():
+            if dev in snap:
+                gen.set_state(snap[dev])
+            else:
+                gen.manual_seed(_seed)

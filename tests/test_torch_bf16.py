@@ -404,7 +404,7 @@ def test_adam_multi_precision_two_steps():
         w, ctx=CPU, dtype="bfloat16")
     js, ts = jo.create_state_multi_precision(0, jw), \
         to.create_state_multi_precision(0, tw)
-    master, (mean, var, _t0) = ts
+    master, mean, var, count = ts
     assert master._data.dtype == mean._data.dtype == torch.float32
     b1, b2, eps = 0.9, 0.999, 1e-8
     w64 = w.astype(np.float64)
@@ -419,7 +419,7 @@ def test_adam_multi_precision_two_steps():
         v64 = b2 * v64 + (1 - b2) * gg * gg
         w64 = w64 - kw["learning_rate"] * (m64 / (1 - b1 ** t)) / (
             np.sqrt(v64 / (1 - b2 ** t)) + eps)
-    assert ts[1][2] == 2 and tw._data.dtype == torch.bfloat16
+    assert int(count._data) == 2 and tw._data.dtype == torch.bfloat16
     for name, got, want, atol in (
             ("master", master, js[0], 3e-5 * kw["learning_rate"]),
             ("mean", mean, js[1], 1e-7), ("variance", var, js[2], 1e-7)):

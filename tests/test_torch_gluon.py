@@ -206,14 +206,51 @@ def test_trainer_refuses_unported_settings():
         with pytest.raises(MXNetError, match="ROADMAP"):
             mx.gluon.Trainer(net.collect_params(), "sgd", **kw)
     tr = mx.gluon.Trainer(net.collect_params(), "sgd", kvstore=None)
+    with pytest.raises(MXNetError, match=r"ROADMAP.*\[5b\]"):
+        tr.capture(lambda x: x, sharded_update=True)
     with pytest.raises(MXNetError, match="ROADMAP"):
-        tr.capture(lambda x: x)
+        tr.shard()
     with pytest.raises(MXNetError, match="ROADMAP"):
         mx.optimizer.create("lamb")
     with pytest.raises(MXNetError, match="no gradient"):
         net.weight.grad_req = "write"
         net.weight._grad = None
         tr.step(1)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_trainer_takes_the_reference_arguments(fused):
+    """`fused` and `max_skipped_steps` are the JAX Trainer's arguments
+    (bench_mlp.py passes `fused=False`): both paths train one step of a
+    Dense layer to the JAX package's weights, and `capture` returns a
+    step."""
+    rng = np.random.RandomState(1)
+    w0, x = rng.randn(2, 3).astype(np.float32), rng.randn(4, 3)
+    out = {}
+    for pkg in (mxj, mx):
+        net = pkg.gluon.nn.Dense(2, in_units=3, use_bias=False)
+        if pkg is mx:
+            net.initialize(ctx=CPU)
+            net.weight.set_data(_t(w0))
+            xb = _t(x)
+        else:
+            net.initialize()
+            net.weight.set_data(_j(w0))
+            xb = _j(x)
+        tr = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9},
+                               fused=fused, max_skipped_steps=3)
+        assert tr._fused == fused and tr.max_skipped_steps == 3
+        with pkg.autograd.record():
+            loss = (net(xb) * net(xb)).sum()
+        loss.backward()
+        tr.step(4)
+        out[pkg] = net.weight.data().asnumpy()
+        if pkg is mx:
+            assert tr.consecutive_skipped_steps == 0
+            assert isinstance(tr.capture(lambda a: net(a).sum()),
+                              mx.CachedStep)
+    np.testing.assert_allclose(out[mx], out[mxj], **TOL)
 
 
 def test_trainer_skip_nonfinite_leaves_weights():
