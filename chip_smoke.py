@@ -468,6 +468,44 @@ FP32_F64_FLOOR = 2.0 ** -23
 # fp32 value computed in another order (BF16_RTOL), and for y near 0 the
 # fp32 part of LN_TOL's absolute limit; mean and rstd are fp32 (LN_TOL)
 LN_BF16_TOL = dict(rtol=BF16_RTOL, atol=LN_TOL["atol"])
+# The float16 kernels against their float16 plain versions and float64:
+# the bf16 limits' derivation at fp16's unit roundoff, 2^-11 where
+# bf16's is 2^-8, so each 2^-3 of bf16's: one output rounding lands at
+# most one fp16 ulp (2^-10 of the value) apart (F16_RTOL); the forward's
+# P rounding moves out by at most 2^-11 max|V| (F16_OUT_ATOL, x each
+# slice's max|V|); one fp16 ulp of an element of P or dS, 2^-10 of the
+# slice's largest gradient (F16_GRAD_ATOL); and float64 a floor of one
+# fp16 rounding (2^-11) of its largest value (F16_F64_FLOOR)
+F16_RTOL = 2.0 ** -10
+F16_OUT_ATOL = 2.0 ** -11
+F16_GRAD_ATOL = 2.0 ** -10
+F16_F64_FLOOR = 2.0 ** -11
+LN_F16_TOL = dict(rtol=F16_RTOL, atol=LN_TOL["atol"])
+# The backward checks' floor where a gradient cancels (a key length of 1:
+# the one key takes p = 1, dP - delta is 0 and so are dQ and dK, up to
+# rounding). dP and delta are fp32 sums of D products in either
+# implementation, each within D 2^-24 of the sum of its terms'
+# magnitudes, so dS = p (dP - delta) scale lies within D 2^-24 scale p
+# (|dO| |V|^T + rowsum(|dO| |O|)) of its exact value, and dQ (dK) within
+# that times |K| (|Q|) summed; kernel and plain version may each lie
+# there, so the limit adds twice it (`_bwd_cancel_floor`). It is far
+# below GRAD_ATOL x a slice's largest gradient wherever the gradient does
+# not cancel, and lets the shared cases take lengths of 1 again
+BWD_CANCEL = 2.0 ** -24
+# each 16-bit form's limits, by dtype name
+LOWP = {
+    "bfloat16": dict(label="bf16", rtol=BF16_RTOL, out_atol=BF16_OUT_ATOL,
+                     grad_atol=BF16_GRAD_ATOL, f64_floor=BF16_F64_FLOOR,
+                     ln_tol=LN_BF16_TOL),
+    "float16": dict(label="f16", rtol=F16_RTOL, out_atol=F16_OUT_ATOL,
+                    grad_atol=F16_GRAD_ATOL, f64_floor=F16_F64_FLOOR,
+                    ln_tol=LN_F16_TOL)}
+
+
+def _lowp(dtype):
+    return LOWP[str(dtype).split(".")[-1]]
+
+
 # phase 11b: bench_bert.py's optimizer (SGD, lr 1e-3, momentum 0.9,
 # bench_bert.py:68) on the bf16 model, its loss on logits cast to fp32
 BERT_BF16_LR, BERT_BF16_MOMENTUM = 1e-3, 0.9
@@ -608,26 +646,37 @@ def _train_attention_cases():
             (B, H, 48, 80, D, False, lens80)]
 
 
-def _attention_f64(torch, q, k, v, causal, scale, lens):
-    """(out, lse (B*H, Sq), live (B*H, Sq)) of softmax attention in
-    float64 on the CPU with the kernels' mask; a row with no visible key
-    (live False) is zeros, the kernels' convention, and its lse is not
-    compared."""
-    q, k, v = (t.detach().cpu().double() for t in (q, k, v))
-    b, h, sq, _ = q.shape
-    s = q @ k.transpose(-1, -2) * scale
-    allowed = torch.ones(s.shape, dtype=torch.bool)
+def _f64_scores(torch, q, k, causal, scale, lens):
+    """Softmax attention's scores in float64 on q's device (the card's
+    fp64 units: at the larger shapes the CPU takes seconds a call) with
+    the kernels' mask: (s, live), masked entries -inf and a row with no
+    visible key (live False) all 0, the kernels' convention."""
+    s = q.double() @ k.double().transpose(-1, -2) * scale
+    dev = s.device
+    allowed = torch.ones(s.shape, dtype=torch.bool, device=dev)
     if lens is not None:
-        keys = torch.arange(s.shape[-1])[None, :] < torch.tensor(lens)[:, None]
+        keys = torch.arange(s.shape[-1], device=dev)[None, :] \
+            < torch.tensor(lens, device=dev)[:, None]
         allowed &= keys[:, None, None, :]
     if causal:
-        allowed &= torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        allowed &= torch.ones(s.shape[-2:], dtype=torch.bool,
+                              device=dev).tril()
     live = allowed.any(-1, keepdim=True)
-    s = torch.where(allowed, s, torch.tensor(-torch.inf, dtype=s.dtype))
-    s = torch.where(live, s, torch.zeros_like(s))
-    out = torch.softmax(s, -1) * live @ v
-    return (out, torch.logsumexp(s, -1).reshape(b * h, sq),
-            live.reshape(b * h, sq))
+    s = torch.where(allowed, s, torch.tensor(-torch.inf, dtype=s.dtype,
+                                             device=dev))
+    return torch.where(live, s, torch.zeros_like(s)), live
+
+
+def _attention_f64(torch, q, k, v, causal, scale, lens):
+    """(out, lse (B*H, Sq), live (B*H, Sq)) of softmax attention in
+    float64 (`_f64_scores`), on the CPU; a row with no visible key is
+    zeros and its lse is not compared."""
+    b, h, sq, _ = q.shape
+    s, live = _f64_scores(torch, q.detach(), k.detach(), causal, scale,
+                          lens)
+    out = torch.softmax(s, -1) * live @ v.detach().double()
+    return (out.cpu(), torch.logsumexp(s, -1).reshape(b * h, sq).cpu(),
+            live.reshape(b * h, sq).cpu())
 
 
 def _fwd_check(torch, K, q, k, v, causal, lens, what):
@@ -669,12 +718,12 @@ def _fwd_check(torch, K, q, k, v, causal, lens, what):
 def _fwd_plans(K, q, k):
     """{name: plan} of the forward kernel at other plans than
     `flash_fwd_plan`'s that fit a block, in q's dtype: fp32, rw row warps
-    x ks key-split warps of bk-key tiles; bf16, both block shapes of the
-    wgmma kernel (`_fwd_bf16_plan`: 128 rows, 64 rows)."""
+    x ks key-split warps of bk-key tiles; bf16 and fp16, both block
+    shapes of the wgmma kernel (`_fwd_bf16_plan`: 128 rows, 64 rows)."""
     b, h, sq, d = q.shape
     plan = K.flash_fwd_plan(b * h, sq, k.shape[2], d, q.dtype)
     plans = {}
-    if q.dtype == K.torch.bfloat16:
+    if q.dtype != K.torch.float32:
         for rw in (2, 1):
             p = K._fwd_bf16_plan(plan["dp"], rw)
             plans[f"rw{rw}_bk{p['bk']}"] = p
@@ -1552,21 +1601,15 @@ def _bwd_case(torch, K, g, b, h, sq, sk, d, causal, lens):
 
 
 def _attention_grads_f64(torch, q, k, v, do, causal, scale, lens):
-    """(dQ, dK, dV) of softmax attention by autograd in float64 on the
-    CPU; a row with no visible key is zeros, the kernels' convention."""
-    q, k, v = (t.detach().cpu().double().requires_grad_(True)
-               for t in (q, k, v))
-    s = q @ k.transpose(-1, -2) * scale
-    allowed = torch.ones(s.shape, dtype=torch.bool)
-    if lens is not None:
-        keys = torch.arange(s.shape[-1])[None, :] < torch.tensor(lens)[:, None]
-        allowed &= keys[:, None, None, :]
-    if causal:
-        allowed &= torch.ones(s.shape[-2:], dtype=torch.bool).tril()
-    live = allowed.any(-1, keepdim=True)
-    s = torch.where(allowed, s, torch.tensor(-torch.inf, dtype=s.dtype))
-    p = torch.softmax(torch.where(live, s, torch.zeros_like(s)), -1) * live
-    return torch.autograd.grad(p @ v, (q, k, v), do.cpu().double())
+    """(dQ, dK, dV) of softmax attention by autograd in float64
+    (`_f64_scores`), on the CPU; a row with no visible key is zeros, the
+    kernels' convention."""
+    q, k, v = (t.detach().double().requires_grad_(True) for t in (q, k, v))
+    s, live = _f64_scores(torch, q, k, causal, scale, lens)
+    p = torch.softmax(s, -1) * live
+    grads = torch.autograd.grad(p @ v, (q, k, v),
+                                do.detach().double().to(q.device))
+    return tuple(g.cpu() for g in grads)
 
 
 def _within(torch, g, ref, tol, scaled):
@@ -1962,11 +2005,11 @@ def _ln_bf16_gamma_times(K, torch, g, dev):
 # ---------------------------------------------------------------------------
 # the bfloat16 forms of the flash and LayerNorm kernels (phase 2, bf16)
 # ---------------------------------------------------------------------------
-def _bf16_share(torch, got, ref, atol):
-    """The largest share of the limit BF16_RTOL * |ref| + atol (a number
-    or a tensor broadcast against ref) that |got - ref| takes."""
+def _bf16_share(torch, got, ref, atol, rtol=BF16_RTOL):
+    """The largest share of the limit rtol * |ref| + atol (a number or a
+    tensor broadcast against ref) that |got - ref| takes."""
     err = (got.float() - ref.float()).abs()
-    return (err / (BF16_RTOL * ref.float().abs() + atol)).max().item()
+    return (err / (rtol * ref.float().abs() + atol)).max().item()
 
 
 def _slice_max(t):
@@ -1976,27 +2019,34 @@ def _slice_max(t):
         1.17549435e-38)
 
 
-def _bf16_qkv(torch, g, b, h, sq, sk, d, n=3):
+def _lowp_qkv(torch, g, b, h, sq, sk, d, n=3, dtype=None):
+    """q, k, v (and dO with n = 4) on the card in `dtype` (bfloat16 when
+    None), from the CPU generator `g`."""
     dev = torch.device("cuda", 0)
+    dtype = dtype or torch.bfloat16
     shapes = [(b, h, sq, d), (b, h, sk, d), (b, h, sk, d), (b, h, sq, d)]
-    return [torch.randn(shape, generator=g).to(dev).to(torch.bfloat16)
+    return [torch.randn(shape, generator=g).to(dev).to(dtype)
             for shape in shapes[:n]]
 
 
-def _bf16_f64_check(name, e64, p64, scale, what, floor=BF16_F64_FLOOR):
+def _lowp_f64_check(lim, name, e64, p64, scale, what, floor=None):
+    floor = lim["f64_floor"] if floor is None else floor
     check(e64 <= BF16_F64_RATIO * p64 + floor * scale,
-          f"bf16 {name} {e64} from float64, more than {BF16_F64_RATIO}x the "
-          f"plain version's {p64} + {floor} x {scale} at {what}")
+          f"{lim['label']} {name} {e64} from float64, more than "
+          f"{BF16_F64_RATIO}x the plain version's {p64} + {floor} x "
+          f"{scale} at {what}")
 
 
-def _bf16_fwd_check(torch, K, q, k, v, causal, lens, what, plan=None):
-    """The bf16 forward kernel (as `flash_fwd_plan` says, or at `plan`)
-    against `_flash_plain` in bf16 (BF16_RTOL, BF16_OUT_ATOL x each
-    slice's max|V|; lse FLASH_TOL) and, at its own plan, float64
-    (BF16_F64_RATIO), two launches bit-identical, a zero-length row
-    exactly 0. Returns (max abs error, share of the limit, float64
-    distances, the plain version's; None at another plan)."""
+def _lowp_fwd_check(torch, K, q, k, v, causal, lens, what, plan=None):
+    """The bf16 or fp16 forward kernel (q's dtype; as `flash_fwd_plan`
+    says, or at `plan`) against `_flash_plain` in that dtype (the
+    dtype's LOWP limits: rtol, out_atol x each slice's max|V|; lse
+    FLASH_TOL) and, at its own plan, float64 (BF16_F64_RATIO), two
+    launches bit-identical, a zero-length row exactly 0. Returns (max
+    abs error, share of the limit, float64 distances, the plain
+    version's; None at another plan)."""
     own = plan is None
+    lim = _lowp(q.dtype)
     d = q.shape[-1]
     scale = d ** -0.5
     vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
@@ -2007,17 +2057,19 @@ def _bf16_fwd_check(torch, K, q, k, v, causal, lens, what, plan=None):
     out2, lse2 = K._flash_cuda(q, k, v, causal, scale, vl, plan)
     ref, ref_lse = K._flash_plain(q, k, v, causal, scale, vl)
     torch.cuda.synchronize()
-    check(out.dtype == torch.bfloat16 and lse.dtype == torch.float32,
-          f"bf16 flash output dtypes {out.dtype}, {lse.dtype}")
-    check(torch.isfinite(out).all().item(), f"bf16 flash {what} not finite")
+    tag = f"{lim['label']} flash"
+    check(out.dtype == q.dtype and lse.dtype == torch.float32,
+          f"{tag} output dtypes {out.dtype}, {lse.dtype}")
+    check(torch.isfinite(out).all().item(), f"{tag} {what} not finite")
     check(torch.equal(out, out2) and torch.equal(lse, lse2),
-          f"bf16 flash {what}: two launches gave other bits")
+          f"{tag} {what}: two launches gave other bits")
     err = (out.float() - ref.float()).abs().max().item()
-    share = _bf16_share(torch, out, ref, BF16_OUT_ATOL * _slice_max(v))
-    check(share <= 1.0, f"bf16 flash kernel vs plain at {what}: max abs "
-                        f"err {err}, {share:.3f} of the limit")
+    share = _bf16_share(torch, out, ref, lim["out_atol"] * _slice_max(v),
+                        lim["rtol"])
+    check(share <= 1.0, f"{tag} kernel vs plain at {what}: max abs err "
+                        f"{err}, {share:.3f} of the limit")
     check(torch.allclose(lse, ref_lse, **FLASH_TOL),
-          f"bf16 flash lse vs plain at {what}: max abs err "
+          f"{tag} lse vs plain at {what}: max abs err "
           f"{(lse - ref_lse).abs().max().item()}")
     for bi, n in enumerate(lens or []):
         if n == 0:
@@ -2030,21 +2082,41 @@ def _bf16_fwd_check(torch, K, q, k, v, causal, lens, what, plan=None):
            "lse": (lse.cpu().double() - l64)[live].abs().max().item()}
     p64 = {"out": (ref.cpu().double() - o64).abs().max().item(),
            "lse": (ref_lse.cpu().double() - l64)[live].abs().max().item()}
-    _bf16_f64_check("out", e64["out"], p64["out"], o64.abs().max().item(),
-                    what)
-    _bf16_f64_check("lse", e64["lse"], p64["lse"],
+    _lowp_f64_check(lim, "out", e64["out"], p64["out"],
+                    o64.abs().max().item(), what)
+    _lowp_f64_check(lim, "lse", e64["lse"], p64["lse"],
                     l64[live].abs().max().item(), what, FP32_F64_FLOOR)
     return err, share, e64, p64
 
 
-def _bf16_bwd_check(torch, K, q, k, v, do, causal, lens, what):
-    """The bf16 backward kernels (`flash_attention_bwd` as
-    `flash_bwd_plan` says) from the bf16 forward kernel's lse against
-    `_flash_bwd_plain` in bf16 (BF16_RTOL, BF16_GRAD_ATOL x each slice's
-    largest gradient) and float64 autograd (BF16_F64_RATIO), a repeated
-    launch bit-identical, dK / dV exactly 0 past each length, and only
-    the bf16 counters moving. Returns ({name: max abs err}, {name: share
-    of the limit}, float64 distances, the plain version's)."""
+def _bwd_cancel_floor(torch, q, k, v, do, out, causal, scale, lens):
+    """{dq, dk, dv: the part of the backward kernels' limit that fp32
+    leaves where a gradient cancels}, in float64 on q's device:
+    BWD_CANCEL x D x scale x (A |K|) for dQ and (A^T |Q|) for dK, A = p
+    (|dO| |V|^T + rowsum(|dO| |O|)) over each (b, h, q, k) of the mask's
+    p (`_f64_scores`); 0 for dV (no cancellation)."""
+    q, k, v, do, out = (t.detach() for t in (q, k, v, do, out))
+    s, live = _f64_scores(torch, q, k, causal, scale, lens)
+    q, k, v, do, out = (t.double().abs() for t in (q, k, v, do, out))
+    a = torch.softmax(s, -1) * live * (
+        do @ v.transpose(-1, -2) + (do * out).sum(-1, keepdim=True))
+    c = BWD_CANCEL * q.shape[-1] * scale
+    return {"dq": c * (a @ k), "dk": c * (a.transpose(-1, -2) @ q),
+            "dv": torch.zeros((), dtype=a.dtype, device=a.device)}
+
+
+def _lowp_bwd_check(torch, K, q, k, v, do, causal, lens, what):
+    """The bf16 or fp16 backward kernels (q's dtype; `flash_attention_bwd`
+    as `flash_bwd_plan` says) from that form's forward kernel's lse
+    against `_flash_bwd_plain` in that dtype (the dtype's LOWP rtol, and
+    grad_atol x each slice's largest gradient plus the cancellation
+    floor, `_bwd_cancel_floor`) and float64 autograd (BF16_F64_RATIO), a
+    repeated launch bit-identical, dK / dV exactly 0 past each length,
+    and only that form's counters moving. Returns ({name: max abs err},
+    {name: share of the limit}, float64 distances, the plain
+    version's)."""
+    lim = _lowp(q.dtype)
+    sfx = K._suffix(q.dtype)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = d ** -0.5
@@ -2060,32 +2132,35 @@ def _bf16_bwd_check(torch, K, q, k, v, do, causal, lens, what):
     refs = K._flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, vl)
     torch.cuda.synchronize()
     counts = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
-    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_bwd_bf16=2,
-                flash_bwd_dq_bf16=2 * (path == "split"))
-    check(counts == want, f"bf16 bwd {what}: launches {counts} != {want}")
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), **{
+        "flash_bwd" + sfx: 2, "flash_bwd_dq" + sfx: 2 * (path == "split")})
+    tag = f"{lim['label']} bwd"
+    check(counts == want, f"{tag} {what}: launches {counts} != {want}")
     check(all(torch.equal(a, r) for a, r in zip(got, again)),
-          f"bf16 bwd {what}: a repeated launch gave other bits")
+          f"{tag} {what}: a repeated launch gave other bits")
     errs, shares, e64, p64 = {}, {}, {}, {}
     refs64 = _attention_grads_f64(torch, q, k, v, do, causal, scale, lens)
+    floors = _bwd_cancel_floor(torch, q, k, v, do, out, causal, scale, lens)
     for name, g, ref, r64 in zip(("dq", "dk", "dv"), got, refs, refs64):
-        check(g.dtype == torch.bfloat16 and torch.isfinite(g).all().item(),
-              f"bf16 {name} at {what}: dtype {g.dtype} or not finite")
+        check(g.dtype == q.dtype and torch.isfinite(g).all().item(),
+              f"{tag} {name} at {what}: dtype {g.dtype} or not finite")
         errs[name] = (g.float() - ref.float()).abs().max().item()
-        shares[name] = _bf16_share(torch, g, ref,
-                                   BF16_GRAD_ATOL * _slice_max(ref))
+        atol = lim["grad_atol"] * _slice_max(ref) \
+            + 2 * floors[name].float().to(g.device)
+        shares[name] = _bf16_share(torch, g, ref, atol, lim["rtol"])
         check(shares[name] <= 1.0,
-              f"bf16 bwd {name} kernel vs plain at {what}: max abs err "
+              f"{tag} {name} kernel vs plain at {what}: max abs err "
               f"{errs[name]}, {shares[name]:.3f} of the limit")
         e64[name] = (g.cpu().double() - r64).abs().max().item()
         p64[name] = (ref.cpu().double() - r64).abs().max().item()
-        _bf16_f64_check(name, e64[name], p64[name],
+        _lowp_f64_check(lim, name, e64[name], p64[name],
                         r64.abs().max().item(), what)
     dk, dv = got[1], got[2]
     for bi, n in enumerate(lens or []):
         if n < sk:
             check(dk[bi, :, n:].abs().max().item() == 0.0
                   and dv[bi, :, n:].abs().max().item() == 0.0,
-                  f"bf16 dK/dV of keys past kv_len {n} must be exactly 0")
+                  f"{tag} dK/dV of keys past kv_len {n} must be exactly 0")
     return errs, shares, e64, p64
 
 
@@ -2135,28 +2210,29 @@ def _bf16_cases():
              (2, 2, 200, 150, 96, False, [150, 100]),
              # many items a persistent block (both Q buffers, the ring's
              # phases across items of other lengths), causal, and with the
-             # element-by-element copies. (No length of 1: there the true
-             # dQ and dK are 0 and both trees' kernels read noise of about
-             # 1e-6 against a limit scaled by it, ROADMAP Queue 3)
-             (8, 16, 512, 512, 64, True, [512, 3, 0, 257, 130, 64, 511, 2]),
-             (8, 16, 300, 300, 30, False, [300, 2, 299, 150, 0, 44, 200,
-                                           100])]
+             # element-by-element copies; one-key rows, whose dQ and dK
+             # cancel to 0 (BWD_CANCEL's floor)
+             (8, 16, 512, 512, 64, True, [512, 1, 0, 257, 1, 64, 511, 130]),
+             (8, 16, 300, 300, 30, False, [1, 300, 2, 1, 150, 0, 44, 299])]
     for d in (32, 96, 128, 18, 30):
         cases += [(2, 2, 512, 512, d, False, [300, 512]),
                   (1, 2, 1024, 1024, d, True, None)]
     return cases
 
 
-def _bf16_attention_times(torch, K, b, h, s, d, lens, backward=True):
-    """Device ms (CUDA-graph replay) of the bf16 kernels at (B, H, S, S,
-    D) with key lengths `lens`: the forward (as planned and at each of
-    its block shapes, `_fwd_plans`), the backward as planned,
-    its kernels alone, the plain versions and SDPA in bf16 (forward, and
-    backward as fwd+bwd - fwd), with the bounds of this run's data: the
-    live (q, k) pairs only, every bf16 array read or written once, fp32
-    lse / delta, at the bf16 tensor-core peak."""
+def _lowp_attention_times(torch, K, b, h, s, d, lens, backward=True,
+                          dtype=None):
+    """Device ms (CUDA-graph replay) of the bf16 (or `dtype`: fp16)
+    kernels at (B, H, S, S, D) with key lengths `lens`: the forward (as
+    planned and at each of its block shapes, `_fwd_plans`), the backward
+    as planned, its kernels alone, the plain versions and SDPA in that
+    dtype (forward, and backward as fwd+bwd - fwd), with the bounds of
+    this run's data: the live (q, k) pairs only, every 2-byte array read
+    or written once, fp32 lse / delta, at the bf16 (= fp16) tensor-core
+    peak."""
     g = torch.Generator(device="cpu").manual_seed(11)
-    q, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
+    dtype = dtype or torch.bfloat16
+    q, k, v, do = _lowp_qkv(torch, g, b, h, s, s, d, 4, dtype)
     vl = torch.tensor(lens, dtype=torch.int32, device=q.device)
     scale = d ** -0.5
     mask = (torch.arange(s, device=q.device)[None, :]
@@ -2165,7 +2241,7 @@ def _bf16_attention_times(torch, K, b, h, s, d, lens, backward=True):
     out, lse = K.flash_attention_fwd(q, k, v, kv_lengths=vl)
     delta = (out.float() * do.float()).sum(-1).reshape(b * h, s)
     args = (q, k, v, do, lse, delta, False, scale, vl)
-    plan = K.flash_bwd_plan(s, d, torch.bfloat16)
+    plan = K.flash_bwd_plan(s, d, dtype)
     fns = {"fwd": lambda: K.flash_attention_fwd(q, k, v, kv_lengths=vl),
            "fwd_plain": lambda: K._flash_plain(q, k, v, False, scale, vl),
            "sdpa_fwd": lambda: sdpa(q, k, v, attn_mask=mask)}
@@ -2216,8 +2292,9 @@ def _bf16_attention_times(torch, K, b, h, s, d, lens, backward=True):
     tflops = {name: f * pairs * d / (dev_ms[name] * 1e-3) / 1e12
               for name, f in flops.items() if name in dev_ms}
     of_bound = {name: dev_ms[name] / bounds[name][0] for name in bounds}
-    log(f"bf16 flash timed {(b, h, s, d)} lens {lens[:4]}...: plans fwd "
-        f"{K.flash_fwd_plan(b * h, s, s, d, torch.bfloat16)} bwd {plan}; "
+    log(f"{_lowp(dtype)['label']} flash timed {(b, h, s, d)} lens "
+        f"{lens[:4]}...: plans fwd "
+        f"{K.flash_fwd_plan(b * h, s, s, d, dtype)} bwd {plan}; "
         f"device (CUDA graph) {dev_ms}; per call {call_ms}; bounds "
         f"{bounds}; achieved TFLOP/s {tflops}; kernel / bound {of_bound}; "
         f"forward / SDPA forward {dev_ms['fwd'] / dev_ms['sdpa_fwd']:.3f}"
@@ -2226,92 +2303,80 @@ def _bf16_attention_times(torch, K, b, h, s, d, lens, backward=True):
     return dev_ms, call_ms, bounds, tflops
 
 
+def _lowp_checks(torch, K, g, dtype, cases):
+    """The 16-bit flash kernels in `dtype` against their plain versions
+    and float64 on `cases` (`_lowp_fwd_check` at the plan
+    `flash_fwd_plan` gives and at every other it takes,
+    `_lowp_bwd_check` on the path `flash_bwd_plan` gives), then a
+    misaligned q on both backward paths (fused at S = 100, split at 200:
+    element-by-element copies into the swizzled tiles). Returns the
+    worst error of each kernel, by counter name."""
+    label, sfx = _lowp(dtype)["label"], K._suffix(dtype)
+    fwd, bwd, dqn = ("flash_fwd" + sfx, "flash_bwd" + sfx,
+                     "flash_bwd_dq" + sfx)
+    worst = dict.fromkeys((fwd, bwd, dqn), 0.0)
+    for b, h, sq, sk, d, causal, lens in cases:
+        q, k, v, do = _lowp_qkv(torch, g, b, h, sq, sk, d, 4, dtype)
+        what = f"{(b, h, sq, sk, d)} causal={causal} lens=" \
+               f"{None if lens is None else lens[:4]}"
+        err, share, e64, p64 = _lowp_fwd_check(torch, K, q, k, v, causal,
+                                               lens, what)
+        shares = [share]
+        for name, p in _fwd_plans(K, q, k).items():
+            err_p, share_p, _, _ = _lowp_fwd_check(torch, K, q, k, v, causal,
+                                                   lens, f"{what} {name}", p)
+            err, shares = max(err, err_p), shares + [share_p]
+        worst[fwd] = max(worst[fwd], err)
+        berrs, bshares, be64, bp64 = _lowp_bwd_check(torch, K, q, k, v, do,
+                                                     causal, lens, what)
+        split = K.flash_bwd_plan(sk, d, dtype)["path"] == "split"
+        worst[bwd] = max(worst[bwd], berrs["dk"], berrs["dv"],
+                         0.0 if split else berrs["dq"])
+        if split:
+            worst[dqn] = max(worst[dqn], berrs["dq"])
+        log(f"{label} flash {what}: forward max abs err {err:.3e}, at most "
+            f"{max(shares):.3f} of the limit over {len(shares)} plans; vs "
+            f"float64 {e64} (plain {p64}); backward "
+            f"({'split' if split else 'fused'}) max abs err {berrs}, "
+            f"shares {bshares}; vs float64 {be64} (plain {bp64}); repeats "
+            f"bit-identical")
+        del q, k, v, do
+    for b, h, s, d, causal in ((2, 2, 100, 64, False), (2, 2, 200, 64, True)):
+        base = torch.randn(b * h * s * d + 1, generator=g).to(
+            torch.device("cuda", 0)).to(dtype)
+        q = base[1:].view(b, h, s, d)
+        _, k, v, do = _lowp_qkv(torch, g, b, h, s, s, d, 4, dtype)
+        check(q.is_contiguous() and q.data_ptr() % 16 != 0
+              and K._vec_copies(d, q, k, v) == 0, "q not misaligned")
+        lens = [70, s]
+        err, share, e64, p64 = _lowp_fwd_check(torch, K, q, k, v, causal,
+                                               lens, "misaligned q")
+        berrs, bshares, _, _ = _lowp_bwd_check(torch, K, q, k, v, do,
+                                               causal, lens, "misaligned q")
+        worst[fwd] = max(worst[fwd], err)
+        log(f"{label} flash misaligned q {(b, h, s, s, d)} causal={causal}: "
+            f"forward {err:.3e} ({share:.3f} of the limit), vs float64 "
+            f"{e64} (plain {p64}); backward {berrs} (shares {bshares})")
+    torch.cuda.empty_cache()
+    return worst
+
+
 def phase_flash_bf16(mx, torch):
     """The bfloat16 flash kernels against their bf16 plain versions and
-    float64 on `_bf16_cases` (the forward at every plan it takes, the
-    backward on the path `flash_bwd_plan` gives: fused, or the fused
-    kernel for dK / dV and then the dQ kernel), two launches
-    bit-identical, a misaligned q (element-by-element copies), and the
-    forward alone on many items with one-key rows. Then
+    float64 on `_bf16_cases` and a misaligned q (`_lowp_checks`). Then
     timed: the forward at the serving prefill (its row) and the training
     shape, the fused backward at the training shape (its row); the dQ
     kernel's row is filled at BERT's shape by
     `phase_bert_attention_bf16`. Returns the three rows."""
     K = mx.ops.kernels
     g = torch.Generator(device="cpu").manual_seed(10)
-    worst = {"flash_fwd_bf16": 0.0, "flash_bwd_bf16": 0.0,
-             "flash_bwd_dq_bf16": 0.0}
-    for b, h, sq, sk, d, causal, lens in _bf16_cases():
-        q, k, v, do = _bf16_qkv(torch, g, b, h, sq, sk, d, 4)
-        what = f"{(b, h, sq, sk, d)} causal={causal} lens=" \
-               f"{None if lens is None else lens[:4]}"
-        err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, causal,
-                                               lens, what)
-        shares = [share]
-        for name, p in _fwd_plans(K, q, k).items():
-            err_p, share_p, _, _ = _bf16_fwd_check(torch, K, q, k, v, causal,
-                                                   lens, f"{what} {name}", p)
-            err, shares = max(err, err_p), shares + [share_p]
-        worst["flash_fwd_bf16"] = max(worst["flash_fwd_bf16"], err)
-        berrs, bshares, be64, bp64 = _bf16_bwd_check(torch, K, q, k, v, do,
-                                                     causal, lens, what)
-        split = K.flash_bwd_plan(sk, d, torch.bfloat16)["path"] == "split"
-        worst["flash_bwd_bf16"] = max(worst["flash_bwd_bf16"], berrs["dk"],
-                                      berrs["dv"],
-                                      0.0 if split else berrs["dq"])
-        if split:
-            worst["flash_bwd_dq_bf16"] = max(worst["flash_bwd_dq_bf16"],
-                                             berrs["dq"])
-        log(f"bf16 flash {what}: forward max abs err {err:.3e}, at most "
-            f"{max(shares):.3f} of the limit over {len(shares)} plans; vs "
-            f"float64 {e64} (plain {p64}); backward "
-            f"({'split' if split else 'fused'}) max abs err {berrs}, "
-            f"shares {bshares}; vs float64 {be64} (plain {bp64}); repeats "
-            f"bit-identical")
-    # a misaligned q on both backward paths (fused at S = 100, split at
-    # 200): element-by-element copies into the swizzled tiles
-    for b, h, s, d, causal in ((2, 2, 100, 64, False), (2, 2, 200, 64, True)):
-        base = torch.randn(b * h * s * d + 1, generator=g).to(
-            torch.device("cuda", 0)).to(torch.bfloat16)
-        q = base[1:].view(b, h, s, d)
-        _, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
-        check(q.is_contiguous() and q.data_ptr() % 16 != 0
-              and K._vec_copies(d, q, k, v) == 0, "q not misaligned")
-        lens = [70, s]
-        err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, causal,
-                                               lens, "misaligned q")
-        berrs, bshares, _, _ = _bf16_bwd_check(torch, K, q, k, v, do,
-                                               causal, lens, "misaligned q")
-        worst["flash_fwd_bf16"] = max(worst["flash_fwd_bf16"], err)
-        log(f"bf16 flash misaligned q {(b, h, s, s, d)} causal={causal}: "
-            f"forward {err:.3e} ({share:.3f} of the limit), vs float64 "
-            f"{e64} (plain {p64}); backward {berrs} (shares {bshares})")
-    # the forward alone at every plan on many items a block with one-key
-    # rows, which `_bf16_cases` leaves out for the backward's check
-    # (ROADMAP Queue 3 item 9)
-    for b, h, s, d, causal, lens in (
-            (8, 16, 512, 64, True, [512, 1, 0, 257, 1, 64, 511, 130]),
-            (8, 16, 300, 30, False, [1, 300, 2, 1, 150, 0, 44, 299])):
-        q, k, v, _ = _bf16_qkv(torch, g, b, h, s, s, d, 4)
-        what = f"{(b, h, s, s, d)} causal={causal} lens={lens}"
-        err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, causal,
-                                               lens, what)
-        shares = [share]
-        for name, p in _fwd_plans(K, q, k).items():
-            err_p, share_p, _, _ = _bf16_fwd_check(torch, K, q, k, v, causal,
-                                                   lens, f"{what} {name}", p)
-            err, shares = max(err, err_p), shares + [share_p]
-        worst["flash_fwd_bf16"] = max(worst["flash_fwd_bf16"], err)
-        log(f"bf16 flash forward {what}: max abs err {err:.3e}, at most "
-            f"{max(shares):.3f} of the limit over {len(shares)} plans; vs "
-            f"float64 {e64} (plain {p64}); repeats bit-identical")
-
+    worst = _lowp_checks(torch, K, g, torch.bfloat16, _bf16_cases())
     src_f = "mxnet_tpu_torch/ops/csrc/flash_fwd.cu"
     src_b = "mxnet_tpu_torch/ops/csrc/flash_bwd.cu"
-    serve, serve_call, serve_b, _ = _bf16_attention_times(
+    serve, serve_call, serve_b, _ = _lowp_attention_times(
         torch, K, 1, 8, 128, 64, [77], backward=False)
     tb, th, ts, _, td, _, tl = _train_attention_cases()[1]
-    train, train_call, train_b, _ = _bf16_attention_times(
+    train, train_call, train_b, _ = _lowp_attention_times(
         torch, K, tb, th, ts, td, tl)
     fwd_row = dict(
         name="flash_fwd_bf16", route="cuda", source=src_f,
@@ -2339,62 +2404,162 @@ def phase_flash_bf16(mx, torch):
     return [fwd_row, bwd_row, dq_row]
 
 
-def phase_ln_bf16(mx, torch):
-    """The bf16 LayerNorm kernel against `_ln_plain` (y LN_BF16_TOL, mean
-    and rstd LN_TOL) with gamma / beta in fp32 and in bf16, at every
-    width of `phase_ln` and its edge shapes, and at D = 2050, 9001 and
-    12000 (each launch form of `layer_norm.cu` at a checked width: 128
-    threads x 2 or 4 chunks, 256 x 4, strided above 8192), two launches
-    bit-identical; timed with bf16 gamma / beta (as `Block.cast` leaves
-    them) at LN_TIMED beside `F.layer_norm` in bf16 and, for the one-warp form,
-    the launch floor of its grid; BERT's shape (8192, 768) the row's
-    own."""
+def _f16_cases():
+    """(B, H, Sq, Sk, D, causal, kv_lengths) of the float16 checks: the
+    serving prefill, the training step's three attentions (B=32, H=8,
+    S=64, D=64, lengths 5-64), BERT's shape (B=16, H=12, S=512, D=64,
+    `_bert_lengths`), and causal and key-length cases over both block
+    shapes of the forward, both paths of the backward at DP = 64 and 128,
+    one-key and zero-length rows, and D no multiple of 8 (the element
+    copies)."""
+    return [(1, 8, 128, 128, 64, False, [77]), *_train_attention_cases(),
+            (BERT_B, BERT_H, BERT_S, BERT_S, 64, False,
+             _bert_lengths(BERT_B)),
+            (2, 3, 256, 300, 64, False, [290, 1]),
+            (1, 2, 300, 170, 64, True, None),
+            (2, 2, 300, 200, 128, True, [150, 200]),
+            (1, 2, 40, 64, 128, True, [50]),
+            (8, 16, 512, 512, 64, True, [512, 1, 0, 257, 1, 64, 511, 130]),
+            (2, 2, 45, 45, 30, True, [45, 17])]
+
+
+def phase_flash_f16(mx, torch):
+    """The float16 flash kernels (`mxtt_flash_fwd_f16`,
+    `mxtt_flash_bwd_f16`, `mxtt_flash_bwd_dq_f16`) against their float16
+    plain versions and float64 on `_f16_cases` and a misaligned q
+    (`_lowp_checks`, F16_* limits). Then timed by CUDA-graph
+    replay beside SDPA in float16 and the plain versions: the forward at
+    the serving prefill (its row), the training shape and BERT's; the
+    fused backward at the training shape (its row) and, as dK / dV, at
+    BERT's; the dQ kernel at BERT's (its row). Returns the three rows."""
     K = mx.ops.kernels
+    F16 = torch.float16
+    g = torch.Generator(device="cpu").manual_seed(15)
+    worst = _lowp_checks(torch, K, g, F16, _f16_cases())
+    serve, serve_call, serve_b, _ = _lowp_attention_times(
+        torch, K, 1, 8, 128, 64, [77], backward=False, dtype=F16)
+    tb, th, ts, _, td, _, tl = _train_attention_cases()[1]
+    train, train_call, train_b, _ = _lowp_attention_times(
+        torch, K, tb, th, ts, td, tl, dtype=F16)
+    blens = _bert_lengths(BERT_B)
+    bert, _, bert_b, bert_tf = _lowp_attention_times(
+        torch, K, BERT_B, BERT_H, BERT_S, 64, blens, dtype=F16)
+    bshape = [BERT_B, BERT_H, BERT_S, BERT_S, 64]
+    src_f = "mxnet_tpu_torch/ops/csrc/flash_fwd.cu"
+    src_b = "mxnet_tpu_torch/ops/csrc/flash_bwd.cu"
+    fwd_row = dict(
+        name="flash_fwd_f16", route="cuda", source=src_f,
+        replaces="mxnet_tpu/ops/pallas_kernels.py:219",
+        max_abs_err=worst["flash_fwd_f16"], ms=serve["fwd"],
+        plain_ms=serve["fwd_plain"], bound_ms=serve_b["fwd"][0],
+        bound_by=serve_b["fwd"][1], library_ms=serve["sdpa_fwd"],
+        call_ms=serve_call["fwd"],
+        per_shape=[dict(shape=[tb, th, ts, ts, td], lens=tl,
+                        ms=train["fwd"], plain_ms=train["fwd_plain"],
+                        bound_ms=train_b["fwd"][0],
+                        bound_by=train_b["fwd"][1],
+                        library_ms=train["sdpa_fwd"]),
+                   dict(shape=bshape, lens=blens, ms=bert["fwd"],
+                        plain_ms=bert["fwd_plain"],
+                        bound_ms=bert_b["fwd"][0],
+                        bound_by=bert_b["fwd"][1],
+                        library_ms=bert["sdpa_fwd"], tflops=bert_tf["fwd"],
+                        of_bound=bert["fwd"] / bert_b["fwd"][0],
+                        of_library=bert["fwd"] / bert["sdpa_fwd"])])
+    bwd_row = dict(
+        name="flash_bwd_f16", route="cuda", source=src_b,
+        replaces="mxnet_tpu/ops/pallas_kernels.py:417",
+        max_abs_err=worst["flash_bwd_f16"], ms=train["fused"],
+        plain_ms=train["bwd_plain"], bound_ms=train_b["fused"][0],
+        bound_by=train_b["fused"][1], library_ms=train["sdpa_bwd"],
+        call_ms=train_call["fused"],
+        per_shape=[dict(shape=bshape, lens=blens, path="split",
+                        ms=bert["fused"], bound_ms=bert_b["fused"][0],
+                        bound_by=bert_b["fused"][1], pair_ms=bert["bwd"],
+                        pair_bound_ms=bert_b["bwd"][0],
+                        plain_ms=bert["bwd_plain"], library_ms=None,
+                        pair_library_ms=bert["sdpa_bwd"],
+                        tflops=bert_tf["fused"],
+                        pair_tflops=bert_tf["bwd"],
+                        of_bound=bert["fused"] / bert_b["fused"][0],
+                        pair_of_library=bert["bwd"] / bert["sdpa_bwd"])])
+    dq_row = dict(
+        name="flash_bwd_dq_f16", route="cuda", source=src_b,
+        replaces="mxnet_tpu/ops/pallas_kernels.py:484",
+        max_abs_err=worst["flash_bwd_dq_f16"], ms=bert["dq"],
+        plain_ms=bert["bwd_plain"], bound_ms=bert_b["dq"][0],
+        bound_by=bert_b["dq"][1], library_ms=None, shape=bshape,
+        pair_ms=bert["bwd"], pair_library_ms=bert["sdpa_bwd"],
+        per_shape=[dict(shape=bshape, lens=blens, tflops=bert_tf["dq"],
+                        of_bound=bert["dq"] / bert_b["dq"][0])])
+    torch.cuda.empty_cache()
+    return [fwd_row, bwd_row, dq_row]
+
+
+def _phase_ln_16(mx, torch, dtype, timed_gamma):
+    """A 16-bit LayerNorm kernel (x in `dtype`, bf16 or fp16) against
+    `_ln_plain` (y the dtype's LOWP ln_tol, mean and rstd LN_TOL) with
+    gamma / beta in fp32 and in x's dtype, at every width of `phase_ln`
+    and its edge shapes, and at D = 2050, 9001 and 12000 (each launch
+    form of `layer_norm.cu` at a checked width: 128 threads x 2 or 4
+    chunks, 256 x 4, strided above 8192), two launches bit-identical;
+    timed with gamma / beta in `timed_gamma` at LN_TIMED beside
+    `F.layer_norm` on the same x and gamma / beta in x's dtype (it takes
+    no other: 2 x 2 D bytes fewer than fp32 ones) and, for the one-warp
+    form, the launch floor of its grid; BERT's shape (8192, 768) the
+    row's own."""
+    K = mx.ops.kernels
+    lim = _lowp(dtype)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cpu").manual_seed(13)
     worst = 0.0
+    tag = f"{lim['label']} layer norm"
     for rows, d in [*LN_TIMED, (7, 512), (1, 512), (4099, 512), (7, 768),
                     (1, 1024), (13, 200), (1000, 1032), (3, 8192),
                     (1, 33), (5, 2050), (3, 9001), (5, 12000)]:
-        for gdt in (torch.float32, torch.bfloat16):
+        for gdt in (torch.float32, dtype):
             x = (3 * torch.randn((rows, d), generator=g) + 1).to(dev).to(
-                torch.bfloat16)
+                dtype)
             ga, be = (torch.randn(d, generator=g).to(dev).to(gdt)
                       for _ in range(2))
             got = K.layer_norm_fwd(x, ga, be, 1e-5)
             again = K.layer_norm_fwd(x, ga, be, 1e-5)
             ref = K._ln_plain(x, ga, be, 1e-5)
             torch.cuda.synchronize()
-            check(got[0].dtype == torch.bfloat16
+            check(got[0].dtype == dtype
                   and all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"bf16 layer norm ({rows}, {d}): dtype {got[0].dtype} or "
-                  f"two launches gave other bits")
+                  f"{tag} ({rows}, {d}): dtype {got[0].dtype} or two "
+                  f"launches gave other bits")
             errs = [(a.float() - r.float()).abs().max().item()
                     for a, r in zip(got, ref)]
             check(torch.allclose(got[0].float(), ref[0].float(),
-                                 **LN_BF16_TOL)
+                                 **lim["ln_tol"])
                   and all(torch.allclose(a, r, **LN_TOL)
                           for a, r in zip(got[1:], ref[1:])),
-                  f"bf16 layer norm kernel vs plain at ({rows}, {d}) gamma "
-                  f"{gdt}: max abs errs (y, mean, rstd) {errs}")
+                  f"{tag} kernel vs plain at ({rows}, {d}) gamma {gdt}: max "
+                  f"abs errs (y, mean, rstd) {errs}")
             worst = max(worst, *errs)
-            log(f"bf16 layer norm ({rows}, {d}) gamma {gdt}: max abs err "
-                f"(y, mean, rstd) {errs} (y rtol={LN_BF16_TOL['rtol']} "
-                f"atol={LN_BF16_TOL['atol']}; mean, rstd LN_TOL); repeat "
+            log(f"{tag} ({rows}, {d}) gamma {gdt}: max abs err (y, mean, "
+                f"rstd) {errs} (y rtol={lim['ln_tol']['rtol']} "
+                f"atol={lim['ln_tol']['atol']}; mean, rstd LN_TOL); repeat "
                 f"bit-identical")
     per_shape = []
     for rows, d in LN_TIMED:
-        x = torch.randn((rows, d), generator=g).to(dev).to(torch.bfloat16)
-        ga, be = (torch.randn(d, generator=g).to(dev).to(torch.bfloat16)
+        x = torch.randn((rows, d), generator=g).to(dev).to(dtype)
+        ga, be = (torch.randn(d, generator=g).to(dev).to(timed_gamma)
                   for _ in range(2))
+        # F.layer_norm takes gamma / beta of x's dtype only
+        lga, lbe = ga.to(dtype), be.to(dtype)
         fns = {"kernel": lambda: K.layer_norm_fwd(x, ga, be, 1e-5),
                "plain": lambda: K._ln_plain(x, ga, be, 1e-5),
                "torch": lambda: torch.nn.functional.layer_norm(
-                   x, (d,), ga, be, 1e-5)}
+                   x, (d,), lga, lbe, 1e-5)}
         call = cuda_ms(fns["kernel"])
         dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
-        # bf16 x and y once each, gamma and beta, fp32 mean and rstd
-        bms, by = bound(2 * (2 * rows * d + 2 * d) + 4 * 2 * rows,
+        # x and y once each (2 bytes an element), gamma and beta, fp32
+        # mean and rstd
+        gb = 4 if timed_gamma == torch.float32 else 2
+        bms, by = bound(2 * 2 * rows * d + gb * 2 * d + 4 * 2 * rows,
                         8 * rows * d)
         row = dict(shape=[rows, d], ms=dev_ms["kernel"],
                    plain_ms=dev_ms["plain"], library_ms=dev_ms["torch"],
@@ -2404,20 +2569,33 @@ def phase_ln_bf16(mx, torch):
             # empty kernel: where the bound lies under it, it is the floor
             row["launch_floor_ms"] = launch_floor_ms(mx, -(-rows // 8), 256)
         per_shape.append(row)
-        log(f"bf16 layer norm ({rows}, {d}): device (CUDA graph) {dev_ms}; "
-            f"per call {call:.5f}; bound {bms:.6f} ms ({by}); launch floor "
-            f"{row.get('launch_floor_ms')}; kernel / bound "
+        log(f"{tag} ({rows}, {d}) gamma {timed_gamma}: device (CUDA graph) "
+            f"{dev_ms}; per call {call:.5f}; bound {bms:.6f} ms ({by}); "
+            f"launch floor {row.get('launch_floor_ms')}; kernel / bound "
             f"{dev_ms['kernel'] / bms:.2f}, kernel / F.layer_norm "
             f"{dev_ms['kernel'] / dev_ms['torch']:.3f}")
     top = next(r for r in per_shape if r["shape"] == [BERT_B * BERT_S, 768])
-    return dict(name="layer_norm_bf16", route="cuda",
-                source="mxnet_tpu_torch/ops/csrc/layer_norm.cu",
+    return dict(name="layer_norm" + mx.ops.kernels._suffix(dtype),
+                route="cuda", source="mxnet_tpu_torch/ops/csrc/layer_norm.cu",
                 replaces="mxnet_tpu/ops/pallas_kernels.py:1209",
                 max_abs_err=worst,
                 per_shape=[r for r in per_shape if r is not top],
                 **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms", "call_ms",
                                        "launch_floor_ms")})
+
+
+def phase_ln_bf16(mx, torch):
+    """The bf16 LayerNorm kernel (`_phase_ln_16`), timed with bf16 gamma
+    / beta, as `Block.cast` leaves them."""
+    return _phase_ln_16(mx, torch, torch.bfloat16, torch.bfloat16)
+
+
+def phase_ln_f16(mx, torch):
+    """The float16 LayerNorm kernel (`_phase_ln_16`), timed with fp32
+    gamma / beta, as float16 AMP leaves them (`_KEEP_FP32`), beside
+    `F.layer_norm` in float16."""
+    return _phase_ln_16(mx, torch, torch.float16, torch.float32)
 
 
 def fp32_kernel_times(mx, torch):
@@ -2486,7 +2664,7 @@ def bf16_kernel_times(mx, torch):
             ("training", (train[0], train[1], train[2], train[4],
                           train[6])),
             ("bert", (BERT_B, BERT_H, BERT_S, 64, _bert_lengths(BERT_B)))):
-        q, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
+        q, k, v, do = _lowp_qkv(torch, g, b, h, s, s, d, 4)
         vl = torch.tensor(lens, dtype=torch.int32, device=dev)
         times[f"flash_fwd_bf16 {tag}"] = graph_ms(
             lambda: K.flash_attention_fwd(q, k, v, kv_lengths=vl), calls=5,
@@ -2524,7 +2702,7 @@ def bf16_backward_digest(mx, torch):
     K = mx.ops.kernels
     g = torch.Generator(device="cpu").manual_seed(16)
     b, h, s, d = BERT_B, BERT_H, BERT_S, 64
-    q, k, v, do = _bf16_qkv(torch, g, b, h, s, s, d, 4)
+    q, k, v, do = _lowp_qkv(torch, g, b, h, s, s, d, 4)
     vl = torch.tensor(_bert_lengths(b), dtype=torch.int32, device=q.device)
     out, lse = K._flash_plain(q, k, v, False, d ** -0.5, vl)
     delta = (out.float() * do.float()).sum(-1).reshape(b * h, s)
@@ -3885,7 +4063,7 @@ def phase_bert_train_bf16(mx, torch):
 def phase_bert_attention_bf16(mx, torch, rows):
     """Phase 10 in bf16: the bf16 kernels at BERT-base's attention shape
     (B=16, H=12, S=512, D=64, `_bert_lengths`) against their bf16 plain
-    versions and float64 (`_bf16_fwd_check`, `_bf16_bwd_check`: the
+    versions and float64 (`_lowp_fwd_check`, `_lowp_bwd_check`: the
     split path), then timed there beside SDPA in bf16: the dQ kernel's
     row, and `per_shape` entries of the forward's and the fused
     kernel's rows."""
@@ -3893,18 +4071,18 @@ def phase_bert_attention_bf16(mx, torch, rows):
     B, H, S, D = BERT_B, BERT_H, BERT_S, 64
     lens = _bert_lengths(B)
     g = torch.Generator(device="cpu").manual_seed(14)
-    q, k, v, do = _bf16_qkv(torch, g, B, H, S, S, D, 4)
+    q, k, v, do = _lowp_qkv(torch, g, B, H, S, S, D, 4)
     what = f"bert {(B, H, S, D)}"
-    err, share, e64, p64 = _bf16_fwd_check(torch, K, q, k, v, False, lens,
+    err, share, e64, p64 = _lowp_fwd_check(torch, K, q, k, v, False, lens,
                                            what)
-    berrs, bshares, be64, bp64 = _bf16_bwd_check(torch, K, q, k, v, do,
+    berrs, bshares, be64, bp64 = _lowp_bwd_check(torch, K, q, k, v, do,
                                                  False, lens, what)
     log(f"bf16 bert attention {(B, H, S, D)} lens {lens}: forward {err:.3e} "
         f"({share:.3f} of the limit), vs float64 {e64} (plain {p64}); "
         f"backward (split) {berrs} (shares {bshares}), vs float64 {be64} "
         f"(plain {bp64})")
     del q, k, v, do
-    dev_ms, call_ms, b_, tf = _bf16_attention_times(torch, K, B, H, S, D,
+    dev_ms, call_ms, b_, tf = _lowp_attention_times(torch, K, B, H, S, D,
                                                     lens)
     shape = [B, H, S, S, D]
     rows["flash_fwd_bf16"]["max_abs_err"] = max(
@@ -4264,12 +4442,13 @@ def _captured_vs_eager(mx, torch, tag, model, make_trainer, loss_fn,
     `trainer.capture(loss_fn)`, each from the same weights with a fresh
     trainer: the steps' losses and each parameter after the last step no
     further from the first eager run than CAPTURE_RATIO times the
-    largest distance between eager runs plus an ulp, no fallback, the
-    warm steps' launches
-    equal to the eager steps' (`want` counters above 0), one graph
-    launch and no kernel launch from the host in a profiled warm step.
-    Logs tokens/s over steps 3 on with the spread, peak memory and each
-    form's busy share; returns the captured run's launches."""
+    largest distance between eager runs plus an ulp, under float16 AMP
+    the same loss scale after every step (so the same steps skipped), no
+    fallback, the warm steps' launches equal to the eager steps' (`want`
+    counters above 0), one graph launch and no kernel launch from the
+    host in a profiled warm step. Logs tokens/s over steps 3 on with the
+    spread, peak memory and each form's busy share; returns the captured
+    and the first eager run's launches."""
     K = mx.ops.kernels
     start = {n: t.clone() for n, t in _param_tensors(model).items()}
     forms = [f"eager{k}" for k in range(CAPTURE_EAGER_RUNS)] + ["captured"]
@@ -4288,10 +4467,17 @@ def _captured_vs_eager(mx, torch, tag, model, make_trainer, loss_fn,
         else:
             def step():
                 return eager_step(trainer)
+        scales = []
+
+        def scaled_step(step=step):
+            loss = step()
+            if mx.amp.scaler() is not None:
+                scales.append(mx.amp.scaler().loss_scale)
+            return loss
         losses, per_step, step_s, launches = _timed_steps(
-            torch, K, step, CAPTURE_STEPS)
+            torch, K, scaled_step, CAPTURE_STEPS)
         run = dict(losses=np.asarray(losses), per_step=per_step,
-                   step_s=step_s, launches=launches,
+                   step_s=step_s, launches=launches, scales=scales,
                    peak=torch.cuda.max_memory_allocated() / 2 ** 30,
                    weights={n: t.clone() for n, t in
                             _param_tensors(model).items()})
@@ -4327,6 +4513,8 @@ def _captured_vs_eager(mx, torch, tag, model, make_trainer, loss_fn,
     summary = dict(steps=CAPTURE_STEPS, tokens_per_step=tokens,
                    losses_eager=e["losses"].tolist(),
                    losses_captured=c["losses"].tolist(),
+                   loss_scales_eager=e["scales"],
+                   loss_scales_captured=c["scales"],
                    loss_captured_vs_eager=loss_dist,
                    loss_spread_of_eager_runs=loss_spread,
                    worst_param_share_of_limit=worst[0],
@@ -4357,6 +4545,8 @@ def _captured_vs_eager(mx, torch, tag, model, make_trainer, loss_fn,
                                          f"loss {c['losses']}")
     check(loss_dist <= loss_lim, f"{tag}: captured losses {loss_dist:.3e} "
           f"from eager, eager runs {loss_spread:.3e} apart")
+    check(c["scales"] == e["scales"], f"{tag}: captured loss scales "
+          f"{c['scales']} != eager {e['scales']}")
     check(not bad, f"{tag}: parameters beyond their limit (name, distance, "
                    f"eager spread): {bad[:5]}")
     for i in range(1, CAPTURE_STEPS):
@@ -4373,7 +4563,7 @@ def _captured_vs_eager(mx, torch, tag, model, make_trainer, loss_fn,
         check(graphs == 1 and kernels == 0,
               f"{tag}: a warm captured step made {graphs} graph launches "
               f"and {kernels} kernel launches from the host ({calls})")
-    return c["launches"]
+    return c["launches"], e["launches"]
 
 
 def _bert_bench_loss(mx, model, ce):
@@ -4408,7 +4598,7 @@ def phase_bert_train_bf16_captured(mx, torch):
         _bert_bench_loss(mx, model, ce),
         lambda tr: _bert_step(mx, model, tr, ce, batch, True), batch, 1,
         BERT_B * BERT_S, ("flash_fwd_bf16", "flash_bwd_bf16",
-                          "flash_bwd_dq_bf16", "layer_norm_bf16"))
+                          "flash_bwd_dq_bf16", "layer_norm_bf16"))[0]
     del model, batch
     torch.cuda.empty_cache()
     return launches
@@ -4459,10 +4649,124 @@ def phase_nmt_train_captured(mx, torch, init_file):
             lambda tr, model=model, batch=batch, bench=bench: _train_step(
                 mx, model, tr, ce, batch, bench),
             batch, 1 if bench else b, b * TRAIN_S * 2,
-            ("flash_fwd", "flash_bwd", "layer_norm"))
+            ("flash_fwd", "flash_bwd", "layer_norm"))[0]
         del model, batch
         torch.cuda.empty_cache()
     return out["nmt captured"], out["nmt bf16 captured"]
+
+
+def _amp_step(mx, trainer, loss_fn, batch, batch_size):
+    """One eager float16 AMP step: `loss_fn(*batch)` recorded, scaled by
+    the installed DynamicLossScaler for the backward (`amp.scale_loss`),
+    then `trainer.step(batch_size)`, which unscales the gradients, judges
+    the overflow, skips or updates and moves the scale. Returns the
+    unscaled loss."""
+    with mx.autograd.record():
+        loss = loss_fn(*batch)
+        scaled = mx.amp.scale_loss(loss, trainer)
+    scaled.backward()
+    trainer.step(batch_size)
+    return loss
+
+
+def phase_amp_f16(mx, torch, init_file):
+    """float16 AMP (`amp.init("float16")`, MXNet's original AMP mode)
+    training at full width through Gluon, eager and captured, each
+    through `_captured_vs_eager` (three eager runs of CAPTURE_STEPS steps
+    and one captured run, from the same weights, a fresh trainer and
+    scaler each): (a) `BERTForPretraining(bert_base(max_length=512))`
+    from `mx.random.seed(0)` at bench_bert.py's shape (B=16, S=512, 76
+    masked; the losses on logits cast to fp32), Adam 1e-4 on the
+    batch-mean loss's gradient; (b) `transformer_base` on phase 5's
+    initial weights at B=32 of 64 + 64 tokens, Adam 3e-4 at rescale 1/B.
+    Under AMP every Dense runs in float16, so every attention launches
+    the float16 flash kernels (BERT's split path: `flash_bwd_dq_f16` too)
+    and BERT's MLM LayerNorm `layer_norm_f16` (the residual sums promote
+    to fp32, which the fp32 LayerNorm takes, as in the JAX package).
+    Returns ({path: launches} of the four runs)."""
+    out = {}
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    try:
+        mx.random.seed(0)
+        model = _bert_pretraining(mx)
+        model.initialize(ctx=mx.gpu(0))
+        batch = _bert_batch(mx, BERT_B, BERT_S, mx.gpu(0))
+        loss_fn = _bert_bench_loss(mx, model, ce)
+
+        def make_trainer():
+            mx.amp.init("float16")
+            return mx.gluon.Trainer(model.collect_params(), "adam",
+                                    {"learning_rate": 1e-4})
+        cap, eager = _captured_vs_eager(
+            mx, torch, "bert f16 amp", model, make_trainer, loss_fn,
+            lambda tr: _amp_step(mx, tr, loss_fn, batch, 1), batch, 1,
+            BERT_B * BERT_S, ("flash_fwd_f16", "flash_bwd_f16",
+                              "flash_bwd_dq_f16", "layer_norm_f16"))
+        out.update(bert_train_f16=eager, bert_train_f16_captured=cap)
+        del model, batch, loss_fn
+        torch.cuda.empty_cache()
+        model = mx.models.transformer_base(VOCAB, max_length=TRAIN_S,
+                                           dropout=0.0)
+        model.load_parameters(init_file, ctx=mx.gpu(0))
+        batch = _train_batch(mx, TRAIN_B, TRAIN_S, mx.gpu(0))
+        loss_fn = _nmt_loss(mx, model, ce, True)
+
+        def make_trainer():
+            mx.amp.init("float16")
+            return mx.gluon.Trainer(model.collect_params(), "adam",
+                                    {"learning_rate": 3e-4})
+        cap, eager = _captured_vs_eager(
+            mx, torch, "nmt f16 amp", model, make_trainer, loss_fn,
+            lambda tr: _amp_step(mx, tr, loss_fn, batch, TRAIN_B), batch,
+            TRAIN_B, TRAIN_B * TRAIN_S * 2,
+            ("flash_fwd_f16", "flash_bwd_f16", "layer_norm"))
+        out.update(nmt_train_f16=eager, nmt_train_f16_captured=cap)
+        del model, batch, loss_fn
+    finally:
+        mx.amp.reset()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_cast(mx, torch):
+    """A TransformerNMT after `cast("bfloat16")` served on the card:
+    `transformer_base(36548)` from `mx.random.seed(0)`, cast, behind
+    `Server(engine_driven=False)` with the fast path's settings, the 16
+    requests of `_fastpath_requests` at k = 0 and at speculative_k=3
+    (`_fast_run`: every prefill launches the flash forward, every decode
+    turn the paged kernel, once a layer). The positional table stays fp32,
+    so the activations, the pages and the kernels are fp32 (the JAX
+    runtime takes the position table's dtype); speculation must give the
+    k = 0 server's greedy tokens (or part at a near tie). Returns the
+    launches of both servers, summed."""
+    mx.random.seed(0)
+    model = mx.models.transformer_base(VOCAB, dropout=0.0)
+    model.initialize(ctx=mx.gpu(0))
+    model.cast("bfloat16")
+    reqs = _fastpath_requests()
+    ref_srv, ref_h, ref_sum, total = _fast_run(
+        mx, torch, model, reqs, "cast k=0", "ragged_paged_attention")
+    check(ref_srv.runtime.k_pages.dtype == torch.float32,
+          f"cast server pages {ref_srv.runtime.k_pages.dtype}")
+    log("serve cast " + json.dumps(ref_sum))
+    ref = [list(h.tokens) for h in ref_h]
+    srv, handles, summary, launches = _fast_run(
+        mx, torch, model, reqs, f"cast k={SPEC_K}",
+        "ragged_paged_attention_multi", speculative_k=SPEC_K)
+    got = [list(h.tokens) for h in handles]
+    summary["match_vs_k0"] = _match_rate(ref, got)
+    log("serve cast " + json.dumps(summary))
+    for i, req in enumerate(reqs):
+        how = _same_or_near_tie(ref_srv.runtime, req, got[i], ref[i],
+                                LOGITS_TOL, f"cast k={SPEC_K} vs k=0 "
+                                            f"request {i}")
+        if how != "greedy tokens identical":
+            log(f"serve cast request {i}: {how}")
+    srv.close()
+    ref_srv.close()
+    del model
+    torch.cuda.empty_cache()
+    return {n: total[n] + launches[n] for n in total}
 
 
 def _snapshot(trainer, model):
@@ -5133,7 +5437,8 @@ def main(argv=()):
     kernels = [phase_flash(mx, torch), phase_rpa(mx, torch),
                *phase_rpa_fastpath(mx, torch), *bwd_rows,
                phase_ln(mx, torch), *phase_conv1x1(mx, torch),
-               *phase_flash_bf16(mx, torch), phase_ln_bf16(mx, torch)]
+               *phase_flash_bf16(mx, torch), phase_ln_bf16(mx, torch),
+               *phase_flash_f16(mx, torch), phase_ln_f16(mx, torch)]
     rtc_row, rtc_launches = phase_rtc(mx, torch)
     kernels.append(rtc_row)
     model, srv, reqs, handles, serve_launches = phase_serve(mx, torch)
@@ -5142,6 +5447,8 @@ def main(argv=()):
     srv.close()
     fast_launches = phase_fastpath(mx, torch, model)
     del model, srv
+    torch.cuda.empty_cache()
+    cast_launches = phase_serve_cast(mx, torch)
     with tempfile.TemporaryDirectory() as tmp:
         init_file = os.path.join(tmp, "transformer_base_init.params")
         train_launches = phase_train(mx, torch, init_file)
@@ -5179,6 +5486,7 @@ def main(argv=()):
         phase_train_fused(mx, torch)
         bert_cap_launches = phase_bert_train_bf16_captured(mx, torch)
         phase_capture_guard(mx, torch)
+        amp_launches = phase_amp_f16(mx, torch, init_file)
     block_row, lc_launches = phase_long_context(mx, torch)
     kernels.append(block_row)
     for k in kernels:
@@ -5198,6 +5506,8 @@ def main(argv=()):
                    "bert_train_bf16_captured": bert_cap_launches[c],
                    "nmt_train_captured": nmt_cap_launches[c],
                    "nmt_train_bf16_captured": nmt_bf16_cap_launches[c],
+                   "serve_cast": cast_launches[c],
+                   **{path: n[c] for path, n in amp_launches.items()},
                    "long_context": lc_launches[c]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path

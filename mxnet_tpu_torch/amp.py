@@ -5,9 +5,11 @@ points (`ndarray.FullyConnected`, `ops.nn_ops.convolution`) consult
 `autocast_dtype()` and run fp32 operands in the target dtype, on
 cuBLAS / cuDNN on the card. `convert_block` casts the layers in
 `_CAST_LAYERS` to the target dtype and keeps the normalisation layers
-in `_KEEP_FP32` in fp32. The flash kernels take
-float32 and bfloat16 only: a float16 target runs the products in
-float16 and leaves the attention in the dtype its inputs arrive in.
+in `_KEEP_FP32` in fp32. The attention and LayerNorm take what the
+products hand them: under `init("float16")` the flash kernels' float16
+forms and, where a LayerNorm's input is float16, its float16 form with
+the fp32 gamma / beta that `_KEEP_FP32` leaves (a sum with the fp32
+residual stream promotes to fp32, as in the JAX package).
 
 For float16 the dynamic loss scaling is wired into `gluon.Trainer`:
 when `init(target_dtype="float16")` installed a `DynamicLossScaler`, a

@@ -39,6 +39,7 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..ndarray.ndarray import _apply
 from ..ops.kernels import flash_attention
+from ..ops.nn_ops import promote
 from .transformer import _kv_len, _merge_heads, _split_heads
 
 __all__ = ["BERTModel", "BERTEncoder", "BERTEncoderLayer",
@@ -187,8 +188,13 @@ class BERTModel(HybridBlock):
         h = self.mlm_ln(self.mlm_dense(at))
         w = self.word_embed.weight.data()
         b = self.mlm_bias.data()
-        return _apply(lambda hh, ww, bb: torch.matmul(hh, ww.T) + bb,
-                      [h, w, b])
+
+        def project(hh, ww, bb):
+            # float16 AMP leaves the tied embedding fp32 and h float16:
+            # the product promotes as `jnp.einsum` does
+            hh, ww = promote(hh, ww)
+            return torch.matmul(hh, ww.T) + bb
+        return _apply(project, [h, w, b])
 
 
 class BERTForPretraining(HybridBlock):

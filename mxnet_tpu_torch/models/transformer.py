@@ -30,6 +30,7 @@ with an `embed_scale` per row; the same functions take it.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -362,6 +363,16 @@ def _ln_apply(x, lnw):
     return xc * torch.rsqrt(var + eps) * g + b
 
 
+def _matmul_t(x, w):
+    """x @ w.T in the promoted dtype of the two, as `jnp.matmul` computes
+    a product of two dtypes: a cast model's bf16 weights meet the fp32
+    activations its fp32 positional table makes, and the product is
+    fp32."""
+    if w.dtype != x.dtype:
+        x, w = promote(x, w)
+    return x @ w.T
+
+
 def _affine(x, wb):
     # a 3-tuple is a per-output-channel int8 weight (serve.quant): the
     # product runs over the int8 values converted to x's type and the
@@ -371,7 +382,7 @@ def _affine(x, wb):
         y = (x @ wq.T.to(x.dtype)) * s.to(x.dtype)
     else:
         w, b = wb
-        y = x @ w.T
+        y = _matmul_t(x, w)
     return y + b if b is not None else y
 
 
@@ -385,6 +396,27 @@ def _embed_rows(weights, idx):
     return e
 
 
+@functools.lru_cache(maxsize=None)
+def _weak_scalar(value, dtype):
+    """A Python float as the JAX package applies it to an array of
+    `dtype`: weakly typed, so rounded to a 16-bit dtype first."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(value, dtype=dtype))
+    return value
+
+
+def _embed_scaled(weights, idx):
+    """The embedded rows times the embedding scale, in the positional
+    table's dtype (the activations'). For a cast model's bf16 rows this
+    is what the JAX package's compiled prefill and decode compute: the
+    scale rounds to bf16 (a weakly typed Python float), and XLA forms
+    the product in fp32 without rounding it back (its excess precision),
+    where it is exact."""
+    e = _embed_rows(weights, idx)
+    return e.to(weights["pos"].dtype) * _weak_scalar(weights["scale"],
+                                                     e.dtype)
+
+
 def _heads(x, h):
     b, u = x.shape
     return x.reshape(b, h, 1, u // h)
@@ -396,8 +428,7 @@ def encode_memory(weights, src, src_vl=None):
     source lengths as key lengths — the flash kernel on the card."""
     h = weights["num_heads"]
     s = src.shape[1]
-    x = _embed_rows(weights, src) * weights["scale"] \
-        + weights["pos"][:s][None]
+    x = _embed_scaled(weights, src) + weights["pos"][:s][None]
     kv_len = src_vl.to(torch.int32) if src_vl is not None else None
     for L in weights["layers"]:
         qkv = _affine(x, L["qkv"])
@@ -423,8 +454,7 @@ def precompute_memory_kv(weights, memory):
 def decode_embed(weights, tok_t, t):
     """Embed the current token(s) at position(s) t: tok_t and t int64 of
     the same shape, (B,) or (B, W) -> (B, U) or (B, W, U)."""
-    return _embed_rows(weights, tok_t) * weights["scale"] \
-        + weights["pos"][t]
+    return _embed_scaled(weights, tok_t) + weights["pos"][t]
 
 
 def decode_project(weights, x):
@@ -434,7 +464,7 @@ def decode_project(weights, x):
     es = weights.get("embed_scale")
     if es is not None:
         return (x @ weights["embed"].T.to(x.dtype)) * es.to(x.dtype)
-    return x @ weights["embed"].T
+    return _matmul_t(x, weights["embed"])
 
 
 def decoder_layer_qkv(L, x):

@@ -53,21 +53,10 @@ _SIGNATURES = {
     # sm_scale, vec, smem bytes, stream
     "mxtt_flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, ctypes.c_float, _I, _L, _P],
-    # the bfloat16 forms take the same arguments
-    "mxtt_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            ctypes.c_float, _I, _I, _I, _I, _L, _P],
-    "mxtt_flash_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _L,
-                            _P],
-    "mxtt_flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, ctypes.c_float, _I, _L, _P],
     # x, gamma, beta, y, mean, rstd, rows, D, eps, gamma / beta in bf16
     # (else fp32), stream
     "mxtt_layer_norm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
                             _I, _P],
-    # the same, then 16-byte chunks before the stream
-    "mxtt_layer_norm_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
-                             _I, _I, _P],
     # q, k_pages, v_pages, page_tables, lengths, out, S, H, dh, psize,
     # npages, stride_page, stride_row, stride_head, sm_scale, warps, smem
     # bytes, stream
@@ -97,6 +86,14 @@ _SIGNATURES = {
     # blocks, threads, stream: an empty kernel (a launch's floor)
     "mxtt_launch_floor": [_I, _I, _P],
 }
+# the bfloat16 and float16 forms take their fp32 forms' arguments; the
+# 16-bit LayerNorms' gamma flag says gamma / beta are in x's type, and a
+# 16-byte-chunks flag comes before the stream
+for _sfx in ("_bf16", "_f16"):
+    for _name in ("mxtt_flash_fwd", "mxtt_flash_bwd", "mxtt_flash_bwd_dq"):
+        _SIGNATURES[_name + _sfx] = _SIGNATURES[_name + "_f32"]
+    _SIGNATURES["mxtt_layer_norm" + _sfx] = \
+        _SIGNATURES["mxtt_layer_norm_f32"][:-1] + [_I, _P]
 
 _lock = threading.Lock()
 _lib = None

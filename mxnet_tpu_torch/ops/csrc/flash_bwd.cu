@@ -85,17 +85,23 @@
 // launch recomputes the shared bytes here and refuses a plan that
 // disagrees.
 //
-// bfloat16 forms (mxtt_flash_bwd_bf16, mxtt_flash_bwd_dq_bf16), for
-// Hopper on wgmma: the same two kernels (the dK/dV kernel, writing dQ too
-// on the fused path, and the dQ kernel), masks and arguments on bf16 q, k,
-// v, dO (lse, delta fp32), with the JAX kernels' rounding points: the dK/dV
-// kernel (replacing _flash_bwd_dkv_kernel on bf16) rounds p to bf16 and
-// uses it for dV = P^T dO and for dS = bf16(p (dP - delta) scale) in dK =
-// dS^T Q (pallas_kernels.py:455-461); the dQ kernel (replacing
-// _flash_bwd_dq_kernel) uses p in fp32 and dS = bf16(p (dP - delta)
-// scale) (:521-526), so where the fused path also writes dQ it keeps that
-// second dS in shared memory as bf16. dQ, dK, dV are rounded once, at the
-// end.
+// bfloat16 and float16 forms (mxtt_flash_bwd_bf16, mxtt_flash_bwd_dq_bf16;
+// mxtt_flash_bwd_f16, mxtt_flash_bwd_dq_f16), for Hopper on wgmma: the
+// same two kernels (the dK/dV kernel, writing dQ too on the fused path,
+// and the dQ kernel), masks and arguments on bf16 or f16 q, k, v, dO
+// (lse, delta fp32), with the JAX kernels' rounding points in the input
+// type T: the dK/dV kernel (replacing _flash_bwd_dkv_kernel on bf16 and
+// f16) rounds p to T and uses it for dV = P^T dO and for dS = T(p (dP -
+// delta) scale) in dK = dS^T Q (pallas_kernels.py:455-461); the dQ
+// kernel (replacing _flash_bwd_dq_kernel) uses p in fp32 and dS = T(p (dP
+// - delta) scale) (:521-526), so where the fused path also writes dQ it
+// keeps that second dS in shared memory in T. dQ, dK, dV are rounded
+// once, at the end. The kernels are templates on T; the float16 form is
+// the bf16 one instantiated for __half (.f32.f16.f16 products, f16 tensor
+// maps, __floats2half2_rn), at the same plan, tiles and bounds (fp16 runs
+// at the bf16 tensor-core rate, and both are 2 bytes). Under float16 AMP
+// dO carries the loss scale: a dS or a gradient past fp16's 65504 rounds
+// to inf, as in the JAX kernel, and the loss scaler skips that step.
 //
 // What bounds them on this card. At BERT's shape (B*H = 192, S = 512, D =
 // 64, lengths 256-512, 37.7 M live (q, k) pairs) the function's least time
@@ -597,7 +603,9 @@ int launch_dq(const float* q, const float* k, const float* v,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 forms, on wgmma (wgmma.cuh)
+// bfloat16 and float16 forms, on wgmma (wgmma.cuh): templates on the
+// element type T (bf16 or f16; both 2 bytes, so the plan, its tiles and
+// their bytes are one, named for bf16, the first)
 // ---------------------------------------------------------------------------
 constexpr int kBf16BQ = 64;       // query rows per tile of the dK/dV kernel
 constexpr int kBf16MaxBK = 128;   // keys per dK/dV block at most, 64 a
@@ -664,17 +672,17 @@ __device__ __forceinline__ void copy_vec_sync(float* dst, const float* src,
 
 // dK/dV: grid (B*H, ceil(Sk / BK)), WGS warpgroups, each owning 64 keys
 // (BK = 64 WGS); DQ (Sk <= BK, one block a (b, h)) also dQ
-template <int DP, int WGS, bool DQ>
+template <typename T, int DP, int WGS, bool DQ>
 __global__ void __launch_bounds__(128 * WGS, 1)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
+flash_bwd_dkv_bf16_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           const int* __restrict__ kv_len,
-                          bf16* __restrict__ dq, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int H, int Sq, int Sk,
+                          T* __restrict__ dq, T* __restrict__ dk,
+                          T* __restrict__ dv, int H, int Sq, int Sk,
                           int D, int causal, float sm_scale, int vec,
                           const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -690,14 +698,14 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   constexpr int ND = DP / 8;   // 8-column tiles of dK, dV and dQ
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the tiles to it
-  bf16* ks = reinterpret_cast<bf16*>(
+  T* ks = reinterpret_cast<T*>(
       smem_raw + ((1024 - static_cast<uint32_t>(
                               __cvta_generic_to_shared(smem_raw)) % 1024) %
                   1024));
-  bf16* vs = ks + BK * DP;                 // BK rows
-  bf16* qs = vs + BK * DP;                 // S tiles of BQ rows
-  bf16* dos = qs + S * BQ * DP;            // S tiles of BQ rows
-  bf16* dss = dos + S * BQ * DP;           // BQ x BK, DQ
+  T* vs = ks + BK * DP;                   // BK rows
+  T* qs = vs + BK * DP;                   // S tiles of BQ rows
+  T* dos = qs + S * BQ * DP;              // S tiles of BQ rows
+  T* dss = dos + S * BQ * DP;             // BQ x BK, DQ
   float* lse_s = reinterpret_cast<float*>(dss + (DQ ? BQ * BK : 0));
   float* delta_s = lse_s + S * kBf16LV;    // S x kBf16LV each
   uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + S * kBf16LV);
@@ -813,8 +821,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
       }
       mbar_wait(full + i % S, (i / S) & 1);
       const int q0 = qstart + i * BQ;
-      const bf16* qt = qs + (i % S) * BQ * DP;
-      const bf16* dot = dos + (i % S) * BQ * DP;
+      const T* qt = qs + (i % S) * BQ * DP;
+      const T* dot = dos + (i % S) * BQ * DP;
       const float* lt = lse_s + (i % S) * kBf16LV + lv0;
       const float* dt = delta_s + (i % S) * kBf16LV + lv0;
 
@@ -825,7 +833,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          wgmma_ss<64, 0>(
+          wgmma_ss<64, 0, T>(
               s,
               sw128_desc(ks + (kk >> 2) * BK * 64 + wg * 4096 +
                              16 * (kk & 3), 16, 1024),
@@ -835,7 +843,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         wg_commit();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          wgmma_ss<64, 0>(
+          wgmma_ss<64, 0, T>(
               dp,
               sw128_desc(vs + (kk >> 2) * BK * 64 + wg * 4096 +
                              16 * (kk & 3), 16, 1024),
@@ -872,23 +880,23 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           p_of(std::true_type{});
         else
           p_of(std::false_type{});
-        // dV += bf16(P)^T dO while dP^T finishes: a = P^T's columns of
+        // dV += T(P)^T dO while dP^T finishes: a = P^T's columns of
         // 16 queries packed from its C fragments, b = those queries' dO
         // rows (N-major)
         uint32_t pa[BQ / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          c_to_a(s[2 * kk], s[2 * kk + 1], pa[kk]);
+          c_to_a<T>(s[2 * kk], s[2 * kk + 1], pa[kk]);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          wgmma_rs<DP, 1>(dv_acc, pa[kk],
+          wgmma_rs<DP, 1, T>(dv_acc, pa[kk],
                           sw128_desc(dot + kk * 16 * 64, BQ * 128, 1024), 1);
         wg_commit();
         wg_wait<1>();  // dP^T is in
         pin<NQ>(dp);
-        // dK's dS = bf16(p) (dP - delta) scale (rounded when packed);
-        // fused, dQ's dS = bf16(p (dP - delta) scale) into shared memory
+        // dK's dS = T(p) (dP - delta) scale (rounded when packed);
+        // fused, dQ's dS = T(p (dP - delta) scale) into shared memory
         // as (query, key)
 #pragma unroll
         for (int j = 0; j < NQ; ++j) {
@@ -896,10 +904,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           for (int e = 0; e < 4; ++e) {
             const int col = 8 * j + 2 * t + (e & 1);
             const float ddp = dp[j][e] - dt[col];
-            const float pb = __bfloat162float(__float2bfloat16(s[j][e]));
+            const float pb = to_f(to_t<T>(s[j][e]));
             if constexpr (DQ)
               dss[sw_off(col, kr - k0 + ((e & 2) ? 8 : 0), BQ)] =
-                  __float2bfloat16(s[j][e] * ddp * sm_scale);
+                  to_t<T>(s[j][e] * ddp * sm_scale);
             dp[j][e] = pb * ddp * sm_scale;
           }
         }
@@ -907,11 +915,11 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         uint32_t sa[BQ / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          c_to_a(dp[2 * kk], dp[2 * kk + 1], sa[kk]);
+          c_to_a<T>(dp[2 * kk], dp[2 * kk + 1], sa[kk]);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          wgmma_rs<DP, 1>(dk_acc, sa[kk],
+          wgmma_rs<DP, 1, T>(dk_acc, sa[kk],
                           sw128_desc(qt + kk * 16 * 64, BQ * 128, 1024), 1);
         wg_commit();
         wg_wait<0>();
@@ -933,7 +941,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           float acc[ND][4];
           wg_fence();
           for (int st = 0; st < ksteps; ++st)
-            wgmma_ss<DP, 1>(
+            wgmma_ss<DP, 1, T>(
                 acc,
                 sw128_desc(dss + (st >> 2) * BQ * 64 + 16 * (st & 3), 16,
                            1024),
@@ -960,7 +968,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     }
   } else if (DQ) {
     for (int i = tid; i < Sq * D; i += NT)
-      dq[qbase + i] = __float2bfloat16(0.f);
+      dq[qbase + i] = to_t<T>(0.f);
   }
 
 #pragma unroll
@@ -982,16 +990,16 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
 }
 
 // dQ: grid (B*H, ceil(Sq / 64)), one warpgroup of 64 queries a block
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(128, 1)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
+flash_bwd_dq_bf16_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const int* __restrict__ kv_len,
-                         bf16* __restrict__ dq, int H, int Sq, int Sk, int D,
+                         T* __restrict__ dq, int H, int Sq, int Sk, int D,
                          int causal, float sm_scale, int vec,
                          const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -1004,13 +1012,13 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   constexpr int NK = BK / 8;   // 8-key column tiles of S and dP
   constexpr int ND = DP / 8;   // 8-column tiles of dQ
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(
+  T* qs = reinterpret_cast<T*>(
       smem_raw + ((1024 - static_cast<uint32_t>(
                               __cvta_generic_to_shared(smem_raw)) % 1024) %
                   1024));
-  bf16* dos = qs + QR * DP;                // QR rows
-  bf16* kst = dos + QR * DP;               // S tiles of BK rows
-  bf16* vst = kst + S * BK * DP;           // S tiles of BK rows
+  T* dos = qs + QR * DP;                  // QR rows
+  T* kst = dos + QR * DP;                 // S tiles of BK rows
+  T* vst = kst + S * BK * DP;             // S tiles of BK rows
   uint64_t* full = reinterpret_cast<uint64_t*>(vst + S * BK * DP);
   uint64_t* empty = full + S;              // S each
   uint64_t* q_bar = empty + S;
@@ -1110,15 +1118,15 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     }
     mbar_wait(full + i % S, (i / S) & 1);
     const int k0 = i * BK;
-    const bf16* kt = kst + (i % S) * BK * DP;
-    const bf16* vt = vst + (i % S) * BK * DP;
+    const T* kt = kst + (i % S) * BK * DP;
+    const T* vt = vst + (i % S) * BK * DP;
     // S = Q K^T and dP = dO V^T (the warpgroup's 64 queries x the
     // tile's keys): a = its Q / dO rows, b = the K / V rows, K-major
     float s[NK][4], dp[NK][4];
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<64, 0>(
+      wgmma_ss<64, 0, T>(
           s,
           sw128_desc(qs + (kk >> 2) * QR * 64 + 16 * (kk & 3), 16, 1024),
           sw128_desc(kt + (kk >> 2) * BK * 64 + 16 * (kk & 3), 16, 1024),
@@ -1126,7 +1134,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<64, 0>(
+      wgmma_ss<64, 0, T>(
           dp,
           sw128_desc(dos + (kk >> 2) * QR * 64 + 16 * (kk & 3), 16, 1024),
           sw128_desc(vt + (kk >> 2) * BK * 64 + 16 * (kk & 3), 16, 1024),
@@ -1168,11 +1176,11 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         dp[j][e] = s[j][e] * (dp[j][e] - dr[e >> 1]) * sm_scale;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      c_to_a(dp[2 * kk], dp[2 * kk + 1], a[kk]);
+      c_to_a<T>(dp[2 * kk], dp[2 * kk + 1], a[kk]);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<DP, 1>(dq_acc, a[kk],
+      wgmma_rs<DP, 1, T>(dq_acc, a[kk],
                       sw128_desc(kt + kk * 16 * 64, BK * 128, 1024), 1);
     wg_commit();
     wg_wait<0>();
@@ -1197,7 +1205,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 }
 
 // an fp32 vector of n entries as boxes of `len` (the tensor maps of bf16
-// rows are tma.cuh's map_rows)
+// or f16 rows are tma.cuh's map_rows)
 bool map_vec(CUtensorMap* m, const float* base, long long n, int len) {
   const cuuint64_t dims[1] = {(cuuint64_t)n};
   const cuuint64_t strides[1] = {4};
@@ -1211,11 +1219,11 @@ bool map_vec(CUtensorMap* m, const float* base, long long n, int len) {
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP, int WGS, bool DQ>
-int launch_dkv_bf16_as(const bf16* q, const bf16* k, const bf16* v,
-                       const bf16* dout, const float* lse,
-                       const float* delta, const int* kv_len, bf16* dq,
-                       bf16* dk, bf16* dv, int B, int H, int Sq, int Sk,
+template <typename T, int DP, int WGS, bool DQ>
+int launch_dkv_bf16_as(const T* q, const T* k, const T* v,
+                       const T* dout, const float* lse,
+                       const float* delta, const int* kv_len, T* dq,
+                       T* dk, T* dv, int B, int H, int Sq, int Sk,
                        int D, int causal, float sm_scale, int vec,
                        long long smem, cudaStream_t stream) {
   constexpr int BK = 64 * WGS;
@@ -1223,29 +1231,31 @@ int launch_dkv_bf16_as(const bf16* q, const bf16* k, const bf16* v,
   // 16-byte aligned; else the element-by-element copies
   vec = vec && aligned16(lse) && aligned16(delta) && encode_tiled();
   CUtensorMap tm[6] = {};
+  constexpr CUtensorMapDataType ty = map_type<T>();
   if (vec &&
-      !(map_rows(tm + 0, q, B * H, Sq, D, kBf16BQ) &&
-        map_rows(tm + 1, k, B * H, Sk, D, BK) &&
-        map_rows(tm + 2, v, B * H, Sk, D, BK) &&
-        map_rows(tm + 3, dout, B * H, Sq, D, kBf16BQ) &&
+      !(map_rows(tm + 0, ty, q, B * H, Sq, D, kBf16BQ) &&
+        map_rows(tm + 1, ty, k, B * H, Sk, D, BK) &&
+        map_rows(tm + 2, ty, v, B * H, Sk, D, BK) &&
+        map_rows(tm + 3, ty, dout, B * H, Sq, D, kBf16BQ) &&
         map_vec(tm + 4, lse, (long long)B * H * Sq, kBf16LVBox) &&
         map_vec(tm + 5, delta, (long long)B * H * Sq, kBf16LVBox)))
     return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<unsigned long long> ready{0};
-  cudaError_t err = prepare(flash_bwd_dkv_bf16_kernel<DP, WGS, DQ>,
+  cudaError_t err = prepare(flash_bwd_dkv_bf16_kernel<T, DP, WGS, DQ>,
                             dkv_smem_bf16(DP, BK, DQ), ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Sk + BK - 1) / BK);
-  flash_bwd_dkv_bf16_kernel<DP, WGS, DQ><<<grid, 128 * WGS, smem, stream>>>(
+  flash_bwd_dkv_bf16_kernel<T, DP, WGS, DQ><<<grid, 128 * WGS, smem,
+                                             stream>>>(
       q, k, v, dout, lse, delta, kv_len, dq, dk, dv, H, Sq, Sk, D, causal,
       sm_scale, vec, tm[0], tm[1], tm[2], tm[3], tm[4], tm[5]);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
-int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
-                    const bf16* dout, const float* lse, const float* delta,
-                    const int* kv_len, bf16* dq, bf16* dk, bf16* dv, int B,
+template <typename T, int DP>
+int launch_dkv_bf16(const T* q, const T* k, const T* v,
+                    const T* dout, const float* lse, const float* delta,
+                    const int* kv_len, T* dq, T* dk, T* dv, int B,
                     int H, int Sq, int Sk, int D, int causal, float sm_scale,
                     int BK, int with_dq, int vec, long long smem,
                     cudaStream_t stream) {
@@ -1253,7 +1263,7 @@ int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
       smem != static_cast<long long>(dkv_smem_bf16(DP, BK, with_dq)))
     return static_cast<int>(cudaErrorInvalidValue);
 #define MXTT_DKV_AS(WGS, DQ)                                                \
-  launch_dkv_bf16_as<DP, WGS, DQ>(q, k, v, dout, lse, delta, kv_len, dq,   \
+  launch_dkv_bf16_as<T, DP, WGS, DQ>(q, k, v, dout, lse, delta, kv_len, dq,\
                                   dk, dv, B, H, Sq, Sk, D, causal,          \
                                   sm_scale, vec, smem, stream)
   if (BK == 64) return with_dq ? MXTT_DKV_AS(1, true) : MXTT_DKV_AS(1, false);
@@ -1263,10 +1273,10 @@ int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int DP>
-int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
-                   const bf16* dout, const float* lse, const float* delta,
-                   const int* kv_len, bf16* dq, int B, int H, int Sq, int Sk,
+template <typename T, int DP>
+int launch_dq_bf16(const T* q, const T* k, const T* v,
+                   const T* dout, const float* lse, const float* delta,
+                   const int* kv_len, T* dq, int B, int H, int Sq, int Sk,
                    int D, int causal, float sm_scale, int vec, long long smem,
                    cudaStream_t stream) {
   if (smem != static_cast<long long>(dq_smem_bf16(DP)))
@@ -1274,17 +1284,18 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
   constexpr int QR = kBf16DqBQ;
   vec = vec && encode_tiled();
   CUtensorMap tm[4] = {};
-  if (vec && !(map_rows(tm + 0, q, B * H, Sq, D, QR) &&
-               map_rows(tm + 1, k, B * H, Sk, D, kBf16DqBK) &&
-               map_rows(tm + 2, v, B * H, Sk, D, kBf16DqBK) &&
-               map_rows(tm + 3, dout, B * H, Sq, D, QR)))
+  constexpr CUtensorMapDataType ty = map_type<T>();
+  if (vec && !(map_rows(tm + 0, ty, q, B * H, Sq, D, QR) &&
+               map_rows(tm + 1, ty, k, B * H, Sk, D, kBf16DqBK) &&
+               map_rows(tm + 2, ty, v, B * H, Sk, D, kBf16DqBK) &&
+               map_rows(tm + 3, ty, dout, B * H, Sq, D, QR)))
     return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<unsigned long long> ready{0};
-  cudaError_t err = prepare(flash_bwd_dq_bf16_kernel<DP>, dq_smem_bf16(DP),
+  cudaError_t err = prepare(flash_bwd_dq_bf16_kernel<T, DP>, dq_smem_bf16(DP),
                             ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Sq + QR - 1) / QR);
-  flash_bwd_dq_bf16_kernel<DP><<<grid, 128, smem, stream>>>(
+  flash_bwd_dq_bf16_kernel<T, DP><<<grid, 128, smem, stream>>>(
       q, k, v, dout, lse, delta, kv_len, dq, H, Sq, Sk, D, causal, sm_scale,
       vec, tm[0], tm[1], tm[2], tm[3]);
   return static_cast<int>(cudaGetLastError());
@@ -1335,9 +1346,57 @@ extern "C" int mxtt_flash_bwd_dq_f32(const float* q, const float* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bfloat16 forms: bf16 q, k, v, dO, dQ, dK, dV; fp32 lse and delta;
-// the same arguments and return codes, on the bf16 plan (BK 64 or 128,
-// dkv_smem_bf16 / dq_smem_bf16's bytes).
+// The 16-bit forms: q, k, v, dO, dQ, dK, dV of one type T (bf16, f16);
+// fp32 lse and delta; the same arguments and return codes, on the plan
+// both share (BK 64 or 128, dkv_smem_bf16 / dq_smem_bf16's bytes).
+template <typename T>
+int flash_bwd_16(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 const int* kv_len, void* dq, void* dk, void* dv, int B,
+                 int H, int Sq, int Sk, int D, int causal, float sm_scale,
+                 int BK, int with_dq, int vec, long long smem,
+                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* qb = static_cast<const T*>(q);
+  const T* kb = static_cast<const T*>(k);
+  const T* vb = static_cast<const T*>(v);
+  const T* ob = static_cast<const T*>(dout);
+  T* dqb = static_cast<T*>(dq);
+  T* dkb = static_cast<T*>(dk);
+  T* dvb = static_cast<T*>(dv);
+#define MXTT_DKV_16(DP)                                                     \
+  launch_dkv_bf16<T, DP>(qb, kb, vb, ob, lse, delta, kv_len, dqb, dkb, dvb, \
+                         B, H, Sq, Sk, D, causal, sm_scale, BK, with_dq,    \
+                         vec, smem, st)
+  if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64) return MXTT_DKV_16(64);
+  if (D <= 128) return MXTT_DKV_16(128);
+#undef MXTT_DKV_16
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int flash_bwd_dq_16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    const int* kv_len, void* dq, int B, int H, int Sq,
+                    int Sk, int D, int causal, float sm_scale, int vec,
+                    long long smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* qb = static_cast<const T*>(q);
+  const T* kb = static_cast<const T*>(k);
+  const T* vb = static_cast<const T*>(v);
+  const T* ob = static_cast<const T*>(dout);
+  T* dqb = static_cast<T*>(dq);
+#define MXTT_DQ_16(DP)                                                      \
+  launch_dq_bf16<T, DP>(qb, kb, vb, ob, lse, delta, kv_len, dqb, B, H, Sq,  \
+                        Sk, D, causal, sm_scale, vec, smem, st)
+  if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64) return MXTT_DQ_16(64);
+  if (D <= 128) return MXTT_DQ_16(128);
+#undef MXTT_DQ_16
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 extern "C" int mxtt_flash_bwd_bf16(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
@@ -1346,23 +1405,9 @@ extern "C" int mxtt_flash_bwd_bf16(const void* q, const void* k,
                                    int D, int causal, float sm_scale, int BK,
                                    int with_dq, int vec, long long smem,
                                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* ob = static_cast<const bf16*>(dout);
-  bf16* dqb = static_cast<bf16*>(dq);
-  bf16* dkb = static_cast<bf16*>(dk);
-  bf16* dvb = static_cast<bf16*>(dv);
-#define MXTT_DKV_BF16(DP)                                                   \
-  launch_dkv_bf16<DP>(qb, kb, vb, ob, lse, delta, kv_len, dqb, dkb, dvb, B, \
-                      H, Sq, Sk, D, causal, sm_scale, BK, with_dq, vec,     \
-                      smem, st)
-  if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64) return MXTT_DKV_BF16(64);
-  if (D <= 128) return MXTT_DKV_BF16(128);
-#undef MXTT_DKV_BF16
-  return static_cast<int>(cudaErrorInvalidValue);
+  return flash_bwd_16<bf16>(q, k, v, dout, lse, delta, kv_len, dq, dk, dv, B,
+                            H, Sq, Sk, D, causal, sm_scale, BK, with_dq, vec,
+                            smem, stream);
 }
 
 extern "C" int mxtt_flash_bwd_dq_bf16(const void* q, const void* k,
@@ -1372,18 +1417,32 @@ extern "C" int mxtt_flash_bwd_dq_bf16(const void* q, const void* k,
                                       int H, int Sq, int Sk, int D,
                                       int causal, float sm_scale, int vec,
                                       long long smem, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* ob = static_cast<const bf16*>(dout);
-  bf16* dqb = static_cast<bf16*>(dq);
-#define MXTT_DQ_BF16(DP)                                                     \
-  launch_dq_bf16<DP>(qb, kb, vb, ob, lse, delta, kv_len, dqb, B, H, Sq, Sk, \
-                     D, causal, sm_scale, vec, smem, st)
-  if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64) return MXTT_DQ_BF16(64);
-  if (D <= 128) return MXTT_DQ_BF16(128);
-#undef MXTT_DQ_BF16
-  return static_cast<int>(cudaErrorInvalidValue);
+  return flash_bwd_dq_16<bf16>(q, k, v, dout, lse, delta, kv_len, dq, B, H,
+                               Sq, Sk, D, causal, sm_scale, vec, smem,
+                               stream);
+}
+
+extern "C" int mxtt_flash_bwd_f16(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const float* lse, const float* delta,
+                                  const int* kv_len, void* dq, void* dk,
+                                  void* dv, int B, int H, int Sq, int Sk,
+                                  int D, int causal, float sm_scale, int BK,
+                                  int with_dq, int vec, long long smem,
+                                  void* stream) {
+  return flash_bwd_16<f16>(q, k, v, dout, lse, delta, kv_len, dq, dk, dv, B,
+                           H, Sq, Sk, D, causal, sm_scale, BK, with_dq, vec,
+                           smem, stream);
+}
+
+extern "C" int mxtt_flash_bwd_dq_f16(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     const int* kv_len, void* dq, int B,
+                                     int H, int Sq, int Sk, int D,
+                                     int causal, float sm_scale, int vec,
+                                     long long smem, void* stream) {
+  return flash_bwd_dq_16<f16>(q, k, v, dout, lse, delta, kv_len, dq, B, H,
+                              Sq, Sk, D, causal, sm_scale, vec, smem,
+                              stream);
 }

@@ -68,11 +68,18 @@
 // Each launch recomputes the plan's shared bytes here and refuses a plan
 // that disagrees.
 //
-// bfloat16 form (mxtt_flash_fwd_bf16), for Hopper on wgmma: the same
-// function and masks on bf16 q / k / v, with the JAX kernel's rounding
-// points (pallas_kernels.py:245-291): S = Q K^T in fp32, the online softmax
-// in fp32, P rounded to bf16 for P V (fp32 sums; l sums the unrounded p),
-// out divided by max(l, 1e-30) and rounded once, lse fp32.
+// bfloat16 and float16 forms (mxtt_flash_fwd_bf16, mxtt_flash_fwd_f16),
+// for Hopper on wgmma: one kernel template on the element type, the same
+// function and masks on bf16 or f16 q / k / v, with the JAX kernel's
+// rounding points (pallas_kernels.py:245-291, which reads the input dtype
+// either way): S = Q K^T in fp32, the online softmax in fp32, P rounded to
+// the input type for P V (fp32 sums; l sums the unrounded p), out divided
+// by max(l, 1e-30) and rounded once, lse fp32. The float16 form is the
+// bf16 one instantiated for __half (.f32.f16.f16 products, f16 tensor
+// maps, __floats2half2_rn): fp16 runs at the bf16 tensor-core rate and
+// both types are 2 bytes, so the tiles, the plan and the bounds below are
+// the same; fp16 keeps 3 more bits of P (unit roundoff 2^-11) over a
+// narrower range (p below 2^-24 rounds to 0, as in the JAX kernel).
 //
 // What bounds it on this card. At BERT's shape (B*H = 192, S = 512, D =
 // 64, lengths 256-512, 37.7 M live (q, k) pairs) its 4 * pairs * D = 9.7
@@ -451,7 +458,9 @@ int launch(const float* q, const float* k, const float* v, const int* kv_len,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 form, on wgmma (wgmma.cuh) fed by TMA (tma.cuh)
+// bfloat16 and float16 forms, on wgmma (wgmma.cuh) fed by TMA (tma.cuh):
+// one template on the element type T (bf16 or f16; both 2 bytes, so the
+// plan, its tiles and their bytes are one, named for bf16, the first)
 // ---------------------------------------------------------------------------
 constexpr int kBf16WgRows = 64;   // query rows of a consumer warpgroup
 constexpr int kBf16RowWgs = 2;    // consumer warpgroups of a 128-row block
@@ -515,11 +524,11 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
 // producer. Block x takes items x, x + gridDim.x, ...; the producer loads
 // the next item's Q and first key tiles while the consumers finish this
 // one.
-template <int DP, int RW>
+template <typename T, int DP, int RW>
 __global__ void __launch_bounds__(128 * RW + 128, RW == 1 && DP == 64 ? 2 : 1)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const int* __restrict__ kv_len, bf16* __restrict__ out,
+flash_fwd_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const int* __restrict__ kv_len, T* __restrict__ out,
                       float* __restrict__ lse, int BH, int H, int Sq, int Sk,
                       int D, int causal, float sm_scale, int vec,
                       const __grid_constant__ CUtensorMap tm_q,
@@ -534,13 +543,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int ND = DP / 8;   // 8-column tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the tiles to it
-  bf16* qs = reinterpret_cast<bf16*>(
+  T* qs = reinterpret_cast<T*>(
       smem_raw + ((1024 - static_cast<uint32_t>(
                               __cvta_generic_to_shared(smem_raw)) % 1024) %
                   1024));                  // 2 buffers of ROWS rows
-  bf16* os = qs + 2 * ROWS * DP;           // ROWS rows
-  bf16* kst = os + ROWS * DP;              // S tiles of BK rows
-  bf16* vst = kst + S * BK * DP;           // S tiles of BK rows
+  T* os = qs + 2 * ROWS * DP;           // ROWS rows
+  T* kst = os + ROWS * DP;              // S tiles of BK rows
+  T* vst = kst + S * BK * DP;           // S tiles of BK rows
   uint64_t* full = reinterpret_cast<uint64_t*>(vst + S * BK * DP);
   uint64_t* empty = full + S;              // S each
   uint64_t* q_full = empty + S;            // 2 each
@@ -612,7 +621,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int it = blockIdx.x, n = 0; it < items; it += gridDim.x, ++n) {
       const Item w = item_of(it);
       const int qb = n & 1;
-      bf16* qdst = qs + qb * ROWS * DP;
+      T* qdst = qs + qb * ROWS * DP;
       if (n >= 2) mbar_wait(q_empty + qb, ((n >> 1) - 1) & 1);
       if (vec) {
         if (ptid == 0) {
@@ -629,8 +638,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         fence_async_smem();
         mbar_arrive(q_full + qb);
       }
-      const bf16* kb = k + (size_t)w.bh * Sk * D;
-      const bf16* vb = v + (size_t)w.bh * Sk * D;
+      const T* kb = k + (size_t)w.bh * Sk * D;
+      const T* vb = v + (size_t)w.bh * Sk * D;
       for (int i = 0; i < w.ntiles; ++i, ++c) {
         const int st = c % S;
         if (c >= S) mbar_wait(empty + st, (c / S - 1) & 1);
@@ -667,7 +676,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rq = 16 * (warp & 3) + g;   // this thread's rows of the
                                         // warpgroup's 64: rq, rq + 8
   const float c = sm_scale * kLog2e;
-  bf16* ow = os + wg * kBf16WgRows * 64;  // the warpgroup's O rows, within
+  T* ow = os + wg * kBf16WgRows * 64;  // the warpgroup's O rows, within
                                           // each 64-column block
   int c0 = 0;   // key tiles of the block's earlier items
 
@@ -676,7 +685,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qb = n & 1;
     const int qw0 = w.q0 + kBf16WgRows * wg;
     const int qr = qw0 + rq;
-    const bf16* qw = qs + qb * ROWS * DP + wg * kBf16WgRows * 64;
+    const T* qw = qs + qb * ROWS * DP + wg * kBf16WgRows * 64;
     const int kend = w.kend;
     const int ntiles = w.ntiles;
 
@@ -694,10 +703,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // S = Q K^T of tile i (the warpgroup's 64 rows x BK keys): a = its Q
     // rows, b = the tile's K rows, both K-major
     auto issue_s = [&](int i) {
-      const bf16* kt = kst + ((c0 + i) % S) * BK * DP;
+      const T* kt = kst + ((c0 + i) % S) * BK * DP;
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<BK, 0>(
+        wgmma_ss<BK, 0, T>(
             s,
             sw128_desc(qw + (kk >> 2) * ROWS * 64 + 16 * (kk & 3), 16, 1024),
             sw128_desc(kt + (kk >> 2) * BK * 64 + 16 * (kk & 3), 16, 1024),
@@ -772,10 +781,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // across a branch
     auto step = [&](int i, auto next) {
       constexpr bool kNext = decltype(next)::value;
-      // bf16(P) of tile i as the a of P V, 16 keys a k step
+      // P of tile i rounded to T as the a of P V, 16 keys a k step
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        c_to_a(s[2 * kk], s[2 * kk + 1], pa[kk]);
+        c_to_a<T>(s[2 * kk], s[2 * kk + 1], pa[kk]);
       if constexpr (kNext) wait_full(i + 1);
       if (RW == 2) turn_wait(wg);
       if constexpr (kNext) {
@@ -784,11 +793,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wg_commit();
       }
       // P V: a = P's columns of 16 keys, b = those keys' V rows (N-major)
-      const bf16* vt = vst + ((c0 + i) % S) * BK * DP;
+      const T* vt = vst + ((c0 + i) % S) * BK * DP;
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<DP, 1>(pv, pa[kk],
+        wgmma_rs<DP, 1, T>(pv, pa[kk],
                         sw128_desc(vt + kk * 16 * 64, BK * 128, 1024),
                         kk > 0);
       wg_commit();
@@ -802,7 +811,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       } else {
         release(q_empty + qb);   // every S product of the item is done
       }
-      // O = O alpha + bf16(P) V of this tile: its product in zeroed
+      // O = O alpha + T(P) V of this tile: its product in zeroed
       // accumulators, then one fp32 fma (tile_add)
       wg_wait<0>();
       pin<ND>(pv);
@@ -851,7 +860,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const float rn = half ? r1 : r0;
           *reinterpret_cast<uint32_t*>(ow + (d >> 6) * ROWS * 64 +
                                        sw_off(r, d & 63, kBf16WgRows)) =
-              pack_bf16(o[nn][2 * half] * rn, o[nn][2 * half + 1] * rn);
+              pack2<T>(o[nn][2 * half] * rn, o[nn][2 * half + 1] * rn);
         }
       }
       fence_async_smem();
@@ -889,9 +898,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (vec && (tid & 127) == 0) tma_store_wait_read();
 }
 
-template <int DP, int RW>
-int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
-                const int* kv_len, bf16* out, float* lse, int B, int H,
+template <typename T, int DP, int RW>
+int launch_bf16(const T* q, const T* k, const T* v,
+                const int* kv_len, T* out, float* lse, int B, int H,
                 int Sq, int Sk, int D, int causal, float sm_scale, int vec,
                 cudaStream_t stream) {
   constexpr int ROWS = kBf16WgRows * RW;
@@ -902,13 +911,14 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
   // threads' own stores
   vec = vec && aligned16(out) && encode_tiled() != nullptr;
   CUtensorMap tm[4] = {};
-  if (vec && !(map_rows(tm + 0, q, B * H, Sq, D, ROWS) &&
-               map_rows(tm + 1, k, B * H, Sk, D, BK) &&
-               map_rows(tm + 2, v, B * H, Sk, D, BK) &&
-               map_rows(tm + 3, out, B * H, Sq, D, kBf16WgRows)))
+  constexpr CUtensorMapDataType ty = map_type<T>();
+  if (vec && !(map_rows(tm + 0, ty, q, B * H, Sq, D, ROWS) &&
+               map_rows(tm + 1, ty, k, B * H, Sk, D, BK) &&
+               map_rows(tm + 2, ty, v, B * H, Sk, D, BK) &&
+               map_rows(tm + 3, ty, out, B * H, Sq, D, kBf16WgRows)))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = fwd_smem_bf16(DP, BK, RW);
-  auto kernel = flash_fwd_bf16_kernel<DP, RW>;
+  auto kernel = flash_fwd_bf16_kernel<T, DP, RW>;
   static std::atomic<unsigned long long> ready{0};
   cudaError_t err = prepare(kernel, smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -937,9 +947,9 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
 }
 
 // the block shapes the plan takes: 2 x 64 rows, or 64 rows
-template <int DP>
-int launch_bf16_rows(const bf16* q, const bf16* k, const bf16* v,
-                     const int* kv_len, bf16* out, float* lse, int B, int H,
+template <typename T, int DP>
+int launch_bf16_rows(const T* q, const T* k, const T* v,
+                     const int* kv_len, T* out, float* lse, int B, int H,
                      int Sq, int Sk, int D, int causal, float sm_scale,
                      int BK, int rw, int ks, int vec, long long smem,
                      cudaStream_t stream) {
@@ -948,10 +958,10 @@ int launch_bf16_rows(const bf16* q, const bf16* k, const bf16* v,
       smem != static_cast<long long>(fwd_smem_bf16(DP, BK, rw)))
     return static_cast<int>(cudaErrorInvalidValue);
   return rw == kBf16RowWgs
-             ? launch_bf16<DP, 2>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D,
-                                  causal, sm_scale, vec, stream)
-             : launch_bf16<DP, 1>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D,
-                                  causal, sm_scale, vec, stream);
+             ? launch_bf16<T, DP, 2>(q, k, v, kv_len, out, lse, B, H, Sq,
+                                     Sk, D, causal, sm_scale, vec, stream)
+             : launch_bf16<T, DP, 1>(q, k, v, kv_len, out, lse, B, H, Sq,
+                                     Sk, D, causal, sm_scale, vec, stream);
 }
 
 }  // namespace
@@ -982,26 +992,46 @@ extern "C" int mxtt_flash_fwd_f32(const float* q, const float* k,
 #undef MXTT_FWD
 }
 
-// The bfloat16 form: bf16 q, k, v and out, fp32 lse; the same arguments
-// and return codes, on the bf16 plan (kernels.py:_flash_fwd_plan_bf16):
-// rw consumer warpgroups of 64 rows (1 or 2), BK = fwd_bf16_bk(DP, rw)
-// keys a tile, ks = 1, smem fwd_smem_bf16's bytes.
+// The 16-bit forms: q, k, v and out of one type T (bf16, f16), fp32 lse
+// (the forward's template on T); the same arguments and return codes,
+// on the plan both share (kernels.py:_flash_fwd_plan_bf16): rw consumer
+// warpgroups of 64 rows (1 or 2), BK = fwd_bf16_bk(DP, rw) keys a tile,
+// ks = 1, smem fwd_smem_bf16's bytes.
+template <typename T>
+int flash_fwd_16(const void* q, const void* k, const void* v,
+                 const int* kv_len, void* out, float* lse, int B, int H,
+                 int Sq, int Sk, int D, int causal, float sm_scale, int BK,
+                 int rw, int ks, int vec, long long smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* qb = static_cast<const T*>(q);
+  const T* kb = static_cast<const T*>(k);
+  const T* vb = static_cast<const T*>(v);
+  T* ob = static_cast<T*>(out);
+#define MXTT_FWD_16(DP)                                                     \
+  launch_bf16_rows<T, DP>(qb, kb, vb, kv_len, ob, lse, B, H, Sq, Sk, D,     \
+                          causal, sm_scale, BK, rw, ks, vec, smem, st)
+  if (D <= 0 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64) return MXTT_FWD_16(64);
+  return MXTT_FWD_16(128);
+#undef MXTT_FWD_16
+}
+
 extern "C" int mxtt_flash_fwd_bf16(const void* q, const void* k,
                                    const void* v, const int* kv_len,
                                    void* out, float* lse, int B, int H,
                                    int Sq, int Sk, int D, int causal,
                                    float sm_scale, int BK, int rw, int ks,
                                    int vec, long long smem, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(out);
-#define MXTT_FWD_BF16(DP)                                                   \
-  launch_bf16_rows<DP>(qb, kb, vb, kv_len, ob, lse, B, H, Sq, Sk, D, causal, \
-                       sm_scale, BK, rw, ks, vec, smem, st)
-  if (D <= 0 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64) return MXTT_FWD_BF16(64);
-  return MXTT_FWD_BF16(128);
-#undef MXTT_FWD_BF16
+  return flash_fwd_16<bf16>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D,
+                            causal, sm_scale, BK, rw, ks, vec, smem, stream);
+}
+
+extern "C" int mxtt_flash_fwd_f16(const void* q, const void* k,
+                                  const void* v, const int* kv_len,
+                                  void* out, float* lse, int B, int H,
+                                  int Sq, int Sk, int D, int causal,
+                                  float sm_scale, int BK, int rw, int ks,
+                                  int vec, long long smem, void* stream) {
+  return flash_fwd_16<f16>(q, k, v, kv_len, out, lse, B, H, Sq, Sk, D,
+                           causal, sm_scale, BK, rw, ks, vec, smem, stream);
 }

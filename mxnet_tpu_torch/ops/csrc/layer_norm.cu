@@ -41,10 +41,12 @@
 // element to fp32 where y is formed (to_f32); with fp32 G that is the
 // identity, so the fp32 kernels' arithmetic and bits are one code.
 //
-// bfloat16 form (mxtt_layer_norm_bf16): bf16 x and y, gamma / beta fp32
-// or bf16 (read as fp32), fp32 statistics; y = ((x - mean) * rstd) *
-// gamma + beta in fp32, rounded once (_ln_kernel's astype(o_ref.dtype),
-// pallas_kernels.py:1216-1217), on chunks of 8 bf16 (16 bytes). Lane l
+// bfloat16 and float16 forms (mxtt_layer_norm_bf16, mxtt_layer_norm_f16;
+// one code, templates on x's type X): x and y in X, gamma / beta fp32 or
+// X (read as fp32; float16 AMP leaves them fp32, cast("float16") makes
+// them f16), fp32 statistics; y = ((x - mean) * rstd) * gamma + beta in
+// fp32, rounded once to X (_ln_kernel's astype(o_ref.dtype),
+// pallas_kernels.py:1216-1217), on chunks of 8 values (16 bytes). Lane l
 // of the one-warp form (D <= 1024) holds chunks l, l + 32, ... (C of them,
 // the smallest of 1-4 that covers D / 256). Above that, one block a row
 // holds the row in registers too, as the bf16 it reads (4 registers a
@@ -65,8 +67,11 @@
 // At BERT's shape (8192 x 768) the bytes are 25.2 MB, 7.5 us at 3.35
 // TB/s.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,9 +83,19 @@ constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
+// an fp32 value rounded (to nearest even) to the 16-bit type X
+template <typename X>
+__device__ __forceinline__ X from_f32(float v) {
+  if constexpr (std::is_same<X, f16>::value)
+    return __float2half_rn(v);
+  else
+    return __float2bfloat16(v);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -199,19 +214,21 @@ int launch_f32(const float* x, const G* gamma, const G* beta, float* y,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 form
+// bfloat16 and float16 forms: templates on x's type X (bf16 or f16, both
+// 2 bytes, so chunks of 8 are 16 bytes either way), deduced from x
 // ---------------------------------------------------------------------------
 
 // the 8 elements of chunk c (elements 8c .. 8c + 7) of a row, zeros past D
-__device__ __forceinline__ void load_chunk(const bf16* xr, int c, int D,
+template <typename X>
+__device__ __forceinline__ void load_chunk(const X* xr, int c, int D,
                                            bool vec, float out[8]) {
   const int d0 = 8 * c;
   if (vec) {
     if (d0 < D) {
       const uint4 raw = *reinterpret_cast<const uint4*>(xr + d0);
-      const bf16* h = reinterpret_cast<const bf16*>(&raw);
+      const X* h = reinterpret_cast<const X*>(&raw);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
+      for (int i = 0; i < 8; ++i) out[i] = to_f32(h[i]);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) out[i] = 0.f;
@@ -219,24 +236,24 @@ __device__ __forceinline__ void load_chunk(const bf16* xr, int c, int D,
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      out[i] = d0 + i < D ? __bfloat162float(xr[d0 + i]) : 0.f;
+      out[i] = d0 + i < D ? to_f32(xr[d0 + i]) : 0.f;
   }
 }
 
 // y of chunk c from its centred values v: (v * rs) * gamma + beta,
-// rounded to bf16; the elements past D are not written
-template <typename G>
-__device__ __forceinline__ void store_chunk(bf16* yr, int c, int D, bool vec,
+// rounded to X; the elements past D are not written
+template <typename G, typename X>
+__device__ __forceinline__ void store_chunk(X* yr, int c, int D, bool vec,
                                             const float v[8], float rs,
                                             const G* __restrict__ gamma,
                                             const G* __restrict__ beta) {
   const int d0 = 8 * c;
   if (d0 >= D) return;
-  bf16 h[8];
+  X h[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int d = min(d0 + i, D - 1);
-    h[i] = __float2bfloat16((v[i] * rs) * to_f32(gamma[d]) + to_f32(beta[d]));
+    h[i] = from_f32<X>((v[i] * rs) * to_f32(gamma[d]) + to_f32(beta[d]));
   }
   if (vec) {
     *reinterpret_cast<uint4*>(yr + d0) = *reinterpret_cast<const uint4*>(h);
@@ -248,18 +265,18 @@ __device__ __forceinline__ void store_chunk(bf16* yr, int c, int D, bool vec,
 }
 
 // C: chunks of 8 a lane holds (256 * C >= D)
-template <typename G, int C>
+template <typename G, int C, typename X>
 __global__ void __launch_bounds__(kThreads)
-layer_norm_warp_bf16_kernel(const bf16* __restrict__ x,
+layer_norm_warp_bf16_kernel(const X* __restrict__ x,
                             const G* __restrict__ gamma,
-                            const G* __restrict__ beta, bf16* __restrict__ y,
+                            const G* __restrict__ beta, X* __restrict__ y,
                             float* __restrict__ mean,
                             float* __restrict__ rstd, int rows, int D,
                             float eps, int vec) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * D;
+  const X* xr = x + (size_t)row * D;
   float vals[C][8];
   float sum = 0.f;
 #pragma unroll
@@ -280,7 +297,7 @@ layer_norm_warp_bf16_kernel(const bf16* __restrict__ x,
     }
   }
   const float rs = rsqrtf(warp_sum(sq) / D + eps);
-  bf16* yr = y + (size_t)row * D;
+  X* yr = y + (size_t)row * D;
 #pragma unroll
   for (int c = 0; c < C; ++c)
     store_chunk(yr, lane + 32 * c, D, vec, vals[c], rs, gamma, beta);
@@ -290,42 +307,44 @@ layer_norm_warp_bf16_kernel(const bf16* __restrict__ x,
   }
 }
 
-// the 8 bf16 of chunk c (elements 8c .. 8c + 7) of a row as they lie in
-// memory, zeros past D: one 16-byte load (`vec`) or 8 masked ones
-__device__ __forceinline__ uint4 load_raw(const bf16* xr, int c, int D,
+// the 8 values of chunk c (elements 8c .. 8c + 7) of a row as they lie
+// in memory, zeros past D: one 16-byte load (`vec`) or 8 masked ones
+template <typename X>
+__device__ __forceinline__ uint4 load_raw(const X* xr, int c, int D,
                                           bool vec) {
   const int d0 = 8 * c;
   if (vec)
     return d0 < D ? *reinterpret_cast<const uint4*>(xr + d0)
                   : make_uint4(0u, 0u, 0u, 0u);
-  bf16 h[8];
+  X h[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    h[i] = d0 + i < D ? xr[d0 + i] : __float2bfloat16(0.f);
+    h[i] = d0 + i < D ? xr[d0 + i] : from_f32<X>(0.f);
   return *reinterpret_cast<const uint4*>(h);
 }
 
+template <typename X>
 __device__ __forceinline__ void unpack(const uint4& raw, float out[8]) {
-  const bf16* h = reinterpret_cast<const bf16*>(&raw);
+  const X* h = reinterpret_cast<const X*>(&raw);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
+  for (int i = 0; i < 8; ++i) out[i] = to_f32(h[i]);
 }
 
 // the one-block-a-row form: a row in the registers of NT threads, thread
 // i holding chunks i, i + NT, ... (C of them, NT * C >= the row's chunks)
-// as the bf16 they are in memory (4 registers a chunk), read from memory
+// as the X they are in memory (4 registers a chunk), read from memory
 // once; the mean, then the centred variance from the registers, each one
 // block sum; y from the same registers
-template <typename G, int NT, int C>
+template <typename G, int NT, int C, typename X>
 __global__ void __launch_bounds__(NT)
-layer_norm_row_bf16_kernel(const bf16* __restrict__ x,
+layer_norm_row_bf16_kernel(const X* __restrict__ x,
                            const G* __restrict__ gamma,
-                           const G* __restrict__ beta, bf16* __restrict__ y,
+                           const G* __restrict__ beta, X* __restrict__ y,
                            float* __restrict__ mean, float* __restrict__ rstd,
                            int D, float eps, int vec) {
   __shared__ float red[NT / 32];
   const int row = blockIdx.x;
-  const bf16* xr = x + (size_t)row * D;
+  const X* xr = x + (size_t)row * D;
   uint4 raw[C];
 #pragma unroll
   for (int c = 0; c < C; ++c)
@@ -334,7 +353,7 @@ layer_norm_row_bf16_kernel(const bf16* __restrict__ x,
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     float v[8];
-    unpack(raw[c], v);
+    unpack<X>(raw[c], v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) sum += v[i];
   }
@@ -343,7 +362,7 @@ layer_norm_row_bf16_kernel(const bf16* __restrict__ x,
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     float v[8];
-    unpack(raw[c], v);
+    unpack<X>(raw[c], v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float u = v[i] - mu;
@@ -351,11 +370,11 @@ layer_norm_row_bf16_kernel(const bf16* __restrict__ x,
     }
   }
   const float rs = rsqrtf(block_sum<NT / 32>(sq, red) / D + eps);
-  bf16* yr = y + (size_t)row * D;
+  X* yr = y + (size_t)row * D;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     float v[8];
-    unpack(raw[c], v);
+    unpack<X>(raw[c], v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] -= mu;
     store_chunk(yr, threadIdx.x + NT * c, D, vec, v, rs, gamma, beta);
@@ -370,18 +389,18 @@ layer_norm_row_bf16_kernel(const bf16* __restrict__ x,
 // stride the row by 256 chunks and read it three times (sum, centred
 // squares, output), the first from memory and the others mostly from
 // L1 / L2
-template <typename G>
+template <typename G, typename X>
 __global__ void __launch_bounds__(kThreads)
-layer_norm_strided_bf16_kernel(const bf16* __restrict__ x,
+layer_norm_strided_bf16_kernel(const X* __restrict__ x,
                                const G* __restrict__ gamma,
                                const G* __restrict__ beta,
-                               bf16* __restrict__ y, float* __restrict__ mean,
+                               X* __restrict__ y, float* __restrict__ mean,
                                float* __restrict__ rstd, int D, float eps,
                                int vec) {
   __shared__ float red[kWarps];
   const int row = blockIdx.x;
   const int chunks = (D + 7) / 8;
-  const bf16* xr = x + (size_t)row * D;
+  const X* xr = x + (size_t)row * D;
   float v[8];
   float sum = 0.f;
   for (int c = threadIdx.x; c < chunks; c += kThreads) {
@@ -400,7 +419,7 @@ layer_norm_strided_bf16_kernel(const bf16* __restrict__ x,
     }
   }
   const float rs = rsqrtf(block_sum(sq, red) / D + eps);
-  bf16* yr = y + (size_t)row * D;
+  X* yr = y + (size_t)row * D;
   for (int c = threadIdx.x; c < chunks; c += kThreads) {
     load_chunk(xr, c, D, vec, v);
 #pragma unroll
@@ -413,8 +432,8 @@ layer_norm_strided_bf16_kernel(const bf16* __restrict__ x,
   }
 }
 
-template <typename G>
-int launch_bf16(const bf16* x, const G* gamma, const G* beta, bf16* y,
+template <typename G, typename X>
+int launch_bf16(const X* x, const G* gamma, const G* beta, X* y,
                 float* mean, float* rstd, int rows, int D, float eps,
                 int vec, cudaStream_t s) {
   const int blocks = (rows + kWarps - 1) / kWarps;
@@ -470,22 +489,42 @@ extern "C" int mxtt_layer_norm_f32(const float* x, const void* gamma,
                     eps, s);
 }
 
+// The 16-bit forms: x and y of one type X, gamma / beta of X's type when
+// gamma_x (else fp32), fp32 mean and rstd; vec: D % 8 == 0 and x, y
+// 16-byte aligned. The same return codes.
+template <typename X>
+int layer_norm_16(const void* x, const void* gamma, const void* beta,
+                  void* y, float* mean, float* rstd, int rows, int D,
+                  float eps, int gamma_x, int vec, void* stream) {
+  if (rows <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const X* xb = static_cast<const X*>(x);
+  X* yb = static_cast<X*>(y);
+  if (gamma_x)
+    return launch_bf16(xb, static_cast<const X*>(gamma),
+                       static_cast<const X*>(beta), yb, mean, rstd, rows, D,
+                       eps, vec, s);
+  return launch_bf16(xb, static_cast<const float*>(gamma),
+                     static_cast<const float*>(beta), yb, mean, rstd, rows, D,
+                     eps, vec, s);
+}
+
 // The bfloat16 form: bf16 x and y, gamma / beta bf16 when gamma_bf16 else
-// fp32, fp32 mean and rstd; vec: D % 8 == 0 and x, y 16-byte aligned.
-// The same return codes.
+// fp32.
 extern "C" int mxtt_layer_norm_bf16(const void* x, const void* gamma,
                                     const void* beta, void* y, float* mean,
                                     float* rstd, int rows, int D, float eps,
                                     int gamma_bf16, int vec, void* stream) {
-  if (rows <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* yb = static_cast<bf16*>(y);
-  if (gamma_bf16)
-    return launch_bf16(xb, static_cast<const bf16*>(gamma),
-                       static_cast<const bf16*>(beta), yb, mean, rstd, rows,
-                       D, eps, vec, s);
-  return launch_bf16(xb, static_cast<const float*>(gamma),
-                     static_cast<const float*>(beta), yb, mean, rstd, rows, D,
-                     eps, vec, s);
+  return layer_norm_16<bf16>(x, gamma, beta, y, mean, rstd, rows, D, eps,
+                             gamma_bf16, vec, stream);
+}
+
+// The float16 form: f16 x and y, gamma / beta f16 when gamma_f16 (a block
+// after cast("float16")) else fp32 (AMP keeps LayerNorm's parameters fp32).
+extern "C" int mxtt_layer_norm_f16(const void* x, const void* gamma,
+                                   const void* beta, void* y, float* mean,
+                                   float* rstd, int rows, int D, float eps,
+                                   int gamma_f16, int vec, void* stream) {
+  return layer_norm_16<f16>(x, gamma, beta, y, mean, rstd, rows, D, eps,
+                            gamma_f16, vec, stream);
 }

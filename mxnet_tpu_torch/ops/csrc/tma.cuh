@@ -1,5 +1,5 @@
 // The copies that feed Hopper's wgmma kernels (flash_fwd.cu, flash_bwd.cu):
-// tiles of bf16 rows in the 128-byte swizzle the products' descriptors
+// tiles of bf16 or f16 rows in the 128-byte swizzle the products' descriptors
 // read (wgmma.cuh sw128_desc), filled by TMA (cp.async.bulk.tensor, one
 // thread asks for a whole tile and the copy engine counts its bytes on a
 // stage's mbarrier) or, where TMA cannot read (D % 8 != 0, a base not
@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "bf16_mma.cuh"
 
 namespace mxtt {
@@ -30,36 +32,37 @@ __device__ __forceinline__ float exp2_approx(float x) {
 }
 
 // element (r, c) of a tile of `rows` rows in the 128-byte swizzle: 64-
-// column blocks of `rows` rows of 64 bf16, the 16-byte piece q of row r at
-// piece q ^ (r % 8)
+// column blocks of `rows` rows of 64 two-byte elements, the 16-byte piece
+// q of row r at piece q ^ (r % 8)
 __device__ __forceinline__ int sw_off(int r, int c, int rows) {
   return (c >> 6) * rows * 64 + r * 64 +
          ((((c & 63) >> 3) ^ (r & 7)) << 3) + (c & 7);
 }
 
-// rows [r0, r0 + ROWS) of a (limit, D) bf16 matrix into a swizzled tile
-// of ROWS rows element by element, by NT threads (the copy where TMA
-// cannot go: D % 8 != 0 or a base not 16-byte aligned); rows past `limit`
-// are zeros and columns [D, DP) are never written (zero_pad_sw)
-template <int ROWS, int NT>
-__device__ __forceinline__ void copy_rows_sw(bf16* dst, const bf16* src,
-                                             int r0, int limit, int D,
-                                             int tid) {
+// rows [r0, r0 + ROWS) of a (limit, D) matrix of T (bf16 or f16) into a
+// swizzled tile of ROWS rows element by element, by NT threads (the copy
+// where TMA cannot go: D % 8 != 0 or a base not 16-byte aligned); rows
+// past `limit` are zeros and columns [D, DP) are never written
+// (zero_pad_sw)
+template <int ROWS, int NT, typename T>
+__device__ __forceinline__ void copy_rows_sw(T* dst, const T* src, int r0,
+                                             int limit, int D, int tid) {
   for (int idx = tid; idx < ROWS * D; idx += NT) {
     const int r = idx / D;
     const int c = idx - r * D;
-    dst[sw_off(r, c, ROWS)] = r0 + r < limit ? src[(size_t)(r0 + r) * D + c]
-                                             : __float2bfloat16(0.f);
+    dst[sw_off(r, c, ROWS)] =
+        r0 + r < limit ? src[(size_t)(r0 + r) * D + c] : to_t<T>(0.f);
   }
 }
 
 // columns [D, DP) of a swizzled tile of `rows` rows are zeros
-__device__ __forceinline__ void zero_pad_sw(bf16* m, int rows, int D,
-                                            int DP, int tid, int nthreads) {
+template <typename T>
+__device__ __forceinline__ void zero_pad_sw(T* m, int rows, int D, int DP,
+                                            int tid, int nthreads) {
   const int w = DP - D;
   for (int idx = tid; idx < rows * w; idx += nthreads) {
     const int r = idx / w;
-    m[sw_off(r, D + idx - r * w, rows)] = __float2bfloat16(0.f);
+    m[sw_off(r, D + idx - r * w, rows)] = to_t<T>(0.f);
   }
 }
 
@@ -164,18 +167,24 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (BH, S, D) bf16 tensor as boxes of `rows` rows x 64 columns (128
-// bytes) in the 128-byte swizzle; rows past S and columns past D read as
-// zeros
-inline bool map_rows(CUtensorMap* m, const void* base, int BH, int S, int D,
-                     int rows) {
+// the tensor-map element type of T
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, f16>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// a (BH, S, D) tensor of two-byte elements of `type` (bf16 or f16) as
+// boxes of `rows` rows x 64 columns (128 bytes) in the 128-byte swizzle;
+// rows past S and columns past D read as zeros
+inline bool map_rows(CUtensorMap* m, CUtensorMapDataType type,
+                     const void* base, int BH, int S, int D, int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(base), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return encode_tiled()(m, type, 3, const_cast<void*>(base), dims, strides,
+                        box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -8,10 +8,10 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
     `csrc/flash_fwd.cu` (replaces `_flash_fwd_kernel`; fp32: split TF32
     on the tensor cores, 16 query rows a warp and 4 warps a block, or,
     where the rows alone would leave the card idle, fewer rows a block
-    and up to 8 warps splitting the keys; bf16: persistent blocks on
-    wgmma fed by a TMA ring, 64 query rows a warpgroup and two a block
-    taking turns at the tensor cores, or one where that would leave the
-    card idle: `flash_fwd_plan`) and keeps q,
+    and up to 8 warps splitting the keys; bf16 and fp16: persistent
+    blocks on wgmma fed by a TMA ring, 64 query rows a warpgroup and two
+    a block taking turns at the tensor cores, or one where that would
+    leave the card idle: `flash_fwd_plan`) and keeps q,
     k, v, the output and the row log-sum-exp; its backward launches
     `csrc/flash_bwd.cu` (replaces `_flash_bwd_dkv_kernel` and
     `_flash_bwd_dq_kernel`): one fused dQ/dK/dV kernel when the keys fit
@@ -33,8 +33,9 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
   * `fused_layer_norm` — LayerNorm over the last axis as a
     `torch.autograd.Function`: the forward launches `csrc/layer_norm.cu`
     (replaces `_ln_kernel`; any width, one warp a row up to D = 1024 and
-    one block a row above; fp32 or bf16 x, each with fp32 or bf16 gamma
-    / beta), the backward is the closed
+    one block a row above; fp32, bf16 or fp16 x, with fp32 gamma / beta
+    or, for the 16-bit forms, gamma / beta in x's dtype, and bf16 gamma
+    / beta for fp32 x), the backward is the closed
     form of `_fused_ln_vjp_bwd` in plain torch on both devices (it was
     XLA in the JAX package).
   * `conv1x1_bn_stats` — a 1x1 convolution as an (M, K) @ (K, N)
@@ -61,16 +62,18 @@ exp(-1e30 - lse) underflowing. The JAX `attention_reference` instead
 averages V over such a row; that divergence is recorded in ROADMAP.md,
 and parity tests use lengths >= 1.
 
-Dtypes. The flash kernels take float32 or bfloat16 q / k / v (one dtype)
-and the LayerNorm kernel float32 x or bfloat16 x (gamma / beta float32 or
-x's dtype), as the JAX kernels read their inputs in the model's dtype.
-The bfloat16 forms have kernels of their own (`mxtt_*_bf16`, counted
-under `*_bf16` names) with bf16 operands and fp32 accumulators on the
-tensor cores; they and their plain versions round where the JAX kernels
-do: S = Q K^T in fp32, P rounded to bf16 before P V, the output rounded
-once (lse fp32); in the backward delta = rowsum(dO * O) in fp32, the dK /
-dV kernel takes P rounded to bf16 for dV and for dS, the dQ kernel P in
-fp32 and dS rounded to bf16 (`pallas_kernels.py:455-461, 521-526`);
+Dtypes. The flash kernels take float32, bfloat16 or float16 q / k / v
+(one dtype) and the LayerNorm kernel float32, bfloat16 or float16 x
+(gamma / beta float32 or x's dtype; bfloat16 with float32 x), as the JAX
+kernels read their inputs in the model's dtype. The 16-bit forms have
+kernels of their own (`mxtt_*_bf16`, `mxtt_*_f16`, counted under
+`*_bf16` and `*_f16` names; one CUDA template each, on one launch plan,
+since both types are 2 bytes) with 16-bit operands and fp32 accumulators
+on the tensor cores; they and their plain versions round where the JAX
+kernels do, in the input dtype: S = Q K^T in fp32, P rounded before P V,
+the output rounded once (lse fp32); in the backward delta = rowsum(dO *
+O) in fp32, the dK / dV kernel takes P rounded for dV and for dS, the dQ
+kernel P in fp32 and dS rounded (`pallas_kernels.py:455-461, 521-526`);
 LayerNorm's statistics are fp32 and y is in x's dtype. Any other dtype
 raises on both devices.
 """
@@ -96,11 +99,12 @@ _MASKED = -1e30
 # kernel launches per wrapper; bumped only where a kernel is launched
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
             "flash_fwd_bf16": 0, "flash_bwd_bf16": 0,
-            "flash_bwd_dq_bf16": 0, "flash_block": 0,
+            "flash_bwd_dq_bf16": 0, "flash_fwd_f16": 0, "flash_bwd_f16": 0,
+            "flash_bwd_dq_f16": 0, "flash_block": 0,
             "ragged_paged_attention": 0, "ragged_paged_attention_int8": 0,
             "ragged_paged_attention_multi": 0,
             "ragged_paged_attention_multi_int8": 0, "layer_norm": 0,
-            "layer_norm_bf16": 0,
+            "layer_norm_bf16": 0, "layer_norm_f16": 0,
             "conv1x1_bn_stats": 0, "conv1x1_bn_stats_bf16": 0, "rtc": 0}
 
 
@@ -125,9 +129,14 @@ def _check(cond, what):
         raise MXNetError(what)
 
 
+# the kernel-name and counter suffix of each dtype's form (float32's
+# counters have none, its kernels `_f32`)
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_f16"}
+
+
 def _suffix(dtype):
     """The kernel-name and counter suffix of a dtype's form."""
-    return "_bf16" if dtype == torch.bfloat16 else ""
+    return _SUFFIX[dtype]
 
 
 def _launched(name, rc):
@@ -166,9 +175,9 @@ def _attention_scores(q, k, causal, sm_scale, keep):
 
 def _flash_plain(q, k, v, causal, sm_scale, kv_lengths):
     """The plain version of the flash kernel: (out, lse (B*H, Sq)). In
-    bfloat16 it rounds where the kernels do: p = exp(s - rowmax) in fp32
-    is rounded to bf16 for P V (fp32 sums), l sums the unrounded p, and
-    out = (P V) / l is rounded once."""
+    bfloat16 and float16 it rounds where the kernels do: p = exp(s -
+    rowmax) in fp32 is rounded to the input dtype for P V (fp32 sums), l
+    sums the unrounded p, and out = (P V) / l is rounded once."""
     b, h, sq, _ = q.shape
     keep = None
     if kv_lengths is not None:
@@ -190,7 +199,7 @@ def _flash_plain(q, k, v, causal, sm_scale, kv_lengths):
 # ---------------------------------------------------------------------------
 # flash attention forward
 # ---------------------------------------------------------------------------
-_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+_ATTN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _tile_row(dp):
@@ -212,8 +221,8 @@ def _flash_args(q, k, v, kv_lengths):
            f" v {tuple(v.shape)} do not agree")
     _check(q.dtype in _ATTN_DTYPES and k.dtype == q.dtype
            and v.dtype == q.dtype,
-           f"flash_attention kernel takes float32 or bfloat16 q/k/v of one "
-           f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+           f"flash_attention kernel takes float32, bfloat16 or float16 "
+           f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     _check(all(t.is_contiguous() for t in (q, k, v)),
            "flash_attention kernel takes contiguous q/k/v")
     _check(0 < d <= 128,
@@ -250,7 +259,8 @@ _BF16_FWD_WG_ROWS, _BF16_FWD_ROW_WGS, _BF16_FWD_STAGES = 64, 2, 3
 
 
 def _fwd_bf16_plan(dp, rw):
-    """The bf16 forward's launch plan for one block shape: rw consumer
+    """The 16-bit forward's launch plan (bf16 and fp16, both 2 bytes, on
+    one kernel template) for one block shape: rw consumer
     warpgroups of 64 rows (ks = 1: every warpgroup walks every key tile)
     and the producer; key tiles of 128 where two warpgroups share them
     at DP = 64, else 64 (`fwd_bf16_bk`); the shared bytes are
@@ -268,8 +278,9 @@ def _fwd_bf16_plan(dp, rw):
 
 
 def _flash_fwd_plan_bf16(bh, sq, d):
-    """`flash_fwd_plan` in bfloat16: the wgmma kernel's tiles in the
-    128-byte swizzle, so D pads to 64 or 128 (one or two swizzle atoms).
+    """`flash_fwd_plan` in bfloat16 or float16: the wgmma kernel's tiles
+    in the 128-byte swizzle, so D pads to 64 or 128 (one or two swizzle
+    atoms).
     Items of two consumer warpgroups (128 rows, taking turns at the
     tensor cores, sharing key tiles of 128 at DP = 64) where that many
     items cover the card; else, the small grids (the serving prefill,
@@ -283,10 +294,10 @@ def _flash_fwd_plan_bf16(bh, sq, d):
 
 
 def flash_fwd_plan(bh, sq, sk, d, dtype=torch.float32):
-    """The launch plan of the flash forward kernel in `dtype` (float32
-    or bfloat16) for B*H = `bh` slices of Sq queries over Sk keys of
-    width D. bfloat16: `_flash_fwd_plan_bf16` (dp, bk, rw consumer
-    warpgroups of 64 rows, ks = 1, stages, smem).
+    """The launch plan of the flash forward kernel in `dtype` (float32,
+    bfloat16 or float16) for B*H = `bh` slices of Sq queries over Sk keys
+    of width D. bfloat16 and float16: `_flash_fwd_plan_bf16` (dp, bk, rw
+    consumer warpgroups of 64 rows, ks = 1, stages, smem).
     float32:
 
       dp     D zero-padded in shared memory (32, 64, 96 or 128)
@@ -309,6 +320,7 @@ def flash_fwd_plan(bh, sq, sk, d, dtype=torch.float32):
     _check(0 < d <= 128 and bh > 0 and sq > 0 and sk > 0,
            f"flash forward takes 0 < D <= 128 and a non-empty input, got "
            f"D {d}, B*H {bh}, Sq {sq}, Sk {sk}")
+    _check(dtype in _ATTN_DTYPES, f"flash forward has no {dtype} form")
     if dtype != torch.float32:
         return _flash_fwd_plan_bf16(bh, sq, d)
     dp = 32 * -(-d // 32)
@@ -374,9 +386,10 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None,
 def _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale, kv_lengths):
     """The plain version of the backward kernels: p = exp(s - lse)
     where the mask allows it and 0 elsewhere, dS = p (dP - delta) scale;
-    returns (dQ, dK, dV). In bfloat16, as the kernels: dV = bf16(p)^T dO
-    and dK = bf16(bf16(p) (dP - delta) scale)^T Q, dQ = bf16(p (dP -
-    delta) scale) K, fp32 sums, each gradient rounded once."""
+    returns (dQ, dK, dV). In bfloat16 and float16, as the kernels, with
+    r() the rounding to the input dtype: dV = r(p)^T dO and dK = r(r(p)
+    (dP - delta) scale)^T Q, dQ = r(p (dP - delta) scale) K, fp32 sums,
+    each gradient rounded once."""
     b, h, sq, _ = q.shape
     keep = None
     if kv_lengths is not None:
@@ -440,7 +453,8 @@ _BF16_DQ_BQ = 64
 
 
 def _flash_bwd_plan_bf16(sk, d):
-    """`flash_bwd_plan` in bfloat16: the wgmma kernels' tiles in the
+    """`flash_bwd_plan` in bfloat16 or float16 (one kernel template, both
+    2 bytes): the wgmma kernels' tiles in the
     128-byte swizzle, so D pads to 64 or 128 (one or two swizzle atoms);
     a warpgroup owns 64 keys of a dK/dV block, two of them at DP = 64
     and one at DP = 128 (its dK and dV accumulators take 128 registers a
@@ -468,13 +482,14 @@ def _flash_bwd_plan_bf16(sk, d):
 
 
 def flash_bwd_plan(sk, d, dtype=torch.float32):
-    """The launch plan of the flash backward kernels in `dtype` (float32
-    or bfloat16) for Sk keys of width D (it does not depend on Sq):
+    """The launch plan of the flash backward kernels in `dtype` (float32,
+    bfloat16 or float16) for Sk keys of width D (it does not depend on
+    Sq):
 
       dp     D zero-padded in shared memory (fp32: 32, 64, 96 or 128;
-             bf16: 64 or 128)
-      bk     keys per fused block (fp32: one warp per 16; bf16: one
-             warpgroup per 64)
+             bf16 and fp16: 64 or 128)
+      bk     keys per fused block (fp32: one warp per 16; bf16 and fp16:
+             one warpgroup per 64)
       bq     query rows per tile of the fused kernel
       path   "fused" when Sk <= the largest block (128 keys for
              D <= 64, else 64): one block holds every key of its (b, h)
@@ -484,14 +499,15 @@ def flash_bwd_plan(sk, d, dtype=torch.float32):
              the dQ kernel (None on the fused path): their K / V / Q / dO
              tiles (rows of `_tile_row`; bf16: 128-byte swizzled rows of
              DP and 1024 bytes to align them), fp32 lse and delta, and the
-             fused kernel's dS (queries x keys + pad, fp32; bf16 in the
-             bfloat16 form); the kernels recompute them and refuse a plan
-             that disagrees.
-      bf16 only: warpgroups (bk / 64) and stages (of the ring the
+             fused kernel's dS (queries x keys + pad, fp32; 16-bit in
+             the bfloat16 and float16 forms); the kernels recompute them
+             and refuse a plan that disagrees.
+      16-bit only: warpgroups (bk / 64) and stages (of the ring the
              query tiles, or the dQ kernel's key tiles, stream through)
     """
     _check(0 < d <= 128 and sk > 0,
            f"flash backward takes 0 < D <= 128 and Sk > 0, got {d}, {sk}")
+    _check(dtype in _ATTN_DTYPES, f"flash backward has no {dtype} form")
     if dtype != torch.float32:
         return _flash_bwd_plan_bf16(sk, d)
     dp = 32 * -(-d // 32)
@@ -508,10 +524,10 @@ def flash_bwd_plan(sk, d, dtype=torch.float32):
 
 
 def _vec_copies(d, *tensors):
-    """The kernels copy rows in 16-byte pieces (the bf16 backward: by
-    TMA) when a row is a whole number of them (D % 4 == 0 in fp32, D % 8
-    == 0 in bf16) and every base address is 16-byte aligned, else element
-    by element."""
+    """The kernels copy rows in 16-byte pieces (the 16-bit flash forms:
+    by TMA) when a row is a whole number of them (D % 4 == 0 in fp32, D %
+    8 == 0 in bf16 and fp16) and every base address is 16-byte aligned,
+    else element by element."""
     return int(d * tensors[0].element_size() % 16 == 0
                and all(t.data_ptr() % 16 == 0 for t in tensors))
 
@@ -947,7 +963,12 @@ def _ln_plain(x2, gamma, beta, eps):
     return y.to(x2.dtype), mean[:, 0], rstd[:, 0]
 
 
-_LN_DTYPES = (torch.float32, torch.bfloat16)
+# x's dtype -> the gamma / beta dtypes its form reads: fp32, or the
+# 16-bit type (bf16 weights after cast with fp32 activations; x's own
+# type for the 16-bit forms)
+_LN_DTYPES = {torch.float32: (torch.float32, torch.bfloat16),
+              torch.bfloat16: (torch.float32, torch.bfloat16),
+              torch.float16: (torch.float32, torch.float16)}
 
 
 def _ln_args(x, gamma, beta):
@@ -957,11 +978,12 @@ def _ln_args(x, gamma, beta):
     _check(gamma.shape == (d,) and beta.shape == (d,),
            f"layer norm: gamma {tuple(gamma.shape)} / beta "
            f"{tuple(beta.shape)} must be ({d},)")
-    _check(x.dtype in _LN_DTYPES and gamma.dtype in _LN_DTYPES
+    _check(gamma.dtype in _LN_DTYPES.get(x.dtype, ())
            and beta.dtype == gamma.dtype,
-           f"layer norm kernel takes float32 x (the fp32 form) or bfloat16 "
-           f"x (the bf16 form), each with float32 or bfloat16 gamma / beta "
-           f"(one dtype), got {x.dtype}, {gamma.dtype}, {beta.dtype}")
+           f"layer norm kernel takes float32 x with float32 or bfloat16 "
+           f"gamma / beta, or bfloat16 x or float16 x with float32 gamma / "
+           f"beta or gamma / beta of x's dtype (gamma and beta of one "
+           f"dtype), got {x.dtype}, {gamma.dtype}, {beta.dtype}")
     _check(all(t.is_contiguous() for t in (x, gamma, beta)),
            "layer norm kernel takes contiguous x / gamma / beta")
     return x.numel() // d, d
@@ -973,17 +995,19 @@ def _ln_cuda(x2, gamma, beta, eps):
     mean = torch.empty(rows, dtype=torch.float32, device=x2.device)
     rstd = torch.empty_like(mean)
     lib = _build.library()
+    # gamma / beta in bf16 for the fp32 form, in x's dtype for the others
     ptrs = (x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), rows, d, float(eps),
-            int(gamma.dtype == torch.bfloat16))
+            int(gamma.dtype != torch.float32))
     stream = torch.cuda.current_stream().cuda_stream
+    sfx = _suffix(x2.dtype)
     with torch.cuda.device(x2.device):
         if x2.dtype == torch.float32:
             rc = lib.mxtt_layer_norm_f32(*ptrs, stream)
         else:
-            rc = lib.mxtt_layer_norm_bf16(*ptrs, _vec_copies(d, x2, y),
-                                          stream)
-    _launched("layer_norm" + _suffix(x2.dtype), rc)
+            rc = getattr(lib, "mxtt_layer_norm" + sfx)(
+                *ptrs, _vec_copies(d, x2, y), stream)
+    _launched("layer_norm" + sfx, rc)
     return y, mean, rstd
 
 
@@ -991,9 +1015,10 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     """LayerNorm over the last axis with its statistics: (y shaped as x,
     mean (rows,), rstd (rows,)), rows = x.numel() / D, fp32 statistics.
     The kernel and the plain version take any rows and any D: float32 x
-    (the fp32 kernel) or bfloat16 x (the bf16 kernel), each with float32
-    or bfloat16 gamma / beta (bf16 after `cast`, read as fp32); y is in
-    x's dtype."""
+    (the fp32 kernel) with float32 or bfloat16 gamma / beta (bf16 after
+    `cast`, read as fp32), bfloat16 x (the bf16 kernel) with float32 or
+    bfloat16, float16 x (the fp16 kernel) with float32 (AMP's) or float16
+    (after `cast`); y is in x's dtype."""
     dev = _device_of(x, gamma, beta)
     rows, d = _ln_args(x, gamma, beta)
     x2 = x.reshape(rows, d)

@@ -450,18 +450,19 @@ def test_multi_precision_leaves_fp32_weights_alone():
 # the wrappers' dtype rules
 # ---------------------------------------------------------------------------
 def test_other_dtypes_raise_and_the_cpu_launches_nothing():
-    """bf16 on the CPU takes the plain versions (no launch); float16,
-    float64 and mixed dtypes raise in every wrapper; flash_block_attention
-    takes float32 only (its bf16 form is still to come)."""
+    """bf16 on the CPU takes the plain versions (no launch); float64 and
+    mixed dtypes raise in every wrapper (float16 has forms of its own:
+    `tests/test_torch_fp16.py`); flash_block_attention takes float32
+    only (its bf16 form is still to come)."""
     tk.reset_launch_counts()
     q = torch.zeros((1, 1, 8, 16), dtype=torch.bfloat16)
     tk.flash_attention(q, q, q)
     tk.fused_layer_norm(torch.zeros((2, 16), dtype=torch.bfloat16),
                         torch.ones(16), torch.zeros(16))
     assert tk.LAUNCHES == dict.fromkeys(tk.LAUNCHES, 0)
-    for dt in (torch.float16, torch.float64):
+    for dt in (torch.float64,):
         x = q.to(dt)
-        with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
             tk.flash_attention_fwd(x, x, x)
         with pytest.raises(MXNetError, match="layer norm kernel takes"):
             tk.layer_norm_fwd(x[0, 0], torch.ones(16, dtype=dt),

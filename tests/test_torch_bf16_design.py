@@ -100,23 +100,28 @@ def test_copy_helpers_live_in_one_header(helper):
 
 
 def test_bf16_backward_runs_on_wgmma_alone():
-    """The bf16 backward kernels compute every product with
-    wgmma.mma_async (SS for S^T, dP^T, S and dP; RS for dV, dK and dQ),
-    and no mma.sync is left in them; the wgmma helpers are one header's,
-    shared with the conv1x1 kernel."""
+    """The bf16 backward kernels (one template with the float16 forms)
+    compute every product with wgmma.mma_async (SS for S^T, dP^T, S and
+    dP; RS for dV, dK and dQ) on the element type T, and no mma.sync is
+    left in them; the wgmma helpers are one header's, shared with the
+    conv1x1 kernel, each instruction spelled once for both types."""
     bwd = BWD.read_text()
-    start = bwd.index("// bfloat16 forms, on wgmma")
+    start = bwd.index("// bfloat16 and float16 forms, on wgmma")
     body = bwd[start:bwd.index("}  // namespace", start)]
     assert "mma_bf16(" not in body and "mma_tf32(" not in body
     assert "frag_b_trans" not in body and "frag_a(" not in body
     for kernel in ("flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel"):
         assert f"{kernel}(" in body
-    assert body.count("wgmma_ss<64, 0>(") == 4       # S^T, dP^T, S, dP
-    assert body.count("wgmma_rs<DP, 1>(") == 3       # dV, dK, dQ
-    assert body.count("wgmma_ss<DP, 1>(") == 1       # the fused dQ
+    assert body.count("wgmma_ss<64, 0, T>(") == 4    # S^T, dP^T, S, dP
+    assert body.count("wgmma_rs<DP, 1, T>(") == 3    # dV, dK, dQ
+    assert body.count("wgmma_ss<DP, 1, T>(") == 1    # the fused dQ
     head = (CSRC / "wgmma.cuh").read_text()
-    assert "m64n64k16.f32.bf16.bf16" in head
-    assert "m64n128k16.f32.bf16.bf16" in head
+    for n in ("64", "128"):
+        assert f'"wgmma.mma_async.sync.aligned.m64n{n}k16.f32." TY "." TY' \
+            in head
+        for form in ("SS", "RS"):
+            for ty in ("bf16", "f16"):
+                assert f'MXTT_{form}_N{n}("{ty}");' in head
     assert "{%64, %65, %66, %67}, %68, p, 1, 1, %70;" in head   # RS, N=128
     conv = (CSRC / "conv1x1_bn_stats.cu").read_text()
     assert '#include "wgmma.cuh"' in conv and '#include "wgmma.cuh"' in bwd
@@ -149,8 +154,8 @@ def test_bf16_forward_plan_constants_are_the_kernels():
     for line in ("if ((rw != 1 && rw != kBf16RowWgs) || ks != 1 ||",
                  "BK != fwd_bf16_bk(DP, rw) ||",
                  "smem != static_cast<long long>(fwd_smem_bf16(DP, BK, rw)))",
-                 "if (D <= 64) return MXTT_FWD_BF16(64);",
-                 "return MXTT_FWD_BF16(128);"):
+                 "if (D <= 64) return MXTT_FWD_16(64);",
+                 "return MXTT_FWD_16(128);"):
         assert line in text, line
     for dp, rw, bk in ((64, 2, 128), (64, 1, 64), (128, 2, 64),
                        (128, 1, 64)):
@@ -499,7 +504,7 @@ def test_wide_bf16_layer_norm_reads_its_row_once():
     assert "load_chunk(" not in body and "xr[" not in body
     assert "uint4 raw[C];" in body
     text = (CSRC / "layer_norm.cu").read_text()
-    assert "template <typename G, int NT, int C>" in text
+    assert "template <typename G, int NT, int C, typename X>" in text
     launch = text[text.index("int launch_bf16("):]
     assert re.findall(r"MXTT_LN_ROW\((\d+), (\d+)\);", launch) == [
         ("128", "2"), ("128", "4"), ("256", "4")]
