@@ -9,6 +9,13 @@ Phases (any failure raises and the script exits non-zero):
   1. build     — `nvcc` builds the port's kernels from `mxnet_tpu_torch/
                  ops/csrc/` for sm_90a (one nvcc per source, in parallel);
                  TF32 is switched off for matmuls and cuDNN.
+  1b. engine   — the dependency engine: g++ builds the port's own
+                 `mxnet_tpu_torch/csrc/engine.cc` and the facade runs on
+                 it (it fails if the engine fell back to `_PyEngine`);
+                 writes in push order with readers between them, a
+                 failed writer poisoning its var's later tasks only, a
+                 TaskGroup's queued members CANCELLED, a deadline
+                 EXPIRED.
   2. kernels   — each kernel against its plain PyTorch version on the
                  card, on the same inputs, at the shapes its path gives it
                  and a few edge shapes; kernel, plain-version and library
@@ -63,6 +70,16 @@ Phases (any failure raises and the script exits non-zero):
                  against its plain version (LN_TOL) and bit for bit
                  against the same gammas in fp32; timed at the cast
                  NMT's shape beside `F.layer_norm`.
+  2w. flash wide — heads of 128 < D <= 512 (`flash_wide.cu`): the
+                 forward, dK/dV and dQ kernels in fp32, bf16 and fp16 at
+                 D = 192, 256, 512, B = 2, H = 8, S = 1024, causal and
+                 with key lengths, against their plain versions (the
+                 per-dtype limits) and float64 (WIDE_F64_RATIO), two
+                 launches bit-identical; each timed at each D beside
+                 SDPA in its dtype and its bound; then `flash_attention`
+                 forward and backward at D = 256 in each dtype with the
+                 counters zeroed just before and read just after (path
+                 `wide_attention`).
   2b. conv1x1  — the conv1x1 + BN-stats kernel, fp32 and bf16, against a
                  float64 evaluation on the card at the probe's four
                  ResNet-50 shapes (batch 128) and an odd shape (fp32 also
@@ -90,6 +107,18 @@ Phases (any failure raises and the script exits non-zero):
                  stated tolerance and the greedy tokens must be identical
                  (unless the top two CPU logits at the first divergent step
                  are closer than that tolerance, which is printed).
+  4s. serve engine — phase 3's model and 16 requests through a default
+                 `serve.Server(model, slots=8, page_size=16,
+                 max_src_len=128, max_new_tokens=32)`: engine-driven,
+                 its decode loop a PRIORITY_HIGH engine task on the
+                 native engine's threads. The counters zeroed just
+                 before and read just after: one flash launch a prefill
+                 layer and one paged launch a decode turn layer, the
+                 prefills on engine threads; phase 3's inline tokens
+                 exactly, alone and under a background flood of host
+                 tasks (the JAX bench's: FLOOD_PER_WORKER sleeping
+                 PRIORITY_BACKGROUND tasks a worker, topped up); TTFT p50
+                 / p99 and tokens/s of both beside the inline server's.
   4b. fast path — the serving fast path on the weights of phase 3, all
                  with `slots=8, page_size=16, max_src_len=128,
                  max_new_tokens=32, max_prompt_len=16`: 16 requests from
@@ -108,6 +137,16 @@ Phases (any failure raises and the script exits non-zero):
                  reference's greedy tokens, (b) and (c) a `device="cpu"`
                  server's on three requests, unless the first divergence
                  is a near tie (stated tolerances).
+  4m. mnist    — MLP-on-MNIST (BASELINE.json's first configuration) as
+                 examples/train_mnist.py runs it at bench_mlp.py's width
+                 (784-512-256-10, batch 512, SGD lr 0.1 momentum 0.9):
+                 2 epochs of synthetic MNIST(train=True) through
+                 DataLoader(shuffle=True) (batchified on the engine),
+                 eager and through `trainer.capture`, from the same
+                 weights; each's test accuracy within MNIST_ACC_TOL of
+                 the JAX package's on the CPU, samples/s an epoch, one
+                 profiled step's busy share, and the first 5 losses
+                 against the port on the CPU (MNIST_LOSS_RTOL).
   5. train     — the Gluon loop of examples/nmt_translate.py at full
                  width: `transformer_base(36548, max_length=64,
                  dropout=0.0)`, `initialize(ctx=mx.gpu(0))`, Adam at 3e-4,
@@ -2506,8 +2545,8 @@ def _phase_ln_16(mx, torch, dtype, timed_gamma):
     timed with gamma / beta in `timed_gamma` at LN_TIMED beside
     `F.layer_norm` on the same x and gamma / beta in x's dtype (it takes
     no other: 2 x 2 D bytes fewer than fp32 ones) and, for the one-warp
-    form, the launch floor of its grid; BERT's shape (8192, 768) the
-    row's own."""
+    form, the launch floor of its grid, and at the MLM head's (1216,
+    768); BERT's shape (8192, 768) the row's own."""
     K = mx.ops.kernels
     lim = _lowp(dtype)
     dev = torch.device("cuda", 0)
@@ -2544,7 +2583,9 @@ def _phase_ln_16(mx, torch, dtype, timed_gamma):
                 f"atol={lim['ln_tol']['atol']}; mean, rstd LN_TOL); repeat "
                 f"bit-identical")
     per_shape = []
-    for rows, d in LN_TIMED:
+    # LN_TIMED, and the MLM head's LayerNorm, the one a 16-bit BERT step
+    # gives 16-bit x (BERT_B x BERT_P masked rows of 768)
+    for rows, d in [*LN_TIMED, (BERT_B * BERT_P, 768)]:
         x = torch.randn((rows, d), generator=g).to(dev).to(dtype)
         ga, be = (torch.randn(d, generator=g).to(dev).to(timed_gamma)
                   for _ in range(2))
@@ -5370,6 +5411,571 @@ def sp_ranks_main(mx, torch, world):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the dependency engine, engine-driven serving, MNIST through gluon.data,
+# and the wide-head flash kernels
+# ---------------------------------------------------------------------------
+# phase_serve_engine's background flood, the JAX package's
+# (bench_util.BackgroundEngineLoad, which bench_serve.py
+# --background-train and tools/check_qos.py flood with): a producer
+# thread keeps FLOOD_PER_WORKER x workers PRIORITY_BACKGROUND tasks live,
+# each sleeping FLOOD_TASK_S (a co-tenant's host IO: it holds an engine
+# worker, not the GIL), topping up every 5 ms
+FLOOD_TASK_S, FLOOD_PER_WORKER = 0.01, 32
+# phase_mnist: bench_mlp.py's 784-512-256-10 MLP at batch 512, SGD lr 0.1
+# momentum 0.9 (examples/train_mnist.py's optimizer), 2 epochs of
+# synthetic MNIST(train=True) through DataLoader(shuffle=True) after
+# numpy seed MNIST_SEED, held on the 10000 test images
+MNIST_HIDDEN, MNIST_B, MNIST_EPOCHS = (512, 256), 512, 2
+MNIST_LR, MNIST_MOMENTUM, MNIST_SEED = 0.1, 0.9, 0
+# the JAX package's test accuracy after MNIST_EPOCHS on the CPU for the
+# same flow and seed (tools/port_mnist_reference.py); the port's, eager
+# and captured, must lie within MNIST_ACC_TOL of it (its initial weights
+# are drawn by another generator)
+MNIST_JAX_TEST_ACC = 1.0
+MNIST_ACC_TOL = 0.02
+# the first 5 losses, card against the port on the CPU from the same
+# weights and batches: fp32 sums in other orders through 5 momentum steps
+# (tests/test_torch_train.py's forward limit)
+MNIST_LOSS_RTOL = 1e-4
+# phase_flash_wide: heads wider than the narrow kernels' 128
+# (csrc/flash_wide.cu), B = 2, H = 8, S = 1024, causal, and with key
+# lengths; the float64 yardstick at most WIDE_F64_RATIO x the plain
+# version's distance plus one unit roundoff of the dtype (fp32 2^-23)
+# times the largest value
+WIDE_D = (192, 256, 512)
+WIDE_B, WIDE_H, WIDE_S = 2, 8, 1024
+WIDE_LENS = [777, 1024]
+WIDE_F64_RATIO = 2.0
+WIDE_SOURCE = "mxnet_tpu_torch/ops/csrc/flash_wide.cu"
+WIDE_REPLACES = {"flash_wide_fwd": "mxnet_tpu/ops/pallas_kernels.py:219",
+                 "flash_wide_bwd_dkv": "mxnet_tpu/ops/pallas_kernels.py:417",
+                 "flash_wide_bwd_dq": "mxnet_tpu/ops/pallas_kernels.py:484"}
+
+
+def phase_engine(mx, torch):
+    """The native engine (`csrc/engine.cc`, built by g++) runs the
+    facade: writes on a var in push order with concurrent readers, a
+    failed writer poisoning its readers and later writers (and nothing
+    else), a TaskGroup's queued members CANCELLED, a deadline EXPIRED."""
+    import threading
+    E = mx.engine
+    t0 = time.perf_counter()
+    check(E.native_engine_loaded(), "the native engine did not build/load: "
+                                    "the facade fell back to _PyEngine")
+    log(f"engine: native, {E.num_workers()} workers, up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    v, log_ = E.Var(), []
+    for i in range(50):
+        E.push(lambda i=i: log_.append(("w", i)), write_vars=[v])
+        E.push(lambda i=i: log_.append(("r", i, sum(
+            1 for x in list(log_) if x[0] == "w"))), read_vars=[v])
+    E.wait_for_var(v)
+    check([x for x in log_ if x[0] == "w"] == [("w", i) for i in range(50)],
+          "engine writes out of push order")
+    check(all(x[2] == x[1] + 1 for x in log_ if x[0] == "r"),
+          "an engine reader saw another number of writes than precede it")
+
+    def boom():
+        raise ValueError("engine poisoning check")
+    E.clear_failures()
+    u, w = E.Var(), E.Var()
+    futs = [E.push(boom, write_vars=[u]), E.push(lambda: 1, read_vars=[u]),
+            E.push(lambda: 2, write_vars=[u]), E.push(lambda: 3,
+                                                     write_vars=[w])]
+    errs = [type(f.exception(timeout=60)).__name__ if f.exception(
+        timeout=60) else f.result() for f in futs]
+    check(errs == ["ValueError"] * 3 + [3], f"engine poisoning {errs}")
+    check(len(E.failures()) == 1, f"engine failures {E.failures()}")
+    E.clear_failures()
+    gate, started = threading.Event(), threading.Event()
+    g = E.TaskGroup("chip_smoke.engine")
+    x = E.Var()
+    g.push(lambda: (started.set(), gate.wait(60)), write_vars=[x])
+    check(started.wait(60), "engine task did not start")
+    queued = [g.push(lambda: 1, write_vars=[x]) for _ in range(3)]
+    late = E.push(lambda: 1, write_vars=[x], deadline_ms=1)
+    time.sleep(0.02)
+    n = g.cancel()
+    gate.set()
+    check(g.drain(60) and n == 3, f"engine cancel: {n} of 3")
+    check(all(f.result(timeout=60) is E.CANCELLED for f in queued),
+          "cancelled tasks did not resolve CANCELLED")
+    check(late.result(timeout=60) is E.EXPIRED, "deadline did not expire")
+    E.wait_for_all()
+    check(E.active_groups() == 0 and E.pending_tasks() == 0,
+          "engine left tasks or groups live")
+    log(f"engine: ordering, poisoning, cancel and deadline checks passed "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+
+def _serve_run(torch, srv, reqs):
+    """The 16 requests through `srv`: (tokens per request, TTFT p50 and
+    p99 in s, tokens/s, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [srv.submit(src, max_new_tokens=n) for src, n in reqs]
+    for h in handles:
+        h.result(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ttft = np.sort([h.ttft for h in handles])
+    tokens = [list(h.tokens) for h in handles]
+    return (tokens, float(np.percentile(ttft, 50)),
+            float(np.percentile(ttft, 99)),
+            sum(len(t) for t in tokens) / wall, wall)
+
+
+def phase_serve_engine(mx, torch, model, srv, reqs, handles):
+    """A default `Server(model)` (engine-driven: the decode loop runs as
+    PRIORITY_HIGH engine tasks on the native engine's worker threads,
+    under the server's device) on phase 3's model and 16 requests: the
+    tokens equal phase 3's inline ones, alone and under a background
+    flood of host tasks; the counters, zeroed just before and read just
+    after the first run, show the flash and paged kernels launched from
+    engine threads. TTFT p50 / p99 and tokens/s of all three beside the
+    inline server in the same call."""
+    import threading
+    K = mx.ops.kernels
+    E = mx.engine
+    want = [list(h.tokens) for h in handles]
+    esrv = mx.serve.Server(model, slots=8, page_size=16, max_src_len=128,
+                           max_new_tokens=32)
+    check(esrv._loop is not None, "Server() is not engine-driven")
+    esrv.submit(reqs[0][0], max_new_tokens=2).result(timeout=600)
+    threads = {}
+
+    def spy(name):
+        fn = getattr(K, name)
+
+        def wrapped(*a, **kw):
+            threads[threading.current_thread().name] = \
+                threads.get(threading.current_thread().name, 0) + 1
+            return fn(*a, **kw)
+        return fn, wrapped
+    orig_fwd, K.flash_attention_fwd = spy("flash_attention_fwd")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    turns0 = esrv.scheduler.decode_turns
+    try:
+        tokens, p50, p99, tps, wall = _serve_run(torch, esrv, reqs)
+    finally:
+        K.flash_attention_fwd = orig_fwd
+    launches = dict(K.LAUNCHES)
+    turns = esrv.scheduler.decode_turns - turns0
+    check(tokens == want, "engine-driven tokens differ from phase 3's "
+                          "inline tokens")
+    check(launches["flash_fwd"] == 6 * len(reqs),
+          f"engine serving flash launches {launches['flash_fwd']} != "
+          f"6 x {len(reqs)}")
+    check(launches["ragged_paged_attention"] == 6 * turns > 0,
+          f"engine serving rpa launches "
+          f"{launches['ragged_paged_attention']} != 6 x {turns}")
+    check(threads and "MainThread" not in threads,
+          f"the prefill ran on {threads}, not on engine threads")
+    engine_run = dict(ttft_p50_s=p50, ttft_p99_s=p99, tokens_per_s=tps,
+                      wall_s=wall, decode_turns=turns,
+                      prefill_threads=sorted(threads))
+    inline = _serve_run(torch, srv, reqs)
+    check(inline[0] == want, "the inline server's tokens moved")
+
+    # the background flood (FLOOD_TASK_S, FLOOD_PER_WORKER)
+    flood = E.TaskGroup("chip_smoke.flood")
+    stop = threading.Event()
+    target = FLOOD_PER_WORKER * E.num_workers()
+    ran = [0]
+
+    def feeder():
+        while not stop.is_set():
+            for _ in range(max(0, target - flood.live())):
+                flood.push(lambda: stop.wait(FLOOD_TASK_S),
+                           priority=E.PRIORITY_BACKGROUND)
+                ran[0] += 1
+            time.sleep(0.005)
+    feed = threading.Thread(target=feeder, daemon=True)
+    feed.start()
+    time.sleep(0.2)                      # let the backlog build
+    try:
+        flooded = _serve_run(torch, esrv, reqs)
+        pending = flood.pending()
+    finally:
+        stop.set()
+        feed.join(60)
+        flood.cancel()
+        check(flood.drain(60), "the flood did not drain")
+    check(flooded[0] == want, "engine-driven tokens under the flood differ")
+    check(pending > 0, "the flood was not queued while serving")
+    esrv.close()
+    check(esrv._loop._group.live() == 0, "the loop's group left tasks")
+    E.wait_for_all()
+    check(E.active_groups() == 0, "engine groups left live")
+    summary = dict(engine=engine_run,
+                   inline=dict(ttft_p50_s=inline[1], ttft_p99_s=inline[2],
+                               tokens_per_s=inline[3], wall_s=inline[4]),
+                   engine_under_flood=dict(
+                       ttft_p50_s=flooded[1], ttft_p99_s=flooded[2],
+                       tokens_per_s=flooded[3], wall_s=flooded[4],
+                       flood_tasks_pushed=ran[0],
+                       flood_pending_at_end=pending),
+                   native_engine=E.native_engine_loaded(),
+                   launches={k: v for k, v in launches.items() if v})
+    log("serve_engine " + json.dumps(summary))
+    return launches
+
+
+def _mnist_loader(mx, ctx, train=True, shuffle=True):
+    ds = mx.gluon.data.vision.MNIST(train=train).transform_first(
+        lambda x: x.astype("float32") / 255.0)
+    return mx.gluon.data.DataLoader(ds, batch_size=MNIST_B, shuffle=shuffle,
+                                    ctx=ctx)
+
+
+def _mnist_net(mx, ctx, init_file):
+    net = mx.models.get_mlp(MNIST_HIDDEN)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.load_parameters(init_file, ctx=ctx)
+    return net
+
+
+def _mnist_test_acc(mx, net, ctx):
+    acc = mx.metric.Accuracy()
+    for x, y in _mnist_loader(mx, ctx, train=False, shuffle=False):
+        acc.update([y], [net(x)])
+    return acc.get()[1]
+
+
+def _mnist_train(mx, torch, net, ctx, captured, steps=None):
+    """examples/train_mnist.py's loop (eager) or the same step through
+    `trainer.capture`: (per-epoch dicts, first losses, the captured step
+    or None, a function running one step). `steps` stops after that
+    many steps."""
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": MNIST_LR,
+                                "momentum": MNIST_MOMENTUM})
+    lf = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    step = trainer.capture(lambda x, y: lf(net(x), y)) if captured else None
+    np.random.seed(MNIST_SEED)
+    epochs, first = [], []
+
+    def one(x, y, metric):
+        if captured:
+            return step(x, y)
+        with mx.autograd.record():
+            out = net(x)
+            loss = lf(out, y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        metric.update([y], [out])
+        return loss
+    n = 0
+    for _ in range(MNIST_EPOCHS if steps is None else 1):
+        metric = mx.metric.Accuracy()
+        if ctx.type == "cuda":
+            torch.cuda.synchronize()
+        t0, samples = time.perf_counter(), 0
+        for x, y in _mnist_loader(mx, ctx):
+            loss = one(x, y, metric)
+            samples += x.shape[0]
+            if len(first) < 5:
+                first.append(float(loss.mean().asscalar()))
+            n += 1
+            if steps is not None and n >= steps:
+                return epochs, first, step, one
+        if ctx.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        epochs.append(dict(samples_per_s=samples / wall, wall_s=wall,
+                           train_acc=None if captured else metric.get()[1],
+                           test_acc=_mnist_test_acc(mx, net, ctx)))
+    return epochs, first, step, one
+
+
+def phase_mnist(mx, torch):
+    """MLP-on-MNIST (BASELINE.json configuration 1) as
+    examples/train_mnist.py runs it, at bench_mlp.py's width, on the card
+    through the port's DataLoader on the engine: eager and through
+    `trainer.capture` from the same initial weights, each reaching the
+    JAX package's accuracy within MNIST_ACC_TOL; samples/s and the busy
+    share of a profiled step of each; the first 5 losses against the
+    port on the CPU."""
+    check(MNIST_JAX_TEST_ACC is not None, "MNIST_JAX_TEST_ACC is not set")
+    dev, cpu = mx.gpu(0), mx.cpu()
+    mx.random.seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_file = os.path.join(tmp, "mlp_init.params")
+        net = mx.models.get_mlp(MNIST_HIDDEN)
+        net.initialize(mx.init.Xavier(), ctx=dev)
+        net(mx.nd.zeros((1, 784), ctx=dev))
+        net.save_parameters(init_file)
+        out = {}
+        for captured in (False, True):
+            tag = "captured" if captured else "eager"
+            net = _mnist_net(mx, dev, init_file)
+            epochs, first, step, one = _mnist_train(mx, torch, net, dev,
+                                                    captured)
+            acc = epochs[-1]["test_acc"]
+            check(abs(acc - MNIST_JAX_TEST_ACC) <= MNIST_ACC_TOL,
+                  f"MNIST {tag} test accuracy {acc} not within "
+                  f"{MNIST_ACC_TOL} of the JAX package's "
+                  f"{MNIST_JAX_TEST_ACC}")
+            check(all(np.isfinite(first)), f"MNIST {tag} losses {first}")
+            x, y = next(iter(_mnist_loader(mx, dev)))
+            metric = mx.metric.Accuracy()
+            one(x, y, metric)
+            got = device_profile(torch, lambda: one(x, y, metric))
+            busy = None if got is None else log_profile(
+                f"mnist {tag} profile", *got, "1 training step")
+            out[tag] = dict(epochs=epochs, first_losses=first,
+                            profiled_step_busy=busy)
+            if captured:
+                check(step.last_fallback_reason is None,
+                      f"MNIST captured step fell back: "
+                      f"{step.last_fallback_reason}")
+                out[tag]["cache_size"] = step.cache_size
+        cpu_net = _mnist_net(mx, cpu, init_file)
+        _, cpu_first, _, _ = _mnist_train(mx, torch, cpu_net, cpu, False,
+                                          steps=5)
+    for tag in ("eager", "captured"):
+        check(np.allclose(out[tag]["first_losses"], cpu_first,
+                          rtol=MNIST_LOSS_RTOL, atol=0),
+              f"MNIST {tag} first losses {out[tag]['first_losses']} vs the "
+              f"CPU's {cpu_first}")
+    out.update(cpu_first_losses=cpu_first,
+               jax_cpu_test_acc=MNIST_JAX_TEST_ACC,
+               native_engine=mx.engine.native_engine_loaded())
+    log("mnist " + json.dumps(out))
+    mx.engine.wait_for_all()
+    check(mx.engine.active_groups() == 0, "the DataLoader left groups live")
+
+
+def _wide_pairs(b, h, s, causal, lens):
+    """The live (query, key) pairs of one case (what the work depends
+    on)."""
+    if causal:
+        return b * h * s * (s + 1) // 2
+    return h * s * sum(lens if lens is not None else [s] * b)
+
+
+def _wide_check(mx, torch, g, dtype, d, causal, lens):
+    """One case of the wide kernels against their plain versions (fp32:
+    FLASH_TOL / BWD_TOL, slice-scaled; 16-bit: the dtype's LOWP limits and
+    the cancellation floor) and float64 (WIDE_F64_RATIO x the plain
+    version's distance + one unit roundoff of the largest value), two
+    launches bit-identical, dK / dV exactly 0 past each length, and each
+    kernel's counter moving once a launch. Returns (max abs errors,
+    shares of the limit)."""
+    K = mx.ops.kernels
+    b, h, s = WIDE_B, WIDE_H, WIDE_S
+    what = f"wide {str(dtype).split('.')[-1]} D={d} causal={causal} " \
+           f"lens={lens}"
+    sfx = K._suffix(dtype)
+    fp32 = dtype == torch.float32
+    lim = None if fp32 else _lowp(dtype)
+    floor64 = FP32_F64_FLOOR if fp32 else lim["f64_floor"]
+    q, k, v, do = _lowp_qkv(torch, g, b, h, s, s, d, n=4, dtype=dtype)
+    scale = d ** -0.5
+    vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=q.device)
+    before = dict(K.LAUNCHES)
+    out, lse = K.flash_attention_fwd(q, k, v, causal, scale, vl)
+    out2, lse2 = K.flash_attention_fwd(q, k, v, causal, scale, vl)
+    delta = (out.float() * do.float()).sum(-1).reshape(b * h, s)
+    got = K.flash_attention_bwd(q, k, v, do, lse, delta, causal, scale, vl)
+    again = K.flash_attention_bwd(q, k, v, do, lse, delta, causal, scale, vl)
+    torch.cuda.synchronize()
+    counts = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), **{
+        "flash_wide_fwd" + sfx: 2, "flash_wide_bwd_dkv" + sfx: 2,
+        "flash_wide_bwd_dq" + sfx: 2})
+    check(counts == want, f"{what}: launches {counts} != {want}")
+    check(torch.equal(out, out2) and torch.equal(lse, lse2)
+          and all(torch.equal(a, r) for a, r in zip(got, again)),
+          f"{what}: a repeated launch gave other bits")
+    ref, ref_lse = K._flash_plain(q, k, v, causal, scale, vl)
+    refs = K._flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, vl)
+    errs, shares = {}, {}
+    for name, t, r in (("out", out, ref), ("lse", lse, ref_lse)) + tuple(
+            zip(("dq", "dk", "dv"), got, refs)):
+        check(t.dtype == (torch.float32 if name == "lse" else dtype)
+              and torch.isfinite(t).all().item(),
+              f"{what} {name}: dtype {t.dtype} or not finite")
+        errs[name] = (t.float() - r.float()).abs().max().item()
+        if name == "lse" or (fp32 and name == "out"):
+            ok = torch.allclose(t, r, **FLASH_TOL)
+            shares[name] = None
+        elif fp32:
+            ok = _within(torch, t, r, BWD_TOL, True)
+            shares[name] = None
+        else:
+            atol = lim["out_atol"] * _slice_max(v) if name == "out" \
+                else lim["grad_atol"] * _slice_max(r)
+            shares[name] = _bf16_share(torch, t, r, atol, lim["rtol"])
+            ok = shares[name] <= 1.0
+        check(ok, f"{what} {name} kernel vs plain: max abs err "
+                  f"{errs[name]}, share {shares[name]}")
+    o64, l64, live = _attention_f64(torch, q, k, v, causal, scale, lens)
+    g64 = _attention_grads_f64(torch, q, k, v, do, causal, scale, lens)
+    for name, t, r, e in (("out", out, ref, o64),) + tuple(
+            zip(("dq", "dk", "dv"), got, refs, g64)):
+        e64 = (t.cpu().double() - e).abs().max().item()
+        p64 = (r.cpu().double() - e).abs().max().item()
+        check(e64 <= WIDE_F64_RATIO * p64 + floor64 * e.abs().max().item(),
+              f"{what} {name} {e64} from float64, more than "
+              f"{WIDE_F64_RATIO}x the plain version's {p64}")
+    e64 = (lse.cpu().double() - l64)[live].abs().max().item()
+    p64 = (ref_lse.cpu().double() - l64)[live].abs().max().item()
+    check(e64 <= WIDE_F64_RATIO * p64 + FP32_F64_FLOOR
+          * l64[live].abs().max().item(),
+          f"{what} lse {e64} from float64, plain {p64}")
+    for bi, n in enumerate(lens or []):
+        if n < s:
+            check(got[1][bi, :, n:].abs().max().item() == 0.0
+                  and got[2][bi, :, n:].abs().max().item() == 0.0,
+                  f"{what}: dK/dV past kv_len {n} must be exactly 0")
+    return errs, shares
+
+
+def _wide_times(mx, torch, g, dtype, d):
+    """The wide kernels at (WIDE_B, WIDE_H, WIDE_S, d), causal, by CUDA-
+    graph replay: each kernel, the backward pair, the plain versions,
+    SDPA's forward and backward (fwd+bwd - fwd) in the same dtype, and
+    each kernel's bound (each input read and output written once at 3.35
+    TB/s against its products over the live pairs, 4 / 8 / 6 x pairs x
+    D, at the split-TF32 rate in fp32 and the bf16 / fp16 tensor-core
+    rate otherwise)."""
+    K = mx.ops.kernels
+    F = torch.nn.functional
+    b, h, s = WIDE_B, WIDE_H, WIDE_S
+    q, k, v, do = _lowp_qkv(torch, g, b, h, s, s, d, n=4, dtype=dtype)
+    scale = d ** -0.5
+    out, lse = K.flash_attention_fwd(q, k, v, True, scale)
+    delta = (out.float() * do.float()).sum(-1).reshape(b * h, s).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    st = torch.cuda.current_stream
+    from mxnet_tpu_torch.ops import _build
+    fwd, dkv, dqf = (K._wide_fn(_build.library(), f"mxtt_flash_wide_{kind}",
+                                dtype) for kind in ("fwd", "bwd_dkv",
+                                                    "bwd_dq"))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), None)
+    o2, l2 = torch.empty_like(q), torch.empty_like(lse)
+    fns = {
+        "fwd": lambda: fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                           o2.data_ptr(), l2.data_ptr(), b, h, s, s, d, 1,
+                           scale, st().cuda_stream),
+        "bwd_dkv": lambda: dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), b, h, s,
+                               s, d, 1, scale, st().cuda_stream),
+        "bwd_dq": lambda: dqf(*ptrs, dq.data_ptr(), b, h, s, s, d, 1, scale,
+                              st().cuda_stream)}
+    fns["pair"] = lambda: K.flash_attention_bwd(q, k, v, do, lse, delta,
+                                                True, scale)
+    ms = {name: graph_ms(fn, calls=5, iters=10) for name, fn in fns.items()}
+    plain_fwd = graph_ms(lambda: K._flash_plain(q, k, v, True, scale, None),
+                         calls=2, iters=5)
+    plain_bwd = graph_ms(lambda: K._flash_bwd_plain(
+        q, k, v, do, lse, delta, True, scale, None), calls=2, iters=5)
+    sdpa_fwd = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), calls=5, iters=10)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_both():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+    sdpa_all = graph_ms(sdpa_both, calls=2, iters=5)
+    pairs = _wide_pairs(b, h, s, True, None)
+    e = q.element_size()
+    rate = PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    rows = b * h * s * d * e
+    bounds = {
+        "fwd": bound(4 * rows + 4 * b * h * s, 4 * pairs * d, rate),
+        "bwd_dkv": bound(6 * rows + 8 * b * h * s, 8 * pairs * d, rate),
+        "bwd_dq": bound(5 * rows + 8 * b * h * s, 6 * pairs * d, rate)}
+    return dict(ms=ms, plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+                sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_all - sdpa_fwd,
+                bounds=bounds, pairs=pairs)
+
+
+def _wide_attention_path(mx, torch, g):
+    """The wide heads' path: `flash_attention` forward and backward
+    through its autograd Function at (WIDE_B, WIDE_H, WIDE_S, 256) in
+    each dtype, causal; the counters zeroed just before and read just
+    after (one launch of each wide kernel a dtype)."""
+    K = mx.ops.kernels
+    inputs = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v = (t.requires_grad_(True) for t in _lowp_qkv(
+            torch, g, WIDE_B, WIDE_H, WIDE_S, WIDE_S, 256, dtype=dtype))
+        inputs.append((q, k, v))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for q, k, v in inputs:
+        out = K.flash_attention(q, k, v, causal=True)
+        out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    for sfx in ("", "_bf16", "_f16"):
+        for kind in ("fwd", "bwd_dkv", "bwd_dq"):
+            check(launches[f"flash_wide_{kind}{sfx}"] == 1,
+                  f"wide path launches {launches}")
+    for q, k, v in inputs:
+        check(all(torch.isfinite(t.grad).all().item() for t in (q, k, v)),
+              "wide path gradients not finite")
+    return launches
+
+
+def phase_flash_wide(mx, torch):
+    """Heads wider than 128 (`csrc/flash_wide.cu`): each wide kernel
+    against its plain version and float64 at D = 192, 256 and 512, B = 2,
+    H = 8, S = 1024, causal and with key lengths, in fp32, bf16 and fp16
+    (`_wide_check`); timed by CUDA-graph replay beside SDPA in the same
+    dtype and beside its bound (`_wide_times`); then the path
+    (`_wide_attention_path`). Returns (the kernels' rows, the path's
+    launches)."""
+    g = torch.Generator().manual_seed(18)
+    t0 = time.perf_counter()
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        sfx = mx.ops.kernels._suffix(dtype)
+        worst = {kind: 0.0 for kind in ("fwd", "bwd_dkv", "bwd_dq")}
+        per_shape = {kind: {} for kind in worst}
+        for d in WIDE_D:
+            for causal, lens in ((True, None), (False, WIDE_LENS)):
+                errs, shares = _wide_check(mx, torch, g, dtype, d, causal,
+                                           lens)
+                worst["fwd"] = max(worst["fwd"], errs["out"])
+                worst["bwd_dkv"] = max(worst["bwd_dkv"], errs["dk"],
+                                       errs["dv"])
+                worst["bwd_dq"] = max(worst["bwd_dq"], errs["dq"])
+                log(f"flash_wide{sfx} D={d} causal={causal} lens={lens}: "
+                    f"errs {json.dumps(errs)} shares {json.dumps(shares)}")
+            t = _wide_times(mx, torch, g, dtype, d)
+            for kind in worst:
+                plain = t["plain_fwd_ms"] if kind == "fwd" \
+                    else t["plain_bwd_ms"]
+                lib = t["sdpa_fwd_ms"] if kind == "fwd" else (
+                    t["sdpa_bwd_ms"] if kind == "bwd_dkv" else None)
+                per_shape[kind][f"D{d}"] = dict(
+                    ms=t["ms"][kind], bound_ms=t["bounds"][kind][0],
+                    bound_by=t["bounds"][kind][1], plain_ms=plain,
+                    library_ms=lib, pairs=t["pairs"])
+            per_shape["bwd_dkv"][f"D{d}"]["pair_ms"] = t["ms"]["pair"]
+            log(f"flash_wide{sfx} D={d} times " + json.dumps(
+                {kind: per_shape[kind][f"D{d}"] for kind in worst}))
+        for kind in worst:
+            head = per_shape[kind]["D256"]
+            rows[f"flash_wide_{kind}{sfx}"] = dict(
+                name=f"flash_wide_{kind}{sfx}", route="cuda",
+                source=WIDE_SOURCE, replaces=WIDE_REPLACES[
+                    f"flash_wide_{kind}"], max_abs_err=worst[kind],
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], per_shape=per_shape[kind])
+    launches = _wide_attention_path(mx, torch, g)
+    log(f"flash_wide: {len(rows)} kernels checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return list(rows.values()), launches
+
+
 def capture_main(mx, torch):
     """`--capture`: the build and the fused-Trainer and captured-step
     phases alone (fresh seed-0 weights for the NMT and ResNet phases in
@@ -5433,22 +6039,28 @@ def main(argv=()):
         return sp_ranks_main(mx, torch, int(argv[1]))
     t_start = time.perf_counter()
     phase_build(mx, torch)
+    phase_engine(mx, torch)
     bwd_rows, long_launches = phase_flash_bwd(mx, torch)
     kernels = [phase_flash(mx, torch), phase_rpa(mx, torch),
                *phase_rpa_fastpath(mx, torch), *bwd_rows,
                phase_ln(mx, torch), *phase_conv1x1(mx, torch),
                *phase_flash_bf16(mx, torch), phase_ln_bf16(mx, torch),
                *phase_flash_f16(mx, torch), phase_ln_f16(mx, torch)]
+    wide_rows, wide_launches = phase_flash_wide(mx, torch)
+    kernels.extend(wide_rows)
     rtc_row, rtc_launches = phase_rtc(mx, torch)
     kernels.append(rtc_row)
     model, srv, reqs, handles, serve_launches = phase_serve(mx, torch)
     phase_profile(mx, torch, srv, reqs)
     phase_card_vs_cpu(mx, torch, model, srv, reqs, handles)
+    serve_engine_launches = phase_serve_engine(mx, torch, model, srv, reqs,
+                                               handles)
     srv.close()
     fast_launches = phase_fastpath(mx, torch, model)
     del model, srv
     torch.cuda.empty_cache()
     cast_launches = phase_serve_cast(mx, torch)
+    phase_mnist(mx, torch)
     with tempfile.TemporaryDirectory() as tmp:
         init_file = os.path.join(tmp, "transformer_base_init.params")
         train_launches = phase_train(mx, torch, init_file)
@@ -5494,6 +6106,8 @@ def main(argv=()):
         # counts under `flash_block`)
         c = k.get("counter", k["name"])
         by_path = {"serve": serve_launches[c], "fastpath": fast_launches[c],
+                   "serve_engine": serve_engine_launches[c],
+                   "wide_attention": wide_launches[c],
                    "train": train_launches[c], "rtc": rtc_launches[c],
                    "nmt_train_bf16": nmt_bf16_launches[c],
                    "long_attention": long_launches[c],

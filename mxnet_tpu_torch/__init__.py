@@ -17,7 +17,7 @@ counterpart for NVIDIA Hopper cards, with the same structure and names:
   loss.backward()
   trainer.step(src.shape[0])
 
-  srv = mx.serve.Server(model, engine_driven=False)
+  srv = mx.serve.Server(model)          # decodes on the engine
   print(srv.submit([5, 9, 11]).result())
 
 It imports `torch` and `numpy`, never `jax` and nothing of `mxnet_tpu`.
@@ -41,8 +41,11 @@ attention over `ops.flash_block_attention`), and bf16 training as the
 JAX benches run it (`Block.cast("bfloat16")`; ResNet-50 with the
 space-to-depth stem; `amp`), and the Trainer's fused multi-tensor
 update with `Trainer.capture` / `mx.jit_step`, the whole training step
-as one CUDA graph (`cachedop`). ROADMAP.md lists what is still to be
-ported.
+as one CUDA graph (`cachedop`), and the dependency engine (`engine`,
+`csrc/engine.cc` built with g++) that runs `serve.Server`'s decode loop
+by default and the `gluon.data.DataLoader`'s batchify tasks, with
+`metric`, `lr_scheduler` and `models.get_mlp` for MLP-on-MNIST.
+ROADMAP.md lists what is still to be ported.
 """
 
 __version__ = "0.1.0"
@@ -65,6 +68,8 @@ from . import ndarray as nd
 from . import ops
 from . import amp
 from . import parallel
+from . import lr_scheduler
+from . import metric
 from . import optimizer
 from . import gluon
 from . import cachedop
@@ -78,6 +83,7 @@ from . import serve
 __all__ = ["MXNetError", "base", "context", "cpu", "gpu", "num_gpus",
            "observability", "profiler", "fault", "kvstore", "random",
            "initializer", "init", "autograd", "ndarray", "nd", "ops",
-           "amp", "parallel", "optimizer", "gluon", "engine", "cachedop",
+           "amp", "parallel", "lr_scheduler", "metric", "optimizer", "gluon",
+           "engine", "cachedop",
            "CachedStep", "jit_step",
            "models", "contrib", "convert", "rtc", "serve"]

@@ -24,6 +24,12 @@ _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.uint8): torch.uint8,
            np.dtype(np.bool_): torch.bool}
 _NP_DTYPES = {t: n for n, t in _DTYPES.items()}
+# the common spellings looked up directly (names, numpy dtypes, numpy
+# scalar types): `np.dtype(...)` costs microseconds a call, and per-sample
+# data transforms convert dtypes millions of times an epoch
+_FAST = {**_DTYPES, **{n.name: t for n, t in _DTYPES.items()},
+         **{n.type: t for n, t in _DTYPES.items()},
+         "bfloat16": torch.bfloat16}
 
 
 def torch_dtype(dtype):
@@ -33,8 +39,12 @@ def torch_dtype(dtype):
     package's arrays carry), give torch.bfloat16."""
     if isinstance(dtype, torch.dtype):
         return dtype
-    if isinstance(dtype, str) and dtype == "bfloat16":
-        return torch.bfloat16
+    try:
+        fast = _FAST.get(dtype)
+    except TypeError:                  # unhashable: the general path
+        fast = None
+    if fast is not None:
+        return fast
     try:
         npd = np.dtype(dtype)
     except TypeError as e:

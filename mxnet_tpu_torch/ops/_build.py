@@ -27,8 +27,8 @@ __all__ = ["library", "build_info", "SOURCES", "HEADERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "ragged_paged_attention.cu",
-           "layer_norm.cu", "conv1x1_bn_stats.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_wide.cu",
+           "ragged_paged_attention.cu", "layer_norm.cu", "conv1x1_bn_stats.cu")
 # headers the sources include: hashed with them, never compiled alone
 HEADERS = ("tf32_mma.cuh", "bf16_mma.cuh", "wgmma.cuh", "tma.cuh")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -86,6 +86,19 @@ _SIGNATURES = {
     # blocks, threads, stream: an empty kernel (a launch's floor)
     "mxtt_launch_floor": [_I, _I, _P],
 }
+# the wide-head flash kernels (`flash_wide.cu`, 128 < D <= 512), one
+# entry a dtype: q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal,
+# sm_scale, stream; q, k, v, dO, lse, delta, kv_len, dk, dv, B, H, Sq, Sk,
+# D, causal, sm_scale, stream; the same with dq alone
+for _sfx in ("_f32", "_bf16", "_f16"):
+    _SIGNATURES["mxtt_flash_wide_fwd" + _sfx] = [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    _SIGNATURES["mxtt_flash_wide_bwd_dkv" + _sfx] = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, _P]
+    _SIGNATURES["mxtt_flash_wide_bwd_dq" + _sfx] = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, _P]
 # the bfloat16 and float16 forms take their fp32 forms' arguments; the
 # 16-bit LayerNorms' gamma flag says gamma / beta are in x's type, and a
 # 16-byte-chunks flag comes before the stream

@@ -20,6 +20,9 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
     a dQ kernel after it (BERT at S = 512). `flash_attention_fwd` /
     `flash_attention_bwd` are the two halves on their own; the backward
     takes delta = rowsum(dO * O) as an input, which its caller computes.
+    Heads wider than 128 (to D = 512) go to `csrc/flash_wide.cu`
+    instead: a forward, a dK/dV and a dQ kernel, one warp a row (counters
+    `flash_wide_fwd`, `flash_wide_bwd_dkv`, `flash_wide_bwd_dq`).
   * `ragged_paged_attention` — the decode step's self-attention over
     the paged KV cache: four kernels of `csrc/ragged_paged_attention.cu`
     — one query row per slot (replaces `_rpa_kernel`; one block per
@@ -63,7 +66,7 @@ averages V over such a row; that divergence is recorded in ROADMAP.md,
 and parity tests use lengths >= 1.
 
 Dtypes. The flash kernels take float32, bfloat16 or float16 q / k / v
-(one dtype) and the LayerNorm kernel float32, bfloat16 or float16 x
+(one dtype, heads of 0 < D <= FLASH_MAX_D = 512) and the LayerNorm kernel float32, bfloat16 or float16 x
 (gamma / beta float32 or x's dtype; bfloat16 with float32 x), as the JAX
 kernels read their inputs in the model's dtype. The 16-bit forms have
 kernels of their own (`mxtt_*_bf16`, `mxtt_*_f16`, counted under
@@ -87,6 +90,7 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "FLASH_MAX_D",
            "flash_fwd_plan", "flash_bwd_plan", "flash_block_attention",
            "single_query_cached_attention", "ragged_paged_attention",
            "rpa_plan",
@@ -101,6 +105,11 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
             "flash_fwd_bf16": 0, "flash_bwd_bf16": 0,
             "flash_bwd_dq_bf16": 0, "flash_fwd_f16": 0, "flash_bwd_f16": 0,
             "flash_bwd_dq_f16": 0, "flash_block": 0,
+            "flash_wide_fwd": 0, "flash_wide_bwd_dkv": 0,
+            "flash_wide_bwd_dq": 0, "flash_wide_fwd_bf16": 0,
+            "flash_wide_bwd_dkv_bf16": 0, "flash_wide_bwd_dq_bf16": 0,
+            "flash_wide_fwd_f16": 0, "flash_wide_bwd_dkv_f16": 0,
+            "flash_wide_bwd_dq_f16": 0,
             "ragged_paged_attention": 0, "ragged_paged_attention_int8": 0,
             "ragged_paged_attention_multi": 0,
             "ragged_paged_attention_multi_int8": 0, "layer_norm": 0,
@@ -200,6 +209,10 @@ def _flash_plain(q, k, v, causal, sm_scale, kv_lengths):
 # flash attention forward
 # ---------------------------------------------------------------------------
 _ATTN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# head widths: the narrow kernels (flash_fwd.cu, flash_bwd.cu) take D <=
+# 128, the wide ones (flash_wide.cu) the rest up to FLASH_MAX_D
+_NARROW_MAX_D = 128
+FLASH_MAX_D = 512
 
 
 def _tile_row(dp):
@@ -225,8 +238,8 @@ def _flash_args(q, k, v, kv_lengths):
            f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     _check(all(t.is_contiguous() for t in (q, k, v)),
            "flash_attention kernel takes contiguous q/k/v")
-    _check(0 < d <= 128,
-           f"flash_attention kernel takes 0 < D <= 128, got {d}")
+    _check(0 < d <= FLASH_MAX_D,
+           f"flash_attention kernel takes 0 < D <= {FLASH_MAX_D}, got {d}")
     _check(b * h > 0 and sq > 0 and sk > 0, "flash_attention: empty input")
     if kv_lengths is not None:
         _check(kv_lengths.dtype == torch.int32 and kv_lengths.shape == (b,)
@@ -369,13 +382,15 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None,
     kv_lengths: optional (B,) int32 — key positions >= kv_lengths[b]
     are masked. `causal` masks kj > qi in absolute indices (top-left),
     for any Sq and Sk. On the card one launch as `flash_fwd_plan`
-    says."""
+    says, or of the wide forward kernel for 128 < D <= FLASH_MAX_D."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dev = _device_of(q, k, v, kv_lengths)
     b, h, sq, sk, d = _flash_args(q, k, v, kv_lengths)
     if dev.type != "cuda":
         return _flash_plain(q, k, v, causal, sm_scale, kv_lengths)
+    if d > _NARROW_MAX_D:
+        return _flash_wide_fwd_cuda(q, k, v, causal, sm_scale, kv_lengths)
     return _flash_cuda(q, k, v, causal, sm_scale, kv_lengths,
                        flash_fwd_plan(b * h, sq, sk, d, q.dtype))
 
@@ -584,7 +599,8 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
     dV rows of keys at or past kv_lengths[b] are exactly 0. On the card
     one fused launch writes all three when Sk fits one block
     (`flash_bwd_plan`), else the fused kernel writes dK / dV and the dQ
-    kernel follows."""
+    kernel follows; heads wider than 128 launch the wide dK/dV kernel,
+    then the wide dQ kernel (`csrc/flash_wide.cu`)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dev = _device_of(q, k, v, do, lse, delta, kv_lengths)
@@ -592,11 +608,62 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
     if dev.type != "cuda":
         return _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
                                 kv_lengths)
+    if d > _NARROW_MAX_D:
+        return _flash_wide_bwd_cuda(q, k, v, do, lse, delta, causal,
+                                    sm_scale, kv_lengths)
     args = (q, k, v, do, lse, delta, causal, sm_scale, kv_lengths,
             flash_bwd_plan(sk, d, q.dtype))
     dq, dk, dv = _flash_bwd_fused_cuda(*args)
     if dq is None:
         dq = _flash_bwd_dq_cuda(*args)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# wide heads (128 < D <= 512): csrc/flash_wide.cu
+# ---------------------------------------------------------------------------
+def _wide_fn(lib, name, dtype):
+    return getattr(lib, name + (_suffix(dtype) or "_f32"))
+
+
+def _flash_wide_fwd_cuda(q, k, v, causal, sm_scale, kv_lengths):
+    """The wide forward kernel (one warp a query row, two walks over the
+    keys) on the arguments `flash_attention_fwd` checked."""
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    fn = _wide_fn(_build.library(), "mxtt_flash_wide_fwd", q.dtype)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if kv_lengths is None else kv_lengths.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), b, h, sq, k.shape[2], d,
+                int(causal), float(sm_scale),
+                torch.cuda.current_stream().cuda_stream)
+    _launched("flash_wide_fwd" + _suffix(q.dtype), rc)
+    return out, lse
+
+
+def _flash_wide_bwd_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+                         kv_lengths):
+    """The wide dK/dV kernel (one warp a key row), then the wide dQ
+    kernel (one warp a query row), on the arguments `flash_attention_bwd`
+    checked."""
+    b, h, sq, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    lib = _build.library()
+    ptrs = _bwd_pointers(q, k, v, do, lse, delta, kv_lengths)
+    sfx = _suffix(q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _wide_fn(lib, "mxtt_flash_wide_bwd_dkv", q.dtype)(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d,
+            int(causal), float(sm_scale), stream)
+        _launched("flash_wide_bwd_dkv" + sfx, rc)
+        rc = _wide_fn(lib, "mxtt_flash_wide_bwd_dq", q.dtype)(
+            *ptrs, dq.data_ptr(), b, h, sq, k.shape[2], d, int(causal),
+            float(sm_scale), stream)
+        _launched("flash_wide_bwd_dq" + sfx, rc)
     return dq, dk, dv
 
 

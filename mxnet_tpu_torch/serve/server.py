@@ -3,8 +3,7 @@
 
     model = transformer_base(vocab_size=...)
     model.initialize(ctx=mx.gpu(0))                  # or load_parameters
-    srv = mx.serve.Server(model, slots=8, page_size=16,
-                          engine_driven=False)
+    srv = mx.serve.Server(model, slots=8, page_size=16)
     h = srv.submit([5, 9, 11], max_new_tokens=32)   # source token ids
     print(h.result())                               # generated ids
     for tok in srv.stream([5, 9, 11]):              # or stream them
@@ -14,16 +13,19 @@
 One `Server` owns: the weight snapshots (`decoder_weights` /
 `encoder_weights`) on its device, the device-resident paged KV state and
 the prefill / decode steps (`serve.decode.DecodeRuntime`), the page
-allocator (`serve.kv_pages.PagePool`) and the continuous-batching
-scheduler. `engine_driven=False` runs the crank inline in
-`result()`/`stream()`/`wait()` — the deterministic single-threaded mode.
+allocator (`serve.kv_pages.PagePool`), the continuous-batching
+scheduler, and an engine-driven decode loop
+(`serve.engine_bridge.EngineLoop`, the default): submissions from any
+thread kick the loop, and decoding happens on the dependency engine's
+worker threads under the server's device. `engine_driven=False` runs the
+crank inline in `result()`/`stream()`/`wait()` instead — the
+deterministic single-threaded mode.
 
 The serving fast path: `speculative_k=k` drafts up to k tokens a turn
 and verifies them in one widened step; `kv_dtype="int8"` stores the KV
 pages in int8 with per-page scales (about 4x the tokens in the same
 bytes); `weight_dtype="int8"` serves from per-channel int8 weight
-snapshots. `engine_driven=True` (the dependency engine) needs a later
-slice and raises `MXNetError` naming the ROADMAP item.
+snapshots.
 
 Observability: per-request TTFT/latency histograms
 (`serve_ttft_seconds`, `serve_request_seconds`), `serve_tokens`, the
@@ -41,6 +43,7 @@ from ..context import resolve_device
 from ..models.transformer import decoder_weights, encoder_weights
 from ..observability import registry as _obs_registry
 from .decode import DecodeRuntime
+from .engine_bridge import EngineLoop
 from .kv_pages import PagePool
 from .quant import (kv_page_bytes, pages_for_budget,
                     quantize_decoder_weights, quantize_encoder_weights)
@@ -102,10 +105,6 @@ class Server:
         if weight_dtype not in (None, "float32", "int8"):
             raise MXNetError(f"weight_dtype must be None/'float32'/"
                              f"'int8', got {weight_dtype!r}")
-        if engine_driven:
-            raise MXNetError("Server(engine_driven=True) is not ported yet "
-                             "(ROADMAP.md, Queue 1: the dependency engine);"
-                             " pass engine_driven=False")
         self.max_new_tokens = int(max_new_tokens)
         self.max_prompt_len = int(max_prompt_len)
         self.speculative_k = int(speculative_k)
@@ -157,6 +156,9 @@ class Server:
                                 static_batching=static_batching,
                                 prefix_cache=prefix_cache,
                                 quant_fallback=quant_fallback)
+        self._engine_driven = bool(engine_driven)
+        self._loop = EngineLoop(self._sched, device) \
+            if self._engine_driven else None
         self._closed = False
         # serialises submit() against close(): a submit that slips past
         # the closed check after shutdown drained the queue would strand
@@ -188,7 +190,8 @@ class Server:
         """Enqueue a request; returns its `Request` handle immediately.
         Raises `ServeOverloaded` under backpressure. The handle's
         `.result(timeout)` / `.stream(timeout)` / `.done()` consume it
-        (and crank the scheduler inline).
+        (engine-driven, they wait on the loop; inline, they crank the
+        scheduler themselves).
 
         `prompt_tokens` is a decoder-side prompt (system prompt /
         few-shot template) teacher-forced before generation; its full KV
@@ -211,7 +214,10 @@ class Server:
                 src_tokens, max_new_tokens if max_new_tokens is not None
                 else self.max_new_tokens, prompt_tokens=prompt_tokens,
                 deadline_ms=deadline_ms)
-            req._inline_sched = self._sched
+            if self._loop is not None:
+                self._loop.kick()
+            else:
+                req._inline_sched = self._sched
             return req
 
     def stream(self, src_tokens, max_new_tokens=None, prompt_tokens=None,
@@ -223,25 +229,35 @@ class Server:
         yield from req.stream(timeout=timeout)
 
     def wait(self, handles=None, timeout=None):
-        """Crank the scheduler until `handles` (or ALL traffic when None)
-        finish. Returns True when everything asked for finished (failed
-        counts as finished), False on timeout."""
+        """Await completion of `handles` (or ALL traffic when None):
+        inline mode cranks the scheduler up to the deadline; engine mode
+        waits on the loop / the handles' events. Returns True when
+        everything asked for finished (failed counts as finished), False
+        on timeout."""
         deadline = None if timeout is None else time.monotonic() + timeout
 
         def expired():
             return deadline is not None and time.monotonic() > deadline
 
         if handles is None:
+            if self._loop is not None:
+                return self._loop.wait_idle(timeout)
             while self._sched.pending_work():
                 if expired():
                     return False
                 self._sched.step()
             return True
         for h in handles:
-            while not h.done():
-                if expired():
+            if self._loop is None:
+                while not h.done():
+                    if expired():
+                        return False
+                    self._sched.step()
+            else:
+                rem = None if deadline is None \
+                    else max(0.0, deadline - time.monotonic())
+                if not h._done.wait(rem):
                     return False
-                self._sched.step()
         return True
 
     def throughput(self):
@@ -286,13 +302,16 @@ class Server:
             return h.result(timeout=600)
 
     def close(self):
-        """FAIL any still-pending requests (their handles unblock with
-        `ServeError`, their pages return to the pool) — close never
-        strands a held `Request`."""
+        """Stop the loop (its queued task is cancelled, the running one
+        drained) and FAIL any still-pending requests (their handles
+        unblock with `ServeError`, their pages return to the pool) —
+        close never strands a held `Request`."""
         with self._close_lock:
             if self._closed:
                 return
             self._closed = True
+        if self._loop is not None:
+            self._loop.close()
         self._sched.shutdown()
         if self._rt.kv_quant:
             # the gauge is last-writer-wins across servers (like

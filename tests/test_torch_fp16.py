@@ -377,7 +377,8 @@ def test_fp16_layer_norm_wrapper_hands_the_gamma_dtype(card, gdt):
 def test_wrappers_refuse_what_the_card_would_refuse():
     """float16 takes the plain versions on the CPU (no launch); what the
     float16 kernels do not take raises on the CPU as on the card: D >
-    128, q / k / v or dO of mixed dtypes, float16 x with bfloat16 gamma,
+    512 (the narrow kernels' plan, D > 128; wider heads go to
+    `flash_wide.cu`), q / k / v or dO of mixed dtypes, float16 x with bfloat16 gamma,
     float32 x with float16 gamma, float64; `flash_block_attention`
     takes float32 only (its 16-bit forms are still to port)."""
     tk.reset_launch_counts()
@@ -386,8 +387,8 @@ def test_wrappers_refuse_what_the_card_would_refuse():
     tk.fused_layer_norm(torch.zeros((2, 16), dtype=F16), torch.ones(16),
                         torch.zeros(16))
     assert tk.LAUNCHES == dict.fromkeys(tk.LAUNCHES, 0)
-    wide = torch.zeros((1, 1, 8, 136), dtype=F16)
-    with pytest.raises(MXNetError, match="0 < D <= 128"):
+    wide = torch.zeros((1, 1, 8, 520), dtype=F16)
+    with pytest.raises(MXNetError, match="0 < D <= 512"):
         tk.flash_attention_fwd(wide, wide, wide)
     with pytest.raises(MXNetError, match="0 < D <= 128"):
         tk.flash_fwd_plan(1, 8, 8, 136, F16)

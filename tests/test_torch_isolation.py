@@ -141,3 +141,32 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path,
             == q.shape
     finally:
         mx.kvstore.reset_distributed()
+
+
+def test_engine_and_data_modules_stand_alone(no_cuda):
+    """The dependency engine builds from the port's own copy of the C++
+    source (`mxnet_tpu_torch/csrc/engine.cc`, not `cpp/`) into the port's
+    build directory; the new entry points run on the card unless asked
+    for the CPU: a default `Server(model)` (engine-driven) and a
+    `DataLoader` without `ctx` raise without a card."""
+    from mxnet_tpu_torch import _native
+    assert _native._SRC == PKG / "csrc" / "engine.cc"
+    assert _native._BUILD_DIR == PKG / "_build"
+    assert "mxnet_tpu/" not in _native._SRC.read_text().replace(
+        "mxnet_tpu_torch/", "")
+    model = mx.models.TransformerNMT(20, units=16, hidden=16, num_layers=1,
+                                     num_heads=2, max_length=16)
+    model.initialize(ctx=mx.cpu())
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.serve.Server(model)
+    ds = mx.gluon.data.ArrayDataset(np.zeros((4, 2), np.float32))
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.gluon.data.DataLoader(ds, batch_size=2)
+    loader = mx.gluon.data.DataLoader(ds, batch_size=2, ctx=mx.cpu())
+    assert [b.context.type for b in loader] == ["cpu", "cpu"]
+    for name in ("engine", "metric", "lr_scheduler", "gluon.data",
+                 "gluon.data.vision", "models.mlp", "serve.engine_bridge"):
+        mod = mx
+        for part in name.split("."):
+            mod = getattr(mod, part)
+        assert mod.__name__ == f"mxnet_tpu_torch.{name}"

@@ -221,7 +221,7 @@ def test_cpu_path_launches_no_kernel():
 
 def test_wrappers_check_what_the_kernels_take():
     """The wrappers refuse, on the CPU too, the layouts the CUDA kernels
-    refuse on the card (a non-contiguous q, int64 lengths, D > 128), so
+    refuse on the card (a non-contiguous q, int64 lengths, D > 512), so
     a caller's layout bug shows in the CPU tests."""
     qp, kp, vp, pt = (torch.from_numpy(a) for a in _paged_fixture())
     lens = torch.tensor([3, 4, 5], dtype=torch.int32)
@@ -230,8 +230,8 @@ def test_wrappers_check_what_the_kernels_take():
         tk.ragged_paged_attention(qkv[..., :8], kp, vp, pt, lens)
     with pytest.raises(MXNetError, match="lengths"):
         tk.ragged_paged_attention(qp, kp, vp, pt, lens.long())
-    q, k, v = map(torch.from_numpy, _qkv(8, 1, 1, 4, 4, 136))
-    with pytest.raises(MXNetError, match="D <= 128"):
+    q, k, v = map(torch.from_numpy, _qkv(8, 1, 1, 4, 4, 520))
+    with pytest.raises(MXNetError, match="D <= 512"):
         tk.flash_attention(q, k, v)
     with pytest.raises(MXNetError, match="contiguous"):
         tk.flash_attention(q[..., :8], k[..., :8].contiguous(),

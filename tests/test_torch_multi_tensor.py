@@ -345,7 +345,8 @@ def test_bucket_cache_invalidates_on_bulk_size_change():
 
 def test_set_bulk_size_roundtrip_and_scope():
     """The port's engine knob gives the JAX engine's values for the same
-    calls; every other engine name raises naming Queue 1 [9]."""
+    calls; the rest of the engine (ROADMAP.md Queue 1 [9]) is ported
+    beside it: the JAX engine's names, with its constants."""
     def drive(engine):
         seen = [engine.get_bulk_size()]
         base = engine.get_bulk_size()
@@ -368,10 +369,14 @@ def test_set_bulk_size_roundtrip_and_scope():
     assert got == drive(mxj.engine)
     assert got[0] == mx.engine._DEFAULT_BULK_BYTES == 64 << 20
     assert got[5] == mx.engine._DEFAULT_BULK_BYTES and got[6] == 0
-    for name in ("push", "wait_for_all", "TaskGroup", "PRIORITY_HIGH"):
-        with pytest.raises(MXNetError, match=r"Queue 1 \[9\]"):
-            getattr(mx.engine, name)
-    assert not hasattr(mx.engine, "push")
+    assert sorted(mx.engine.__all__) == sorted(mxj.engine.__all__ + [
+        "bulk"])
+    for name in ("PRIORITY_HIGH", "PRIORITY_NORMAL", "PRIORITY_BACKGROUND",
+                 "PRIORITY_NAMES", "NUM_PRIORITIES"):
+        assert getattr(mx.engine, name) == getattr(mxj.engine, name)
+    v = mx.engine.Var()
+    assert mx.engine.push(lambda: 7, write_vars=[v]).result(timeout=60) == 7
+    mx.engine.wait_for_all()
 
 
 def test_hyperparam_mutation_recompiles():

@@ -259,8 +259,18 @@ def test_remap_pages_moves_pool_rows(models):
 @pytest.mark.parametrize("setting", [{"engine_driven": True}],
                          ids=["engine_driven"])
 def test_unported_settings_raise(models, setting):
-    """The setting of a later slice (the dependency engine) raises
-    MXNetError naming the ROADMAP instead of falling back."""
+    """The setting that waited for the dependency engine (ROADMAP.md
+    Queue 1 [9]) is ported: `engine_driven=True` runs the decode loop on
+    the engine and serves the inline server's tokens. A setting the
+    server cannot take still raises MXNetError instead of falling
+    back."""
     kw = dict(SERVER_KW, **setting)
-    with pytest.raises(MXNetError, match="ROADMAP"):
-        tserve.Server(models[3], device="cpu", **kw)
+    with tserve.Server(models[3], device="cpu", **kw) as srv:
+        assert srv._loop is not None
+        got = srv.submit([5, 9, 11, 7]).result(timeout=60)
+    with tserve.Server(models[3], device="cpu", **SERVER_KW) as srv:
+        assert srv._loop is None
+        assert srv.submit([5, 9, 11, 7]).result(timeout=60) == got
+    with pytest.raises(MXNetError, match="weight_dtype"):
+        tserve.Server(models[3], device="cpu", weight_dtype="bfloat16",
+                      **kw)
