@@ -70,16 +70,20 @@ Phases (any failure raises and the script exits non-zero):
                  against its plain version (LN_TOL) and bit for bit
                  against the same gammas in fp32; timed at the cast
                  NMT's shape beside `F.layer_norm`.
-  2w. flash wide — heads of 128 < D <= 512 (`flash_wide.cu`): the
+  2w. flash wide — heads wider than 128, any width (`flash_wide.cu`):
+                 the wgmma forms' SASS holds HGMMA (cuobjdump -sass of
+                 the built library) and flash_wide.cu's build log no
+                 ptxas C7515 / C7520 serialisation warning; the
                  forward, dK/dV and dQ kernels in fp32, bf16 and fp16 at
-                 D = 192, 256, 512, B = 2, H = 8, S = 1024, causal and
-                 with key lengths, against their plain versions (the
-                 per-dtype limits) and float64 (WIDE_F64_RATIO), two
-                 launches bit-identical; each timed at each D beside
-                 SDPA in its dtype and its bound; then `flash_attention`
-                 forward and backward at D = 256 in each dtype with the
-                 counters zeroed just before and read just after (path
-                 `wide_attention`).
+                 D = 192, 200, 256, 512, 1024 and 2048, B = 2, H = 8,
+                 S = 1024, causal and with key lengths, against their
+                 plain versions (the per-dtype limits) and float64
+                 (WIDE_F64_RATIO), two launches bit-identical; each
+                 timed at each D but 2048 beside SDPA in its dtype (and
+                 the backend SDPA picks) and its bound; then
+                 `flash_attention` forward and backward at D = 256 in
+                 each dtype with the counters zeroed just before and
+                 read just after (path `wide_attention`).
   2b. conv1x1  — the conv1x1 + BN-stats kernel, fp32 and bf16, against a
                  float64 evaluation on the card at the probe's four
                  ResNet-50 shapes (batch 128) and an odd shape (fp32 also
@@ -253,6 +257,12 @@ Phases (any failure raises and the script exits non-zero):
                  memory and one profiled step (busy, GEMM and port
                  kernels' shares) beside phase 11's, with the state of
                  cuBLAS's reduced-precision bf16 reductions.
+ 11w. bert wide, bf16 — the `bert_wide_bf16` path: 11b's model, cast and
+                 SGD, but BERTModel at bert_base's shape with three
+                 heads of 256 (the wide kernels), 10 steps through Gluon
+                 on phase 11's batch: every step 12 wide bf16 forwards,
+                 dK/dV and dQ kernels and 26 bf16 LayerNorms; tokens/s
+                 beside 11b's from the same call, one profiled step.
  12. bert card vs CPU — phase 11's initial weights, cut to 2 layers at
                  full width, one step at B=2, S=512, lengths (300, 512)
                  on the card and on the CPU: the loss and every gradient
@@ -264,6 +274,9 @@ Phases (any failure raises and the script exits non-zero):
                  BF16_F64_RATIO x the CPU bf16 step's distance (plus one
                  bf16 ulp); every fp32 master Adam's first update of its
                  own gradient and every weight its master rounded.
+ 12w. wide bert card vs CPU, bf16 — 12b on the same weights as three
+                 heads of 256, at B=2, S=128, lengths (77, 128): the wide
+                 bf16 kernels on the card, held as 12b holds its step.
  12c. train fused — 11b's bf16 BERT-base: one backward, then the fused
                  Trainer's and the per-parameter Trainer's first step on
                  those gradients from the same weights (momentum bit for
@@ -312,7 +325,14 @@ Phases (any failure raises and the script exits non-zero):
                  (e) `flash_attention_fwd` / `_bwd` against float64 at
                  S = 512, 1024, 2048, 4096 (B=1, H=8), causal and not: out /
                  lse within FLASH_F64_RATIO and dQ / dK / dV within
-                 BWD_F64_RATIO of the plain version's distance.
+                 BWD_F64_RATIO of the plain version's distance. Then in
+                 bf16: (a) on bf16 inputs (2 launches each of
+                 `flash_block_bf16` and the bf16 forward, fused and dQ
+                 kernels), held against `flash_attention` in bf16; (b)
+                 in bf16 and fp16 against the plain versions of the
+                 kernels it runs (the LOWP limits) and float64
+                 (BF16_F64_RATIO); (d) timed beside SDPA in bf16 and
+                 fp16.
 
 `--capture` runs the build and the fused-Trainer and captured-step
 phases alone (on fresh weights), with no kernels line and no `ok` line.
@@ -331,6 +351,7 @@ this file, it exits non-zero and prints no result.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -545,6 +566,10 @@ def _lowp(dtype):
     return LOWP[str(dtype).split(".")[-1]]
 
 
+# the bert_wide_bf16 path: bert_base's shape with three heads of 256 (the
+# wide kernels' path), and its 2-layer card-vs-CPU copy at S = 128
+BERT_WIDE_H = 3
+BERT_WIDE_CHECK_S, BERT_WIDE_CHECK_LENS = 128, (77, 128)
 # phase 11b: bench_bert.py's optimizer (SGD, lr 1e-3, momentum 0.9,
 # bench_bert.py:68) on the bf16 model, its loss on logits cast to fp32
 BERT_BF16_LR, BERT_BF16_MOMENTUM = 1e-3, 0.9
@@ -3968,15 +3993,17 @@ def _bert_step(mx, model, trainer, ce, batch, bench=False):
     return loss
 
 
-def _bert_pretraining(mx, num_layers=None):
+def _bert_pretraining(mx, num_layers=None, num_heads=BERT_H):
     """BERTForPretraining over bert_base (max_length 512, dropout 0), or
-    a full-width BERT of `num_layers` layers."""
-    if num_layers is None:
+    a full-width BERT of `num_layers` layers (12 when None) and
+    `num_heads` heads (BERT_WIDE_H: three of 256)."""
+    if num_layers is None and num_heads == BERT_H:
         bert = mx.models.bert_base(max_length=BERT_S, dropout=0.0)
     else:
         bert = mx.models.BERTModel(BERT_VOCAB, units=768, hidden_size=3072,
-                                   num_layers=num_layers, num_heads=BERT_H,
-                                   max_length=BERT_S, dropout=0.0)
+                                   num_layers=num_layers or 12,
+                                   num_heads=num_heads, max_length=BERT_S,
+                                   dropout=0.0)
     return mx.models.BERTForPretraining(bert)
 
 
@@ -3993,7 +4020,8 @@ def _bert_train_report(mx, torch, tag, model, trainer, batch, bench, losses,
     launches every step, parameters and gradients on the card), log its
     summary (tokens/s as B * S a step over the wall time of steps 3 on,
     the per-step spread, peak memory) and profile one more step: busy
-    share, the GEMM and port kernels' shares and rows."""
+    share, the GEMM and port kernels' shares and rows. Returns the
+    summary."""
     check(all(np.isfinite(losses)), f"non-finite {tag} loss: {losses}")
     check(losses[-1] < losses[0], f"{tag} loss did not fall: {losses}")
     for i, counts in enumerate(per_step):
@@ -4015,18 +4043,21 @@ def _bert_train_report(mx, torch, tag, model, trainer, batch, bench, losses,
     log(f"{tag} " + json.dumps(summary))
     ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     prof = tag.replace("training", "profile")
+    groups = {"flash forward": ("flash_fwd",),
+              "split backward": ("flash_bwd",),
+              "wide forward": ("wide_fwd",),
+              "wide dK/dV": ("wide_dkv",), "wide dQ": ("wide_bwd_dq",),
+              "LayerNorm": ("layer_norm",), "GEMM": GEMM_WORDS}
     got = device_profile(torch, lambda: _bert_step(mx, model, trainer, ce,
                                                    batch, bench))
     if got is not None:
         log_profile(prof, *got, "1 training step")
-        _profile_shares(prof, got[1], {"flash forward": ("flash_fwd",),
-                                       "split backward": ("flash_bwd",),
-                                       "LayerNorm": ("layer_norm",),
-                                       "GEMM": GEMM_WORDS})
+        _profile_shares(prof, got[1], groups)
         for dev_us, count, key in got[1]:
-            if "flash" in key or "layer_norm" in key:
+            if "flash" in key or "wide" in key or "layer_norm" in key:
                 log(f"{prof}: port kernel {dev_us / 1e3:.3f} ms "
                     f"{count}x {key[:70]}")
+    return summary
 
 
 def phase_bert_train(mx, torch, init_file):
@@ -4069,7 +4100,7 @@ def phase_bert_train_bf16(mx, torch):
     batch. Every step must launch the bf16 forms only: 12 flash
     forwards, 12 fused and 12 dQ backward kernels, 2 x 12 + 2
     LayerNorms. Logged beside phase 11: tokens/s and its spread, peak
-    memory, one profiled step."""
+    memory, one profiled step. Returns the launches and the summary."""
     K = mx.ops.kernels
     log(f"bf16: torch.backends.cuda.matmul."
         f"allow_bf16_reduced_precision_reduction="
@@ -4092,13 +4123,78 @@ def phase_bert_train_bf16(mx, torch):
     want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd_bf16=n,
                 flash_bwd_bf16=n, flash_bwd_dq_bf16=n,
                 layer_norm_bf16=2 * n + 2)
-    _bert_train_report(
+    summary = _bert_train_report(
         mx, torch, "bert bf16 training", model, trainer, batch, True, losses,
         per_step, step_s, launches, want, dtype="bfloat16",
         optimizer=f"sgd lr {BERT_BF16_LR} momentum {BERT_BF16_MOMENTUM}")
     del model, trainer, batch
     torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_bert_wide_bf16(mx, torch, base_tokens_s):
+    """The `bert_wide_bf16` path: phase 11b's model, cast and trainer,
+    but BERTModel at bert_base's shape with BERT_WIDE_H heads of 256
+    (heads wider than 128 run the wide kernels, `csrc/flash_wide.cu`),
+    BERT_STEPS steps on phase 11's batch through Gluon. Every step must
+    launch the wide bf16 kernels only: 12 wide forwards, 12 dK/dV and 12
+    dQ kernels, and 2 x 12 + 2 LayerNorms (counters zeroed just before a
+    step and read just after). Tokens/s over steps 3 on beside phase
+    11b's from the same call (`base_tokens_s`): the cost of wide heads."""
+    K = mx.ops.kernels
+    mx.random.seed(0)
+    model = _bert_pretraining(mx, num_heads=BERT_WIDE_H)
+    model.initialize(ctx=mx.gpu(0))
+    model.cast("bfloat16")
+    check(model.bert.encoder.layers[0].attention._num_heads == BERT_WIDE_H,
+          "the wide BERT's heads")
+    batch = _bert_batch(mx, BERT_B, BERT_S, mx.gpu(0))
+    trainer = mx.gluon.Trainer(model.collect_params(), "sgd",
+                               {"learning_rate": BERT_BF16_LR,
+                                "momentum": BERT_BF16_MOMENTUM})
+    losses, per_step, step_s, launches = _bert_train_loop(
+        mx, torch, model, trainer, batch, True)
+    n = len(model.bert.encoder.layers)
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_wide_fwd_bf16=n,
+                flash_wide_bwd_dkv_bf16=n, flash_wide_bwd_dq_bf16=n,
+                layer_norm_bf16=2 * n + 2)
+    wide = _bert_train_report(
+        mx, torch, "bert wide bf16 training", model, trainer, batch, True,
+        losses, per_step, step_s, launches, want, dtype="bfloat16",
+        heads=BERT_WIDE_H, head_width=768 // BERT_WIDE_H,
+        optimizer=f"sgd lr {BERT_BF16_LR} momentum {BERT_BF16_MOMENTUM}"
+    )["tokens_per_s"]
+    log(f"bert wide bf16 ({BERT_WIDE_H} heads of {768 // BERT_WIDE_H}) "
+        f"{wide:.1f} tokens/s beside bert_base bf16 (12 heads of 64) "
+        f"{base_tokens_s:.1f} tokens/s in this call: ratio "
+        f"{wide / base_tokens_s:.3f}")
+    del model, trainer, batch
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_bert_wide_card_vs_cpu_bf16(mx, torch, init_file):
+    """Phase 12b on the wide BERT: phase 11's initial weights cut to 2
+    layers, as BERT_WIDE_H heads of 256 (the same weights: the heads
+    split the same projections), cast to bf16, one Adam step with
+    `multi_precision` at B = 2, S = BERT_WIDE_CHECK_S on the card and on
+    the CPU, each held against the same step in fp32 on the CPU as phase
+    12b holds them; the card must launch the wide bf16 kernels only."""
+    K = mx.ops.kernels
+    shape = dict(num_heads=BERT_WIDE_H, s=BERT_WIDE_CHECK_S,
+                 lens=BERT_WIDE_CHECK_LENS)
+    card = _mp_step(mx, torch, mx.gpu(0), init_file, True, **shape)
+    cpu = _mp_step(mx, torch, mx.cpu(), init_file, True, **shape)
+    ref = _mp_step(mx, torch, mx.cpu(), init_file, False, **shape)
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_wide_fwd_bf16=2,
+                flash_wide_bwd_dkv_bf16=2, flash_wide_bwd_dq_bf16=2,
+                layer_norm_bf16=6)
+    check(card[2] == want, f"wide BERT bf16 card step launches {card[2]} "
+                           f"!= {want}")
+    _mp_compare("wide BERT bf16", card, cpu, ref,
+                f"2 layers, {BERT_WIDE_H} heads of {768 // BERT_WIDE_H}, "
+                f"B=2, S={BERT_WIDE_CHECK_S}, lengths "
+                f"{BERT_WIDE_CHECK_LENS}, ")
 
 
 def phase_bert_attention_bf16(mx, torch, rows):
@@ -4201,7 +4297,8 @@ def phase_bert_card_vs_cpu(mx, torch, init_file):
         f"{worst[2]:.3e}); card launches {launches}")
 
 
-def _mp_step(mx, torch, ctx, init_file, bf16):
+def _mp_step(mx, torch, ctx, init_file, bf16, num_heads=BERT_H, s=BERT_S,
+             lens=(300, 512)):
     """One Adam step (BERT_MP_LR, multi_precision=True) of the 2-layer
     full-width BERT from `init_file` on `ctx`, cast to bf16 or not, on
     the B=2, S=512 batch with lengths (300, 512), the losses on logits
@@ -4212,7 +4309,7 @@ def _mp_step(mx, torch, ctx, init_file, bf16):
     (1e-6 of lr) and the sum once (2^-23 of the master); and the weight
     written back must be the master rounded to bf16, bit for bit."""
     K = mx.ops.kernels
-    model = _bert_pretraining(mx, num_layers=2)
+    model = _bert_pretraining(mx, num_layers=2, num_heads=num_heads)
     model.load_parameters(init_file, ctx=ctx, ignore_extra=True)
     params = model._collect_params_with_prefix()
     if bf16:
@@ -4225,7 +4322,7 @@ def _mp_step(mx, torch, ctx, init_file, bf16):
     ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     K.reset_launch_counts()
     loss = _bert_step(mx, model, trainer, ce,
-                      _bert_batch(mx, 2, BERT_S, ctx, lens=(300, 512)), True)
+                      _bert_batch(mx, 2, s, ctx, lens=lens), True)
     launches = dict(K.LAUNCHES)
     index = {id(p): i for i, p in enumerate(trainer._params)}
     grads = {n: p.grad()._data.float().cpu() for n, p in params.items()}
@@ -4271,10 +4368,17 @@ def phase_bert_card_vs_cpu_bf16(mx, torch, init_file):
                 flash_bwd_bf16=2, flash_bwd_dq_bf16=2, layer_norm_bf16=6)
     check(card[2] == want, f"BERT bf16 card step launches {card[2]} != "
                            f"{want}")
-    check(np.isfinite(card[0]), f"BERT bf16 card loss {card[0]}")
+    _mp_compare("BERT bf16", card, cpu, ref, "2 layers, B=2, S=512, "
+                "lengths (300, 512), ")
+
+
+def _mp_compare(tag, card, cpu, ref, shape=""):
+    """Phase 12b's comparison of a bf16 step on the card and on the CPU
+    with the fp32 step on the CPU: the loss and every gradient."""
+    check(np.isfinite(card[0]), f"{tag} card loss {card[0]}")
     d_card, d_cpu = abs(card[0] - ref[0]), abs(cpu[0] - ref[0])
     check(d_card <= BF16_F64_RATIO * d_cpu + BF16_F64_FLOOR * abs(ref[0]),
-          f"BERT bf16 loss: card {card[0]}, cpu {cpu[0]}, fp32 {ref[0]}")
+          f"{tag} loss: card {card[0]}, cpu {cpu[0]}, fp32 {ref[0]}")
     worst = (0.0, "", 0.0, 0.0)
     for n, r in ref[1].items():
         c, p = card[1][n], cpu[1][n]
@@ -4283,10 +4387,10 @@ def phase_bert_card_vs_cpu_bf16(mx, torch, init_file):
         dc = (c - r).norm().item() / scale
         dp = (p - r).norm().item() / scale
         lim = BF16_F64_RATIO * dp + BF16_F64_FLOOR
-        check(dc <= lim, f"BERT bf16 gradient of {n}: card {dc:.4e}, cpu "
+        check(dc <= lim, f"{tag} gradient of {n}: card {dc:.4e}, cpu "
                          f"{dp:.4e} from the fp32 step (relative norms)")
         worst = max(worst, (dc / lim, n, dc, dp))
-    log(f"bert bf16 card vs cpu (2 layers, B=2, S=512, lengths (300, 512), "
+    log(f"{tag} card vs cpu ({shape}"
         f"Adam multi_precision): loss card {card[0]:.6f}, cpu {cpu[0]:.6f}, "
         f"fp32 {ref[0]:.6f}; all {len(ref[1])} gradients within "
         f"{BF16_F64_RATIO}x the cpu bf16 step's distance from fp32 + "
@@ -5097,27 +5201,37 @@ def _lc_example(mx, torch, mesh, arrays, ref, want):
     return launches, worst[0]
 
 
-def _lc_block_check(mx, torch, g):
-    """(b) `flash_block_attention` against its plain version at the
-    example's shape, causal and not, with random cotangents of out and a
-    nonzero one of lse: out, lse and dQ, dK, dV within FLASH_TOL /
-    BWD_TOL, and no further from float64 than FLASH_F64_RATIO /
-    BWD_F64_RATIO times the plain version. Returns the worst error."""
+def _lc_block_check(mx, torch, g, dtype=None):
+    """(b) `flash_block_attention` in `dtype` (fp32 when None) against the
+    plain versions of the kernels it runs (`_flash_plain`,
+    `_flash_bwd_plain` on delta - g_lse) at the example's shape, causal
+    and not, with random cotangents of out and a nonzero one of lse: out,
+    lse and dQ, dK, dV within FLASH_TOL / BWD_TOL in fp32, the dtype's
+    LOWP limits in bf16 / fp16 (lse FLASH_TOL), and no further from
+    float64 than FLASH_F64_RATIO / BWD_F64_RATIO times the plain version
+    in fp32, BF16_F64_RATIO times plus the dtype's floor in 16 bits.
+    Returns the worst error."""
     K = mx.ops.kernels
+    dtype = dtype or torch.float32
+    lim = None if dtype == torch.float32 else _lowp(dtype)
+    tag = "" if lim is None else f" {lim['label']}"
     dev = torch.device("cuda", 0)
     shape = (LC_B, LC_H, LC_S, LC_D)
     scale = LC_D ** -0.5
     worst = 0.0
     for causal in (False, True):
-        q, k, v, do = (torch.randn(shape, generator=g).to(dev)
+        q, k, v, do = (torch.randn(shape, generator=g).to(dev).to(dtype)
                        for _ in range(4))
         g_lse = torch.randn(shape[:3], generator=g).to(dev)
         qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
         out, lse = K.flash_block_attention(qg, kg, vg, causal)
+        check(out.dtype == dtype and lse.dtype == torch.float32,
+              f"flash_block{tag}: out {out.dtype}, lse {lse.dtype}")
         got = [out.detach(), lse.detach(),
                *torch.autograd.grad((out, lse), (qg, kg, vg), (do, g_lse))]
         p_out, p_lse = K._flash_plain(q, k, v, causal, scale, None)
-        delta = ((p_out * do).sum(-1) - g_lse).reshape(-1, LC_S)
+        delta = ((p_out.float() * do.float()).sum(-1) - g_lse).reshape(
+            -1, LC_S)
         plain = [p_out, p_lse.reshape(shape[:3]),
                  *K._flash_bwd_plain(q, k, v, do, p_lse, delta, causal,
                                      scale, None)]
@@ -5126,22 +5240,34 @@ def _lc_block_check(mx, torch, g):
         for name, a, p, r64 in zip(("out", "lse", "dq", "dk", "dv"), got,
                                    plain, f64):
             fwd = name in ("out", "lse")
-            errs[name] = (a - p).abs().max().item()
-            check(torch.isfinite(a).all().item() and torch.allclose(
-                a, p, **(FLASH_TOL if fwd else BWD_TOL)),
-                f"flash_block {name} causal={causal} vs plain: max abs "
-                f"err {errs[name]}")
+            errs[name] = (a.float() - p.float()).abs().max().item()
+            if lim is None or name == "lse":
+                ok = torch.allclose(a, p, **(FLASH_TOL if fwd else BWD_TOL))
+            else:
+                atol = lim["out_atol"] * _slice_max(v) if name == "out" \
+                    else lim["grad_atol"] * _slice_max(p)
+                ok = _bf16_share(torch, a, p, atol, lim["rtol"]) <= 1.0
+            check(torch.isfinite(a).all().item() and ok,
+                  f"flash_block{tag} {name} causal={causal} vs plain: max "
+                  f"abs err {errs[name]}")
             errs64[name] = (a.cpu().double() - r64).abs().max().item()
             plain64[name] = (p.cpu().double() - r64).abs().max().item()
-            ratio = FLASH_F64_RATIO if fwd else BWD_F64_RATIO
-            check(errs64[name] <= ratio * plain64[name],
-                  f"flash_block {name} causal={causal}: {errs64[name]} "
-                  f"from float64, more than {ratio}x the plain version's "
-                  f"{plain64[name]}")
+            if lim is None:
+                limit = (FLASH_F64_RATIO if fwd else BWD_F64_RATIO) \
+                    * plain64[name]
+            else:
+                floor = FP32_F64_FLOOR if name == "lse" \
+                    else lim["f64_floor"]
+                limit = BF16_F64_RATIO * plain64[name] \
+                    + floor * r64.abs().max().item()
+            check(errs64[name] <= limit,
+                  f"flash_block{tag} {name} causal={causal}: {errs64[name]}"
+                  f" from float64, more than {limit} (plain "
+                  f"{plain64[name]})")
         worst = max(worst, *errs.values())
-        log(f"flash_block {shape} causal={causal}, nonzero g_lse: max abs "
-            f"err vs plain {errs} (FLASH_TOL / BWD_TOL); vs float64 "
-            f"{errs64} (plain {plain64})")
+        log(f"flash_block{tag} {shape} causal={causal}, nonzero g_lse: max "
+            f"abs err vs plain {errs}; vs float64 {errs64} (plain "
+            f"{plain64})")
     return worst
 
 
@@ -5195,15 +5321,18 @@ def _lc_ring_on_one_card(mx, torch, arrays, ref):
     return worst[0]
 
 
-def _lc_times(mx, torch, g):
-    """(d) `flash_block_attention` forward and forward + backward at the
-    example's shape (causal), by CUDA-graph replay, beside the plain
-    versions and SDPA's forward and forward + backward."""
+def _lc_times(mx, torch, g, dtype=None):
+    """(d) `flash_block_attention` in `dtype` (fp32 when None) forward and
+    forward + backward at the example's shape (causal), by CUDA-graph
+    replay, beside the plain versions and SDPA's forward and forward +
+    backward in the same dtype; the bound at the split-TF32 rate in fp32,
+    the tensor cores' bf16 / fp16 rate otherwise."""
     K = mx.ops.kernels
+    dtype = dtype or torch.float32
     dev = torch.device("cuda", 0)
     shape = (LC_B, LC_H, LC_S, LC_D)
     scale = LC_D ** -0.5
-    q, k, v, do = (torch.randn(shape, generator=g).to(dev)
+    q, k, v, do = (torch.randn(shape, generator=g).to(dev).to(dtype)
                    for _ in range(4))
     g_lse = torch.randn(shape[:3], generator=g).to(dev)
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -5215,7 +5344,8 @@ def _lc_times(mx, torch, g):
 
     def plain_fwd_bwd():
         out, lse = K._flash_plain(q, k, v, True, scale, None)
-        delta = ((out * do).sum(-1) - g_lse).reshape(-1, LC_S)
+        delta = ((out.float() * do.float()).sum(-1) - g_lse).reshape(-1,
+                                                                     LC_S)
         K._flash_bwd_plain(q, k, v, do, lse, delta, True, scale, None)
 
     def sdpa_fwd_bwd():
@@ -5231,18 +5361,18 @@ def _lc_times(mx, torch, g):
     dev_ms = {name: graph_ms(fn, calls=5, iters=10)
               for name, fn in fns.items()}
     pairs = LC_B * LC_H * LC_S * (LC_S + 1) // 2   # causal (q, k) pairs
-    rows_q = 4 * LC_B * LC_H * LC_S * LC_D         # bytes of (B, H, S, D)
+    rows_q = q.element_size() * LC_B * LC_H * LC_S * LC_D   # (B, H, S, D)
     stats = 4 * LC_B * LC_H * LC_S                 # bytes of lse
+    rate = PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     # forward: q, k, v read, out and lse written; QK^T and PV
-    fwd_b = bound(4 * rows_q + stats, 4 * pairs * LC_D, PEAK_TF32X3_FLOPS)
+    fwd_b = bound(4 * rows_q + stats, 4 * pairs * LC_D, rate)
     # forward + backward: q, k, v, dO and g_lse read, out, lse, dQ, dK
     # and dV written; the backward adds S, dP, dV, dQ and dK
-    all_b = bound(8 * rows_q + 2 * stats, 14 * pairs * LC_D,
-                  PEAK_TF32X3_FLOPS)
+    all_b = bound(8 * rows_q + 2 * stats, 14 * pairs * LC_D, rate)
     tflops = {name: f * pairs * LC_D / (dev_ms[name] * 1e-3) / 1e12
               for name, f in (("fwd", 4), ("fwd_bwd", 14))}
-    log(f"flash_block timed {shape} causal: device (CUDA graph) {dev_ms}; "
-        f"bounds fwd {fwd_b}, fwd+bwd {all_b}; fwd / SDPA fwd "
+    log(f"flash_block timed {shape} causal {dtype}: device (CUDA graph) "
+        f"{dev_ms}; bounds fwd {fwd_b}, fwd+bwd {all_b}; fwd / SDPA fwd "
         f"{dev_ms['fwd'] / dev_ms['sdpa_fwd']:.3f}; fwd+bwd / SDPA fwd+bwd "
         f"{dev_ms['fwd_bwd'] / dev_ms['sdpa_fwd_bwd']:.3f}; achieved "
         f"TFLOP/s {tflops}")
@@ -5254,6 +5384,63 @@ def _lc_times(mx, torch, g):
                                 plain_ms=dev_ms["plain_fwd"],
                                 bound_ms=fwd_b[0], bound_by=fwd_b[1],
                                 library_ms=dev_ms["sdpa_fwd"])])
+
+
+def _lc_example_lowp(mx, torch, mesh, arrays, dtype):
+    """(a) in bfloat16: examples/long_context.py's flow on the one-rank
+    mesh, both strategies forward and backward through their `_sharded`
+    entries on bf16 inputs, the counters zeroed just before and read
+    just after (one flash_block_bf16 forward and one bf16 flash forward
+    and split backward each); held against `flash_attention` in bf16
+    over the whole sequence (the LOWP limits). Returns the launches."""
+    K = mx.ops.kernels
+    lim = _lowp(dtype)
+    sfx = K._suffix(dtype)
+    par = mx.parallel
+    qu, ku, vu, wu = (t.detach().to(dtype).requires_grad_(True)
+                      for t in _lc_leaves(torch, arrays, True))
+    qr, kr, vr = (t.detach().transpose(1, 2).contiguous()
+                  .requires_grad_(True) for t in (qu, ku, vu))
+    w = wu.detach().transpose(1, 2).contiguous()
+    qf, kf, vf = (t.detach().clone().requires_grad_(True)
+                  for t in (qr, kr, vr))
+    ref = K.flash_attention(qf, kf, vf, causal=True)
+    ref_grads = torch.autograd.grad((ref.float() * w.float()).sum(),
+                                    (qf, kf, vf))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    uly = par.ulysses_attention_sharded(qu, ku, vu, mesh, causal=True)
+    (uly.float() * wu.detach().float()).sum().backward()
+    ring = par.ring_attention_sharded(qr, kr, vr, mesh, causal=True)
+    (ring.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {f"flash_block{sfx}": 2, f"flash_fwd{sfx}": 2,
+            f"flash_bwd{sfx}": 2, f"flash_bwd_dq{sfx}": 2}
+    check(launches == dict(dict.fromkeys(K.LAUNCHES, 0), **want),
+          f"long context {dtype} launches {launches}, want {want}")
+    outs = {"ulysses": uly.detach().transpose(1, 2), "ring": ring.detach()}
+    grads = {"ulysses": [t.grad.transpose(1, 2) for t in (qu, ku, vu)],
+             "ring": [t.grad for t in (qr, kr, vr)]}
+    worst = 0.0
+    for what in outs:
+        check(outs[what].dtype == dtype, f"{what} {dtype}: {outs[what].dtype}")
+        share = _bf16_share(torch, outs[what], ref.detach(),
+                            lim["out_atol"] * _slice_max(vf), lim["rtol"])
+        check(share <= 1.0, f"{what} {dtype} vs flash_attention: share "
+                            f"{share}")
+        worst = max(worst, share)
+        for name, a, r in zip(("dq", "dk", "dv"), grads[what], ref_grads):
+            share = _bf16_share(torch, a, r, lim["grad_atol"]
+                                * _slice_max(r), lim["rtol"])
+            check(share <= 1.0, f"{what} {dtype} {name} vs flash_attention:"
+                                f" share {share}")
+            worst = max(worst, share)
+    log(f"long context {(LC_B, LC_S, LC_H, LC_D)} causal in {lim['label']}, "
+        f"sp={mesh.shape['sp']} over NCCL: ulysses and ring within the "
+        f"{lim['label']} limits of flash_attention (worst share "
+        f"{worst:.3f}); launches {launches}")
+    return launches
 
 
 def flash_f64_sweep(mx, torch):
@@ -5304,8 +5491,10 @@ def phase_long_context(mx, torch):
     `_sharded` entries, (b) `flash_block_attention` against its plain
     version, (c) a four-rank ring on one card, (d) times; then (e) the
     flash kernels against float64 at S = 512-4096 (`flash_f64_sweep`).
-    Returns the kernels row of `flash_block_attention` and the launches
-    of (a)."""
+    (a) in bf16 follows (`_lc_example_lowp`), then (b) and (d) in bf16
+    and fp16 (the fp16 times in the bf16 row's `per_shape`). Returns
+    the kernels rows of `flash_block_attention` (fp32, bf16) and the
+    launches of (a) in each."""
     rs = np.random.RandomState(0)
     arrays = [rs.standard_normal((LC_B, LC_S, LC_H, LC_D)).astype(np.float32)
               for _ in range(4)]
@@ -5323,6 +5512,21 @@ def phase_long_context(mx, torch):
         worst = _lc_block_check(mx, torch, g)
         worst = max(worst, _lc_ring_on_one_card(mx, torch, arrays, ref))
         row = _lc_times(mx, torch, g)
+        bf = torch.bfloat16
+        launches_bf16 = _lc_example_lowp(mx, torch, mesh, arrays, bf)
+        worst_bf16 = _lc_block_check(mx, torch, g, bf)
+        _lc_block_check(mx, torch, g, torch.float16)
+        row_bf16 = _lc_times(mx, torch, g, bf)
+        row_f16 = _lc_times(mx, torch, g, torch.float16)
+        # the fp16 form (no path casts to it) beside the bf16 row
+        row_bf16["per_shape"] += [
+            dict(entry, dtype="float16", what=f"{entry['what']}, float16")
+            for entry in row_f16["per_shape"]] + [dict(
+                shape=list(row_f16["per_shape"][0]["shape"]), causal=True,
+                dtype="float16", what="forward + backward, float16",
+                ms=row_f16["ms"], plain_ms=row_f16["plain_ms"],
+                bound_ms=row_f16["bound_ms"], bound_by=row_f16["bound_by"],
+                library_ms=row_f16["library_ms"])]
     finally:
         mx.kvstore.reset_distributed()
     # (e) the kernels' distance from float64 along long walks
@@ -5337,10 +5541,15 @@ def phase_long_context(mx, torch):
         f"64): distance over the plain version's "
         f"{ {c: {n: round(x, 2) for n, x in r.items()} for c, r in ratios.items()} }")
     torch.cuda.empty_cache()
-    return dict(name="flash_block_attention", counter="flash_block",
-                route="cuda", source="mxnet_tpu_torch/ops/kernels.py",
-                replaces="mxnet_tpu/ops/pallas_kernels.py:741",
-                max_abs_err=worst, **row), launches
+    common = dict(route="cuda", source="mxnet_tpu_torch/ops/kernels.py",
+                  replaces="mxnet_tpu/ops/pallas_kernels.py:741")
+    rows = [dict(name="flash_block_attention", counter="flash_block",
+                 max_abs_err=worst, **common, **row),
+            dict(name="flash_block_attention_bf16",
+                 counter="flash_block_bf16", max_abs_err=worst_bf16,
+                 **common, **row_bf16)]
+    return rows, {"long_context": launches,
+                  "long_context_bf16": launches_bf16}
 
 
 def _sp_rank(rank, world, port, out_dir):
@@ -5442,9 +5651,21 @@ MNIST_LOSS_RTOL = 1e-4
 # (csrc/flash_wide.cu), B = 2, H = 8, S = 1024, causal, and with key
 # lengths; the float64 yardstick at most WIDE_F64_RATIO x the plain
 # version's distance plus one unit roundoff of the dtype (fp32 2^-23)
-# times the largest value
-WIDE_D = (192, 256, 512)
+# times the largest value. WIDE_D are checked and timed (200: no multiple
+# of 8, the copies where TMA cannot go; 512 and 1024: the streamed mode
+# in chunks of 256 columns), WIDE_BIG_D checked only
+WIDE_D = (192, 200, 256, 512, 1024)
+WIDE_BIG_D = 2048
 WIDE_B, WIDE_H, WIDE_S = 2, 8, 1024
+# the wgmma kernels (bf16 and fp16 forward and dK/dV): their SASS must
+# hold HGMMA, and their build no serialisation warning (ptxas C7515 /
+# C7520: a wgmma under a branch it cannot prove warp-uniform)
+WIDE_TC_KERNELS = ("wide_fwd_tc_kernel", "wide_dkv_tc_kernel")
+# each type's instances: the forward's resident, split and streamed modes
+# and its causal key split, the dK/dV kernel's three modes
+WIDE_TC_INSTANCES = 4 + 3
+WIDE_PLAN_OF = {"fwd": "fwd", "bwd_dkv": "dkv", "bwd_dq": "dq"}
+WIDE_SERIAL_WARNINGS = ("C7515", "C7520")
 WIDE_LENS = [777, 1024]
 WIDE_F64_RATIO = 2.0
 WIDE_SOURCE = "mxnet_tpu_torch/ops/csrc/flash_wide.cu"
@@ -5835,14 +6056,31 @@ def _wide_check(mx, torch, g, dtype, d, causal, lens):
     return errs, shares
 
 
+def _sdpa_backend(torch, fn):
+    """The backend SDPA picks for `fn` (one call), by the names of the
+    kernels it launches under torch.profiler: cudnn, flash, efficient
+    (CUTLASS fmha) or math; "not measured" where the profiler cannot
+    trace the card."""
+    got = device_profile(torch, fn)
+    if got is None:
+        return "not measured"
+    names = " ".join(r[2] for r in got[1]).lower()
+    for words, name in ((("cudnn",), "cudnn"), (("flash",), "flash"),
+                        (("fmha", "efficient", "mem_eff"), "efficient")):
+        if any(w in names for w in words):
+            return name
+    return "math"
+
+
 def _wide_times(mx, torch, g, dtype, d):
     """The wide kernels at (WIDE_B, WIDE_H, WIDE_S, d), causal, by CUDA-
-    graph replay: each kernel, the backward pair, the plain versions,
-    SDPA's forward and backward (fwd+bwd - fwd) in the same dtype, and
-    each kernel's bound (each input read and output written once at 3.35
-    TB/s against its products over the live pairs, 4 / 8 / 6 x pairs x
-    D, at the split-TF32 rate in fp32 and the bf16 / fp16 tensor-core
-    rate otherwise)."""
+    graph replay: each kernel (as `flash_wide_plan` launches it), the
+    backward pair, the plain versions, SDPA's forward and backward
+    (fwd+bwd - fwd) in the same dtype and the backend it picks, and each
+    kernel's bound (each input read and output written once at 3.35 TB/s
+    against its products over the live pairs, 4 / 8 / 6 x pairs x D, at
+    the split-TF32 rate in fp32 and the bf16 / fp16 tensor-core rate
+    otherwise)."""
     K = mx.ops.kernels
     F = torch.nn.functional
     b, h, s = WIDE_B, WIDE_H, WIDE_S
@@ -5856,17 +6094,24 @@ def _wide_times(mx, torch, g, dtype, d):
     fwd, dkv, dqf = (K._wide_fn(_build.library(), f"mxtt_flash_wide_{kind}",
                                 dtype) for kind in ("fwd", "bwd_dkv",
                                                     "bwd_dq"))
+    plans = K.flash_wide_plan(d, dtype, b * h, s, s, causal=True)
+    vec = K._vec_copies(d, q, k, v, do)
+    args = {kind: K._wide_plan_args(plans[kind], vec)
+            for kind in ("fwd", "dkv", "dq")}
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), None)
     o2, l2 = torch.empty_like(q), torch.empty_like(lse)
     fns = {
         "fwd": lambda: fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
                            o2.data_ptr(), l2.data_ptr(), b, h, s, s, d, 1,
-                           scale, st().cuda_stream),
+                           scale, *args["fwd"], st().cuda_stream),
         "bwd_dkv": lambda: dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), b, h, s,
-                               s, d, 1, scale, st().cuda_stream),
+                               s, d, 1, scale, *args["dkv"],
+                               st().cuda_stream),
         "bwd_dq": lambda: dqf(*ptrs, dq.data_ptr(), b, h, s, s, d, 1, scale,
-                              st().cuda_stream)}
+                              *args["dq"], st().cuda_stream)}
+    for name, fn in fns.items():
+        check(fn() == 0, f"wide {name} D={d} {dtype}: launch refused")
     fns["pair"] = lambda: K.flash_attention_bwd(q, k, v, do, lse, delta,
                                                 True, scale)
     ms = {name: graph_ms(fn, calls=5, iters=10) for name, fn in fns.items()}
@@ -5882,6 +6127,7 @@ def _wide_times(mx, torch, g, dtype, d):
         o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         torch.autograd.grad(o, (qg, kg, vg), do)
     sdpa_all = graph_ms(sdpa_both, calls=2, iters=5)
+    backend = _sdpa_backend(torch, sdpa_both)
     pairs = _wide_pairs(b, h, s, True, None)
     e = q.element_size()
     rate = PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
@@ -5892,7 +6138,48 @@ def _wide_times(mx, torch, g, dtype, d):
         "bwd_dq": bound(5 * rows + 8 * b * h * s, 6 * pairs * d, rate)}
     return dict(ms=ms, plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
                 sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_all - sdpa_fwd,
-                bounds=bounds, pairs=pairs)
+                sdpa_backend=backend, bounds=bounds, pairs=pairs,
+                plans={kind: {key: plans[kind][key] for key in (
+                    "kind", "mode", "chunks", "stages", "smem")
+                    if key in plans[kind]} for kind in plans})
+
+
+def _wide_build_checks(mx):
+    """The wgmma kernels on the tensor cores: every instance of
+    WIDE_TC_KERNELS (each type, mode and the key split) in the built
+    library holds HGMMA in its SASS
+    (`cuobjdump -sass`), and flash_wide.cu's build log (nvcc's stderr and
+    ptxas -v) holds no WIDE_SERIAL_WARNINGS. Logs each instance's
+    registers and spills. Returns {instance: holds HGMMA}."""
+    from mxnet_tpu_torch.ops import _build
+    info = _build.build_info()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", info["path"]], capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-500:]}")
+    hgmma = {}
+    for sec in out.stdout.split("Function : ")[1:]:
+        name = sec.split("\n", 1)[0].strip()
+        if any(kern in name for kern in WIDE_TC_KERNELS):
+            hgmma[name] = "HGMMA" in sec
+    # WIDE_TC_INSTANCES in each of two types
+    check(len(hgmma) == 2 * WIDE_TC_INSTANCES and all(hgmma.values()),
+          f"the wide wgmma kernels' SASS: {hgmma}")
+    if info["cached"]:
+        log("wide kernels: build log not available (a cached build was "
+            "loaded); the serialisation check needs a fresh build")
+    else:
+        text = info["log"].split("== flash_wide.cu", 1)[-1].split("\n== ")[0]
+        bad = [w for w in WIDE_SERIAL_WARNINGS if w in text]
+        check(not bad, f"flash_wide.cu's build warns {bad}: ptxas "
+                       f"serialised wgmma")
+        lines = text.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "_tc_kernel" in line:
+                log("wide ptxas: " + " | ".join(
+                    ln.strip() for ln in lines[i:i + 4]))
+    log(f"wide kernels' SASS holds HGMMA: {hgmma}")
+    return hgmma
 
 
 def _wide_attention_path(mx, torch, g):
@@ -5924,21 +6211,23 @@ def _wide_attention_path(mx, torch, g):
 
 
 def phase_flash_wide(mx, torch):
-    """Heads wider than 128 (`csrc/flash_wide.cu`): each wide kernel
-    against its plain version and float64 at D = 192, 256 and 512, B = 2,
-    H = 8, S = 1024, causal and with key lengths, in fp32, bf16 and fp16
-    (`_wide_check`); timed by CUDA-graph replay beside SDPA in the same
-    dtype and beside its bound (`_wide_times`); then the path
+    """Heads wider than 128 (`csrc/flash_wide.cu`): the wgmma kernels'
+    SASS and build log (`_wide_build_checks`); each wide kernel against
+    its plain version and float64 at WIDE_D and WIDE_BIG_D, B = 2, H = 8,
+    S = 1024, causal and with key lengths, in fp32, bf16 and fp16
+    (`_wide_check`); timed at WIDE_D by CUDA-graph replay beside SDPA in
+    the same dtype and beside its bound (`_wide_times`); then the path
     (`_wide_attention_path`). Returns (the kernels' rows, the path's
     launches)."""
     g = torch.Generator().manual_seed(18)
     t0 = time.perf_counter()
+    hgmma = _wide_build_checks(mx)
     rows = {}
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         sfx = mx.ops.kernels._suffix(dtype)
         worst = {kind: 0.0 for kind in ("fwd", "bwd_dkv", "bwd_dq")}
         per_shape = {kind: {} for kind in worst}
-        for d in WIDE_D:
+        for d in WIDE_D + (WIDE_BIG_D,):
             for causal, lens in ((True, None), (False, WIDE_LENS)):
                 errs, shares = _wide_check(mx, torch, g, dtype, d, causal,
                                            lens)
@@ -5948,6 +6237,8 @@ def phase_flash_wide(mx, torch):
                 worst["bwd_dq"] = max(worst["bwd_dq"], errs["dq"])
                 log(f"flash_wide{sfx} D={d} causal={causal} lens={lens}: "
                     f"errs {json.dumps(errs)} shares {json.dumps(shares)}")
+            if d == WIDE_BIG_D:
+                continue
             t = _wide_times(mx, torch, g, dtype, d)
             for kind in worst:
                 plain = t["plain_fwd_ms"] if kind == "fwd" \
@@ -5957,7 +6248,8 @@ def phase_flash_wide(mx, torch):
                 per_shape[kind][f"D{d}"] = dict(
                     ms=t["ms"][kind], bound_ms=t["bounds"][kind][0],
                     bound_by=t["bounds"][kind][1], plain_ms=plain,
-                    library_ms=lib, pairs=t["pairs"])
+                    library_ms=lib, sdpa_backend=t["sdpa_backend"],
+                    pairs=t["pairs"], plan=t["plans"][WIDE_PLAN_OF[kind]])
             per_shape["bwd_dkv"][f"D{d}"]["pair_ms"] = t["ms"]["pair"]
             log(f"flash_wide{sfx} D={d} times " + json.dumps(
                 {kind: per_shape[kind][f"D{d}"] for kind in worst}))
@@ -5970,6 +6262,10 @@ def phase_flash_wide(mx, torch):
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=head["library_ms"], per_shape=per_shape[kind])
+            if sfx and kind != "bwd_dq":
+                rows[f"flash_wide_{kind}{sfx}"]["sass_hgmma"] = all(
+                    ok for name, ok in hgmma.items()
+                    if ("fwd" if kind == "fwd" else "dkv") in name)
     launches = _wide_attention_path(mx, torch, g)
     log(f"flash_wide: {len(rows)} kernels checked and timed in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -6092,15 +6388,18 @@ def main(argv=()):
         phase_bert_attention_bf16(mx, torch, by_name)
         bert_init = os.path.join(tmp, "bert_base_init.params")
         bert_launches = phase_bert_train(mx, torch, bert_init)
-        bert_bf16_launches = phase_bert_train_bf16(mx, torch)
+        bert_bf16_launches, bert_bf16 = phase_bert_train_bf16(mx, torch)
+        bert_wide_launches = phase_bert_wide_bf16(
+            mx, torch, bert_bf16["tokens_per_s"])
         phase_bert_card_vs_cpu(mx, torch, bert_init)
         phase_bert_card_vs_cpu_bf16(mx, torch, bert_init)
+        phase_bert_wide_card_vs_cpu_bf16(mx, torch, bert_init)
         phase_train_fused(mx, torch)
         bert_cap_launches = phase_bert_train_bf16_captured(mx, torch)
         phase_capture_guard(mx, torch)
         amp_launches = phase_amp_f16(mx, torch, init_file)
-    block_row, lc_launches = phase_long_context(mx, torch)
-    kernels.append(block_row)
+    block_rows, lc_launches = phase_long_context(mx, torch)
+    kernels.extend(block_rows)
     for k in kernels:
         # a row's launches are its wrapper's counter (`flash_block_attention`
         # counts under `flash_block`)
@@ -6121,8 +6420,9 @@ def main(argv=()):
                    "nmt_train_captured": nmt_cap_launches[c],
                    "nmt_train_bf16_captured": nmt_bf16_cap_launches[c],
                    "serve_cast": cast_launches[c],
+                   "bert_wide_bf16": bert_wide_launches[c],
                    **{path: n[c] for path, n in amp_launches.items()},
-                   "long_context": lc_launches[c]}
+                   **{path: n[c] for path, n in lc_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         check(k["launches"] > 0, f"{k['name']} never launched on a path")
@@ -6136,7 +6436,8 @@ def main(argv=()):
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "call_ms")
     print(json.dumps({"kernels": [
-        {key: k[key] for key in keys + ("per_shape", "launch_floor_ms")
+        {key: k[key] for key in keys + ("per_shape", "launch_floor_ms",
+                                         "sass_hgmma")
          if key in k} for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

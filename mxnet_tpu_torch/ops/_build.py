@@ -86,19 +86,22 @@ _SIGNATURES = {
     # blocks, threads, stream: an empty kernel (a launch's floor)
     "mxtt_launch_floor": [_I, _I, _P],
 }
-# the wide-head flash kernels (`flash_wide.cu`, 128 < D <= 512), one
-# entry a dtype: q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal,
-# sm_scale, stream; q, k, v, dO, lse, delta, kv_len, dk, dv, B, H, Sq, Sk,
-# D, causal, sm_scale, stream; the same with dq alone
+# the wide-head flash kernels (`flash_wide.cu`, any D), one entry a
+# dtype: q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, sm_scale;
+# q, k, v, dO, lse, delta, kv_len, dk, dv, B, H, Sq, Sk, D, causal,
+# sm_scale; the same with dq alone; each then the plan (chunks, stages,
+# vec, smem bytes) and the stream
+_WIDE_PLAN = [_I, _I, _I, _L, _P]
 for _sfx in ("_f32", "_bf16", "_f16"):
     _SIGNATURES["mxtt_flash_wide_fwd" + _sfx] = [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+        *_WIDE_PLAN]
     _SIGNATURES["mxtt_flash_wide_bwd_dkv" + _sfx] = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        ctypes.c_float, _P]
+        ctypes.c_float, *_WIDE_PLAN]
     _SIGNATURES["mxtt_flash_wide_bwd_dq" + _sfx] = [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        ctypes.c_float, _P]
+        ctypes.c_float, *_WIDE_PLAN]
 # the bfloat16 and float16 forms take their fp32 forms' arguments; the
 # 16-bit LayerNorms' gamma flag says gamma / beta are in x's type, and a
 # 16-byte-chunks flag comes before the stream

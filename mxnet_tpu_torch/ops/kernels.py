@@ -20,9 +20,11 @@ Counterpart of `mxnet_tpu/ops/pallas_kernels.py`:
     a dQ kernel after it (BERT at S = 512). `flash_attention_fwd` /
     `flash_attention_bwd` are the two halves on their own; the backward
     takes delta = rowsum(dO * O) as an input, which its caller computes.
-    Heads wider than 128 (to D = 512) go to `csrc/flash_wide.cu`
-    instead: a forward, a dK/dV and a dQ kernel, one warp a row (counters
-    `flash_wide_fwd`, `flash_wide_bwd_dkv`, `flash_wide_bwd_dq`).
+    Heads wider than 128 (any width) go to `csrc/flash_wide.cu` instead:
+    a forward, a dK/dV and a dQ kernel (counters `flash_wide_fwd`,
+    `flash_wide_bwd_dkv`, `flash_wide_bwd_dq`), as `flash_wide_plan`
+    says; in bf16 and fp16 the forward and dK/dV kernels run on wgmma,
+    in chunks of 256 output columns.
   * `ragged_paged_attention` — the decode step's self-attention over
     the paged KV cache: four kernels of `csrc/ragged_paged_attention.cu`
     — one query row per slot (replaces `_rpa_kernel`; one block per
@@ -66,7 +68,8 @@ averages V over such a row; that divergence is recorded in ROADMAP.md,
 and parity tests use lengths >= 1.
 
 Dtypes. The flash kernels take float32, bfloat16 or float16 q / k / v
-(one dtype, heads of 0 < D <= FLASH_MAX_D = 512) and the LayerNorm kernel float32, bfloat16 or float16 x
+(one dtype, heads of any width D > 0) and the LayerNorm kernel float32,
+bfloat16 or float16 x
 (gamma / beta float32 or x's dtype; bfloat16 with float32 x), as the JAX
 kernels read their inputs in the model's dtype. The 16-bit forms have
 kernels of their own (`mxtt_*_bf16`, `mxtt_*_f16`, counted under
@@ -90,8 +93,8 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "FLASH_MAX_D",
-           "flash_fwd_plan", "flash_bwd_plan", "flash_block_attention",
+           "flash_fwd_plan", "flash_bwd_plan", "flash_wide_plan",
+           "flash_block_attention",
            "single_query_cached_attention", "ragged_paged_attention",
            "rpa_plan",
            "fused_layer_norm", "layer_norm_fwd",
@@ -104,7 +107,8 @@ _MASKED = -1e30
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
             "flash_fwd_bf16": 0, "flash_bwd_bf16": 0,
             "flash_bwd_dq_bf16": 0, "flash_fwd_f16": 0, "flash_bwd_f16": 0,
-            "flash_bwd_dq_f16": 0, "flash_block": 0,
+            "flash_bwd_dq_f16": 0, "flash_block": 0, "flash_block_bf16": 0,
+            "flash_block_f16": 0,
             "flash_wide_fwd": 0, "flash_wide_bwd_dkv": 0,
             "flash_wide_bwd_dq": 0, "flash_wide_fwd_bf16": 0,
             "flash_wide_bwd_dkv_bf16": 0, "flash_wide_bwd_dq_bf16": 0,
@@ -210,9 +214,8 @@ def _flash_plain(q, k, v, causal, sm_scale, kv_lengths):
 # ---------------------------------------------------------------------------
 _ATTN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # head widths: the narrow kernels (flash_fwd.cu, flash_bwd.cu) take D <=
-# 128, the wide ones (flash_wide.cu) the rest up to FLASH_MAX_D
+# 128, the wide ones (flash_wide.cu) any wider head
 _NARROW_MAX_D = 128
-FLASH_MAX_D = 512
 
 
 def _tile_row(dp):
@@ -238,8 +241,7 @@ def _flash_args(q, k, v, kv_lengths):
            f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     _check(all(t.is_contiguous() for t in (q, k, v)),
            "flash_attention kernel takes contiguous q/k/v")
-    _check(0 < d <= FLASH_MAX_D,
-           f"flash_attention kernel takes 0 < D <= {FLASH_MAX_D}, got {d}")
+    _check(d > 0, f"flash_attention kernel takes D > 0, got {d}")
     _check(b * h > 0 and sq > 0 and sk > 0, "flash_attention: empty input")
     if kv_lengths is not None:
         _check(kv_lengths.dtype == torch.int32 and kv_lengths.shape == (b,)
@@ -382,11 +384,12 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None,
     kv_lengths: optional (B,) int32 — key positions >= kv_lengths[b]
     are masked. `causal` masks kj > qi in absolute indices (top-left),
     for any Sq and Sk. On the card one launch as `flash_fwd_plan`
-    says, or of the wide forward kernel for 128 < D <= FLASH_MAX_D."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    says, or of the wide forward kernel for D > 128
+    (`flash_wide_plan`)."""
     dev = _device_of(q, k, v, kv_lengths)
     b, h, sq, sk, d = _flash_args(q, k, v, kv_lengths)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
     if dev.type != "cuda":
         return _flash_plain(q, k, v, causal, sm_scale, kv_lengths)
     if d > _NARROW_MAX_D:
@@ -601,10 +604,10 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
     (`flash_bwd_plan`), else the fused kernel writes dK / dV and the dQ
     kernel follows; heads wider than 128 launch the wide dK/dV kernel,
     then the wide dQ kernel (`csrc/flash_wide.cu`)."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dev = _device_of(q, k, v, do, lse, delta, kv_lengths)
     _, _, _, sk, d = _flash_bwd_args(q, k, v, do, lse, delta, kv_lengths)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
     if dev.type != "cuda":
         return _flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
                                 kv_lengths)
@@ -620,16 +623,181 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
 
 
 # ---------------------------------------------------------------------------
-# wide heads (128 < D <= 512): csrc/flash_wide.cu
+# wide heads (D > 128, any width): csrc/flash_wide.cu
 # ---------------------------------------------------------------------------
+# the wgmma forms (bf16, fp16 forward and dK/dV): threads a block (two
+# consumer warpgroups), query rows of a forward block, keys of a forward
+# tile and of a dK/dV block, queries of a dK/dV tile, 64-column swizzle
+# atoms of a resident tile and of a chunk of output columns, ring stages
+# at most (`csrc/flash_wide.cu` kTcThreads, kTcRows, kTcBK, kTcBQ,
+# kTcAtoms, kTcMaxStages); the fp32 forms (split TF32 on mma.sync):
+# warps a block (16 rows each), keys of a forward tile, queries of a dK/dV
+# tile, columns of a piece of D and of a chunk of output columns
+# (kF32Warps, kF32BK, kF32BQ, kF32PW, kF32DC); the dQ kernel (every
+# dtype): rows a block and rows of a tile (kWarps, kTile)
+_WIDE_TC_THREADS, _WIDE_TC_ROWS, _WIDE_TC_BK, _WIDE_TC_BQ = 256, 128, 64, 64
+_WIDE_TC_ATOMS, _WIDE_TC_MAX_STAGES = 4, 6
+_WIDE_F32_WARPS, _WIDE_F32_BK, _WIDE_F32_BQ = 4, 32, 32
+_WIDE_F32_PW, _WIDE_F32_DC = 64, 128
+# the fp32 forward keeps its Q rows in shared memory to this D
+# (`csrc/flash_wide.cu` kF32QResMaxD)
+_WIDE_F32_QRES_MAX_D = 320
+_WIDE_WARPS, _WIDE_TILE = 8, 16
+_ATOM_ELEMS = 64 * 64    # elements of a 64-row atom
+
+
+def _wide_tc_smem(fixed, stage, stages):
+    """`tc_smem`: 1024 bytes to align the swizzled tiles, the fixed
+    buffers, the ring's stages, a full and an empty mbarrier a stage and
+    one more (the forward's Q, the dK/dV kernel's K and V)."""
+    return 1024 + fixed + stages * stage + 8 * (2 * stages + 1)
+
+
+def _wide_tc_plan(d, kind, bh, rows, causal=False):
+    """The wgmma kernel's plan (`tc_mode`, `tc_fwd_plan` / `tc_dkv_plan`):
+    "resident" while D fits four atoms (every tile holds all of D,
+    zero-padded to 256), "split" to eight (the forward's Q rows, the
+    dK/dV kernel's K and V rows stay; the other side comes in pieces),
+    "streamed" above (an atom of each side a stage); the output's
+    columns in chunks of four atoms; the most stages (up to 6) that fit
+    227 KB. A causal resident forward splits the keys (`key_split`):
+    a block owns 64 query rows and its warpgroups walk alternate key
+    tiles, merging at the end, so the causal grid's longest blocks take
+    half as long."""
+    la = -(-d // 64)
+    mode = "resident" if la <= _WIDE_TC_ATOMS else (
+        "split" if la <= 2 * _WIDE_TC_ATOMS else "streamed")
+    tile = 2 * 64 * 64 * _WIDE_TC_ATOMS          # bytes of 64 rows x 4 atoms
+    key_split = kind == "fwd" and causal and mode == "resident"
+    if kind == "fwd":
+        # Q's 128 rows (the key split: 64): resident 4 atoms, split 8,
+        # streamed none; a stage: resident K and V, split half of K's
+        # atoms or the chunk's V, streamed Q's and K's atom (128 + 64
+        # rows) or the chunk's V
+        fixed = dict(resident=2 * tile, split=4 * tile, streamed=0)[mode]
+        if key_split:
+            fixed //= 2
+        stage = dict(resident=2 * tile, split=tile, streamed=2 * max(
+            (_WIDE_TC_ROWS + _WIDE_TC_BK) * 64,
+            _WIDE_TC_BK * 64 * _WIDE_TC_ATOMS))[mode]
+        block = _WIDE_TC_ROWS // 2 if key_split else _WIDE_TC_ROWS
+        # O: 64 rows x 4 atoms of fp32 over a warpgroup's 128 threads
+        regs = dict(o=64 * 64 * _WIDE_TC_ATOMS // 128)
+    else:
+        # two buffers each of P^T and dS^T (64 x 64), and K and V's 64
+        # rows: resident 4 atoms, split 8, streamed none; a stage:
+        # resident Q and dO, split two atoms of each, streamed an atom of
+        # K, Q, V and dO, or a warpgroup's half of the chunk's Q and dO
+        pt = 2 * 2 * 2 * _ATOM_ELEMS
+        fixed = pt + dict(resident=2 * tile, split=4 * tile,
+                          streamed=0)[mode]
+        stage = 2 * tile if mode == "resident" else 2 * 4 * _ATOM_ELEMS
+        block = _WIDE_TC_BK
+        # each warpgroup its half (two atoms) of dK and of dV
+        half = 64 * 64 * _WIDE_TC_ATOMS // 2 // 128
+        regs = dict(dk=half, dv=half)
+    stages = _WIDE_TC_MAX_STAGES
+    while stages > 1 and _wide_tc_smem(fixed, stage, stages) > _SMEM_LIMIT:
+        stages -= 1
+    chunks = -(-la // _WIDE_TC_ATOMS)
+    return dict(kind="wgmma", mode=mode, key_split=key_split, atoms=la,
+                chunks=chunks, stages=stages,
+                smem=_wide_tc_smem(fixed, stage, stages),
+                threads=_WIDE_TC_THREADS,
+                grid=(bh, -(-rows // block), chunks), regs=regs)
+
+
+def _wide_f32_plan(d, kind, bh, rows):
+    """The fp32 kernel's plan (`f32_ok`): 64 rows (keys) a block of four
+    warps, chunks of 128 output columns; shared rows of a piece (64
+    columns) and of a chunk (128) padded by 4 floats (`pitch_of`): the
+    forward its 64 Q rows (D padded to whole pieces; above D = 320 a
+    piece of them), a piece of a 32-key tile's K rows and the tile's V
+    rows in the chunk's columns, the dK/dV kernel a piece of its 64 K and
+    V rows and of a 32-query tile's Q and dO rows; no ring."""
+    rows_b = 16 * _WIDE_F32_WARPS
+    pp, cp = _WIDE_F32_PW + 4, _WIDE_F32_DC + 4
+    chunks = -(-d // _WIDE_F32_DC)
+    if kind == "fwd":
+        qp = _WIDE_F32_PW * -(-d // _WIDE_F32_PW) + 4 \
+            if d <= _WIDE_F32_QRES_MAX_D else pp
+        smem = 4 * (rows_b * qp + _WIDE_F32_BK * pp + _WIDE_F32_BK * cp)
+        # O: 16 rows x 128 columns of fp32 over a warp's 32 lanes
+        regs = dict(o=16 * _WIDE_F32_DC // 32)
+    else:
+        smem = 4 * 2 * (rows_b + _WIDE_F32_BQ) * pp
+        regs = dict(dk=16 * _WIDE_F32_DC // 32, dv=16 * _WIDE_F32_DC // 32)
+    return dict(kind="mma", piece=_WIDE_F32_PW, chunks=chunks, stages=0,
+                smem=smem, threads=32 * _WIDE_F32_WARPS,
+                grid=(bh, -(-rows // rows_b), chunks), regs=regs)
+
+
+def _wide_simple_plan(d, kind, bh, rows):
+    """The dQ kernel's plan (`simple_ok`): NJ = 8 columns a lane (a piece
+    of 256) to D = 256, else 16 (512); chunks of one piece of the
+    output's columns; two shared tiles of 16 rows of a piece in fp32; no
+    ring."""
+    nj = 8 if d <= 256 else 16
+    piece = 32 * nj
+    chunks = -(-d // piece)
+    return dict(kind="simple", nj=nj, piece=piece, chunks=chunks, stages=0,
+                smem=4 * 2 * _WIDE_TILE * piece, threads=32 * _WIDE_WARPS,
+                grid=(-(-rows // _WIDE_WARPS), bh, chunks),
+                regs=dict(acc=nj))
+
+
+def flash_wide_plan(d, dtype=torch.float32, bh=1, sq=1, sk=1, causal=False):
+    """The launch plans of the wide kernels (`csrc/flash_wide.cu`) for
+    B*H = `bh` slices of `sq` queries over `sk` keys, heads of width `d`
+    (any D > 0; `flash_attention` sends them D > 128), `causal` or not,
+    in `dtype`:
+    {"fwd": ..., "dkv": ..., "dq": ...}, each with
+
+      kind    "wgmma" (bf16 and fp16 forward and dK/dV), "mma" (fp32
+              forward and dK/dV: split TF32 on mma.sync) or "simple" (dQ)
+      chunks  blocks a row block's output columns split over (the grid's
+              z axis): four atoms (256 columns) a chunk on wgmma, 128
+              columns in fp32, one piece (256 or 512) in the dQ kernel
+      stages  the TMA ring's stages (0 elsewhere)
+      smem    dynamic shared bytes; the kernel recomputes chunks, stages
+              and bytes and refuses a plan that disagrees
+      threads, grid
+      regs    fp32 accumulator registers a thread: the forward's O (D / 2
+              at D = 256 on wgmma, 64 for fp32's 128 columns), dK and dV
+              (each warpgroup's halves, 64 + 64), the dQ kernel's NJ
+      wgmma only: mode ("resident" to D = 256, "split" to 512, else
+              "streamed"), atoms (ceil(D / 64)), key_split (the causal
+              resident forward: 64 rows a block, the keys split between
+              its warpgroups)
+    """
+    _check(d > 0 and bh > 0 and sq > 0 and sk > 0,
+           f"flash_wide_plan takes D > 0 and a non-empty input, got D {d}, "
+           f"B*H {bh}, Sq {sq}, Sk {sk}")
+    _check(dtype in _ATTN_DTYPES, f"the wide kernels have no {dtype} form")
+    if dtype == torch.float32:
+        return dict(fwd=_wide_f32_plan(d, "fwd", bh, sq),
+                    dkv=_wide_f32_plan(d, "dkv", bh, sk),
+                    dq=_wide_simple_plan(d, "dq", bh, sq))
+    return dict(fwd=_wide_tc_plan(d, "fwd", bh, sq, causal),
+                dkv=_wide_tc_plan(d, "dkv", bh, sk),
+                dq=_wide_simple_plan(d, "dq", bh, sq))
+
+
 def _wide_fn(lib, name, dtype):
     return getattr(lib, name + (_suffix(dtype) or "_f32"))
 
 
+def _wide_plan_args(plan, vec):
+    """What an entry takes after its tensors and sizes: chunks, stages,
+    vec, shared bytes."""
+    return plan["chunks"], plan["stages"], vec, plan["smem"]
+
+
 def _flash_wide_fwd_cuda(q, k, v, causal, sm_scale, kv_lengths):
-    """The wide forward kernel (one warp a query row, two walks over the
-    keys) on the arguments `flash_attention_fwd` checked."""
+    """The wide forward kernel on the arguments `flash_attention_fwd`
+    checked, launched as `flash_wide_plan` says."""
     b, h, sq, d = q.shape
+    plan = flash_wide_plan(d, q.dtype, b * h, sq, k.shape[2], causal)["fwd"]
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     fn = _wide_fn(_build.library(), "mxtt_flash_wide_fwd", q.dtype)
@@ -638,6 +806,7 @@ def _flash_wide_fwd_cuda(q, k, v, causal, sm_scale, kv_lengths):
                 None if kv_lengths is None else kv_lengths.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), b, h, sq, k.shape[2], d,
                 int(causal), float(sm_scale),
+                *_wide_plan_args(plan, _vec_copies(d, q, k, v)),
                 torch.cuda.current_stream().cuda_stream)
     _launched("flash_wide_fwd" + _suffix(q.dtype), rc)
     return out, lse
@@ -645,24 +814,26 @@ def _flash_wide_fwd_cuda(q, k, v, causal, sm_scale, kv_lengths):
 
 def _flash_wide_bwd_cuda(q, k, v, do, lse, delta, causal, sm_scale,
                          kv_lengths):
-    """The wide dK/dV kernel (one warp a key row), then the wide dQ
-    kernel (one warp a query row), on the arguments `flash_attention_bwd`
-    checked."""
+    """The wide dK/dV kernel, then the wide dQ kernel, on the arguments
+    `flash_attention_bwd` checked, as `flash_wide_plan` says."""
     b, h, sq, d = q.shape
+    plans = flash_wide_plan(d, q.dtype, b * h, sq, k.shape[2])
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     lib = _build.library()
     ptrs = _bwd_pointers(q, k, v, do, lse, delta, kv_lengths)
     sfx = _suffix(q.dtype)
+    vec = _vec_copies(d, q, k, v, do)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _wide_fn(lib, "mxtt_flash_wide_bwd_dkv", q.dtype)(
             *ptrs, dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d,
-            int(causal), float(sm_scale), stream)
+            int(causal), float(sm_scale),
+            *_wide_plan_args(plans["dkv"], vec), stream)
         _launched("flash_wide_bwd_dkv" + sfx, rc)
         rc = _wide_fn(lib, "mxtt_flash_wide_bwd_dq", q.dtype)(
             *ptrs, dq.data_ptr(), b, h, sq, k.shape[2], d, int(causal),
-            float(sm_scale), stream)
+            float(sm_scale), *_wide_plan_args(plans["dq"], vec), stream)
         _launched("flash_wide_bwd_dq" + sfx, rc)
     return dq, dk, dv
 
@@ -704,22 +875,45 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lengths=None):
 # ---------------------------------------------------------------------------
 # flash block attention: (out, lse) with gradients through both
 # ---------------------------------------------------------------------------
+def _block_plain_fwd(q, k, v, causal, sm_scale):
+    """The plain block forward in bfloat16 / float16, rounded where the
+    JAX package's `_block_fwd_xla` rounds: S and lse in fp32, p = exp(s -
+    lse) rounded to the input dtype for P V (fp32 sums), out rounded
+    once; (out, lse (B*H, Sq)). A row with no visible key is zeros, as
+    in the kernels."""
+    b, h, sq, _ = q.shape
+    s, allowed = _attention_scores(q, k, causal, sm_scale, None)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    if allowed is not None:
+        p = p * allowed.any(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
+    return out.to(q.dtype), lse.reshape(b * h, sq)
+
+
 class _FlashBlock(torch.autograd.Function):
     """Forward: the flash forward, keeping its lse as an output; backward:
     the flash backward with delta = rowsum(dO * O) - g_lse. Since
     d lse / d s = p, an lse cotangent adds g_lse * p to dS = p (dP -
     delta), which is the same as shifting delta by -g_lse (the JAX
-    package's `delta_shift`, `pallas_kernels.py:563-566`)."""
+    package's `delta_shift`, `pallas_kernels.py:563-566`). On the card
+    every dtype runs the flash kernels (their rounding points); on the
+    CPU bfloat16 and float16 round where `_block_fwd_xla` /
+    `_block_bwd_xla` do: the forward `_block_plain_fwd`, the backward the
+    fp32 plain version on the widened inputs, each gradient cast once."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
         b, h, sq, _ = q.shape
-        _check(q.dtype == torch.float32,
-               f"flash_block_attention takes float32 q/k/v, got {q.dtype} "
-               f"(its bfloat16 form: ROADMAP.md, Queue 2)")
-        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
-        if q.is_cuda:
-            LAUNCHES["flash_block"] += 1
+        dev = _device_of(q, k, v)
+        _flash_args(q, k, v, None)
+        on_card = dev.type == "cuda"
+        if on_card or q.dtype == torch.float32:
+            out, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        else:
+            out, lse = _block_plain_fwd(q, k, v, causal, sm_scale)
+        if on_card:
+            LAUNCHES["flash_block" + _suffix(q.dtype)] += 1
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out, lse.view(b, h, sq)
@@ -733,25 +927,35 @@ class _FlashBlock(torch.autograd.Function):
         do = dout.contiguous()
         delta = (out.float() * do.float()).sum(-1).reshape(lse.shape) \
             - dlse.float().reshape(lse.shape)
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta, ctx.causal,
-                                         ctx.sm_scale)
+        if _device_of(q, k, v).type == "cuda" or q.dtype == torch.float32:
+            dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta,
+                                             ctx.causal, ctx.sm_scale)
+        else:
+            _flash_bwd_args(q, k, v, do, lse, delta, None)
+            dq, dk, dv = (g.to(q.dtype) for g in _flash_bwd_plain(
+                q.float(), k.float(), v.float(), do.float(), lse, delta,
+                ctx.causal, ctx.sm_scale, None))
         return dq, dk, dv, None, None
 
 
 def flash_block_attention(q, k, v, causal=False, sm_scale=None):
     """Attention of q over ONLY these keys, with its row log-sum-exp:
     (out (B, H, Sq, D), lse (B, H, Sq) fp32), differentiable through
-    both. q: (B, H, Sq, D); k, v: (B, H, Sk, D), float32, contiguous.
+    both. q: (B, H, Sq, D); k, v: (B, H, Sk, D), contiguous, of one
+    dtype (float32, bfloat16 or float16): out in q's dtype, lse fp32.
     Partials over disjoint key sets merge exactly:
 
         lse = logaddexp(lse_a, lse_b)
         out = out_a * exp(lse_a - lse) + out_b * exp(lse_b - lse)
 
     the combine of `parallel.ring_attention`. On the card the forward is
-    one launch of `csrc/flash_fwd.cu` and the backward the kernels of
-    `csrc/flash_bwd.cu` (`flash_bwd_plan`); each forward on the card adds
-    one to `LAUNCHES["flash_block"]`. On the CPU the plain versions run
-    (the counterparts of `_block_fwd_xla` / `_block_bwd_xla`).
+    one launch of the flash forward in q's dtype (`csrc/flash_fwd.cu`,
+    or `flash_wide.cu` above D = 128) and the backward the flash backward
+    kernels (`flash_bwd_plan`); each forward on the card adds one to
+    `LAUNCHES["flash_block"]` (`flash_block_bf16`, `flash_block_f16` in
+    16 bits). On the CPU the plain versions run (the
+    counterparts of `_block_fwd_xla` / `_block_bwd_xla`, rounding where
+    they round in bfloat16 and float16).
 
     A row with no visible key is zeros here (the kernels' convention),
     where the JAX package's XLA form spreads p uniformly (ROADMAP.md,

@@ -452,8 +452,8 @@ def test_multi_precision_leaves_fp32_weights_alone():
 def test_other_dtypes_raise_and_the_cpu_launches_nothing():
     """bf16 on the CPU takes the plain versions (no launch); float64 and
     mixed dtypes raise in every wrapper (float16 has forms of its own:
-    `tests/test_torch_fp16.py`); flash_block_attention takes float32
-    only (its bf16 form is still to come)."""
+    `tests/test_torch_fp16.py`); flash_block_attention takes bf16 too
+    (out in bf16, lse fp32, no launch on the CPU) and refuses float64."""
     tk.reset_launch_counts()
     q = torch.zeros((1, 1, 8, 16), dtype=torch.bfloat16)
     tk.flash_attention(q, q, q)
@@ -475,5 +475,8 @@ def test_other_dtypes_raise_and_the_cpu_launches_nothing():
     with pytest.raises(MXNetError, match="layer norm kernel takes"):
         tk.layer_norm_fwd(torch.zeros((2, 16)), torch.ones(16,
                           dtype=torch.bfloat16), torch.zeros(16))
-    with pytest.raises(MXNetError, match="takes float32"):
-        tk.flash_block_attention(q, q, q)
+    out, lse = tk.flash_block_attention(q, q, q)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert tk.LAUNCHES == dict.fromkeys(tk.LAUNCHES, 0)
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        tk.flash_block_attention(q.double(), q.double(), q.double())

@@ -332,12 +332,13 @@ def test_wrapper_copies_misaligned_rows_float_by_float(card):
 
 def test_wrapper_checks_what_the_kernel_takes(card):
     """Inputs the kernel would misread are refused before any launch:
-    a non-contiguous q, D > 512, float64, mismatched k / v, lengths of
-    the wrong type or shape."""
+    a non-contiguous q, an empty head (D = 0; any wider head is taken,
+    by the wide kernels above D = 128), float64, mismatched k / v,
+    lengths of the wrong type or shape."""
     q, k, v = _qkv(2, 2, 16, 16, 8)
     strided = torch.randn(2, 2, 8, 16).transpose(2, 3)
     bad = [((strided, k, v), None, "contiguous"),
-           ((*_qkv(1, 1, 4, 4, 513),), None, "D <= 512"),
+           ((*_qkv(1, 1, 4, 4, 0),), None, "D > 0"),
            ((q.double(), k.double(), v.double()), None, "float32"),
            ((q, k, v[:, :, :8]), None, "do not agree"),
            ((q, k, v), torch.tensor([16, 16]), "int32"),

@@ -1,11 +1,13 @@
-"""Wide heads (128 < D <= 512) in the port's flash attention: the plain
-route on the CPU against the JAX Pallas kernels in interpret mode
+"""Wide heads (D > 128, any width) in the port's flash attention: the
+plain route on the CPU against the JAX Pallas kernels in interpret mode
 (`MXTPU_PALLAS_INTERPRET=1`, 1 head, S = 128, as `tests/test_pallas.py`
-runs them; the JAX function takes any head width) at D = 192, 256 and
-512, in float32, bfloat16 and float16, causal with key lengths and
-without masks, forward (out, lse) and backward (dQ, dK, dV); the
-wrappers' new limit; and what the wrappers hand `csrc/flash_wide.cu`
-on a card tensor (a stand-in library).
+runs them; the JAX function takes any head width) at D = 192, 200 (no
+multiple of 8), 256 and 512 (640 and 1024 in
+`tests/test_torch_flash_wide_jax.py`), in float32, bfloat16 and
+float16, causal with key lengths and without masks, forward (out, lse)
+and backward (dQ, dK, dV); the wrappers taking any width; and what the
+wrappers hand `csrc/flash_wide.cu` on a card tensor (a stand-in
+library). The launch plans are `tests/test_torch_flash_wide_design.py`'s.
 
 The tolerance rule, `tests/test_torch_fp16.py`'s for every dtype: each
 reading is also taken in float64 on the same inputs (rounded to the
@@ -66,15 +68,21 @@ def _np(x):
 def _f64(q, k, v, do, causal, lens, scale):
     """out, lse, (dQ, dK, dV) in float64 (autograd) with the kernels'
     masks."""
+    return _f64_at(q, k, v, do, causal, scale, lens)
+
+
+def _f64_at(q, k, v, do, causal, scale, lens=None):
+    """`_f64` at any (B, H, S, D)."""
     q, k, v = (torch.tensor(a, dtype=torch.float64, requires_grad=True)
                for a in (q, k, v))
     s = q @ k.transpose(-1, -2) * scale
+    n = s.shape[-1]
     allowed = torch.ones(s.shape, dtype=torch.bool)
     if lens is not None:
-        keys = torch.arange(S)[None, :] < torch.tensor(lens)[:, None]
+        keys = torch.arange(n)[None, :] < torch.tensor(lens)[:, None]
         allowed &= keys[:, None, None, :]
     if causal:
-        allowed &= torch.ones(S, S, dtype=torch.bool).tril()
+        allowed &= torch.ones(n, n, dtype=torch.bool).tril()
     s = torch.where(allowed, s, torch.tensor(-torch.inf, dtype=s.dtype))
     out = torch.softmax(s, -1) @ v
     lse = torch.logsumexp(s, -1)
@@ -92,16 +100,25 @@ def _rule(port, jx, exact, tol, unit, what):
     assert dp <= 2 * dj + unit * np.abs(exact).max(), (what, dp, dj)
 
 
-@pytest.mark.parametrize("d", [192, 256, 512])
+MASKS = pytest.mark.parametrize(
+    "causal,lens", [(True, (100, 1)), (False, None)],
+    ids=["causal-lens", "full"])
+
+
+@pytest.mark.parametrize("d", [192, 200, 256, 512])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("causal,lens", [(True, (100, 1)), (False, None)],
-                         ids=["causal-lens", "full"])
+@MASKS
 def test_wide_plain_matches_jax_kernels(interpret, d, dtype, causal, lens):
     """out and lse from `flash_attention_fwd`, then dQ, dK, dV from
     `flash_attention_bwd` on each package's own out and lse, against
     `_flash_fwd_pallas` / `_flash_bwd_pallas`: the tolerance rule; the
-    outputs in the input dtype (lse fp32); nothing launches on the
-    CPU."""
+    outputs in the input dtype (lse fp32); nothing launches on the CPU
+    (`tests/test_torch_flash_wide_jax.py` holds D = 640 and 1024)."""
+    plain_matches_jax(d, dtype, causal, lens)
+
+
+def plain_matches_jax(d, dtype, causal, lens):
+    """One case of `test_wide_plain_matches_jax_kernels`."""
     tdt, jdt, tol, unit = DTYPES[dtype]
     tk.reset_launch_counts()
     q, k, v, do = _inputs(d + len(dtype) + causal, d, tdt)
@@ -149,19 +166,29 @@ def test_autograd_through_a_wide_head():
 
 
 def test_wrapper_limit_and_narrow_plans():
-    """The wrappers take 0 < D <= FLASH_MAX_D = 512 and refuse wider
-    heads on either device; the narrow kernels' plans keep their limit
-    of 128 (wider heads never reach them)."""
-    assert tk.FLASH_MAX_D == 512
-    ok = torch.zeros((1, 1, 4, 512))
-    tk.flash_attention_fwd(ok, ok, ok)
+    """The wrappers take any D > 0 on either device (the JAX function
+    does: a refusal there was a result that differs): D = 513 and 1024
+    run forward and backward on the CPU, equal to float64 within
+    FLASH_TOL, and D = 0 is refused; the narrow kernels' plans keep their
+    limit of 128 (wider heads never reach them)."""
+    assert not hasattr(tk, "FLASH_MAX_D")
+    rng = np.random.RandomState(5)
     for d in (513, 1024):
-        x = torch.zeros((1, 1, 4, d))
-        with pytest.raises(MXNetError, match="0 < D <= 512"):
-            tk.flash_attention_fwd(x, x, x)
-        with pytest.raises(MXNetError, match="0 < D <= 512"):
-            tk.flash_attention_bwd(x, x, x, x, torch.zeros(1, 4),
-                                   torch.zeros(1, 4))
+        q, k, v, do = (rng.randn(1, 2, 12, d).astype(np.float32)
+                       for _ in range(4))
+        t = [torch.from_numpy(a) for a in (q, k, v, do)]
+        out, lse = tk.flash_attention_fwd(*t[:3], True)
+        delta = (out * t[3]).sum(-1).reshape(2, 12)
+        got = tk.flash_attention_bwd(*t, lse, delta, True)
+        o64, l64, g64 = _f64_at(q, k, v, do, True, d ** -0.5)
+        np.testing.assert_allclose(out.numpy(), o64, rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(lse.numpy(), l64.reshape(2, 12),
+                                   rtol=1e-5, atol=1e-5)
+        for g, e in zip(got, g64):
+            np.testing.assert_allclose(g.numpy(), e, rtol=2e-4, atol=2e-5)
+    x = torch.zeros((1, 1, 4, 0))
+    with pytest.raises(MXNetError, match="D > 0"):
+        tk.flash_attention_fwd(x, x, x)
     with pytest.raises(MXNetError, match="0 < D <= 128"):
         tk.flash_fwd_plan(1, 4, 4, 192)
     with pytest.raises(MXNetError, match="0 < D <= 128"):
@@ -206,13 +233,14 @@ def card(monkeypatch):
 @pytest.mark.parametrize("dtype,sfx", [(torch.float32, "_f32"),
                                        (torch.bfloat16, "_bf16"),
                                        (torch.float16, "_f16")])
-@pytest.mark.parametrize("d", [129, 192, 512])
+@pytest.mark.parametrize("d", [129, 192, 512, 1024])
 def test_card_tensors_launch_the_wide_kernels(card, dtype, sfx, d):
     """D > 128 on a card tensor: one `mxtt_flash_wide_fwd*` launch with
-    (q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, scale, stream),
+    (q, k, v, kv_len, out, lse, B, H, Sq, Sk, D, causal, scale, then
+    `flash_wide_plan`'s chunks, stages, vec and shared bytes, stream),
     then the backward's dK/dV and dQ launches with the forward's lse and
-    the caller's delta; each counted under its own name. D <= 128 keeps
-    the narrow kernels."""
+    the caller's delta and their plans; each counted under its own
+    name."""
     b, h, sq, sk = 2, 3, 9, 11
     q = torch.zeros((b, h, sq, d), dtype=dtype)
     k = torch.zeros((b, h, sk, d), dtype=dtype)
@@ -222,7 +250,12 @@ def test_card_tensors_launch_the_wide_kernels(card, dtype, sfx, d):
     assert name == "mxtt_flash_wide_fwd" + sfx
     assert args[:6] == (q.data_ptr(), k.data_ptr(), k.data_ptr(),
                         vl.data_ptr(), out.data_ptr(), lse.data_ptr())
-    assert args[6:] == (b, h, sq, sk, d, 1, 0.25, 7)
+    vec = int(d * q.element_size() % 16 == 0)
+
+    def plan(kind, causal):
+        p = tk.flash_wide_plan(d, dtype, b * h, sq, sk, causal)[kind]
+        return (p["chunks"], p["stages"], vec, p["smem"])
+    assert args[6:] == (b, h, sq, sk, d, 1, 0.25, *plan("fwd", True), 7)
     assert out.dtype == dtype and lse.shape == (b * h, sq)
     delta = torch.zeros(b * h, sq)
     dq, dk, dv = tk.flash_attention_bwd(q, k, k, q, lse, delta, False, 0.5)
@@ -233,8 +266,9 @@ def test_card_tensors_launch_the_wide_kernels(card, dtype, sfx, d):
             lse.data_ptr(), delta.data_ptr(), None)
     assert a1[:7] == ptrs and a2[:7] == ptrs
     assert a1[7:] == (dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, 0, 0.5,
-                      7)
-    assert a2[7:] == (dq.data_ptr(), b, h, sq, sk, d, 0, 0.5, 7)
+                      *plan("dkv", False), 7)
+    assert a2[7:] == (dq.data_ptr(), b, h, sq, sk, d, 0, 0.5,
+                      *plan("dq", False), 7)
     counts = {n: c for n, c in tk.LAUNCHES.items() if c}
     c = "" if dtype == torch.float32 else sfx
     assert counts == {"flash_wide_fwd" + c: 1, "flash_wide_bwd_dkv" + c: 1,

@@ -376,11 +376,12 @@ def test_fp16_layer_norm_wrapper_hands_the_gamma_dtype(card, gdt):
 # ---------------------------------------------------------------------------
 def test_wrappers_refuse_what_the_card_would_refuse():
     """float16 takes the plain versions on the CPU (no launch); what the
-    float16 kernels do not take raises on the CPU as on the card: D >
-    512 (the narrow kernels' plan, D > 128; wider heads go to
-    `flash_wide.cu`), q / k / v or dO of mixed dtypes, float16 x with bfloat16 gamma,
-    float32 x with float16 gamma, float64; `flash_block_attention`
-    takes float32 only (its 16-bit forms are still to port)."""
+    float16 kernels do not take raises on the CPU as on the card: an
+    empty head D = 0 (any D > 0 is taken: the narrow kernels' plan stops
+    at D = 128 and wider heads go to `flash_wide.cu`), q / k / v or dO
+    of mixed dtypes, float16 x with bfloat16 gamma, float32 x with
+    float16 gamma, float64; `flash_block_attention` takes float16 (out
+    in float16, lse fp32) and refuses float64."""
     tk.reset_launch_counts()
     q = torch.zeros((1, 1, 8, 16), dtype=F16)
     tk.flash_attention(q, q, q)
@@ -388,8 +389,10 @@ def test_wrappers_refuse_what_the_card_would_refuse():
                         torch.zeros(16))
     assert tk.LAUNCHES == dict.fromkeys(tk.LAUNCHES, 0)
     wide = torch.zeros((1, 1, 8, 520), dtype=F16)
-    with pytest.raises(MXNetError, match="0 < D <= 512"):
-        tk.flash_attention_fwd(wide, wide, wide)
+    out, _ = tk.flash_attention_fwd(wide, wide, wide)
+    assert out.dtype == F16 and out.shape == wide.shape
+    with pytest.raises(MXNetError, match="D > 0"):
+        tk.flash_attention_fwd(wide[..., :0], wide[..., :0], wide[..., :0])
     with pytest.raises(MXNetError, match="0 < D <= 128"):
         tk.flash_fwd_plan(1, 8, 8, 136, F16)
     with pytest.raises(MXNetError, match="of one dtype"):
@@ -414,5 +417,7 @@ def test_wrappers_refuse_what_the_card_would_refuse():
         tk.flash_attention_fwd(x64, x64, x64)
     with pytest.raises(MXNetError, match="no torch.float64 form"):
         tk.flash_bwd_plan(8, 16, torch.float64)
-    with pytest.raises(MXNetError, match="takes float32"):
-        tk.flash_block_attention(q, q, q)
+    out, lse = tk.flash_block_attention(q, q, q)
+    assert out.dtype == F16 and lse.dtype == torch.float32
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        tk.flash_block_attention(x64, x64, x64)

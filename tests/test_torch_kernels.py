@@ -221,8 +221,10 @@ def test_cpu_path_launches_no_kernel():
 
 def test_wrappers_check_what_the_kernels_take():
     """The wrappers refuse, on the CPU too, the layouts the CUDA kernels
-    refuse on the card (a non-contiguous q, int64 lengths, D > 512), so
-    a caller's layout bug shows in the CPU tests."""
+    refuse on the card (a non-contiguous q, int64 lengths, an empty head
+    D = 0), so a caller's layout bug shows in the CPU tests; any D > 0
+    is taken (D = 520 gives softmax attention, as the JAX function
+    does)."""
     qp, kp, vp, pt = (torch.from_numpy(a) for a in _paged_fixture())
     lens = torch.tensor([3, 4, 5], dtype=torch.int32)
     qkv = torch.cat([qp, qp, qp], dim=-1)
@@ -231,8 +233,11 @@ def test_wrappers_check_what_the_kernels_take():
     with pytest.raises(MXNetError, match="lengths"):
         tk.ragged_paged_attention(qp, kp, vp, pt, lens.long())
     q, k, v = map(torch.from_numpy, _qkv(8, 1, 1, 4, 4, 520))
-    with pytest.raises(MXNetError, match="D <= 512"):
-        tk.flash_attention(q, k, v)
+    want = torch.softmax(q @ k.transpose(-1, -2) / 520 ** 0.5, -1) @ v
+    torch.testing.assert_close(tk.flash_attention(q, k, v), want,
+                               **FLASH_TOL)
+    with pytest.raises(MXNetError, match="D > 0"):
+        tk.flash_attention(q[..., :0], k[..., :0], v[..., :0], sm_scale=1.0)
     with pytest.raises(MXNetError, match="contiguous"):
         tk.flash_attention(q[..., :8], k[..., :8].contiguous(),
                            v[..., :8].contiguous())
