@@ -45,7 +45,9 @@ Phases (any failure raises and the script exits non-zero):
                  and LayerNorm (every width its
                  paths give it: 512, BERT's 768, 1024, 200, and 1032,
                  4096, 8192 on its one-block-a-row form; timed at each
-                 under `per_shape`). The long-sequence path drives
+                 under `per_shape`, every LayerNorm time with x read
+                 from HBM: `graph_ms` rotating over copies of x). The
+                 long-sequence path drives
                  `flash_attention` forward and backward at B=4, H=8,
                  S=1024, D=64, causal and not (counters zeroed just
                  before, read just after: 2 launches of the forward, the
@@ -75,12 +77,18 @@ Phases (any failure raises and the script exits non-zero):
                  the built library) and flash_wide.cu's build log no
                  ptxas C7515 / C7520 serialisation warning; the
                  forward, dK/dV and dQ kernels in fp32, bf16 and fp16 at
-                 D = 192, 200, 256, 512, 1024 and 2048, B = 2, H = 8,
-                 S = 1024, causal and with key lengths, against their
+                 D = 192, 198, 200, 256, 512, 1024 and 2048, B = 2, H =
+                 8, S = 1024, causal and with key lengths, and with a
+                 misaligned q at D = 256 (198 and the misaligned q: the
+                 element copies where no row is a whole number of 16-byte
+                 pieces or a base is not 16-byte aligned), and at the
+                 bert_wide_bf16 path's attention (B = 16, H = 3, S =
+                 512, D = 256, BERT's key lengths), against their
                  plain versions (the per-dtype limits) and float64
                  (WIDE_F64_RATIO), two launches bit-identical; each
                  timed at each D but 2048 beside SDPA in its dtype (and
-                 the backend SDPA picks) and its bound; then
+                 the backend SDPA picks) and its bound, the dK/dV + dQ
+                 pair beside SDPA's backward; then
                  `flash_attention` forward and backward at D = 256 in
                  each dtype with the counters zeroed just before and
                  read just after (path `wide_attention`).
@@ -648,18 +656,28 @@ def graph_ms(fn, calls=20, iters=20):
     """Device time per call with the host's launch cost taken out:
     `calls` calls captured in one CUDA graph, replayed `iters` times
     between CUDA events. A failed capture raises: the kernels line's
-    `ms` is device time and has no other source."""
+    `ms` is device time and has no other source. `fn` may be a list of
+    calls, each on its own inputs (as many sets as `rotating_sets`
+    gives): call i then runs fn[i % len(fn)], max(calls, len(fn)) of
+    them, each output held until the capture ends so that no two calls
+    write the same buffer, and what a call reads is not in L2 from an
+    earlier call."""
     import torch
+    fns = fn if isinstance(fn, list) else [fn]
+    n = max(calls, len(fns))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for i in range(3):
+            fns[i % len(fns)]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    held = []
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        for i in range(n):
+            out = fns[i % len(fns)]()
+            if isinstance(fn, list):
+                held.append(out)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -669,7 +687,19 @@ def graph_ms(fn, calls=20, iters=20):
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / (iters * calls)
+    return start.elapsed_time(end) / (iters * n)
+
+
+# the card's L2 (an H100 SXM's 50 MiB): a timing that rotates through
+# twice as many bytes finds none of a call's inputs there from the last
+# call on them
+L2_BYTES = 50 * 2 ** 20
+
+
+def rotating_sets(nbytes):
+    """How many sets of inputs and outputs, `nbytes` bytes a call, span
+    twice L2_BYTES."""
+    return max(1, -(-2 * L2_BYTES // nbytes))
 
 
 def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
@@ -1977,12 +2007,12 @@ def phase_ln(mx, torch):
     for rows, d in LN_TIMED:
         x, ga, be = [torch.randn(shape, generator=g).to(dev)
                      for shape in ((rows, d), (d,), (d,))]
-        fns = {"kernel": lambda: K.layer_norm_fwd(x, ga, be, 1e-5),
-               "plain": lambda: K._ln_plain(x, ga, be, 1e-5),
-               "torch": lambda: torch.nn.functional.layer_norm(
+        fns = {"kernel": lambda x: K.layer_norm_fwd(x, ga, be, 1e-5),
+               "plain": lambda x: K._ln_plain(x, ga, be, 1e-5),
+               "torch": lambda x: torch.nn.functional.layer_norm(
                    x, (d,), ga, be, 1e-5)}
-        call = {name: cuda_ms(fn) for name, fn in fns.items()}
-        dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
+        call = {name: cuda_ms(lambda: fn(x)) for name, fn in fns.items()}
+        dev_ms = _ln_cold_ms(x, fns)
         # x and y once each, gamma and beta, mean and rstd; ~8 FLOP an
         # element
         bms, by = bound(4 * (2 * rows * d + 2 * d + 2 * rows), 8 * rows * d)
@@ -1991,8 +2021,8 @@ def phase_ln(mx, torch):
                               library_ms=dev_ms["torch"], bound_ms=bms,
                               bound_by=by, call_ms=call["kernel"]))
         log(f"layer norm ({rows}, {d}) {form(d)} form: per call "
-            f"(host launch included) {call}; device (CUDA graph) {dev_ms}; "
-            f"bound {bms:.6f} ms ({by}); kernel / bound "
+            f"(host launch included, warm) {call}; device (CUDA graph, x "
+            f"from HBM) {dev_ms}; bound {bms:.6f} ms ({by}); kernel / bound "
             f"{dev_ms['kernel'] / bms:.2f}, kernel / F.layer_norm "
             f"{dev_ms['kernel'] / dev_ms['torch']:.3f}")
     per_shape.append(_ln_bf16_gamma_times(K, torch, g, dev))
@@ -2004,6 +2034,15 @@ def phase_ln(mx, torch):
                 **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms",
                                        "call_ms")})
+
+
+def _ln_cold_ms(x, fns):
+    """{name: device ms} of each LayerNorm form `fns[name](x)`, by
+    `graph_ms` rotating over copies of x (x read from HBM, each y
+    written to its own buffer)."""
+    xs = [x.clone() for _ in range(rotating_sets(2 * x.nbytes))]
+    return {name: graph_ms([lambda c=c, fn=fn: fn(c) for c in xs])
+            for name, fn in fns.items()}
 
 
 def _ln_bf16_gamma_checks(K, torch, g, dev):
@@ -2047,19 +2086,20 @@ def _ln_bf16_gamma_times(K, torch, g, dev):
     ga, be = (torch.randn(d, generator=g).to(dev).to(torch.bfloat16)
               for _ in range(2))
     ga32, be32 = ga.float(), be.float()
-    fns = {"kernel": lambda: K.layer_norm_fwd(x, ga, be, 1e-5),
-           "plain": lambda: K._ln_plain(x, ga, be, 1e-5),
-           "torch": lambda: torch.nn.functional.layer_norm(
+    fns = {"kernel": lambda x: K.layer_norm_fwd(x, ga, be, 1e-5),
+           "plain": lambda x: K._ln_plain(x, ga, be, 1e-5),
+           "torch": lambda x: torch.nn.functional.layer_norm(
                x, (d,), ga32, be32, 1e-5)}
-    call = cuda_ms(fns["kernel"])
-    dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
+    call = cuda_ms(lambda: fns["kernel"](x))
+    dev_ms = _ln_cold_ms(x, fns)
     # fp32 x and y once each, bf16 gamma and beta, fp32 mean and rstd
     bms, by = bound(4 * (2 * rows * d + 2 * rows) + 2 * 2 * d,
                     8 * rows * d)
     log(f"layer norm ({rows}, {d}) fp32 x, bf16 gamma / beta: device (CUDA "
-        f"graph) {dev_ms}; per call {call:.5f}; bound {bms:.6f} ms ({by}); "
-        f"kernel / bound {dev_ms['kernel'] / bms:.2f}, kernel / "
-        f"F.layer_norm {dev_ms['kernel'] / dev_ms['torch']:.3f}")
+        f"graph, x from HBM) {dev_ms}; per call (warm) {call:.5f}; bound "
+        f"{bms:.6f} ms ({by}); kernel / bound "
+        f"{dev_ms['kernel'] / bms:.2f}, kernel / F.layer_norm "
+        f"{dev_ms['kernel'] / dev_ms['torch']:.3f}")
     return dict(shape=[rows, d], form="warp", gamma="bfloat16",
                 ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
                 library_ms=dev_ms["torch"], bound_ms=bms, bound_by=by,
@@ -2567,11 +2607,14 @@ def _phase_ln_16(mx, torch, dtype, timed_gamma):
     and its edge shapes, and at D = 2050, 9001 and 12000 (each launch
     form of `layer_norm.cu` at a checked width: 128 threads x 2 or 4
     chunks, 256 x 4, strided above 8192), two launches bit-identical;
-    timed with gamma / beta in `timed_gamma` at LN_TIMED beside
-    `F.layer_norm` on the same x and gamma / beta in x's dtype (it takes
-    no other: 2 x 2 D bytes fewer than fp32 ones) and, for the one-warp
-    form, the launch floor of its grid, and at the MLM head's (1216,
-    768); BERT's shape (8192, 768) the row's own."""
+    with gamma / beta that x's dtype represents, fp32 gamma / beta
+    (aligned, and one element off 16-byte alignment) bit for bit against
+    the same values in x's dtype; timed with gamma / beta in
+    `timed_gamma` at LN_TIMED beside `F.layer_norm` on the same x and
+    gamma / beta in x's dtype (it takes no other: 2 x 2 D bytes fewer
+    than fp32 ones), beside the kernel with the other gamma dtype and,
+    for the one-warp form, the launch floor of its grid, and at the MLM
+    head's (1216, 768); BERT's shape (8192, 768) the row's own."""
     K = mx.ops.kernels
     lim = _lowp(dtype)
     dev = torch.device("cuda", 0)
@@ -2607,6 +2650,23 @@ def _phase_ln_16(mx, torch, dtype, timed_gamma):
                 f"rstd) {errs} (y rtol={lim['ln_tol']['rtol']} "
                 f"atol={lim['ln_tol']['atol']}; mean, rstd LN_TOL); repeat "
                 f"bit-identical")
+        # gamma / beta that x's dtype represents: fp32 gamma (16-byte
+        # loads where vec holds) gives the bits of the same values in x's
+        # dtype, and so does an fp32 gamma one element off 16-byte
+        # alignment (vec 0: one masked load an element)
+        x = (3 * torch.randn((rows, d), generator=g) + 1).to(dev).to(dtype)
+        ga, be = (torch.randn(d, generator=g).to(dev).to(dtype)
+                  for _ in range(2))
+        shifted = torch.empty(d + 1, device=dev)[1:]
+        shifted.copy_(ga.float())
+        outs = [K.layer_norm_fwd(x, a, b, 1e-5) for a, b in (
+            (ga, be), (ga.float(), be.float()), (shifted, be.float()))]
+        torch.cuda.synchronize()
+        check(K._vec_copies(d, x, shifted) == 0 and all(
+            torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o)),
+              f"{tag} ({rows}, {d}): fp32 gamma / beta (aligned, then "
+              f"misaligned) gave other bits than the same values in "
+              f"{dtype}")
     per_shape = []
     # LN_TIMED, and the MLM head's LayerNorm, the one a 16-bit BERT step
     # gives 16-bit x (BERT_B x BERT_P masked rows of 768)
@@ -2614,14 +2674,18 @@ def _phase_ln_16(mx, torch, dtype, timed_gamma):
         x = torch.randn((rows, d), generator=g).to(dev).to(dtype)
         ga, be = (torch.randn(d, generator=g).to(dev).to(timed_gamma)
                   for _ in range(2))
-        # F.layer_norm takes gamma / beta of x's dtype only
+        # F.layer_norm takes gamma / beta of x's dtype only; the kernel
+        # is timed with the other gamma dtype too
         lga, lbe = ga.to(dtype), be.to(dtype)
-        fns = {"kernel": lambda: K.layer_norm_fwd(x, ga, be, 1e-5),
-               "plain": lambda: K._ln_plain(x, ga, be, 1e-5),
-               "torch": lambda: torch.nn.functional.layer_norm(
+        other = dtype if timed_gamma == torch.float32 else torch.float32
+        oga, obe = ga.to(other), be.to(other)
+        fns = {"kernel": lambda x: K.layer_norm_fwd(x, ga, be, 1e-5),
+               "other_gamma": lambda x: K.layer_norm_fwd(x, oga, obe, 1e-5),
+               "plain": lambda x: K._ln_plain(x, ga, be, 1e-5),
+               "torch": lambda x: torch.nn.functional.layer_norm(
                    x, (d,), lga, lbe, 1e-5)}
-        call = cuda_ms(fns["kernel"])
-        dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
+        call = cuda_ms(lambda: fns["kernel"](x))
+        dev_ms = _ln_cold_ms(x, fns)
         # x and y once each (2 bytes an element), gamma and beta, fp32
         # mean and rstd
         gb = 4 if timed_gamma == torch.float32 else 2
@@ -2629,17 +2693,22 @@ def _phase_ln_16(mx, torch, dtype, timed_gamma):
                         8 * rows * d)
         row = dict(shape=[rows, d], ms=dev_ms["kernel"],
                    plain_ms=dev_ms["plain"], library_ms=dev_ms["torch"],
-                   bound_ms=bms, bound_by=by, call_ms=call)
+                   bound_ms=bms, bound_by=by, call_ms=call,
+                   other_gamma=str(other).split(".")[-1],
+                   other_gamma_ms=dev_ms["other_gamma"])
         if d <= 1024:
             # the one-warp form's grid (8 rows a 256-thread block) as an
             # empty kernel: where the bound lies under it, it is the floor
             row["launch_floor_ms"] = launch_floor_ms(mx, -(-rows // 8), 256)
         per_shape.append(row)
-        log(f"{tag} ({rows}, {d}) gamma {timed_gamma}: device (CUDA graph) "
-            f"{dev_ms}; per call {call:.5f}; bound {bms:.6f} ms ({by}); "
-            f"launch floor {row.get('launch_floor_ms')}; kernel / bound "
+        log(f"{tag} ({rows}, {d}) gamma {timed_gamma}: device (CUDA graph, "
+            f"x from HBM) {dev_ms}; per call (warm) {call:.5f}; bound "
+            f"{bms:.6f} ms ({by}); launch floor "
+            f"{row.get('launch_floor_ms')}; kernel / bound "
             f"{dev_ms['kernel'] / bms:.2f}, kernel / F.layer_norm "
-            f"{dev_ms['kernel'] / dev_ms['torch']:.3f}")
+            f"{dev_ms['kernel'] / dev_ms['torch']:.3f}, kernel / the same "
+            f"with {other} gamma "
+            f"{dev_ms['kernel'] / dev_ms['other_gamma']:.3f}")
     top = next(r for r in per_shape if r["shape"] == [BERT_B * BERT_S, 768])
     return dict(name="layer_norm" + mx.ops.kernels._suffix(dtype),
                 route="cuda", source="mxnet_tpu_torch/ops/csrc/layer_norm.cu",
@@ -4021,7 +4090,8 @@ def _bert_train_report(mx, torch, tag, model, trainer, batch, bench, losses,
     summary (tokens/s as B * S a step over the wall time of steps 3 on,
     the per-step spread, peak memory) and profile one more step: busy
     share, the GEMM and port kernels' shares and rows. Returns the
-    summary."""
+    summary, with the profiled step's shares of device time by group
+    (`device_shares`) where the profiler traced the card."""
     check(all(np.isfinite(losses)), f"non-finite {tag} loss: {losses}")
     check(losses[-1] < losses[0], f"{tag} loss did not fall: {losses}")
     for i, counts in enumerate(per_step):
@@ -4046,13 +4116,13 @@ def _bert_train_report(mx, torch, tag, model, trainer, batch, bench, losses,
     groups = {"flash forward": ("flash_fwd",),
               "split backward": ("flash_bwd",),
               "wide forward": ("wide_fwd",),
-              "wide dK/dV": ("wide_dkv",), "wide dQ": ("wide_bwd_dq",),
+              "wide dK/dV": ("wide_dkv",), "wide dQ": ("wide_dq",),
               "LayerNorm": ("layer_norm",), "GEMM": GEMM_WORDS}
     got = device_profile(torch, lambda: _bert_step(mx, model, trainer, ce,
                                                    batch, bench))
     if got is not None:
         log_profile(prof, *got, "1 training step")
-        _profile_shares(prof, got[1], groups)
+        summary["device_shares"] = _profile_shares(prof, got[1], groups)
         for dev_us, count, key in got[1]:
             if "flash" in key or "wide" in key or "layer_norm" in key:
                 log(f"{prof}: port kernel {dev_us / 1e3:.3f} ms "
@@ -4158,16 +4228,20 @@ def phase_bert_wide_bf16(mx, torch, base_tokens_s):
     want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_wide_fwd_bf16=n,
                 flash_wide_bwd_dkv_bf16=n, flash_wide_bwd_dq_bf16=n,
                 layer_norm_bf16=2 * n + 2)
-    wide = _bert_train_report(
+    summary = _bert_train_report(
         mx, torch, "bert wide bf16 training", model, trainer, batch, True,
         losses, per_step, step_s, launches, want, dtype="bfloat16",
         heads=BERT_WIDE_H, head_width=768 // BERT_WIDE_H,
-        optimizer=f"sgd lr {BERT_BF16_LR} momentum {BERT_BF16_MOMENTUM}"
-    )["tokens_per_s"]
+        optimizer=f"sgd lr {BERT_BF16_LR} momentum {BERT_BF16_MOMENTUM}")
+    wide = summary["tokens_per_s"]
+    shares = summary.get("device_shares")
+    dq_share = "not measured" if shares is None \
+        else f"{100 * shares['wide dQ']:.1f} %"
     log(f"bert wide bf16 ({BERT_WIDE_H} heads of {768 // BERT_WIDE_H}) "
         f"{wide:.1f} tokens/s beside bert_base bf16 (12 heads of 64) "
         f"{base_tokens_s:.1f} tokens/s in this call: ratio "
-        f"{wide / base_tokens_s:.3f}")
+        f"{wide / base_tokens_s:.3f}; the wide dQ kernel {dq_share} of a "
+        f"profiled step's device time")
     del model, trainer, batch
     torch.cuda.empty_cache()
     return launches
@@ -5651,19 +5725,25 @@ MNIST_LOSS_RTOL = 1e-4
 # (csrc/flash_wide.cu), B = 2, H = 8, S = 1024, causal, and with key
 # lengths; the float64 yardstick at most WIDE_F64_RATIO x the plain
 # version's distance plus one unit roundoff of the dtype (fp32 2^-23)
-# times the largest value. WIDE_D are checked and timed (200: no multiple
-# of 8, the copies where TMA cannot go; 512 and 1024: the streamed mode
-# in chunks of 256 columns), WIDE_BIG_D checked only
-WIDE_D = (192, 200, 256, 512, 1024)
+# times the largest value. WIDE_D are checked and timed (198: no multiple
+# of 8 nor of 4, so no dtype's rows are whole 16-byte pieces and every
+# kernel takes its element copies where TMA (fp32: cp.async's 16-byte
+# form) cannot go; 200: a multiple of 8, not of 64, padded to 256 columns;
+# 512: the split mode; 1024: the streamed mode in chunks of 256 columns),
+# WIDE_BIG_D checked only; WIDE_SHIFT_D checked with q one element off
+# 16-byte alignment (the element copies at a TMA width)
+WIDE_D = (192, 198, 200, 256, 512, 1024)
 WIDE_BIG_D = 2048
+WIDE_SHIFT_D = 256
 WIDE_B, WIDE_H, WIDE_S = 2, 8, 1024
-# the wgmma kernels (bf16 and fp16 forward and dK/dV): their SASS must
-# hold HGMMA, and their build no serialisation warning (ptxas C7515 /
-# C7520: a wgmma under a branch it cannot prove warp-uniform)
-WIDE_TC_KERNELS = ("wide_fwd_tc_kernel", "wide_dkv_tc_kernel")
+# the wgmma kernels (bf16 and fp16 forward, dK/dV and dQ): their SASS
+# must hold HGMMA, and their build no serialisation warning (ptxas C7515
+# / C7520: a wgmma under a branch it cannot prove warp-uniform)
+WIDE_TC_KERNELS = ("wide_fwd_tc_kernel", "wide_dkv_tc_kernel",
+                   "wide_dq_tc_kernel")
 # each type's instances: the forward's resident, split and streamed modes
-# and its causal key split, the dK/dV kernel's three modes
-WIDE_TC_INSTANCES = 4 + 3
+# and its causal key split, the dK/dV and dQ kernels' three modes each
+WIDE_TC_INSTANCES = 4 + 3 + 3
 WIDE_PLAN_OF = {"fwd": "fwd", "bwd_dkv": "dkv", "bwd_dq": "dq"}
 WIDE_SERIAL_WARNINGS = ("C7515", "C7520")
 WIDE_LENS = [777, 1024]
@@ -5977,23 +6057,36 @@ def _wide_pairs(b, h, s, causal, lens):
     return h * s * sum(lens if lens is not None else [s] * b)
 
 
-def _wide_check(mx, torch, g, dtype, d, causal, lens):
-    """One case of the wide kernels against their plain versions (fp32:
-    FLASH_TOL / BWD_TOL, slice-scaled; 16-bit: the dtype's LOWP limits and
-    the cancellation floor) and float64 (WIDE_F64_RATIO x the plain
+def _wide_check(mx, torch, g, dtype, d, causal, lens, shift=False,
+                shape=(WIDE_B, WIDE_H, WIDE_S)):
+    """One case of the wide kernels at (B, H, S) = `shape` against their
+    plain versions (fp32: FLASH_TOL / BWD_TOL, slice-scaled; 16-bit: the
+    dtype's LOWP limits) and float64 (WIDE_F64_RATIO x the plain
     version's distance + one unit roundoff of the largest value), two
     launches bit-identical, dK / dV exactly 0 past each length, and each
-    kernel's counter moving once a launch. Returns (max abs errors,
-    shares of the limit)."""
+    kernel's counter moving once a launch. `shift`: q one element off
+    16-byte alignment. Where a row is no whole number of 16-byte pieces
+    or q is shifted, the wrappers' vec must be 0 (the element copies).
+    Returns (max abs errors, shares of the limit)."""
     K = mx.ops.kernels
-    b, h, s = WIDE_B, WIDE_H, WIDE_S
-    what = f"wide {str(dtype).split('.')[-1]} D={d} causal={causal} " \
-           f"lens={lens}"
+    b, h, s = shape
+    what = f"wide {str(dtype).split('.')[-1]} {shape} D={d} " \
+           f"causal={causal} lens={lens}" + (" misaligned q" if shift else "")
     sfx = K._suffix(dtype)
     fp32 = dtype == torch.float32
     lim = None if fp32 else _lowp(dtype)
     floor64 = FP32_F64_FLOOR if fp32 else lim["f64_floor"]
     q, k, v, do = _lowp_qkv(torch, g, b, h, s, s, d, n=4, dtype=dtype)
+    if shift:
+        base = torch.randn(b * h * s * d + 1, generator=g).to(
+            q.device).to(dtype)
+        q = base[1:].view(b, h, s, d)
+        check(q.is_contiguous() and q.data_ptr() % 16 != 0,
+              f"{what}: q not misaligned")
+    copies = shift or d * q.element_size() % 16 != 0
+    check(K._vec_copies(d, q, k, v, do) == int(not copies),
+          f"{what}: vec {K._vec_copies(d, q, k, v, do)}, element copies "
+          f"expected {copies}")
     scale = d ** -0.5
     vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                 device=q.device)
@@ -6162,6 +6255,9 @@ def _wide_build_checks(mx):
         name = sec.split("\n", 1)[0].strip()
         if any(kern in name for kern in WIDE_TC_KERNELS):
             hgmma[name] = "HGMMA" in sec
+        # the first form's dQ kernel (a warp a row in fp32 FMAs) is gone
+        check("wide_bwd_dq_kernel" not in name,
+              f"the library still holds {name}")
     # WIDE_TC_INSTANCES in each of two types
     check(len(hgmma) == 2 * WIDE_TC_INSTANCES and all(hgmma.values()),
           f"the wide wgmma kernels' SASS: {hgmma}")
@@ -6175,7 +6271,8 @@ def _wide_build_checks(mx):
                        f"serialised wgmma")
         lines = text.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and "_tc_kernel" in line:
+            if "Compiling entry function" in line and (
+                    "_tc_kernel" in line or "_f32_kernel" in line):
                 log("wide ptxas: " + " | ".join(
                     ln.strip() for ln in lines[i:i + 4]))
     log(f"wide kernels' SASS holds HGMMA: {hgmma}")
@@ -6213,12 +6310,15 @@ def _wide_attention_path(mx, torch, g):
 def phase_flash_wide(mx, torch):
     """Heads wider than 128 (`csrc/flash_wide.cu`): the wgmma kernels'
     SASS and build log (`_wide_build_checks`); each wide kernel against
-    its plain version and float64 at WIDE_D and WIDE_BIG_D, B = 2, H = 8,
-    S = 1024, causal and with key lengths, in fp32, bf16 and fp16
-    (`_wide_check`); timed at WIDE_D by CUDA-graph replay beside SDPA in
-    the same dtype and beside its bound (`_wide_times`); then the path
-    (`_wide_attention_path`). Returns (the kernels' rows, the path's
-    launches)."""
+    its plain version and float64 at WIDE_D and WIDE_BIG_D, and with a
+    misaligned q at WIDE_SHIFT_D, B = 2, H = 8, S = 1024, causal and with
+    key lengths, and at the bert_wide_bf16 path's shape (B = 16, three
+    heads of 256, S = 512, BERT's key lengths), in fp32, bf16 and fp16
+    (`_wide_check`); timed at WIDE_D
+    by CUDA-graph replay beside SDPA in the same dtype and beside its
+    bound, the dK/dV + dQ pair beside SDPA's backward (`_wide_times`);
+    then the path (`_wide_attention_path`). Returns (the kernels' rows,
+    the path's launches)."""
     g = torch.Generator().manual_seed(18)
     t0 = time.perf_counter()
     hgmma = _wide_build_checks(mx)
@@ -6227,17 +6327,27 @@ def phase_flash_wide(mx, torch):
         sfx = mx.ops.kernels._suffix(dtype)
         worst = {kind: 0.0 for kind in ("fwd", "bwd_dkv", "bwd_dq")}
         per_shape = {kind: {} for kind in worst}
-        for d in WIDE_D + (WIDE_BIG_D,):
+
+        def case(d, causal, lens, shift=False,
+                 shape=(WIDE_B, WIDE_H, WIDE_S)):
+            errs, shares = _wide_check(mx, torch, g, dtype, d, causal, lens,
+                                       shift, shape)
+            worst["fwd"] = max(worst["fwd"], errs["out"])
+            worst["bwd_dkv"] = max(worst["bwd_dkv"], errs["dk"], errs["dv"])
+            worst["bwd_dq"] = max(worst["bwd_dq"], errs["dq"])
+            log(f"flash_wide{sfx} {shape} D={d} causal={causal} lens={lens}"
+                f"{' misaligned q' if shift else ''}: errs "
+                f"{json.dumps(errs)} shares {json.dumps(shares)}")
+
+        # the bert_wide_bf16 path's own shape (phase 11w): BERT_B x
+        # BERT_WIDE_H heads of 256 over BERT_S, not causal, BERT's lengths
+        case(768 // BERT_WIDE_H, False, _bert_lengths(BERT_B),
+             shape=(BERT_B, BERT_WIDE_H, BERT_S))
+        for d, shift in [(d, False) for d in WIDE_D + (WIDE_BIG_D,)] + [
+                (WIDE_SHIFT_D, True)]:
             for causal, lens in ((True, None), (False, WIDE_LENS)):
-                errs, shares = _wide_check(mx, torch, g, dtype, d, causal,
-                                           lens)
-                worst["fwd"] = max(worst["fwd"], errs["out"])
-                worst["bwd_dkv"] = max(worst["bwd_dkv"], errs["dk"],
-                                       errs["dv"])
-                worst["bwd_dq"] = max(worst["bwd_dq"], errs["dq"])
-                log(f"flash_wide{sfx} D={d} causal={causal} lens={lens}: "
-                    f"errs {json.dumps(errs)} shares {json.dumps(shares)}")
-            if d == WIDE_BIG_D:
+                case(d, causal, lens, shift)
+            if d == WIDE_BIG_D or shift:
                 continue
             t = _wide_times(mx, torch, g, dtype, d)
             for kind in worst:
@@ -6250,7 +6360,10 @@ def phase_flash_wide(mx, torch):
                     bound_by=t["bounds"][kind][1], plain_ms=plain,
                     library_ms=lib, sdpa_backend=t["sdpa_backend"],
                     pairs=t["pairs"], plan=t["plans"][WIDE_PLAN_OF[kind]])
-            per_shape["bwd_dkv"][f"D{d}"]["pair_ms"] = t["ms"]["pair"]
+            for kind in ("bwd_dkv", "bwd_dq"):
+                per_shape[kind][f"D{d}"]["pair_ms"] = t["ms"]["pair"]
+                per_shape[kind][f"D{d}"]["pair_over_sdpa_bwd"] = \
+                    t["ms"]["pair"] / t["sdpa_bwd_ms"]
             log(f"flash_wide{sfx} D={d} times " + json.dumps(
                 {kind: per_shape[kind][f"D{d}"] for kind in worst}))
         for kind in worst:
@@ -6262,10 +6375,10 @@ def phase_flash_wide(mx, torch):
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=head["library_ms"], per_shape=per_shape[kind])
-            if sfx and kind != "bwd_dq":
+            if sfx:
+                tc = "wide_" + kind.replace("bwd_", "") + "_tc_kernel"
                 rows[f"flash_wide_{kind}{sfx}"]["sass_hgmma"] = all(
-                    ok for name, ok in hgmma.items()
-                    if ("fwd" if kind == "fwd" else "dkv") in name)
+                    ok for name, ok in hgmma.items() if tc in name)
     launches = _wide_attention_path(mx, torch, g)
     log(f"flash_wide: {len(rows)} kernels checked and timed in "
         f"{time.perf_counter() - t0:.1f} s")

@@ -25,44 +25,48 @@
 // What bounds them on this card. At B = 2, H = 8, S = 1024, D = 256,
 // causal (8.4 M live (q, k) pairs) the forward's 4 * pairs * D take
 // 0.0087 ms at the bf16 tensor-core peak (989 TFLOP/s) against 0.0100
-// ms of bytes, the dK/dV kernel's 8 * pairs * D 0.0174 ms; fp32 at the
-// split-TF32 rate (495 / 3 TFLOP/s) 0.052 and 0.104 ms. The simple kernels
-// this file's first form held (a warp a row, fp32 FMAs, a dot product
-// reduced by five dependent shuffles, 16 shared loads a pair) ran at
-// 160-340x the 16-bit bound.
+// ms of bytes, the dK/dV kernel's 8 * pairs * D 0.0174 ms and the dQ
+// kernel's 6 * pairs * D 0.0130 ms; fp32 at the split-TF32 rate (495 / 3
+// TFLOP/s) 0.052, 0.104 and 0.078 ms. A warp a row in fp32 FMAs (a dot
+// product reduced by five dependent shuffles, 16 shared loads a pair) ran
+// at 160-340x the 16-bit bound: every kernel here is on the tensor cores.
 //
-// bf16 / fp16 forward and dK/dV (mxtt_flash_wide_fwd_{bf16,f16},
-// mxtt_flash_wide_bwd_dkv_{bf16,f16}): the narrow 16-bit designs
-// (flash_fwd.cu, flash_bwd.cu) generalised over the number of 64-column
-// swizzle atoms, on wgmma (wgmma.cuh) fed by a TMA ring (tma.cuh).
-// * Registers set the column split. O, or dK plus dV, is 64 rows x D in
-//   fp32 a warpgroup, D / 2 (D) registers a thread; at most 256 columns
-//   (four atoms) of it stay in a warpgroup. So a block writes a chunk of
-//   four atoms of the output, and wider heads split their columns over
-//   the grid's z axis; each chunk's block recomputes S (and dP) over the
-//   whole of D.
+// bf16 / fp16 (mxtt_flash_wide_fwd_{bf16,f16},
+// mxtt_flash_wide_bwd_dkv_{bf16,f16}, mxtt_flash_wide_bwd_dq_{bf16,f16}):
+// the narrow 16-bit designs (flash_fwd.cu, flash_bwd.cu) generalised over
+// the number of 64-column swizzle atoms, on wgmma (wgmma.cuh) fed by a
+// TMA ring (tma.cuh).
+// * Registers set the column split. O is 64 rows x D in fp32 a
+//   warpgroup (D / 2 registers a thread), dK plus dV or dQ 64 rows x D
+//   each a block, split between its two warpgroups (D / 2 and D / 4); at
+//   most 256 columns (four atoms) of it stay in a block. So a block
+//   writes a chunk of four atoms of the output, and wider heads split
+//   their columns over the grid's z axis; each chunk's block recomputes
+//   S (and dP) over the whole of D.
 // * Three modes (kernels.py:flash_wide_plan), by what fits 227 KB.
 //   Resident (D <= 256): a tile holds all four atoms (D zero-padded to
-//   256), the forward keeps its 128 Q rows and the dK/dV kernel its 64 K
-//   and V rows in shared memory, and one ring stage holds a key tile's K
-//   and V (a query tile's Q and dO). Split (D <= 512): the same rows stay
-//   with 8 atoms; a stage holds four atoms of K (the forward: two stages
-//   a key tile) or the chunk's V, or two atoms of Q and dO (dK/dV: four
-//   stages a query tile, the chunk's two last, each warpgroup's half of
-//   the chunk's columns). Streamed (above): nothing stays; the products
-//   over D walk it an atom a stage (the forward's Q and K atom; the
-//   dK/dV kernel's K, Q, V and dO atom), then a stage brings the chunk's
-//   V (the chunk's Q and dO, one stage a warpgroup's half). Streamed,
-//   the side that split keeps is read again from L2 for every tile: at
-//   D = 512 the streamed forward ran 0.190 ms, split 0.128. A product
-//   over more than four atoms sums its slots' products in fp32
-//   registers: the tensor cores' own running sum over 128 k steps moved
-//   lse to 4.7x the plain version's distance from float64 at D = 2048.
+//   256); the forward keeps its 128 Q rows, the dK/dV kernel its 64 K and
+//   V rows and the dQ kernel its 64 Q and dO rows in shared memory, and
+//   one ring stage holds a key tile's K and V (a query tile's Q and dO).
+//   Split (D <= 512): the same rows stay with 8 atoms; a stage holds four
+//   atoms of K (the forward: two stages a key tile) or the chunk's V, or
+//   two atoms of Q and dO (dK/dV) or of K and V (dQ), four stages a tile,
+//   the chunk's two last, each warpgroup's half of the chunk's columns.
+//   Streamed (above): nothing stays; the products over D walk it an atom
+//   a stage (the forward's Q and K atom; the backward's K, Q, V and dO
+//   atom), then a stage brings the chunk's V (the chunk's Q and dO, one
+//   stage a warpgroup's half; the chunk's K). Streamed, the side that
+//   split keeps is read again from L2 for every tile: at D = 512 the
+//   streamed forward ran 0.190 ms, split 0.128. A product over more than
+//   four atoms sums its slots' products in fp32 registers: the tensor
+//   cores' own running sum over 128 k steps moved lse to 4.7x the plain
+//   version's distance from float64 at D = 2048.
 // * No producer warpgroup: thread 0 keeps the ring S - 1 stages ahead
 //   (TMA; where TMA cannot go, D % 8 != 0 or a base not 16-byte aligned,
 //   every thread copies element by element into the same swizzled
 //   tiles), a full mbarrier a stage counting the bytes and an empty one
-//   that each warp arrives on when done.
+//   that each warp arrives on when done. The three kernels share one
+//   ring (`TcRing`) and differ only in what a slot holds (`fill`).
 // * Forward: two consumer warpgroups of 64 query rows (a block of 128).
 //   Causal and resident, the two share 64 rows instead and walk alternate
 //   key tiles, merging (m, l, O) through shared memory at the end: the
@@ -81,42 +85,46 @@
 //   scale) beside it (named barriers 1 and 2, double-buffered by the
 //   tile's parity); then each warpgroup adds P^T dO and dS^T Q into its
 //   own half of the chunk's dV and dK columns (SS m64n128k16, two atoms).
+// * dQ: a block owns 64 queries (the heaviest causal blocks first: the
+//   grid is about two waves of one block an SM, and the last rows walk 16
+//   key tiles against a mean of 8.5 at S = 1024) and walks 64-key tiles.
+//   Warpgroup 0 computes S = Q K^T, warpgroup 1 dP = dO V^T (SS, each
+//   once); 0 hands p = exp(s scale - lse) to 1 in fp32 through shared
+//   memory (p is not rounded: dQ takes r(p (dP - delta) scale)), 1 writes
+//   dS = r(p (dP - delta) scale) as 16-bit (query, key) rows (named
+//   barriers 1 and 2), and each warpgroup adds dS K into its own half of
+//   the chunk's dQ columns (SS m64n128k16, K read N-major through the
+//   transpose bit), 64 registers a thread.
 // * Tiles at or past min(Sk, kv_len[b]) and, when causal, past the
 //   block's last row (before its first key) are never loaded; a dK/dV
-//   block whose keys all lie past kv_len writes zeros.
+//   block whose keys all lie past kv_len writes zeros, and so does a dQ
+//   row that sees no key.
 // * No wgmma under a branch on anything but a warp-uniform value, and
 //   every product is retired inside the step that issues it.
 //
-// fp32 forward and dK/dV (mxtt_flash_wide_fwd_f32,
-// mxtt_flash_wide_bwd_dkv_f32): split TF32 on mma.sync m16n8k8
+// fp32 (mxtt_flash_wide_fwd_f32, mxtt_flash_wide_bwd_dkv_f32,
+// mxtt_flash_wide_bwd_dq_f32): split TF32 on mma.sync m16n8k8
 // (tf32_mma.cuh, the narrow fp32 forms' arithmetic: hi * hi + hi * lo +
 // lo * hi, each operand split as its fragment is loaded). wgmma's tf32
-// takes both shared operands K-major, so V (and dO, Q in the backward)
+// takes both shared operands K-major, so V (and dO, Q in dK/dV, K in dQ)
 // would need transposed hi and lo copies: at D = 256 a 64-row Q tile's
 // alone would fill 128 KB, so shared memory decides for mma.sync. A warp
-// owns 16 rows (query rows in the forward, keys in dK/dV) and a block 64;
-// D streams through shared memory in pieces of 64 columns (cp.async;
-// the forward's Q rows stay whole to D = 320), each piece's products in
-// zeroed accumulators summed in fp32, and the output's columns split
-// into chunks of 128 over the grid's z axis (O, or dK plus dV, in
-// registers: 64 or 128 a thread). The forward walks 32-key
+// owns 16 rows (query rows in the forward and dQ, keys in dK/dV) and a
+// block 64; D streams through shared memory in pieces of 64 columns
+// (cp.async; the forward's Q rows stay whole to D = 320), each piece's
+// products in zeroed accumulators summed in fp32, and the output's
+// columns split into chunks of 128 over the grid's z axis (O, dK plus
+// dV, or dQ in registers: 64 or 128 a thread). The forward walks 32-key
 // tiles with the online softmax (exp2f, as the narrow fp32 form), P as
 // the A fragment of the permuted contraction (c_as_a) and V's rows read
 // in that order; P V goes into zeroed accumulators four column tiles at
 // a time and into O by fp32 fma (tile_add). The dK/dV kernel walks
 // 32-query tiles: S^T = K Q^T and dP^T = V dO^T (one after the other),
 // p and dS in registers, then the tile's Q and dO rows in the chunk's
-// columns for dV += P^T dO and dK += dS^T Q, likewise.
-//
-// dQ (every dtype; a simple kernel in fp32 FMAs, the next to redesign): a
-// warp owns one query row; lanes hold its columns lane, lane + 32, ... in
-// pieces of PW = 32 NJ columns (NJ = 8 to D = 256, else 16); a block is
-// kWarps rows of one (b, h) and one chunk of PW output columns (the
-// grid's z axis). K and V stream through shared memory in tiles of kTile
-// rows, a piece at a time, converted to fp32 on load: each dot product
-// sums over the pieces in each lane and is reduced by five shuffles
-// once; the chunk's columns of K come in a second load where D has more
-// than one piece.
+// columns for dV += P^T dO and dK += dS^T Q, likewise. The dQ kernel
+// walks 32-key tiles: S = Q K^T and dP = dO V^T (interleaved, mma3x2), p
+// and dS in registers, then the tile's K rows in the chunk's columns for
+// dQ += dS K, likewise (the heaviest causal blocks first).
 //
 // Layout: q (B, H, Sq, D), k / v (B, H, Sk, D), out / dq (like q), dk /
 // dv (like k), all contiguous in one type; lse / delta (B*H, Sq) fp32;
@@ -149,195 +157,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kSmemLimit = 227 * 1024;  // dynamic shared bytes a block
 
-// ---------------------------------------------------------------------------
-// the simple dQ kernel, every dtype
-// ---------------------------------------------------------------------------
-constexpr int kWarps = 8;  // rows a block
-constexpr int kTile = 16;  // rows of a shared-memory tile
-
-template <typename T>
-__device__ __forceinline__ float load(const T* p);
-template <>
-__device__ __forceinline__ float load<float>(const float* p) {
-  return *p;
-}
-template <>
-__device__ __forceinline__ float load<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-template <>
-__device__ __forceinline__ float load<__half>(const __half* p) {
-  return __half2float(*p);
-}
-
-template <typename T>
-__device__ __forceinline__ T to_type(float x);
-template <>
-__device__ __forceinline__ float to_type<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_type<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half to_type<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-// x rounded to T and widened back (the identity in fp32)
-template <typename T>
-__device__ __forceinline__ float rnd(float x) {
-  const T t = to_type<T>(x);
-  return load<T>(&t);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// the dQ kernel's shared bytes: two tiles of kTile rows of PW floats
-__host__ __device__ constexpr size_t simple_smem(int nj) {
-  return sizeof(float) * 2 * kTile * 32 * nj;
-}
-
-// rows [r0, r0 + kTile) x columns [c0, c0 + PW) of the (rows, D) matrix
-// at src into dst (fp32, kTile x PW), zeros past `rows` and past D
-template <typename T, int PW>
-__device__ __forceinline__ void load_piece(float* dst, const T* src, int r0,
-                                           int rows, int D, int c0) {
-  for (int i = threadIdx.x; i < kTile * PW; i += blockDim.x) {
-    const int r = r0 + i / PW;
-    const int c = c0 + i % PW;
-    dst[i] = r < rows && c < D ? load<T>(src + (size_t)r * D + c) : 0.f;
-  }
-}
-
-// columns [c0 + lane, c0 + lane + 32, ...) of a row into registers, zeros
-// past D or where !ok
-template <typename T, int NJ>
-__device__ __forceinline__ void load_row(float (&x)[NJ], const T* row,
-                                         bool ok, int D, int c0, int lane) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int c = c0 + lane + 32 * j;
-    x[j] = ok && c < D ? load<T>(row + c) : 0.f;
-  }
-}
-
-// part[r] += this lane's share of the dot of x with row r of a piece
-template <int NJ>
-__device__ __forceinline__ void piece_dots(float (&part)[kTile],
-                                           const float (&x)[NJ],
-                                           const float* tile, int lane) {
-#pragma unroll
-  for (int r = 0; r < kTile; ++r)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      part[r] = fmaf(x[j], tile[r * 32 * NJ + lane + 32 * j], part[r]);
-}
-
-// keys a block of query rows [q0, q0 + kWarps) reads: below min(Sk,
-// kv_len[b]) and, when causal, at most its last row
-__device__ __forceinline__ int key_end(const int* kv_len, int b, int Sq,
-                                       int Sk, int causal, int q0) {
-  int kend = Sk;
-  if (kv_len != nullptr) kend = min(kend, max(kv_len[b], 0));
-  if (causal) kend = min(kend, min(Sq, q0 + kWarps));
-  return kend;
-}
-
-// dQ (every dtype): grid (ceil(Sq / kWarps), B*H, chunks), a warp a query
-// row; s and dP over all of D a piece at a time, then dQ += dS K over the
-// chunk's columns
-template <typename T, int NJ>
-__global__ void __launch_bounds__(32 * kWarps)
-    wide_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       const int* __restrict__ kv_len, T* __restrict__ dq,
-                       int H, int Sq, int Sk, int D, int causal,
-                       float sm_scale) {
-  constexpr int PW = 32 * NJ;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = smem + kTile * PW;
-  const int bh = blockIdx.y, b = bh / H;
-  const int c0 = blockIdx.z * PW;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kWarps, qi = q0 + warp;
-  const bool row_ok = qi < Sq;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
-  const T* qrow = q + ((size_t)bh * Sq + qi) * D;
-  const T* drow = dout + ((size_t)bh * Sq + qi) * D;
-  const int kend = key_end(kv_len, b, Sq, Sk, causal, q0);
-
-  float qr[NJ], dor[NJ], g[NJ], ps[kTile], pd[kTile];
-  if (D <= PW) {
-    load_row<T, NJ>(qr, qrow, row_ok, D, 0, lane);
-    load_row<T, NJ>(dor, drow, row_ok, D, 0, lane);
-  }
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) g[j] = 0.f;
-  const float lr = row_ok ? lse[(size_t)bh * Sq + qi] : 0.f;
-  const float dr = row_ok ? delta[(size_t)bh * Sq + qi] : 0.f;
-
-  for (int t0 = 0; t0 < kend; t0 += kTile) {
-#pragma unroll
-    for (int r = 0; r < kTile; ++r) ps[r] = pd[r] = 0.f;
-    for (int p0 = 0; p0 < D; p0 += PW) {
-      __syncthreads();
-      load_piece<T, PW>(ks, kb, t0, kend, D, p0);
-      load_piece<T, PW>(vs, vb, t0, kend, D, p0);
-      __syncthreads();
-      if (D > PW) {
-        load_row<T, NJ>(qr, qrow, row_ok, D, p0, lane);
-        load_row<T, NJ>(dor, drow, row_ok, D, p0, lane);
-      }
-      if (row_ok) {
-        piece_dots<NJ>(ps, qr, ks, lane);
-        piece_dots<NJ>(pd, dor, vs, lane);
-      }
-    }
-    if (row_ok) {
-      const int n = min(kTile, kend - t0);
-#pragma unroll
-      for (int r = 0; r < kTile; ++r) {
-        const float s = warp_sum(ps[r]) * sm_scale;
-        const float dp = warp_sum(pd[r]) - dr;
-        const bool ok = r < n && !(causal && t0 + r > qi);
-        ps[r] = ok ? rnd<T>(expf(s - lr) * dp * sm_scale) : 0.f;
-      }
-    }
-    if (D > PW) {
-      // the chunk's columns of the tile's K
-      __syncthreads();
-      load_piece<T, PW>(ks, kb, t0, kend, D, c0);
-      __syncthreads();
-    }
-    if (!row_ok) continue;
-#pragma unroll
-    for (int r = 0; r < kTile; ++r)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        g[j] = fmaf(ps[r], ks[r * PW + lane + 32 * j], g[j]);
-  }
-  if (!row_ok) return;
-  T* row = dq + ((size_t)bh * Sq + qi) * D;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int c = c0 + lane + 32 * j;
-    if (c < D) row[c] = to_type<T>(g[j]);
-  }
-}
-
-// NJ columns a lane a piece: 8 to D = 256, else 16; chunks of 32 NJ
-// output columns (kernels.py:_wide_simple_plan)
-__host__ __device__ constexpr int simple_nj(int D) { return D <= 256 ? 8 : 16; }
+// chunks of `width` output columns over D
 __host__ __device__ constexpr int chunks_of(int D, int width) {
   return (D + width - 1) / width;
 }
@@ -391,6 +211,13 @@ __host__ __device__ constexpr size_t f32_dkv_smem() {
 }
 static_assert(kF32BQ * kF32CP <= kF32Rows * kF32PP,
               "a chunk's Q / dO rows fit a piece's K / V buffer");
+// the dQ kernel: a piece of the block's Q and dO rows and of a key
+// tile's K and V rows (the chunk's K rows reuse Q's)
+__host__ __device__ constexpr size_t f32_dq_smem() {
+  return sizeof(float) * (size_t)2 * (kF32Rows + kF32BK) * kF32PP;
+}
+static_assert(kF32BK * kF32CP <= kF32Rows * kF32PP,
+              "a chunk's K rows fit a piece's Q buffer");
 
 // rows [r0, r0 + n) x columns [c0, c0 + w) of a (limit, D) fp32 matrix
 // into shared rows of `pitch` floats by cp.async, zeros past `limit` and
@@ -769,8 +596,157 @@ __global__ void __launch_bounds__(32 * kF32Warps)
   }
 }
 
+// dQ: grid (B*H, ceil(Sq / 64), chunks of 128 columns), 128 threads: warp
+// w owns queries q0 + 16 w .. + 15 (the heaviest causal blocks first) and
+// the chunk's columns of their dQ
+__global__ void __launch_bounds__(32 * kF32Warps)
+    wide_dq_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const int* __restrict__ kv_len,
+                       float* __restrict__ dq, int H, int Sq, int Sk, int D,
+                       int causal, float sm_scale, int vec) {
+  constexpr int NC = kF32DC / 8;   // 8-column tiles of dQ
+  constexpr int KT = kF32BK / 8;   // 8-key tiles of S and dP
+  constexpr int PP = kF32PP, CP = kF32CP;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                    // kF32Rows x PP (the chunk's K)
+  float* dos = qs + kF32Rows * PP;     // kF32Rows x PP
+  float* ks = dos + kF32Rows * PP;     // kF32BK x PP
+  float* vs = ks + kF32BK * PP;        // kF32BK x PP
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;
+  const int c0 = blockIdx.z * kF32DC;
+  const int qw0 = q0 + 16 * warp;
+  const size_t qbase = (size_t)bh * Sq * D;
+  const size_t kbase = (size_t)bh * Sk * D;
+  const float cl = sm_scale * kLog2e;
+  int kend = Sk;
+  if (kv_len != nullptr) kend = max(0, min(kend, kv_len[bh / H]));
+  // key tiles at or past kstop hold no visible key for any row
+  const int kstop = causal ? min(kend, q0 + kF32Rows) : kend;
+  // lse log2(e) and delta of this thread's rows qw0 + g, qw0 + g + 8
+  float lq[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qw0 + g + 8 * h;
+    lq[h] = qi < Sq ? lse[(size_t)bh * Sq + qi] * kLog2e : 0.f;
+    dl[h] = qi < Sq ? delta[(size_t)bh * Sq + qi] : 0.f;
+  }
+
+  float dqa[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  for (int k0 = 0; k0 < kstop; k0 += kF32BK) {
+    // S = Q K^T and dP = dO V^T over D, a piece at a time, each piece's
+    // products in zeroed accumulators summed in fp32
+    float s[KT][4], dp[KT][4];
+    for (int p0 = 0; p0 < D; p0 += kF32PW) {
+      __syncthreads();
+      copy_cols(qs, PP, q + qbase, q0, kF32Rows, Sq, D, p0, kF32PW, vec, tid);
+      copy_cols(dos, PP, dout + qbase, q0, kF32Rows, Sq, D, p0, kF32PW, vec,
+                tid);
+      copy_cols(ks, PP, k + kbase, k0, kF32BK, Sk, D, p0, kF32PW, vec, tid);
+      copy_cols(vs, PP, v + kbase, k0, kF32BK, Sk, D, p0, kF32PW, vec, tid);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      float sp[KT][4], dpp[KT][4];
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sp[j][e] = dpp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kF32PW / 8; ++kk) {
+        uint32_t ah[4], al[4], eh[4], el[4];
+        uint32_t bh_[KT][2], bl_[KT][2], fh[KT][2], fl[KT][2];
+        load_a(qs + 16 * warp * PP, PP, 8 * kk, g, t, ah, al);
+        load_a(dos + 16 * warp * PP, PP, 8 * kk, g, t, eh, el);
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          load_b_rows(ks + 8 * j * PP + 8 * kk, PP, g, t, bh_[j], bl_[j]);
+          load_b_rows(vs + 8 * j * PP + 8 * kk, PP, g, t, fh[j], fl[j]);
+        }
+        mma3x2<KT>(sp, ah, al, bh_, bl_, dpp, eh, el, fh, fl);
+      }
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = p0 > 0 ? s[j][e] + sp[j][e] : sp[j][e];
+          dp[j][e] = p0 > 0 ? dp[j][e] + dpp[j][e] : dpp[j][e];
+        }
+    }
+    // p = exp(s scale - lse) where the mask allows (qi, kj), else 0, and
+    // dS = p (dP - delta) scale in place of s (fp32: no rounding)
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int qi = qw0 + g + 8 * h;
+        const int kj = k0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = qi < Sq && kj < kend && (!causal || kj <= qi);
+        const float p = ok ? exp2f(fmaf(s[j][e], cl, -lq[h])) : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[h]) * sm_scale;
+      }
+    // the tile's K rows in the chunk's columns
+    __syncthreads();
+    copy_cols(qs, CP, k + kbase, k0, kF32BK, Sk, D, c0, kF32DC, vec, tid);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    // dQ += dS K, a group of four column tiles at a time: dS as the A
+    // fragment of the permuted contraction over the tile's keys, K's rows
+    // read in that order; each group's product in zeroed accumulators,
+    // added to dQ in fp32
+#pragma unroll
+    for (int n0 = 0; n0 < NC; n0 += 4) {
+      if (c0 + 8 * n0 >= D) break;
+      float gs[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gs[i][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        uint32_t ah[4], al[4], bh_[4][2], bl_[4][2];
+        c_as_a(s[j], ah, al);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          load_b_perm(qs + 8 * j * CP + 8 * (n0 + i), CP, g, t, bh_[i],
+                      bl_[i]);
+        mma3x1<4>(gs, ah, al, bh_, bl_);
+      }
+      tile_add<4>(dqa + n0, gs, 1.f, 1.f);
+    }
+  }
+
+  // a row with no visible key gets zeros
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = qw0 + g + ((e & 2) ? 8 : 0);
+      const int d = c0 + 8 * n + 2 * t + (e & 1);
+      if (qi < Sq && d < D) dq[qbase + (size_t)qi * D + d] = dqa[n][e];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// the bf16 / fp16 forward and dK/dV kernels on wgmma
+// the bf16 / fp16 forward, dK/dV and dQ kernels on wgmma
 // ---------------------------------------------------------------------------
 constexpr int kTcThreads = 256;  // two consumer warpgroups
 constexpr int kTcRows = 128;     // query rows of a forward block
@@ -829,6 +805,18 @@ constexpr size_t kDkvResStage = 2 * kTile4;
 constexpr size_t kDkvSplitFixed = 4 * kTile4 + kPtBytes;
 constexpr size_t kDkvStrStage = 2 * 4 * kTcAtomElems;
 
+// dQ: the p exchange (64 x 64 fp32) and dS (64 x 64) fixed in every mode;
+// resident, Q and dO (64 rows x 4 atoms each) fixed and a stage a key
+// tile's K and V (64 rows x 4 atoms each); split, Q and dO (64 rows x 8
+// atoms) fixed and a stage two atoms of K and of V; streamed, a stage the
+// Q, K, dO and V of one atom or the chunk's four atoms of K. One barrier
+// more (Q's and dO's)
+constexpr size_t kXpBytes = 4 * kTcAtomElems + 2 * kTcAtomElems;
+constexpr size_t kDqResFixed = 2 * kTile4 + kXpBytes;
+constexpr size_t kDqResStage = 2 * kTile4;
+constexpr size_t kDqSplitFixed = 4 * kTile4 + kXpBytes;
+constexpr size_t kDqStrStage = 2 * 4 * kTcAtomElems;
+
 __host__ __device__ constexpr size_t tc_fwd_fixed(int mode, bool ks) {
   return ks ? kFwdKsFixed
             : mode == kResident ? kFwdResFixed
@@ -846,11 +834,21 @@ __host__ __device__ constexpr size_t tc_dkv_stage(int mode) {
   return mode == kResident ? kDkvResStage : kDkvStrStage;
 }
 
+__host__ __device__ constexpr size_t tc_dq_fixed(int mode) {
+  return mode == kResident ? kDqResFixed
+                           : mode == kSplit ? kDqSplitFixed : kXpBytes;
+}
+__host__ __device__ constexpr size_t tc_dq_stage(int mode) {
+  return mode == kResident ? kDqResStage : kDqStrStage;
+}
+
 static_assert(tc_stages(kFwdResFixed, kFwdResStage, 1) >= 2 &&
                   tc_stages(kFwdKsFixed, kFwdResStage, 1) >= 2 &&
                   tc_stages(kDkvResFixed, kDkvResStage, 1) >= 2 &&
                   tc_stages(kFwdSplitFixed, kTile4, 1) >= 2 &&
-                  tc_stages(kDkvSplitFixed, kDkvStrStage, 1) >= 2,
+                  tc_stages(kDkvSplitFixed, kDkvStrStage, 1) >= 2 &&
+                  tc_stages(kDqResFixed, kDqResStage, 1) >= 2 &&
+                  tc_stages(kDqSplitFixed, kDqStrStage, 1) >= 2,
               "a wide block's ring needs two stages in 227 KB");
 // the split forward's three slots a key tile land in three stages, so
 // K's second half always fills stage 1 (`wide_fwd_tc_kernel` zeroes its
@@ -859,7 +857,8 @@ static_assert(tc_stages(kFwdSplitFixed, kTile4, 1) == 3,
               "the split forward needs three stages");
 
 // named barriers over `n` threads: 1 and 2 pass P^T and dS^T between the
-// dK/dV kernel's warpgroups, 3 + wg is warpgroup wg alone
+// dK/dV kernel's warpgroups (p and dS between the dQ kernel's), 3 + wg is
+// warpgroup wg alone
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
@@ -901,6 +900,49 @@ __device__ __forceinline__ void tma_atoms(T* dst, const CUtensorMap* m,
     if (a0 + a < la)
       tma_load_3d(dst + a * ROWS * 64, m, bar, 64 * (a0 + a), row, bh);
 }
+
+// The wgmma kernels' TMA ring: `stages` stages of STAGE bytes behind a
+// full and an empty mbarrier each. Slot c (the c-th load of a block's
+// walk) lands in stage c % stages. Thread 0 (every thread, where the
+// element copies fill it: `filler`) fills the slots in order through
+// `fill(c)`, each once every warp is done with the slot `stages` before
+// it in its stage; before slot c the ring runs stages - 1 slots ahead.
+// Only `fill` differs between the kernels.
+template <typename T, size_t STAGE, class Fill>
+struct TcRing {
+  Fill& fill;
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, nslots;
+  bool filler;
+  int lane;
+  int filled = 0;
+
+  __device__ __forceinline__ void top_up(int upto) {
+    if (!filler) return;
+    for (upto = min(upto, nslots); filled < upto; ++filled) {
+      if (filled >= stages)
+        mbar_wait(empty + filled % stages, (filled / stages - 1) & 1);
+      fill(filled);
+    }
+  }
+  __device__ __forceinline__ void wait_full(int c) const {
+    mbar_wait(full + c % stages, (c / stages) & 1);
+  }
+  __device__ __forceinline__ void begin(int c) {
+    top_up(c + stages);
+    wait_full(c);
+  }
+  // the warp is done with slot c
+  __device__ __forceinline__ void release(int c) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + c % stages);
+  }
+  __device__ __forceinline__ T* stage_of(int c) const {
+    return reinterpret_cast<T*>(ring + (c % stages) * STAGE);
+  }
+};
 
 // The forward: grid (B*H, ceil(Sq / 128), chunks), 256 threads, two
 // consumer warpgroups of 64 rows; block (bh, y) owns rows [q0, q0 + 128)
@@ -1045,32 +1087,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       }
     }
   };
-  // thread 0 (every thread, copying) fills the slots up to `upto`, each
-  // once every warp is done with the slot `stages` before it in its
-  // stage; before slot c the ring runs stages - 1 slots ahead of it
-  int filled = 0;
-  auto top_up = [&](int upto) {
-    if (vec && tid != 0) return;
-    for (upto = min(upto, nslots); filled < upto; ++filled) {
-      if (filled >= stages)
-        mbar_wait(empty + filled % stages, (filled / stages - 1) & 1);
-      fill(filled);
-    }
-  };
-  auto wait_full = [&](int c) {
-    mbar_wait(full + c % stages, (c / stages) & 1);
-  };
-  auto begin = [&](int c) {
-    top_up(c + stages);
-    wait_full(c);
-  };
-  auto release = [&](int c) {   // the warp is done with slot c
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + c % stages);
-  };
-  auto stage_of = [&](int c) {
-    return reinterpret_cast<T*>(ring + (c % stages) * STAGE);
-  };
+  TcRing<T, STAGE, decltype(fill)> rg{
+      fill, ring, full, empty, stages, nslots, !vec || tid == 0, lane};
 
   if constexpr (MODE != kStreamed) {
     if (vec) {
@@ -1084,7 +1102,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       mbar_arrive(q_bar);
     }
   }
-  top_up(stages - 1);
+  rg.top_up(stages - 1);
   if constexpr (MODE != kStreamed) mbar_wait(q_bar, 0);
 
   const int rq = 16 * (warp & 3) + g;   // this thread's rows of the
@@ -1109,8 +1127,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     // S = Q K^T (the warpgroup's 64 rows x 64 keys) over D: a = the Q
     // rows, b = the K rows, both K-major
     if constexpr (MODE == kResident) {
-      begin(c);
-      const T* kt = stage_of(c);
+      rg.begin(c);
+      const T* kt = rg.stage_of(c);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4 * CA; ++kk)
@@ -1132,8 +1150,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       float sa[NK][4];
       const int nsl = MODE == kSplit ? 2 : la;
       for (int a = 0; a < nsl; ++a, ++c) {
-        begin(c);
-        const T* sp = stage_of(c);
+        rg.begin(c);
+        const T* sp = rg.stage_of(c);
         const T* qa = MODE == kSplit ? qs + CA * a * kTcRows * 64 : sp;
         const T* ka = MODE == kSplit ? sp : sp + kTcRows * 64;
         constexpr int KSTEPS = MODE == kSplit ? 4 * CA : 4;
@@ -1151,7 +1169,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         wg_commit();
         wg_wait<0>();
         pin<NK>(sa);
-        release(c);
+        rg.release(c);
 #pragma unroll
         for (int j = 0; j < NK; ++j)
 #pragma unroll
@@ -1222,9 +1240,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       o[nn][2] *= b1;
       o[nn][3] *= b1;
     }
-    if constexpr (MODE != kResident) begin(c);
-    const T* vt = MODE != kResident ? stage_of(c)
-                                    : stage_of(c) + kTcBK * 64 * CA;
+    if constexpr (MODE != kResident) rg.begin(c);
+    const T* vt = MODE != kResident ? rg.stage_of(c)
+                                    : rg.stage_of(c) + kTcBK * 64 * CA;
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kTcBK / 16; ++kk)
@@ -1238,7 +1256,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wg_commit();
     wg_wait<0>();
     pin<ND>(o);
-    release(c);
+    rg.release(c);
     ++c;
   }
   if constexpr (KS) {
@@ -1476,29 +1494,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         }
       }
     };
-    int filled = 0;   // as in the forward
-    auto top_up = [&](int upto) {
-      if (vec && tid != 0) return;
-      for (upto = min(upto, nslots); filled < upto; ++filled) {
-        if (filled >= stages)
-          mbar_wait(empty + filled % stages, (filled / stages - 1) & 1);
-        fill(filled);
-      }
-    };
-    auto wait_full = [&](int c) {
-      mbar_wait(full + c % stages, (c / stages) & 1);
-    };
-    auto begin = [&](int c) {
-      top_up(c + stages);
-      wait_full(c);
-    };
-    auto release = [&](int c) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + c % stages);
-    };
-    auto stage_of = [&](int c) {
-      return reinterpret_cast<T*>(ring + (c % stages) * STAGE);
-    };
+    TcRing<T, STAGE, decltype(fill)> rg{
+        fill, ring, full, empty, stages, nslots, !vec || tid == 0, lane};
 
     if constexpr (MODE != kStreamed) {
       if (vec) {
@@ -1514,7 +1511,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         mbar_arrive(kv_bar);
       }
     }
-    top_up(stages - 1);
+    rg.top_up(stages - 1);
     if constexpr (MODE != kStreamed) mbar_wait(kv_bar, 0);
 
     int c = 0;
@@ -1536,8 +1533,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       // block's 64 keys x the tile's 64 queries over D, both K-major
       float x[NQ][4];
       if constexpr (MODE == kResident) {
-        begin(c);
-        const T* qt = stage_of(c);
+        rg.begin(c);
+        const T* qt = rg.stage_of(c);
         const T* at = wg == 0 ? ks : vs;
         const T* bt = wg == 0 ? qt : qt + kTcBQ * 64 * CA;
         wg_fence();
@@ -1562,12 +1559,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         float xa[NQ][4];
         for (int r = 0; r < 4; ++r) {
           if (r < 3)
-            begin(c + r);
+            rg.begin(c + r);
           else
-            wait_full(c + r);
+            rg.wait_full(c + r);
           const int p = pair_of(r);
           const T* at = (wg == 0 ? ks : vs) + 2 * p * kTcAtomElems;
-          const T* bt = stage_of(c + r) + 2 * wg * kTcAtomElems;
+          const T* bt = rg.stage_of(c + r) + 2 * wg * kTcAtomElems;
           wg_fence();
 #pragma unroll
           for (int kk = 0; kk < 8; ++kk)
@@ -1586,7 +1583,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               x[j][e] = r > 0 ? x[j][e] + xa[j][e] : xa[j][e];
-          if (r < 2) release(c + r);
+          if (r < 2) rg.release(c + r);
         }
         c += 2;   // at the chunk's slots
       } else {
@@ -1594,8 +1591,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         // registers (as the forward's S)
         float xa[NQ][4];
         for (int a = 0; a < la; ++a, ++c) {
-          begin(c);
-          const T* kp = stage_of(c);
+          rg.begin(c);
+          const T* kp = rg.stage_of(c);
           const T* at = kp + 2 * wg * kTcAtomElems;        // K or V
           const T* bt = kp + (2 * wg + 1) * kTcAtomElems;  // Q or dO
           wg_fence();
@@ -1606,7 +1603,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           wg_commit();
           wg_wait<0>();
           pin<NQ>(xa);
-          release(c);
+          rg.release(c);
 #pragma unroll
           for (int j = 0; j < NQ; ++j)
 #pragma unroll
@@ -1665,16 +1662,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       const T* qh;
       const T* dh;
       if constexpr (MODE == kResident) {
-        qh = stage_of(c) + 2 * wg * kTcAtomElems;
+        qh = rg.stage_of(c) + 2 * wg * kTcAtomElems;
         dh = qh + kTcBQ * 64 * CA;
       } else {
         if constexpr (MODE == kStreamed) {
           // both halves' slots, the ring topped up to the first's (a
           // refill past it would wait on the halves themselves)
-          begin(c);
-          wait_full(c + 1);
+          rg.begin(c);
+          rg.wait_full(c + 1);
         }
-        qh = stage_of(c + wg);
+        qh = rg.stage_of(c + wg);
         dh = qh + 2 * kTcAtomElems;
       }
       wg_fence();
@@ -1692,10 +1689,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wg_wait<0>();
       pin<NH>(dva);
       pin<NH>(dka);
-      release(c);
+      rg.release(c);
       ++c;
       if constexpr (MODE != kResident) {
-        release(c);
+        rg.release(c);
         ++c;
       }
     }
@@ -1721,6 +1718,384 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
+// dQ: grid (B*H, ceil(Sq / 64), chunks), 256 threads; block (bh, y) owns
+// queries [q0, q0 + 64) (the heaviest causal blocks first) and the chunk
+// z's four atoms of dQ, warpgroup wg the atoms 2 wg, 2 wg + 1 of it
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    wide_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int* __restrict__ kv_len, T* __restrict__ dq,
+                      int H, int Sq, int Sk, int D, int causal,
+                      float sm_scale, int stages, int vec,
+                      const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do) {
+  constexpr int CA = kTcAtoms;
+  constexpr int E = kTcAtomElems;
+  constexpr int NH = CA / 2 * 8;   // 8-column tiles of a warpgroup's half
+  constexpr int NK = kTcBK / 8;    // 8-key tiles of S and dP
+  constexpr size_t STAGE = tc_dq_stage(MODE);
+  constexpr int QA = MODE == kSplit ? 2 * CA : CA;   // resident Q, dO atoms
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - static_cast<uint32_t>(
+                              __cvta_generic_to_shared(smem_raw)) % 1024) %
+                  1024);
+  // resident and split: Q and dO (64 rows x QA atoms each); then dS (64
+  // queries x 64 keys) and the p exchange (fp32); then the ring
+  T* qs = reinterpret_cast<T*>(base);
+  T* dos = qs + kTcBQ * 64 * QA;
+  T* dss = MODE == kStreamed ? qs : dos + kTcBQ * 64 * QA;
+  float* xp = reinterpret_cast<float*>(dss + E);
+  unsigned char* ring = base + tc_dq_fixed(MODE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
+  uint64_t* empty = full + stages;
+  uint64_t* q_bar = empty + stages;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = __shfl_sync(kFull, tid >> 5, 0);
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lt = tid & 127;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;
+  const int ca0 = blockIdx.z * CA;
+  const int la = (D + 63) / 64;
+  const size_t qbase = (size_t)bh * Sq * D;
+  const size_t kbase = (size_t)bh * Sk * D;
+  const int rq = 16 * (warp & 3) + g;   // this thread's queries of the
+                                        // block: q0 + rq, q0 + rq + 8
+  const float cl = sm_scale * kLog2e;
+  int kend = Sk;
+  if (kv_len != nullptr) kend = max(0, min(kend, kv_len[bh / H]));
+  kend = __shfl_sync(kFull, kend, 0);
+  // key tiles at or past kstop hold no visible key for any row: never
+  // loaded
+  const int kstop = causal ? min(kend, q0 + kTcBQ) : kend;
+  const int ntiles = (kstop + kTcBK - 1) / kTcBK;
+  // ring slots a key tile: resident 1; split four of two atoms of K and
+  // V each, the chunk's two last; streamed the atoms of Q, K, dO and V,
+  // then the chunk's K
+  const int per_tile = MODE == kResident ? 1 : MODE == kSplit ? 4 : la + 1;
+  // split: slot r of a tile holds the atoms 2 p, 2 p + 1, the chunk's (p
+  // = 2 z, 2 z + 1) last
+  auto pair_of = [&](int r) { return (r + 2 - 2 * (int)blockIdx.z) & 3; };
+  const int nslots = ntiles * per_tile;
+  const T* qb = q + qbase;
+  const T* db = dout + qbase;
+  const T* kb = k + kbase;
+  const T* vb = v + kbase;
+
+  // lse log2(e) (warpgroup 0) or delta (warpgroup 1) of this thread's rows
+  float lv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + rq + 8 * h;
+    lv[h] = qi < Sq ? (wg == 0 ? lse[(size_t)bh * Sq + qi] * kLog2e
+                               : delta[(size_t)bh * Sq + qi])
+                    : 0.f;
+  }
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full + st, vec ? 1 : kTcThreads);
+      mbar_init(empty + st, kTcThreads / 32);
+    }
+    mbar_init(q_bar, vec ? 1 : kTcThreads);
+    mbar_init_fence();
+  }
+  if (MODE != kStreamed && vec && la < QA) {
+    // resident atoms past D are zeros (TMA never writes them; they are in
+    // S's and dP's contraction, whose products take a fixed count of k
+    // steps: one that hangs on D serialises every wgmma)
+    zero_pad_sw(qs, kTcBQ, 64 * la, 64 * QA, tid, kTcThreads);
+    zero_pad_sw(dos, kTcBQ, 64 * la, 64 * QA, tid, kTcThreads);
+    if constexpr (MODE == kResident) {
+      for (int st = 0; st < stages; ++st) {
+        T* kt = reinterpret_cast<T*>(ring + st * STAGE);
+        zero_pad_sw(kt, kTcBK, 64 * la, 64 * CA, tid, kTcThreads);
+        zero_pad_sw(kt + kTcBK * 64 * CA, kTcBK, 64 * la, 64 * CA, tid,
+                    kTcThreads);
+      }
+    } else {
+      // split: a pair's atoms past D are never loaded, and their Q / dO
+      // atoms are zeros; the stages start as zeros, so what they hold
+      // there is always finite
+      uint4* z = reinterpret_cast<uint4*>(ring);
+      for (int i = tid; i < stages * (int)(STAGE / 16); i += kTcThreads)
+        z[i] = make_uint4(0, 0, 0, 0);
+    }
+    fence_async_smem();
+  }
+  __syncthreads();
+
+  // slot c: key tile c / per_tile; resident, its K and V; split, two
+  // atoms of K and of V (`pair_of`); streamed, slot r < la the Q, K, dO
+  // and V of atom r, then the chunk's four atoms of K
+  auto fill = [&](int c) {
+    const int st = c % stages;
+    unsigned char* sb = ring + st * STAGE;
+    const int i = c / per_tile;
+    const int r = c - i * per_tile;
+    const int k0 = i * kTcBK;
+    if constexpr (MODE == kResident) {
+      T* kt = reinterpret_cast<T*>(sb);
+      T* vt = kt + kTcBK * 64 * CA;
+      if (vec) {
+        mbar_expect_tx(full + st, 2 * atom_bytes<kTcBK, CA>(0, la));
+        tma_atoms<kTcBK, CA>(kt, &tm_k, full + st, 0, la, k0, bh);
+        tma_atoms<kTcBK, CA>(vt, &tm_v, full + st, 0, la, k0, bh);
+      } else {
+        copy_atoms<kTcBK, CA>(kt, kb, k0, Sk, D, 0, tid);
+        copy_atoms<kTcBK, CA>(vt, vb, k0, Sk, D, 0, tid);
+        fence_async_smem();
+        mbar_arrive(full + st);
+      }
+    } else if (MODE == kSplit) {
+      const int a0 = 2 * pair_of(r);
+      T* kp = reinterpret_cast<T*>(sb);
+      T* vp = kp + 2 * E;
+      if (vec) {
+        mbar_expect_tx(full + st, 2 * atom_bytes<kTcBK, 2>(a0, la));
+        tma_atoms<kTcBK, 2>(kp, &tm_k, full + st, a0, la, k0, bh);
+        tma_atoms<kTcBK, 2>(vp, &tm_v, full + st, a0, la, k0, bh);
+      } else {
+        copy_atoms<kTcBK, 2>(kp, kb, k0, Sk, D, a0, tid);
+        copy_atoms<kTcBK, 2>(vp, vb, k0, Sk, D, a0, tid);
+        fence_async_smem();
+        mbar_arrive(full + st);
+      }
+    } else if (r < la) {
+      T* qp = reinterpret_cast<T*>(sb);
+      T* kp = qp + E;
+      T* dp = kp + E;
+      T* vp = dp + E;
+      if (vec) {
+        mbar_expect_tx(full + st, 4 * E * 2);
+        tma_load_3d(qp, &tm_q, full + st, 64 * r, q0, bh);
+        tma_load_3d(kp, &tm_k, full + st, 64 * r, k0, bh);
+        tma_load_3d(dp, &tm_do, full + st, 64 * r, q0, bh);
+        tma_load_3d(vp, &tm_v, full + st, 64 * r, k0, bh);
+      } else {
+        copy_atoms<kTcBQ, 1>(qp, qb, q0, Sq, D, r, tid);
+        copy_atoms<kTcBK, 1>(kp, kb, k0, Sk, D, r, tid);
+        copy_atoms<kTcBQ, 1>(dp, db, q0, Sq, D, r, tid);
+        copy_atoms<kTcBK, 1>(vp, vb, k0, Sk, D, r, tid);
+        fence_async_smem();
+        mbar_arrive(full + st);
+      }
+    } else {
+      T* kt = reinterpret_cast<T*>(sb);
+      if (vec) {
+        mbar_expect_tx(full + st, atom_bytes<kTcBK, CA>(ca0, la));
+        tma_atoms<kTcBK, CA>(kt, &tm_k, full + st, ca0, la, k0, bh);
+      } else {
+        copy_atoms<kTcBK, CA>(kt, kb, k0, Sk, D, ca0, tid);
+        fence_async_smem();
+        mbar_arrive(full + st);
+      }
+    }
+  };
+  TcRing<T, STAGE, decltype(fill)> rg{
+      fill, ring, full, empty, stages, nslots, !vec || tid == 0, lane};
+
+  if constexpr (MODE != kStreamed) {
+    if (vec) {
+      if (tid == 0) {
+        mbar_expect_tx(q_bar, 2 * atom_bytes<kTcBQ, QA>(0, la));
+        tma_atoms<kTcBQ, QA>(qs, &tm_q, q_bar, 0, la, q0, bh);
+        tma_atoms<kTcBQ, QA>(dos, &tm_do, q_bar, 0, la, q0, bh);
+      }
+    } else {
+      copy_atoms<kTcBQ, QA>(qs, qb, q0, Sq, D, 0, tid);
+      copy_atoms<kTcBQ, QA>(dos, db, q0, Sq, D, 0, tid);
+      fence_async_smem();
+      mbar_arrive(q_bar);
+    }
+  }
+  rg.top_up(stages - 1);
+  if constexpr (MODE != kStreamed) mbar_wait(q_bar, 0);
+
+  float dqa[NH][4];
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  int c = 0;
+  for (int i = 0; i < ntiles; ++i) {
+    const int k0 = i * kTcBK;
+    // x = S = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1), the
+    // block's 64 queries x the tile's 64 keys over D, both K-major
+    float x[NK][4];
+    if constexpr (MODE == kResident) {
+      rg.begin(c);
+      const T* kt = rg.stage_of(c);
+      const T* at = wg == 0 ? qs : dos;
+      const T* bt = wg == 0 ? kt : kt + kTcBK * 64 * CA;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * CA; ++kk)
+        wgmma_ss<64, 0, T>(
+            x, sw128_desc(at + (kk >> 2) * E + 16 * (kk & 3), 16, 1024),
+            sw128_desc(bt + (kk >> 2) * E + 16 * (kk & 3), 16, 1024), kk);
+      wg_commit();
+      wg_wait<0>();
+      pin<NK>(x);
+    } else if constexpr (MODE == kSplit) {
+      // the four slots' products (two atoms of the resident Q or dO
+      // against the slot's K or V) in zeroed accumulators, summed in fp32
+      // registers; the chunk's two slots stay until dQ has read them (so
+      // the last is not topped up past: the refill would wait on them)
+      float xa[NK][4];
+      for (int r = 0; r < 4; ++r) {
+        if (r < 3)
+          rg.begin(c + r);
+        else
+          rg.wait_full(c + r);
+        const int p = pair_of(r);
+        const T* at = (wg == 0 ? qs : dos) + 2 * p * E;
+        const T* bt = rg.stage_of(c + r) + 2 * wg * E;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss<64, 0, T>(
+              xa, sw128_desc(at + (kk >> 2) * E + 16 * (kk & 3), 16, 1024),
+              sw128_desc(bt + (kk >> 2) * E + 16 * (kk & 3), 16, 1024), kk);
+        wg_commit();
+        wg_wait<0>();
+        pin<NK>(xa);
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[j][e] = r > 0 ? x[j][e] + xa[j][e] : xa[j][e];
+        if (r < 2) rg.release(c + r);
+      }
+      c += 2;   // at the chunk's slots
+    } else {
+      // an atom's product in zeroed accumulators, summed in fp32
+      // registers (as the forward's S)
+      float xa[NK][4];
+      for (int a = 0; a < la; ++a, ++c) {
+        rg.begin(c);
+        const T* at = rg.stage_of(c) + 2 * wg * E;   // Q or dO
+        const T* bt = at + E;                      // K or V
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<64, 0, T>(xa, sw128_desc(at + 16 * kk, 16, 1024),
+                             sw128_desc(bt + 16 * kk, 16, 1024), kk);
+        wg_commit();
+        wg_wait<0>();
+        pin<NK>(xa);
+        rg.release(c);
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[j][e] = a > 0 ? x[j][e] + xa[j][e] : xa[j][e];
+      }
+    }
+
+    if (wg == 0) {
+      // p = exp(s scale - lse) where the mask allows (qi, kj), else 0, in
+      // fp32 (not rounded) to warpgroup 1, entry (j, e) of thread lt at
+      // xp[4 (128 j + lt) + e]; masked only in a tile that crosses an edge
+      auto p_of = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = exp2_approx(fmaf(x[j][e], cl, -lv[e >> 1]));
+            if constexpr (decltype(masked)::value) {
+              const int qi = q0 + rq + ((e & 2) ? 8 : 0);
+              const int kj = k0 + 8 * j + 2 * t + (e & 1);
+              if (!(qi < Sq && kj < kend && (!causal || kj <= qi)))
+                p[e] = 0.f;
+            }
+          }
+          reinterpret_cast<float4*>(xp)[128 * j + lt] =
+              make_float4(p[0], p[1], p[2], p[3]);
+        }
+      };
+      if ((causal && k0 + kTcBK - 1 > q0) || k0 + kTcBK > kend ||
+          q0 + kTcBQ > Sq)
+        p_of(std::true_type{});
+      else
+        p_of(std::false_type{});
+      named_arrive(1, kTcThreads);   // p is in
+      named_sync(2, kTcThreads);     // dS is in
+    } else {
+      named_sync(1, kTcThreads);
+      // dS = r(p (dP - delta) scale) into dss as (query, key) rows
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const float4 p = reinterpret_cast<const float4*>(xp)[128 * j + lt];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(
+              dss + sw_off(rq + 8 * h, 8 * j + 2 * t, 64)) =
+              pack2<T>((h ? p.z : p.x) * (x[j][2 * h] - lv[h]) * sm_scale,
+                       (h ? p.w : p.y) * (x[j][2 * h + 1] - lv[h]) *
+                           sm_scale);
+      }
+      fence_async_smem();
+      named_arrive(2, kTcThreads);
+      named_sync(3 + wg, 128);   // the warpgroup's dS is in
+    }
+
+    // dQ += dS K over the warpgroup's two atoms: a = dS (K-major, 16 keys
+    // a k step), b = the keys' K rows in the chunk's columns (N-major)
+    const T* kh;
+    if constexpr (MODE == kResident) {
+      kh = rg.stage_of(c) + 2 * wg * E;
+    } else if constexpr (MODE == kSplit) {
+      kh = rg.stage_of(c + wg);
+    } else {
+      rg.begin(c);
+      kh = rg.stage_of(c) + 2 * wg * E;
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk)
+      wgmma_ss<128, 1, T>(dqa, sw128_desc(dss + 16 * kk, 16, 1024),
+                          sw128_desc(kh + kk * 16 * 64, kTcBK * 128, 1024),
+                          1);
+    wg_commit();
+    wg_wait<0>();
+    pin<NH>(dqa);
+    rg.release(c);
+    ++c;
+    if constexpr (MODE == kSplit) {
+      rg.release(c);
+      ++c;
+    }
+  }
+
+  // a row with no visible key gets zeros
+  const bool pair = (D & 1) == 0;
+#pragma unroll
+  for (int n = 0; n < NH; ++n) {
+    const int d = 64 * (ca0 + 2 * wg) + 8 * n + 2 * t;
+    if (d >= D) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qi = q0 + rq + 8 * half;
+      if (qi < Sq)
+        store_pair(dq, qbase + (size_t)qi * D + d, dqa[n][2 * half],
+                   dqa[n][2 * half + 1], pair, d + 1 < D);
+    }
+  }
+}
+
 // the wgmma kernels' plan (kernels.py:flash_wide_plan): the mode;
 // chunks of four atoms; the ring's stages and shared bytes
 struct TcPlan {
@@ -1741,6 +2116,13 @@ __host__ __device__ constexpr TcPlan tc_dkv_plan(int D) {
   const int s = tc_stages(tc_dkv_fixed(m), tc_dkv_stage(m), 1);
   return TcPlan{m, false, chunks_of(D, 64 * kTcAtoms), s,
                 tc_smem(tc_dkv_fixed(m), tc_dkv_stage(m), s, 1)};
+}
+
+__host__ __device__ constexpr TcPlan tc_dq_plan(int D) {
+  const int m = tc_mode(D);
+  const int s = tc_stages(tc_dq_fixed(m), tc_dq_stage(m), 1);
+  return TcPlan{m, false, chunks_of(D, 64 * kTcAtoms), s,
+                tc_smem(tc_dq_fixed(m), tc_dq_stage(m), s, 1)};
 }
 
 bool plan_ok(const TcPlan& p, int chunks, int stages, long long smem) {
@@ -1799,6 +2181,30 @@ int launch_dkv_tc(const T* q, const T* k, const T* v, const T* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int MODE>
+int launch_dq_tc(const T* q, const T* k, const T* v, const T* dout,
+                 const float* lse, const float* delta, const int* kv_len,
+                 T* dq, int B, int H, int Sq, int Sk, int D, int causal,
+                 float sm_scale, const TcPlan& p, int vec, cudaStream_t st) {
+  vec = vec && encode_tiled() != nullptr;
+  CUtensorMap tm[4] = {};
+  constexpr CUtensorMapDataType ty = map_type<T>();
+  if (vec && !(map_rows(tm + 0, ty, q, B * H, Sq, D, kTcBQ) &&
+               map_rows(tm + 1, ty, k, B * H, Sk, D, kTcBK) &&
+               map_rows(tm + 2, ty, v, B * H, Sk, D, kTcBK) &&
+               map_rows(tm + 3, ty, dout, B * H, Sq, D, kTcBQ)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = wide_dq_tc_kernel<T, MODE>;
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = prepare(kernel, p.smem, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (Sq + kTcBQ - 1) / kTcBQ, p.chunks);
+  kernel<<<grid, kTcThreads, p.smem, st>>>(
+      q, k, v, dout, lse, delta, kv_len, dq, H, Sq, Sk, D, causal, sm_scale,
+      p.stages, vec, tm[0], tm[1], tm[2], tm[3]);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
 // the entries' dispatch: each recomputes its plan and refuses one that
 // disagrees
@@ -1849,19 +2255,21 @@ int launch_dkv_f32(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NJ>
-int launch_simple_dq(const T* q, const T* k, const T* v, const T* dout,
-                     const float* lse, const float* delta, const int* kv_len,
-                     T* dq, int B, int H, int Sq, int Sk, int D, int causal,
-                     float sm_scale, cudaStream_t st) {
-  constexpr size_t smem = simple_smem(NJ);
-  auto kernel = wide_bwd_dq_kernel<T, NJ>;
+int launch_dq_f32(const float* q, const float* k, const float* v,
+                  const float* dout, const float* lse, const float* delta,
+                  const int* kv_len, float* dq, int B, int H, int Sq, int Sk,
+                  int D, int causal, float sm_scale, int vec,
+                  cudaStream_t st) {
   static std::atomic<unsigned long long> ready{0};
-  cudaError_t err = prepare(kernel, smem, ready);
+  cudaError_t err = prepare(wide_dq_f32_kernel, f32_dq_smem(), ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kWarps - 1) / kWarps, B * H, chunks_of(D, 32 * NJ));
-  kernel<<<grid, 32 * kWarps, smem, st>>>(q, k, v, dout, lse, delta, kv_len,
-                                          dq, H, Sq, Sk, D, causal, sm_scale);
+  vec = vec && aligned16(q) && aligned16(k) && aligned16(v) &&
+        aligned16(dout);
+  const dim3 grid(B * H, (Sq + kF32Rows - 1) / kF32Rows,
+                  chunks_of(D, kF32DC));
+  wide_dq_f32_kernel<<<grid, 32 * kF32Warps, f32_dq_smem(), st>>>(
+      q, k, v, dout, lse, delta, kv_len, dq, H, Sq, Sk, D, causal, sm_scale,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1869,13 +2277,6 @@ int launch_simple_dq(const T* q, const T* k, const T* v, const T* dout,
 bool f32_ok(int D, size_t want, int chunks, int stages, long long smem) {
   return chunks == chunks_of(D, kF32DC) && stages == 0 &&
          smem == static_cast<long long>(want);
-}
-
-// the dQ kernel's plan: chunks of 32 NJ columns, no ring (stages 0)
-bool simple_ok(int D, int chunks, int stages, long long smem) {
-  const int nj = simple_nj(D);
-  return chunks == chunks_of(D, 32 * nj) && stages == 0 &&
-         smem == static_cast<long long>(simple_smem(nj));
 }
 
 constexpr int kBad = static_cast<int>(cudaErrorInvalidValue);
@@ -1946,20 +2347,28 @@ int wide_dq(const void* q, const void* k, const void* v, const void* dout,
             void* dq, int B, int H, int Sq, int Sk, int D, int causal,
             float sm_scale, int chunks, int stages, int vec, long long smem,
             void* stream) {
-  (void)vec;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* qb = static_cast<const T*>(q);
   const T* kb = static_cast<const T*>(k);
   const T* vb = static_cast<const T*>(v);
   const T* db = static_cast<const T*>(dout);
   T* dqb = static_cast<T*>(dq);
-  if (D <= 0 || !simple_ok(D, chunks, stages, smem)) return kBad;
-  return simple_nj(D) == 8
-             ? launch_simple_dq<T, 8>(qb, kb, vb, db, lse, delta, kv_len, dqb,
-                                      B, H, Sq, Sk, D, causal, sm_scale, st)
-             : launch_simple_dq<T, 16>(qb, kb, vb, db, lse, delta, kv_len,
-                                       dqb, B, H, Sq, Sk, D, causal, sm_scale,
-                                       st);
+  if (D <= 0) return kBad;
+  if constexpr (std::is_same<T, float>::value) {
+    if (!f32_ok(D, f32_dq_smem(), chunks, stages, smem)) return kBad;
+    return launch_dq_f32(qb, kb, vb, db, lse, delta, kv_len, dqb, B, H, Sq,
+                         Sk, D, causal, sm_scale, vec, st);
+  } else {
+    const TcPlan p = tc_dq_plan(D);
+    if (!plan_ok(p, chunks, stages, smem)) return kBad;
+#define MXTT_DQ_TC(MODE)                                                    \
+  launch_dq_tc<T, MODE>(qb, kb, vb, db, lse, delta, kv_len, dqb, B, H, Sq,  \
+                        Sk, D, causal, sm_scale, p, vec, st)
+    return p.mode == kResident ? MXTT_DQ_TC(kResident)
+           : p.mode == kSplit  ? MXTT_DQ_TC(kSplit)
+                               : MXTT_DQ_TC(kStreamed);
+#undef MXTT_DQ_TC
+  }
 }
 
 }  // namespace

@@ -58,9 +58,16 @@
 // registers. (The fp32 form's one-block form reads its row three times;
 // above D = 8192 the bf16 form does too, 256 threads striding the row.)
 // A chunk is one
-// 16-byte load or store when D % 8 == 0 and x and y are 16-byte aligned
-// (`vec`), else 8 masked element loads: the element each thread holds,
-// and so every sum's order, is the same either way. Each thread sums its
+// 16-byte load or store when D % 8 == 0 and x, y, gamma and beta are
+// 16-byte aligned (`vec`), else 8 masked element loads: the element each
+// thread holds, and so every sum's order, is the same either way. Where
+// `vec` holds, a chunk's 8 gamma and 8 beta come in 16-byte loads too
+// (two each in fp32, one each in 16 bits; `load_param8`) when y is
+// formed: read one 4-byte load an element, fp32 gamma made the fp16 form
+// at (1216, 768) 1.30x slower than F.layer_norm. Loading them beside the
+// chunk's x instead (16 registers a chunk, their latency under the row's
+// sums) made fp32 and 16-bit gamma cost the same but slowed the forms
+// 1.2-1.5x at 8192 rows of 768 and 1024. Each thread sums its
 // elements in order, then the warp (and the block) as in the fp32 form.
 // At (2048, 4096) the bytes are 33.6 MB, 10.0 us at 3.35 TB/s (the
 // three-read form this replaced ran at 0.62 of that bound).
@@ -240,8 +247,30 @@ __device__ __forceinline__ void load_chunk(const X* xr, int c, int D,
   }
 }
 
+// the 8 values of gamma or beta at d0 .. d0 + 7 (d0 + 8 <= D, the base
+// 16-byte aligned) as fp32: two 16-byte loads of fp32, one of 16-bit
+template <typename G>
+__device__ __forceinline__ void load_param8(const G* __restrict__ p, int d0,
+                                            float out[8]) {
+  if constexpr (std::is_same<G, float>::value) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p + d0));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p + d0 + 4));
+    const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = f[i];
+  } else {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p + d0));
+    const G* h = reinterpret_cast<const G*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = to_f32(h[i]);
+  }
+}
+
 // y of chunk c from its centred values v: (v * rs) * gamma + beta,
-// rounded to X; the elements past D are not written
+// rounded to X; the elements past D are not written. vec (D % 8 == 0 and
+// x, y, gamma, beta 16-byte aligned): gamma and beta in 16-byte loads
+// (`load_param8`), y in one 16-byte store; else one masked load an
+// element. The arithmetic is the same either way
 template <typename G, typename X>
 __device__ __forceinline__ void store_chunk(X* yr, int c, int D, bool vec,
                                             const float v[8], float rs,
@@ -250,14 +279,20 @@ __device__ __forceinline__ void store_chunk(X* yr, int c, int D, bool vec,
   const int d0 = 8 * c;
   if (d0 >= D) return;
   X h[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int d = min(d0 + i, D - 1);
-    h[i] = from_f32<X>((v[i] * rs) * to_f32(gamma[d]) + to_f32(beta[d]));
-  }
   if (vec) {
+    float ga[8], be[8];
+    load_param8(gamma, d0, ga);
+    load_param8(beta, d0, be);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      h[i] = from_f32<X>((v[i] * rs) * ga[i] + be[i]);
     *reinterpret_cast<uint4*>(yr + d0) = *reinterpret_cast<const uint4*>(h);
   } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int d = min(d0 + i, D - 1);
+      h[i] = from_f32<X>((v[i] * rs) * to_f32(gamma[d]) + to_f32(beta[d]));
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       if (d0 + i < D) yr[d0 + i] = h[i];
@@ -490,8 +525,8 @@ extern "C" int mxtt_layer_norm_f32(const float* x, const void* gamma,
 }
 
 // The 16-bit forms: x and y of one type X, gamma / beta of X's type when
-// gamma_x (else fp32), fp32 mean and rstd; vec: D % 8 == 0 and x, y
-// 16-byte aligned. The same return codes.
+// gamma_x (else fp32), fp32 mean and rstd; vec: D % 8 == 0 and x, y,
+// gamma, beta 16-byte aligned. The same return codes.
 template <typename X>
 int layer_norm_16(const void* x, const void* gamma, const void* beta,
                   void* y, float* mean, float* rstd, int rows, int D,

@@ -625,16 +625,15 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
 # ---------------------------------------------------------------------------
 # wide heads (D > 128, any width): csrc/flash_wide.cu
 # ---------------------------------------------------------------------------
-# the wgmma forms (bf16, fp16 forward and dK/dV): threads a block (two
-# consumer warpgroups), query rows of a forward block, keys of a forward
-# tile and of a dK/dV block, queries of a dK/dV tile, 64-column swizzle
-# atoms of a resident tile and of a chunk of output columns, ring stages
-# at most (`csrc/flash_wide.cu` kTcThreads, kTcRows, kTcBK, kTcBQ,
-# kTcAtoms, kTcMaxStages); the fp32 forms (split TF32 on mma.sync):
-# warps a block (16 rows each), keys of a forward tile, queries of a dK/dV
-# tile, columns of a piece of D and of a chunk of output columns
-# (kF32Warps, kF32BK, kF32BQ, kF32PW, kF32DC); the dQ kernel (every
-# dtype): rows a block and rows of a tile (kWarps, kTile)
+# the wgmma forms (bf16, fp16): threads a block (two consumer
+# warpgroups), query rows of a forward block, keys of a forward or dQ
+# tile and of a dK/dV block, queries of a dK/dV tile and of a dQ block,
+# 64-column swizzle atoms of a resident tile and of a chunk of output
+# columns, ring stages at most (`csrc/flash_wide.cu` kTcThreads, kTcRows,
+# kTcBK, kTcBQ, kTcAtoms, kTcMaxStages); the fp32 forms (split TF32 on
+# mma.sync): warps a block (16 rows each), keys of a forward or dQ tile,
+# queries of a dK/dV tile, columns of a piece of D and of a chunk of
+# output columns (kF32Warps, kF32BK, kF32BQ, kF32PW, kF32DC)
 _WIDE_TC_THREADS, _WIDE_TC_ROWS, _WIDE_TC_BK, _WIDE_TC_BQ = 256, 128, 64, 64
 _WIDE_TC_ATOMS, _WIDE_TC_MAX_STAGES = 4, 6
 _WIDE_F32_WARPS, _WIDE_F32_BK, _WIDE_F32_BQ = 4, 32, 32
@@ -642,28 +641,28 @@ _WIDE_F32_PW, _WIDE_F32_DC = 64, 128
 # the fp32 forward keeps its Q rows in shared memory to this D
 # (`csrc/flash_wide.cu` kF32QResMaxD)
 _WIDE_F32_QRES_MAX_D = 320
-_WIDE_WARPS, _WIDE_TILE = 8, 16
 _ATOM_ELEMS = 64 * 64    # elements of a 64-row atom
 
 
 def _wide_tc_smem(fixed, stage, stages):
     """`tc_smem`: 1024 bytes to align the swizzled tiles, the fixed
     buffers, the ring's stages, a full and an empty mbarrier a stage and
-    one more (the forward's Q, the dK/dV kernel's K and V)."""
+    one more (the forward's Q, the dK/dV kernel's K and V, the dQ
+    kernel's Q and dO)."""
     return 1024 + fixed + stages * stage + 8 * (2 * stages + 1)
 
 
 def _wide_tc_plan(d, kind, bh, rows, causal=False):
-    """The wgmma kernel's plan (`tc_mode`, `tc_fwd_plan` / `tc_dkv_plan`):
-    "resident" while D fits four atoms (every tile holds all of D,
-    zero-padded to 256), "split" to eight (the forward's Q rows, the
-    dK/dV kernel's K and V rows stay; the other side comes in pieces),
-    "streamed" above (an atom of each side a stage); the output's
-    columns in chunks of four atoms; the most stages (up to 6) that fit
-    227 KB. A causal resident forward splits the keys (`key_split`):
-    a block owns 64 query rows and its warpgroups walk alternate key
-    tiles, merging at the end, so the causal grid's longest blocks take
-    half as long."""
+    """The wgmma kernel's plan (`tc_mode`, `tc_fwd_plan` / `tc_dkv_plan`
+    / `tc_dq_plan`): "resident" while D fits four atoms (every tile holds
+    all of D, zero-padded to 256), "split" to eight (the forward's Q
+    rows, the dK/dV kernel's K and V rows, the dQ kernel's Q and dO rows
+    stay; the other side comes in pieces), "streamed" above (an atom of
+    each side a stage); the output's columns in chunks of four atoms; the
+    most stages (up to 6) that fit 227 KB. A causal resident forward
+    splits the keys (`key_split`): a block owns 64 query rows and its
+    warpgroups walk alternate key tiles, merging at the end, so the
+    causal grid's longest blocks take half as long."""
     la = -(-d // 64)
     mode = "resident" if la <= _WIDE_TC_ATOMS else (
         "split" if la <= 2 * _WIDE_TC_ATOMS else "streamed")
@@ -684,18 +683,24 @@ def _wide_tc_plan(d, kind, bh, rows, causal=False):
         # O: 64 rows x 4 atoms of fp32 over a warpgroup's 128 threads
         regs = dict(o=64 * 64 * _WIDE_TC_ATOMS // 128)
     else:
-        # two buffers each of P^T and dS^T (64 x 64), and K and V's 64
-        # rows: resident 4 atoms, split 8, streamed none; a stage:
-        # resident Q and dO, split two atoms of each, streamed an atom of
-        # K, Q, V and dO, or a warpgroup's half of the chunk's Q and dO
-        pt = 2 * 2 * 2 * _ATOM_ELEMS
+        # dK/dV: two buffers each of P^T and dS^T (64 x 64 of the type);
+        # dQ: the p exchange (64 x 64 fp32) and dS (64 x 64 of the type);
+        # then the resident side's 64 rows (dK/dV: K and V; dQ: Q and
+        # dO): resident 4 atoms, split 8, streamed none; a stage:
+        # resident the other side (dK/dV: a query tile's Q and dO; dQ: a
+        # key tile's K and V), split two atoms of each, streamed an atom
+        # of K, Q, V and dO, or the chunk's columns of dK/dV's Q and dO
+        # (a warpgroup's half a stage) or of dQ's K
+        pt = 2 * 2 * 2 * _ATOM_ELEMS if kind == "dkv" \
+            else (4 + 2) * _ATOM_ELEMS
         fixed = pt + dict(resident=2 * tile, split=4 * tile,
                           streamed=0)[mode]
         stage = 2 * tile if mode == "resident" else 2 * 4 * _ATOM_ELEMS
-        block = _WIDE_TC_BK
-        # each warpgroup its half (two atoms) of dK and of dV
+        # a dK/dV block's keys, a dQ block's queries
+        block = _WIDE_TC_BK if kind == "dkv" else _WIDE_TC_BQ
+        # each warpgroup its half (two atoms) of dK and of dV, or of dQ
         half = 64 * 64 * _WIDE_TC_ATOMS // 2 // 128
-        regs = dict(dk=half, dv=half)
+        regs = dict(dk=half, dv=half) if kind == "dkv" else dict(dq=half)
     stages = _WIDE_TC_MAX_STAGES
     while stages > 1 and _wide_tc_smem(fixed, stage, stages) > _SMEM_LIMIT:
         stages -= 1
@@ -714,7 +719,9 @@ def _wide_f32_plan(d, kind, bh, rows):
     forward its 64 Q rows (D padded to whole pieces; above D = 320 a
     piece of them), a piece of a 32-key tile's K rows and the tile's V
     rows in the chunk's columns, the dK/dV kernel a piece of its 64 K and
-    V rows and of a 32-query tile's Q and dO rows; no ring."""
+    V rows and of a 32-query tile's Q and dO rows, the dQ kernel a piece
+    of its 64 Q and dO rows and of a 32-key tile's K and V rows; no
+    ring."""
     rows_b = 16 * _WIDE_F32_WARPS
     pp, cp = _WIDE_F32_PW + 4, _WIDE_F32_DC + 4
     chunks = -(-d // _WIDE_F32_DC)
@@ -724,26 +731,15 @@ def _wide_f32_plan(d, kind, bh, rows):
         smem = 4 * (rows_b * qp + _WIDE_F32_BK * pp + _WIDE_F32_BK * cp)
         # O: 16 rows x 128 columns of fp32 over a warp's 32 lanes
         regs = dict(o=16 * _WIDE_F32_DC // 32)
-    else:
+    elif kind == "dkv":
         smem = 4 * 2 * (rows_b + _WIDE_F32_BQ) * pp
         regs = dict(dk=16 * _WIDE_F32_DC // 32, dv=16 * _WIDE_F32_DC // 32)
+    else:
+        smem = 4 * 2 * (rows_b + _WIDE_F32_BK) * pp
+        regs = dict(dq=16 * _WIDE_F32_DC // 32)
     return dict(kind="mma", piece=_WIDE_F32_PW, chunks=chunks, stages=0,
                 smem=smem, threads=32 * _WIDE_F32_WARPS,
                 grid=(bh, -(-rows // rows_b), chunks), regs=regs)
-
-
-def _wide_simple_plan(d, kind, bh, rows):
-    """The dQ kernel's plan (`simple_ok`): NJ = 8 columns a lane (a piece
-    of 256) to D = 256, else 16 (512); chunks of one piece of the
-    output's columns; two shared tiles of 16 rows of a piece in fp32; no
-    ring."""
-    nj = 8 if d <= 256 else 16
-    piece = 32 * nj
-    chunks = -(-d // piece)
-    return dict(kind="simple", nj=nj, piece=piece, chunks=chunks, stages=0,
-                smem=4 * 2 * _WIDE_TILE * piece, threads=32 * _WIDE_WARPS,
-                grid=(-(-rows // _WIDE_WARPS), bh, chunks),
-                regs=dict(acc=nj))
 
 
 def flash_wide_plan(d, dtype=torch.float32, bh=1, sq=1, sk=1, causal=False):
@@ -753,22 +749,29 @@ def flash_wide_plan(d, dtype=torch.float32, bh=1, sq=1, sk=1, causal=False):
     in `dtype`:
     {"fwd": ..., "dkv": ..., "dq": ...}, each with
 
-      kind    "wgmma" (bf16 and fp16 forward and dK/dV), "mma" (fp32
-              forward and dK/dV: split TF32 on mma.sync) or "simple" (dQ)
+      kind    "wgmma" (bf16 and fp16: TMA rings, two warpgroups) or "mma"
+              (fp32: split TF32 on mma.sync, D in pieces of 64 columns)
       chunks  blocks a row block's output columns split over (the grid's
               z axis): four atoms (256 columns) a chunk on wgmma, 128
-              columns in fp32, one piece (256 or 512) in the dQ kernel
-      stages  the TMA ring's stages (0 elsewhere)
+              columns in fp32; each chunk recomputes S (and dP) over D
+      stages  the TMA ring's stages (0 in fp32)
       smem    dynamic shared bytes; the kernel recomputes chunks, stages
               and bytes and refuses a plan that disagrees
       threads, grid
       regs    fp32 accumulator registers a thread: the forward's O (D / 2
               at D = 256 on wgmma, 64 for fp32's 128 columns), dK and dV
-              (each warpgroup's halves, 64 + 64), the dQ kernel's NJ
+              (each warpgroup's halves, 64 + 64), dQ (64: a warpgroup's
+              half of a wgmma chunk, a warp's 16 rows of an fp32 one)
       wgmma only: mode ("resident" to D = 256, "split" to 512, else
               "streamed"), atoms (ceil(D / 64)), key_split (the causal
               resident forward: 64 rows a block, the keys split between
               its warpgroups)
+
+    The dQ kernel's block is 64 queries, the heaviest causal blocks
+    launched first: on wgmma warpgroup 0 computes S, warpgroup 1 dP, p
+    goes to 1 in fp32 and dS back as 16-bit through shared memory, and
+    each adds dS K into its half of the chunk's columns; in fp32 each
+    warp its 16 rows' S, dP and dS K in registers.
     """
     _check(d > 0 and bh > 0 and sq > 0 and sk > 0,
            f"flash_wide_plan takes D > 0 and a non-empty input, got D {d}, "
@@ -777,10 +780,10 @@ def flash_wide_plan(d, dtype=torch.float32, bh=1, sq=1, sk=1, causal=False):
     if dtype == torch.float32:
         return dict(fwd=_wide_f32_plan(d, "fwd", bh, sq),
                     dkv=_wide_f32_plan(d, "dkv", bh, sk),
-                    dq=_wide_simple_plan(d, "dq", bh, sq))
+                    dq=_wide_f32_plan(d, "dq", bh, sq))
     return dict(fwd=_wide_tc_plan(d, "fwd", bh, sq, causal),
                 dkv=_wide_tc_plan(d, "dkv", bh, sk),
-                dq=_wide_simple_plan(d, "dq", bh, sq))
+                dq=_wide_tc_plan(d, "dq", bh, sq))
 
 
 def _wide_fn(lib, name, dtype):
@@ -1277,7 +1280,7 @@ def _ln_cuda(x2, gamma, beta, eps):
             rc = lib.mxtt_layer_norm_f32(*ptrs, stream)
         else:
             rc = getattr(lib, "mxtt_layer_norm" + sfx)(
-                *ptrs, _vec_copies(d, x2, y), stream)
+                *ptrs, _vec_copies(d, x2, y, gamma, beta), stream)
     _launched("layer_norm" + sfx, rc)
     return y, mean, rstd
 

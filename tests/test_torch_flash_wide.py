@@ -1,8 +1,8 @@
 """Wide heads (D > 128, any width) in the port's flash attention: the
 plain route on the CPU against the JAX Pallas kernels in interpret mode
 (`MXTPU_PALLAS_INTERPRET=1`, 1 head, S = 128, as `tests/test_pallas.py`
-runs them; the JAX function takes any head width) at D = 192, 200 (no
-multiple of 8), 256 and 512 (640 and 1024 in
+runs them; the JAX function takes any head width) at D = 192, 200 (a
+multiple of 8, not of 64: padded to 256), 256 and 512 (640 and 1024 in
 `tests/test_torch_flash_wide_jax.py`), in float32, bfloat16 and
 float16, causal with key lengths and without masks, forward (out, lse)
 and backward (dQ, dK, dV); the wrappers taking any width; and what the
@@ -254,6 +254,9 @@ def test_card_tensors_launch_the_wide_kernels(card, dtype, sfx, d):
 
     def plan(kind, causal):
         p = tk.flash_wide_plan(d, dtype, b * h, sq, sk, causal)[kind]
+        # every wide kernel on the tensor cores: wgmma in 16 bits, split
+        # TF32 on mma.sync in fp32 (no simple kernel is left)
+        assert p["kind"] == ("mma" if dtype == torch.float32 else "wgmma")
         return (p["chunks"], p["stages"], vec, p["smem"])
     assert args[6:] == (b, h, sq, sk, d, 1, 0.25, *plan("fwd", True), 7)
     assert out.dtype == dtype and lse.shape == (b * h, sq)

@@ -2,8 +2,10 @@
 > 128), checked on the CPU: `flash_wide_plan` for every D from 129 to
 1024 and at 2048 in each dtype (shared bytes within a block's 227 KB, the
 accumulator registers the design gives a thread, the column chunks and
-the grid) against the .cu's constants and layouts; the wgmma kernels'
-products issued outside any branch on a non-uniform value; what the
+the grid) against the .cu's constants and layouts, the dQ kernel's at
+the widths a user gives (D % 8 != 0 included) in detail; the wgmma
+kernels' products issued outside any branch on a non-uniform value; what
+the
 build binds; and what `flash_block_attention` hands the 16-bit flash
 kernels on a card tensor (a stand-in library). The kernels run only on
 the card: the `card` tests hold each against its plain version there
@@ -45,10 +47,14 @@ def test_plan_constants_are_the_kernels():
                         ("kF32BQ", tk._WIDE_F32_BQ),
                         ("kF32PW", tk._WIDE_F32_PW),
                         ("kF32DC", tk._WIDE_F32_DC),
-                        ("kF32QResMaxD", tk._WIDE_F32_QRES_MAX_D),
-                        ("kWarps", tk._WIDE_WARPS),
-                        ("kTile", tk._WIDE_TILE)):
+                        ("kF32QResMaxD", tk._WIDE_F32_QRES_MAX_D)):
         assert _cu_constant(name) == value, name
+    # the simple dQ kernel and its constants are gone
+    for gone in ("kWarps", "kTile"):
+        assert not re.search(rf"constexpr int {gone} = ", WIDE.read_text())
+    for gone in ("simple_nj", "simple_smem", "wide_bwd_dq_kernel"):
+        assert gone not in WIDE.read_text(), gone
+    assert not hasattr(tk, "_wide_simple_plan")
 
 
 def _tc_bytes(fixed, stage, stages):
@@ -57,10 +63,10 @@ def _tc_bytes(fixed, stage, stages):
     return 1024 + fixed + stages * stage + 8 * (2 * stages + 1)
 
 
-def _tc_expected(d, kind):
+def _tc_layout(d, kind):
     """The wgmma kernels' layouts as the .cu's design comment gives them
-    (2-byte elements, 64-column atoms of 64 or 128 rows): (mode, stages,
-    bytes)."""
+    (2-byte elements, 64-column atoms of 64 or 128 rows): (mode, fixed
+    bytes, bytes a stage)."""
     atom = 64 * 64 * 2
     la = -(-d // 64)
     mode = "resident" if la <= 4 else "split" if la <= 8 else "streamed"
@@ -70,6 +76,13 @@ def _tc_expected(d, kind):
         fixed, stage = dict(resident=(8 * atom, 8 * atom),
                             split=(16 * atom, 4 * atom),
                             streamed=(0, 4 * atom))[mode]
+    elif kind == "dq":
+        xp = 2 * atom + atom                         # p in fp32, dS
+        # Q and dO (64 rows x 4 or 8 atoms each); K + V, two atoms of
+        # each, or an atom of Q, K, dO and V (the chunk's K alike)
+        fixed, stage = dict(resident=(8 * atom + xp, 8 * atom),
+                            split=(16 * atom + xp, 4 * atom),
+                            streamed=(xp, 4 * atom))[mode]
     else:
         pt = 4 * atom                                # P^T, dS^T x 2
         # K and V (64 rows x 4 or 8 atoms each); Q + dO, two atoms of
@@ -77,6 +90,12 @@ def _tc_expected(d, kind):
         fixed, stage = dict(resident=(8 * atom + pt, 8 * atom),
                             split=(16 * atom + pt, 4 * atom),
                             streamed=(pt, 4 * atom))[mode]
+    return mode, fixed, stage
+
+
+def _tc_expected(d, kind):
+    """(mode, stages, bytes): the most stages (up to 6) that fit."""
+    mode, fixed, stage = _tc_layout(d, kind)
     stages = 6
     while _tc_bytes(fixed, stage, stages) > SMEM_LIMIT:
         stages -= 1
@@ -93,8 +112,10 @@ def test_plan_for_every_width(dtype):
     64 x 256 fp32 columns over a warpgroup (O: D / 2 = 128 registers a
     thread at D = 256; dK and dV halves 64 + 64); fp32 forward and dK/dV
     in split TF32 on mma.sync, chunks of 128 columns (64 registers a
-    thread each of O, dK, dV); the dQ kernel in pieces of 256 columns to
-    D = 256, 512 above. Grids cover every row and chunk."""
+    thread each of O, dK, dV); the dQ kernel beside its siblings: on
+    wgmma in the dK/dV kernel's modes with 64-query blocks, in fp32 on
+    mma.sync with 64-query blocks of 52,224 bytes. Grids cover every row
+    and chunk."""
     bh, sq, sk = 6, 300, 200
     for d in WIDTHS:
         plans = tk.flash_wide_plan(d, dtype, bh, sq, sk)
@@ -113,8 +134,13 @@ def test_plan_for_every_width(dtype):
             assert dkv["regs"] == {"dk": 64, "dv": 64}
             assert fwd["grid"] == (bh, -(-sq // 64), fwd["chunks"])
             assert dkv["grid"] == (bh, -(-sk // 64), dkv["chunks"])
+            assert dq["kind"] == "mma" and dq["stages"] == 0
+            assert dq["chunks"] == -(-d // 128) and dq["threads"] == 128
+            assert dq["smem"] == 4 * 2 * 96 * 68
+            assert dq["regs"] == {"dq": 64}
+            assert dq["grid"] == (bh, -(-sq // 64), dq["chunks"])
         else:
-            for kind, p in (("fwd", fwd), ("dkv", dkv)):
+            for kind, p in (("fwd", fwd), ("dkv", dkv), ("dq", dq)):
                 mode, stages, smem = _tc_expected(d, kind)
                 assert p["kind"] == "wgmma" and p["threads"] == 256
                 assert p["mode"] == mode
@@ -123,14 +149,12 @@ def test_plan_for_every_width(dtype):
                 assert p["atoms"] == -(-d // 64)
             assert fwd["regs"] == {"o": 128}
             assert dkv["regs"] == {"dk": 64, "dv": 64}
+            assert dq["regs"] == {"dq": 64}
             assert fwd["grid"] == (bh, -(-sq // 128), fwd["chunks"])
             assert dkv["grid"] == (bh, -(-sk // 64), dkv["chunks"])
-            assert fwd["stages"] >= 2 and dkv["stages"] >= 2
-        nj = 8 if d <= 256 else 16
-        assert dq["kind"] == "simple" and dq["nj"] == nj
-        assert dq["chunks"] == -(-d // (32 * nj))
-        assert dq["smem"] == 4 * 2 * 16 * 32 * nj
-        assert dq["grid"] == (-(-sq // 8), bh, dq["chunks"])
+            assert dq["grid"] == (bh, -(-sq // 64), dq["chunks"])
+            assert min(fwd["stages"], dkv["stages"], dq["stages"]) >= 2
+            assert not dq["key_split"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
@@ -176,6 +200,63 @@ def test_resident_split_and_streamed_shared_bytes():
     assert (p["fwd"]["stages"], p["fwd"]["smem"]) == (6, 197736)
     assert (p["dkv"]["stages"], p["dkv"]["smem"]) == (6, 230504)
     assert p["fwd"]["chunks"] == p["dkv"]["chunks"] == 4
+    # dQ: Q and dO, the fp32 p exchange and dS fixed; resident a K + V
+    # stage, split two atoms of each, streamed an atom of Q, K, dO, V
+    for d, mode, stages, smem in ((256, "resident", 2, 222248),
+                                  (512, "split", 2, 222248),
+                                  (1024, "streamed", 6, 222312)):
+        dq = tk.flash_wide_plan(d, bf)["dq"]
+        assert (dq["mode"], dq["stages"], dq["smem"]) == (mode, stages, smem)
+
+
+DQ_WIDTHS = [130, 198, 200, 256, 320, 512, 640, 1024, 2048]
+# registers a thread may hold (ptxas's ceiling under the kernels'
+# __launch_bounds__) and the fp32 accumulators the design may take of
+# them, the rest left to fragments, addresses and loop state
+REGS_A_THREAD = 255
+ACC_BUDGET = (REGS_A_THREAD + 1) // 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", DQ_WIDTHS)
+def test_dq_plan(d, dtype):
+    """The dQ kernel's plan at the widths users give (D % 8 != 0 at 130
+    and 198: the element copies; 200 pads to 256; 320 and 512 split; 640
+    to 2048 streamed): its shared bytes fit a block's 227 KB with the
+    most ring stages that fit (6 at most); its fp32 accumulators a
+    thread (dQ's share plus S's or dP's, and the slot product a long
+    contraction sums in registers) stay within ACC_BUDGET and the block
+    within an SM's 65,536 registers; chunks of four atoms (wgmma) or 128
+    columns (fp32) cover D, and the grid every 64-query block and chunk.
+    """
+    bh, sq, sk = 32, 1000, 1100
+    p = tk.flash_wide_plan(d, dtype, bh, sq, sk, causal=True)["dq"]
+    assert p["smem"] <= SMEM_LIMIT
+    assert p["grid"] == (bh, -(-sq // 64), p["chunks"])
+    assert p["threads"] * REGS_A_THREAD <= 65536
+    if dtype == torch.float32:
+        assert p["kind"] == "mma" and p["stages"] == 0
+        assert p["chunks"] == -(-d // 128)
+        assert p["chunks"] * 128 >= d > (p["chunks"] - 1) * 128
+        # a warp's 16 rows: dQ's 128 columns, S and dP of a 32-key tile
+        # and a piece's products of both
+        acc = p["regs"]["dq"] + 2 * 2 * 16 * 32 // 32
+        assert p["regs"]["dq"] == 16 * 128 // 32
+    else:
+        mode, fixed, stage = _tc_layout(d, "dq")
+        assert (p["kind"], p["mode"]) == ("wgmma", mode)
+        assert p["smem"] == _tc_bytes(fixed, stage, p["stages"])
+        assert 2 <= p["stages"] <= 6
+        assert p["stages"] == 6 or _tc_bytes(fixed, stage, p["stages"]
+                                             + 1) > SMEM_LIMIT
+        assert p["chunks"] == -(-d // 256) and p["atoms"] == -(-d // 64)
+        # a warpgroup's half of the chunk (64 rows x 128 columns over 128
+        # threads), S or dP (64 x 64), and above four atoms a slot's
+        # product summed in registers
+        assert p["regs"]["dq"] == 64 * 128 // 128
+        acc = p["regs"]["dq"] + 64 * 64 // 128 * (1 if mode == "resident"
+                                                   else 2)
+    assert acc <= ACC_BUDGET
 
 
 def test_plan_refuses_what_no_kernel_takes():
@@ -192,7 +273,8 @@ def _kernel_body(name):
     return src[start:src.index("\n}\n", start)]
 
 
-@pytest.mark.parametrize("name", ["wide_fwd_tc_kernel", "wide_dkv_tc_kernel"])
+@pytest.mark.parametrize("name", ["wide_fwd_tc_kernel", "wide_dkv_tc_kernel",
+                                  "wide_dq_tc_kernel"])
 def test_wgmma_kernels_branch_only_on_uniform_values(name):
     """The warp index is shuffled from lane 0 (ptxas then proves the
     warpgroup uniform), each product is retired (wg_wait<0>) in the step
@@ -305,7 +387,7 @@ def test_cuda_wide_kernels_match_their_plain_versions(dtype, b, h, sq, sk, d,
     """On the card each wide kernel against its plain version (fp32
     chip_smoke.py's FLASH_TOL / BWD_TOL, the 16-bit forms its per-dtype
     limits), two launches bit-identical, dK / dV exactly 0 past each key
-    length."""
+    length short of Sk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     import chip_smoke as cs
@@ -342,5 +424,72 @@ def test_cuda_wide_kernels_match_their_plain_versions(dtype, b, h, sq, sk, d,
             assert cs._bf16_share(torch, a, r, lim["grad_atol"]
                                   * cs._slice_max(r), lim["rtol"]) <= 1
     for bi, n in enumerate(lens or []):
-        assert got[1][bi, :, n:].abs().max().item() == 0.0
-        assert got[2][bi, :, n:].abs().max().item() == 0.0
+        if n < sk:
+            assert got[1][bi, :, n:].abs().max().item() == 0.0
+            assert got[2][bi, :, n:].abs().max().item() == 0.0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("sq,sk,d,causal,lens,shift", [
+    (200, 200, 256, True, None, 0),         # resident, causal
+    (150, 300, 198, False, [300, 77], 0),   # D % 8 != 0: element copies
+    (130, 130, 256, True, [100], 1),        # a misaligned q: copies
+    (100, 140, 512, False, [140, 1], 0),    # split
+    (70, 90, 1024, True, None, 0),          # streamed, four chunks
+])
+def test_cuda_wide_dq_matches_its_plain_version(dtype, sq, sk, d, causal,
+                                                lens, shift):
+    """On the card the dQ kernel (wgmma in 16 bits, split TF32 in fp32)
+    against its plain version (chip_smoke.py's limits: fp32 BWD_TOL, the
+    16-bit forms their grad_atol plus the cancellation floor that its
+    16-bit backward checks add) and against float64 autograd (each
+    (b, h) slice at most WIDE_F64_RATIO times the plain version's
+    distance plus one unit roundoff of the slice's largest value), two
+    launches bit-identical; `shift` moves q off 16-byte alignment, so
+    that the wrapper hands the kernel vec = 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    import chip_smoke as cs
+    dev = torch.device("cuda", 0)
+    b, h = (1 if lens is None else len(lens)), 2
+    g = torch.Generator().manual_seed(d + sk)
+    base = torch.randn(b * h * sq * d + shift, generator=g).to(dev).to(dtype)
+    q = base[shift:].view(b, h, sq, d)
+    k, v, do = (torch.randn(s, generator=g).to(dev).to(dtype)
+                for s in ((b, h, sk, d), (b, h, sk, d), (b, h, sq, d)))
+    assert tk._vec_copies(d, q, k, v, do) == int(
+        shift == 0 and d * q.element_size() % 16 == 0)
+    vl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    scale = d ** -0.5
+    out, lse = tk.flash_attention_fwd(q, k, v, causal, scale, vl)
+    delta = (out.float() * do.float()).sum(-1).reshape(b * h, sq)
+    args = (q, k, v, do, lse, delta, causal, scale, vl)
+    got = tk.flash_attention_bwd(*args)[0]
+    again = tk.flash_attention_bwd(*args)[0]
+    ref = tk._flash_bwd_plain(*args)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        assert cs._within(torch, got, ref, cs.BWD_TOL, True)
+    else:
+        # chip_smoke.py's 16-bit limit, with the fp32 cancellation floor
+        # of dP - delta (a row of one key cancels to about 0)
+        lim = cs._lowp(dtype)
+        floor = cs._bwd_cancel_floor(torch, q, k, v, do, out, causal, scale,
+                                     lens)["dq"].float().to(dev)
+        assert cs._bf16_share(torch, got, ref, lim["grad_atol"]
+                              * cs._slice_max(ref) + 2 * floor,
+                              lim["rtol"]) <= 1
+    # each (b, h) slice: where a key length of 1 cancels dQ to 0 the floor
+    # is all of the limit above, and float64's dQ is 0 there, so the
+    # kernel must lie within WIDE_F64_RATIO of the plain version's noise
+    r64 = cs._attention_grads_f64(torch, q, k, v, do, causal, scale,
+                                  lens)[0]
+    e64, p64, top = ((t.abs().amax(dim=(-2, -1))) for t in (
+        got.cpu().double() - r64, ref.cpu().double() - r64, r64))
+    unit = cs.FP32_F64_FLOOR if dtype == torch.float32 \
+        else cs._lowp(dtype)["f64_floor"]
+    assert bool((e64 <= cs.WIDE_F64_RATIO * p64 + unit * top).all()), (
+        e64, p64)

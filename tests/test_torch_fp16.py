@@ -371,6 +371,28 @@ def test_fp16_layer_norm_wrapper_hands_the_gamma_dtype(card, gdt):
         "layer_norm_f16": 1}
 
 
+@pytest.mark.parametrize("gdt", [torch.float32, F16])
+@pytest.mark.parametrize("shifted", ["none", "gamma", "beta"])
+def test_fp16_layer_norm_vec_needs_aligned_gamma_and_beta(card, gdt,
+                                                          shifted):
+    """The 16-byte flag holds only where gamma and beta are 16-byte
+    aligned too (the kernel then reads a chunk's 8 of each in 16-byte
+    loads): a gamma or beta whose base lies one element off takes the
+    masked element loads (vec 0), in fp32 as in float16."""
+    d = 96
+    x = torch.zeros((6, d), dtype=F16)
+
+    def param(shift):
+        return torch.ones(d + 1, dtype=gdt)[1:] if shift \
+            else torch.ones(d, dtype=gdt)
+    g, b = param(shifted == "gamma"), param(shifted == "beta")
+    assert (g.data_ptr() % 16 != 0) == (shifted == "gamma")
+    assert (b.data_ptr() % 16 != 0) == (shifted == "beta")
+    tk.layer_norm_fwd(x, g, b, 1e-5)
+    assert card.calls == [("ln", 6, d, 1e-5, int(gdt == F16),
+                           int(shifted == "none"))]
+
+
 # ---------------------------------------------------------------------------
 # what the wrappers refuse, on either device
 # ---------------------------------------------------------------------------
