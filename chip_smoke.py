@@ -265,6 +265,40 @@ Phases (any failure raises and the script exits non-zero):
                  memory and one profiled step (busy, GEMM and port
                  kernels' shares) beside phase 11's, with the state of
                  cuBLAS's reduced-precision bf16 reductions.
+ 11r. bert pretrain resume, bf16 — 11b's model and SGD fed from a
+                 RecordIO pack (RESUME_BATCHES batches of bench_bert.py's
+                 shape from numpy seed 1, written with
+                 `recordio.MXIndexedRecordIO` + `recordio.pack`, one
+                 sample a record as little-endian int32): the pack
+                 served by `NativeRecordFile`, three batches read back
+                 through `DataLoader(prefetch_to_device=True,
+                 pin_memory=True)` equal to the written ones on the card.
+                 Counters zeroed just before and read just after:
+                 RESUME_STEPS eager steps from the prefetcher, each
+                 launching 12 / 12 / 12 / 26 bf16 flash forwards, dK/dV,
+                 dQ and LayerNorms and nothing else, with
+                 `CheckpointManager(max_to_keep=2).save(_async=True)`
+                 of the weights, the Trainer's `states_bytes()` and the
+                 data cursor every RESUME_SAVE_EVERY steps to RESUME_AT;
+                 then a fresh model and Trainer restored
+                 (`restore_latest`, `load_states_bytes`, the loader at
+                 the cursor) run RESUME_AT..RESUME_STEPS: weights and
+                 momentum bit for bit the uninterrupted run's. The same
+                 through `Trainer.capture`, restored into the live
+                 captured step (one miss, `state_change`, and a new
+                 capture). Torch's deterministic algorithms are on in
+                 this phase (the MLM gather's and the embeddings'
+                 backward sums otherwise vary in order). A corrupted
+                 newest step falls back to the one before
+                 (`checkpoint_fallbacks` + 1); an emergency save through
+                 `fault.preemption` (the `preempt.sigterm` point)
+                 publishes a valid step. Logged, with no gate: tokens/s
+                 fed from the pack beside in-memory batches, the
+                 synchronizing calls of the input path and of the step
+                 over RESUME_SYNC_STEPS steps (torch's sync debug mode),
+                 `prefetch_starved`, the time an async save holds the
+                 loop and its wall time, bytes and MB/s, the restore's
+                 time, peak memory, the card's name and power limit.
  11w. bert wide, bf16 — the `bert_wide_bf16` path: 11b's model, cast and
                  SGD, but BERTModel at bert_base's shape with three
                  heads of 256 (the wide kernels), 10 steps through Gluon
@@ -357,6 +391,7 @@ one JSON line `{"kernels": [...]}`, then the last line
 Without a CUDA device, or without the `mxnet_tpu_torch` package beside
 this file, it exits non-zero and prints no result.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -581,6 +616,14 @@ BERT_WIDE_CHECK_S, BERT_WIDE_CHECK_LENS = 128, (77, 128)
 # phase 11b: bench_bert.py's optimizer (SGD, lr 1e-3, momentum 0.9,
 # bench_bert.py:68) on the bf16 model, its loss on logits cast to fp32
 BERT_BF16_LR, BERT_BF16_MOMENTUM = 1e-3, 0.9
+# phase 11r: the pack holds RESUME_BATCHES batches; the uninterrupted run
+# takes RESUME_STEPS steps and saves every RESUME_SAVE_EVERY steps up to
+# RESUME_AT, where the resumed run starts; RESUME_CHECK_BATCHES batches
+# are compared on the card, RESUME_SYNC_STEPS run under sync debug mode
+RESUME_BATCHES, RESUME_STEPS, RESUME_AT = 24, 12, 6
+RESUME_SAVE_EVERY, RESUME_CHECK_BATCHES, RESUME_SYNC_STEPS = 2, 3, 3
+BERT_RECORD_FIELDS = ("tokens", "segments", "valid_length", "positions",
+                      "mlm_labels", "nsp_label")
 # phase 12b: a bf16 step on the card against one on the CPU, each held
 # against the fp32 step on the CPU from the same weights: the card's
 # distance from it at most BF16_F64_RATIO times the CPU's, plus one bf16
@@ -4202,6 +4245,496 @@ def phase_bert_train_bf16(mx, torch):
     return launches, summary
 
 
+def pack_bert_sample(tok, seg, vl, pos, mlm_y, nsp_y):
+    """One pretraining sample as a record payload, little-endian int32:
+    S, P, the valid length and the NSP label, then the token and segment
+    ids (S each), the masked positions and their MLM labels (P each)."""
+    head = np.array([len(tok), len(pos), vl, nsp_y], "<i4")
+    return b"".join(np.ascontiguousarray(a, "<i4").tobytes()
+                    for a in (head, tok, seg, pos, mlm_y))
+
+
+def unpack_bert_sample(payload):
+    """`pack_bert_sample`'s arrays back: (tokens, segments, valid length,
+    positions, MLM labels, NSP label), int32, the two scalars 0-d."""
+    a = np.frombuffer(payload, "<i4")
+    s, p = int(a[0]), int(a[1])
+    body = a[4:].astype(np.int32)
+    return (body[:s], body[s:2 * s], np.array(a[2], np.int32),
+            body[2 * s:2 * s + p], body[2 * s + p:2 * s + 2 * p],
+            np.array(a[3], np.int32))
+
+
+def bert_pack_batches(n, b, s, p, vocab, seed=1):
+    """`n` pretraining batches as numpy arrays (BERT_RECORD_FIELDS; as
+    `_bert_batch` draws them, from numpy seed `seed`)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        tok = rng.randint(0, vocab, (b, s)).astype(np.int32)
+        vl = rng.randint(max(1, s // 2), s + 1, b).astype(np.int32)
+        split = (vl * rng.uniform(0.2, 0.8, b)).astype(np.int32)
+        seg = (np.arange(s)[None, :] >= split[:, None]).astype(np.int32)
+        pos = (rng.uniform(0, 1, (b, p)) * vl[:, None]).astype(np.int32)
+        mlm_y = rng.randint(0, vocab, (b, p)).astype(np.int32)
+        nsp_y = rng.randint(0, 2, b).astype(np.int32)
+        out.append((tok, seg, vl, pos, mlm_y, nsp_y))
+    return out
+
+
+def write_bert_pack(mx, rec_path, batches):
+    """Every sample of `batches`, in order, as one record (the NSP label
+    in its IRHeader, `pack_bert_sample`'s payload) through
+    `recordio.MXIndexedRecordIO` into `rec_path` and its .idx."""
+    rio = mx.recordio
+    w = rio.MXIndexedRecordIO(os.path.splitext(rec_path)[0] + ".idx",
+                              rec_path, "w")
+    i = 0
+    for batch in batches:
+        for j in range(len(batch[0])):
+            fields = [f[j] for f in batch]
+            w.write_idx(i, rio.pack(rio.IRHeader(0, float(fields[5]), i, 0),
+                                    pack_bert_sample(*fields)))
+            i += 1
+    w.close()
+
+
+def bert_record_dataset(mx, rec_path):
+    """(the `gluon.data.RecordFileDataset` over the pack, the dataset of
+    its decoded samples)."""
+    rio = mx.recordio
+    ds = mx.gluon.data.RecordFileDataset(rec_path)
+    return ds, ds.transform(lambda rec: unpack_bert_sample(rio.unpack(rec)[1]))
+
+
+def bert_pack_loader(mx, samples, b, start=0, **kw):
+    """A DataLoader over the decoded samples from batch `start` on, in
+    order, full batches of `b` (the resumed run's cursor)."""
+    sampler = mx.gluon.data.BatchSampler(range(start * b, len(samples)), b,
+                                         "discard")
+    return mx.gluon.data.DataLoader(samples, batch_sampler=sampler, **kw)
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """Torch's deterministic algorithms (warn only: cuBLAS is held
+    deterministic on one stream, as the NMT paths' repeat shows), without
+    filling new memory; yields the distinct warnings raised inside."""
+    import warnings
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("default")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+@contextlib.contextmanager
+def _sync_calls(torch, counts, key):
+    """Count into counts[key] the synchronizing CUDA calls made inside
+    (torch's sync debug mode, as `phase_profile` counts them), and each
+    under "<key> at <file>:<line>" of the Python line that made it."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            counts[key] = counts.get(key, 0) + 1
+            where = f"{key} at {os.path.basename(w.filename)}:{w.lineno}"
+            counts[where] = counts.get(where, 0) + 1
+
+
+def _bits_equal(torch, a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _cache_misses(reg):
+    """{reason: count} of the captured step's cache misses."""
+    return {dict(m.labels).get("reason"): m.value
+            for m in reg.series("cachedop_cache_misses")}
+
+
+def _train_state(model, trainer):
+    """({name: weight}, {index: momentum}) clones."""
+    weights = {n: t.clone() for n, t in _param_tensors(model).items()}
+    moms = {i: s[0]._data.clone() for i, s in
+            trainer._updater.states.items()}
+    return weights, moms
+
+
+def _same_state(torch, tag, got, want):
+    """Check two `_train_state`s bit for bit; logs how many agree."""
+    (gw, gm), (ww, wm) = got, want
+    w_eq = sum(_bits_equal(torch, gw[n], ww[n]) for n in ww)
+    m_eq = sum(_bits_equal(torch, gm[i], wm[i]) for i in wm if i in gm)
+    log(f"{tag}: {w_eq} of {len(ww)} weights and {m_eq} of {len(wm)} "
+        f"momenta bit for bit")
+    check(w_eq == len(ww) and m_eq == len(wm) and len(gm) == len(wm),
+          f"{tag}: {w_eq}/{len(ww)} weights and {m_eq}/{len(wm)} momenta "
+          f"bit for bit")
+
+
+def phase_bert_pretrain_resume(mx, torch):
+    """Phase 11r (module docstring): bf16 BERT-base pretraining fed from
+    a RecordIO pack through the device prefetcher, checkpointed
+    asynchronously, killed at RESUME_AT and resumed, eager and captured.
+    Returns the launches of the uninterrupted eager run (the path
+    `bert_pretrain_resume`), counted from 0."""
+    import warnings
+    K = mx.ops.kernels
+    ck = mx.checkpoint
+    reg = mx.observability.registry()
+    dev = mx.gpu(0)
+    B, S = BERT_B, BERT_S
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(batch=B, seq=BERT_S, masked=BERT_P, steps=RESUME_STEPS,
+               resume_at=RESUME_AT)
+    tmp = tempfile.mkdtemp(prefix="mxtt_resume_")
+    try:
+        # -------------------------------------------------------- the pack
+        batches = bert_pack_batches(RESUME_BATCHES, B, S, BERT_P,
+                                    BERT_VOCAB)
+        rec = os.path.join(tmp, "pretrain.rec")
+        t0 = time.perf_counter()
+        write_bert_pack(mx, rec, batches)
+        out["pack_write_s"] = time.perf_counter() - t0
+        out["pack_bytes"] = os.path.getsize(rec)
+        ds, samples = bert_record_dataset(mx, rec)
+        check(len(ds) == RESUME_BATCHES * B, f"pack holds {len(ds)} records")
+        check(ds._rec is None and isinstance(ds._records,
+                                             mx.recordio.NativeRecordFile),
+              "the pack was not served by recordio.NativeRecordFile")
+
+        def loader(start=0):
+            return bert_pack_loader(mx, samples, B, start,
+                                    prefetch_to_device=True,
+                                    pin_memory=True)
+        it = iter(loader())
+        for i in range(RESUME_CHECK_BATCHES):
+            got = next(it)
+            for name, g, w in zip(BERT_RECORD_FIELDS, got, batches[i]):
+                check(g._data.is_cuda, f"pack batch {i} {name} not on "
+                                       f"the card")
+                check(torch.equal(g._data.cpu(), torch.from_numpy(w)),
+                      f"pack batch {i} {name} differs from the written one")
+        it.close()
+        log(f"bert resume: pack of {len(ds)} records, {out['pack_bytes']} "
+            f"bytes, served by NativeRecordFile; {RESUME_CHECK_BATCHES} "
+            f"batches on the card equal the written ones bit for bit")
+
+        # ------------------------------------------------------- the model
+        mx.random.seed(0)
+        model = _bert_pretraining(mx)
+        model.initialize(ctx=dev)
+        model.cast("bfloat16")
+        start = {n: t.clone() for n, t in _param_tensors(model).items()}
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        n = len(model.bert.encoder.layers)
+        want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd_bf16=n,
+                    flash_bwd_bf16=n, flash_bwd_dq_bf16=n,
+                    layer_norm_bf16=2 * n + 2)
+
+        def make_trainer(m):
+            return mx.gluon.Trainer(m.collect_params(), "sgd",
+                                    {"learning_rate": BERT_BF16_LR,
+                                     "momentum": BERT_BF16_MOMENTUM})
+
+        def eager(m, tr):
+            fn = _bert_bench_loss(mx, m, ce)
+
+            def step(batch):
+                with mx.autograd.record():
+                    loss = fn(*batch)
+                loss.backward()
+                tr.step(1)
+                return loss
+            return step
+
+        def params_of(m):
+            return {"params": {k: p.data() for k, p in
+                               m._collect_params_with_prefix().items()}}
+
+        saves = []
+
+        def run(step, it, first, last, mgr=None, tr=None, m=None,
+                keep=None):
+            """Steps first+1..last of `step` on batches from `it`; with
+            `mgr`, an async save after every RESUME_SAVE_EVERY-th step
+            up to RESUME_AT (weights, the Trainer's states, the cursor);
+            `keep` collects {step: (weights, momenta)} clones after the
+            steps it names. Returns (each step's launches, losses,
+            seconds from the end of step first+2 to the last)."""
+            per_step, losses = [], []
+            t_mark = None
+            for s in range(first + 1, last + 1):
+                batch = next(it)
+                before = dict(K.LAUNCHES)
+                losses.append(step(batch))
+                per_step.append({k: K.LAUNCHES[k] - before[k]
+                                 for k in before})
+                if mgr is not None and s % RESUME_SAVE_EVERY == 0 \
+                        and s <= RESUME_AT:
+                    t0 = time.perf_counter()
+                    states = tr.states_bytes()
+                    t1 = time.perf_counter()
+                    fut = mgr.save(s, params_of(m), _async=True, extras={
+                        "trainer": states,
+                        "cursor": json.dumps({"batches": s}).encode()})
+                    rec_ = dict(step=s, t0=t0, states_s=t1 - t0,
+                                hold_s=time.perf_counter() - t0)
+                    fut.add_done_callback(
+                        lambda f, r=rec_: r.setdefault(
+                            "done", time.perf_counter()))
+                    saves.append((rec_, fut, mgr))
+                if keep is not None and s in keep:
+                    keep[s] = _train_state(m, tr)
+                if s == first + 2:
+                    torch.cuda.synchronize()
+                    t_mark = time.perf_counter()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t_mark if t_mark else None
+            return per_step, [x._data.detach().item() for x in losses], secs
+
+        with _deterministic(torch) as det_warnings:
+            # ---------------------------- uninterrupted, eager: main path
+            trainer = make_trainer(model)
+            mgr = ck.CheckpointManager(os.path.join(tmp, "eager"),
+                                       max_to_keep=2)
+            keep = {RESUME_SAVE_EVERY * 2: None, RESUME_AT: None}
+            starved0 = reg.counter("prefetch_starved").value
+            it = iter(loader())
+            K.reset_launch_counts()
+            per_step, losses, _ = run(eager(model, trainer), it, 0,
+                                      RESUME_STEPS, mgr, trainer, model,
+                                      keep)
+            launches = dict(K.LAUNCHES)
+            it.close()
+            out["prefetch_starved"] = (reg.counter("prefetch_starved").value
+                                       - starved0)
+            for i, counts in enumerate(per_step):
+                check(counts == want, f"bert resume step {i + 1} launches "
+                      f"{ {k: v for k, v in counts.items() if v} } != "
+                      f"{ {k: v for k, v in want.items() if v} }")
+            check(all(np.isfinite(losses)), f"bert resume losses {losses}")
+            final = _train_state(model, trainer)
+            mgr.wait()
+            out["losses"] = losses
+            check(mgr.steps() == [RESUME_AT - RESUME_SAVE_EVERY, RESUME_AT],
+                  f"retention kept {mgr.steps()}")
+
+            # ----------------------------------- resumed, fresh, eager
+            mx.random.seed(1)
+            model2 = _bert_pretraining(mx)
+            model2.initialize(ctx=dev)
+            model2.cast("bfloat16")
+            trainer2 = make_trainer(model2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_k, restored = mgr.restore_latest(params_of(model2))
+            check(step_k == RESUME_AT, f"restore_latest gave {step_k}")
+            for k, p in model2._collect_params_with_prefix().items():
+                p.set_data(restored["params"][k])
+            trainer2.load_states_bytes(mgr.read_extra(step_k, "trainer"))
+            cursor = json.loads(mgr.read_extra(step_k, "cursor"))
+            torch.cuda.synchronize()
+            out["restore_s"] = time.perf_counter() - t0
+            _same_state(torch, "bert resume: restored step "
+                        f"{RESUME_AT}", _train_state(model2, trainer2),
+                        keep[RESUME_AT])
+            it = iter(loader(cursor["batches"]))
+            per2, losses2, _ = run(eager(model2, trainer2), it,
+                                   cursor["batches"], RESUME_STEPS)
+            it.close()
+            check(losses2 == losses[RESUME_AT:], f"resumed losses "
+                  f"{losses2} != {losses[RESUME_AT:]}")
+            _same_state(torch, "bert resume: eager, resumed at step "
+                        f"{RESUME_AT}, at step {RESUME_STEPS}",
+                        _train_state(model2, trainer2), final)
+
+            # -------------------- corrupted newest step -> the one before
+            newest = os.path.join(mgr.directory, str(RESUME_AT), "state")
+            path = min(os.path.join(d, f) for d, _, fs in os.walk(newest)
+                       for f in fs)
+            victim = os.path.relpath(path, newest)
+            with open(path, "rb") as f:
+                blob = bytearray(f.read())
+            blob[-1] ^= 0xFF
+            with open(path, "wb") as f:
+                f.write(bytes(blob))
+            fb0 = reg.counter("checkpoint_fallbacks").value
+            step_f, restored = mgr.restore_latest(params_of(model2))
+            prev = RESUME_AT - RESUME_SAVE_EVERY
+            check(step_f == prev and reg.counter("checkpoint_fallbacks")
+                  .value == fb0 + 1, f"corrupt newest step: restored "
+                  f"{step_f}, fallbacks +"
+                  f"{reg.counter('checkpoint_fallbacks').value - fb0}")
+            eq = sum(_bits_equal(torch, restored["params"][k]._data,
+                                 keep[prev][0][k]) for k in keep[prev][0])
+            check(eq == len(keep[prev][0]), f"fallback step {prev}: {eq} "
+                  f"of {len(keep[prev][0])} weights bit for bit")
+            log(f"bert resume: {victim} of step {RESUME_AT} corrupted; "
+                f"restore_latest fell back to step {prev} "
+                f"(checkpoint_fallbacks +1), its weights bit for bit")
+
+            # ------------------------------- emergency save on SIGTERM
+            fault = mx.fault
+            mgr.enable_emergency_save(
+                params_fn=lambda: params_of(model2),
+                step_fn=lambda: RESUME_STEPS,
+                extras_fn=lambda: {"trainer": trainer2.states_bytes()})
+            fault.inject("preempt.sigterm", at=[1], action="sigterm")
+            t0 = time.perf_counter()
+            try:
+                check(fault.check("preempt.sigterm") is True,
+                      "preempt.sigterm did not fire")
+                check(fault.preempted(), "no preemption recorded")
+                try:
+                    fault.check_preempted()
+                    check(False, "check_preempted did not raise")
+                except fault.Preempted:
+                    pass
+            finally:
+                out["emergency_save_s"] = time.perf_counter() - t0
+                fault.clear()
+                mgr.disable_emergency_save()
+                fault.reset_preemption(clear_callbacks=True)
+                fault.uninstall_preemption_handler()
+            check(RESUME_STEPS in mgr.valid_steps(), f"emergency save: "
+                  f"valid steps {mgr.valid_steps()}")
+            log(f"bert resume: SIGTERM through preempt.sigterm published "
+                f"step {RESUME_STEPS} (valid) in "
+                f"{out['emergency_save_s']:.3f} s")
+
+            # ------------------------------ the input path's sync calls
+            syncs = {}
+            it = iter(loader())
+            step2 = eager(model2, trainer2)
+            for _ in range(RESUME_SYNC_STEPS):
+                with _sync_calls(torch, syncs, "input"):
+                    batch = next(it)
+                with _sync_calls(torch, syncs, "step"):
+                    step2(batch)
+            it.close()
+            torch.cuda.synchronize()
+            out["sync_calls"] = syncs
+            del model2, trainer2, step2, restored
+            torch.cuda.empty_cache()
+
+            # ------------------------- pack-fed against in-memory batches
+            for form in ("pack", "memory"):
+                _restore(torch, model, start)
+                tr = make_trainer(model)
+                if form == "pack":
+                    it = iter(loader())
+                else:
+                    it = iter([[mx.nd.array(a, ctx=dev) for a in bt]
+                               for bt in batches[:RESUME_STEPS]])
+                _, _, secs = run(eager(model, tr), it, 0, RESUME_STEPS)
+                if form == "pack":
+                    it.close()
+                out[f"tokens_per_s_{form}"] = B * S * (RESUME_STEPS - 2) \
+                    / secs
+
+            # ------------------- uninterrupted, captured; live restore
+            _restore(torch, model, start)
+            trainer3 = make_trainer(model)
+            step_fn = trainer3.capture(_bert_bench_loss(mx, model, ce))
+
+            def captured(batch):
+                loss = step_fn(*batch, batch_size=1)
+                check(step_fn.last_fallback_reason is None, "bert resume "
+                      f"captured: fell back ({step_fn.last_fallback_reason})")
+                return loss
+            mgr_c = ck.CheckpointManager(os.path.join(tmp, "captured"),
+                                         max_to_keep=2)
+            sync0 = mx.prefetch.sync_h2d_count()
+            it = iter(bert_pack_loader(mx, samples, B,
+                                       prefetch_to_device=trainer3))
+            per_c, losses_c, _ = run(captured, it, 0, RESUME_STEPS, mgr_c,
+                                     trainer3, model)
+            it.close()
+            check(mx.prefetch.sync_h2d_count() == sync0, "the captured "
+                  "step made synchronous copies of prefetched batches")
+            check(per_c[0] == {k: 2 * v for k, v in want.items()}
+                  and all(c == want for c in per_c[1:]),
+                  f"bert resume captured launches {per_c[:2]}")
+            final_c = _train_state(model, trainer3)
+            mgr_c.wait()
+            misses = _cache_misses(reg)
+            step_k, restored = mgr_c.restore_latest(params_of(model))
+            check(step_k == RESUME_AT, f"captured restore gave {step_k}")
+            for k, p in model._collect_params_with_prefix().items():
+                p.set_data(restored["params"][k])
+            trainer3.load_states_bytes(mgr_c.read_extra(step_k, "trainer"))
+            cursor = json.loads(mgr_c.read_extra(step_k, "cursor"))
+            it = iter(bert_pack_loader(mx, samples, B, cursor["batches"],
+                                       prefetch_to_device=trainer3))
+            _, losses_c2, _ = run(captured, it, cursor["batches"],
+                                  RESUME_STEPS)
+            it.close()
+            after = _cache_misses(reg)
+            moved = {r: v - misses.get(r, 0) for r, v in after.items()
+                     if v != misses.get(r, 0)}
+            log(f"bert resume captured: restored into the live captured "
+                f"step; its cache misses since {moved}, cache size "
+                f"{step_fn.cache_size}")
+            check(moved == {"state_change": 1}, f"the live restore's "
+                  f"misses {moved} != one state_change")
+            check(losses_c2 == losses_c[RESUME_AT:], f"captured resumed "
+                  f"losses {losses_c2} != {losses_c[RESUME_AT:]}")
+            _same_state(torch, "bert resume: captured, resumed at step "
+                        f"{RESUME_AT}, at step {RESUME_STEPS}",
+                        _train_state(model, trainer3), final_c)
+            kinds = sorted({str(w.message).split("\n")[0][:100]
+                            for w in det_warnings
+                            if "determinis" in str(w.message)})
+        for rec_, fut, _ in saves:
+            check(fut.exception() is None, f"save of step {rec_['step']} "
+                                           f"failed: {fut.exception()}")
+        walls = [r["done"] - r["t0"] for r, _, _ in saves]
+        sizes = []
+        for r, _, m in saves:
+            path = os.path.join(m.directory, str(r["step"]))
+            if os.path.isdir(path):
+                sizes.append(sum(os.path.getsize(os.path.join(d, f))
+                                 for d, _, fs in os.walk(path) for f in fs))
+        out.update(
+            save_hold_ms=[r["hold_s"] * 1e3 for r, _, _ in saves],
+            save_hold_states_bytes_ms=[r["states_s"] * 1e3
+                                       for r, _, _ in saves],
+            save_wall_s=walls,
+            save_bytes=max(sizes) if sizes else None,
+            save_mb_per_s=[max(sizes) / 1e6 / w for w in walls]
+            if sizes else None,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            phase_s=time.perf_counter() - t_phase,
+            nondeterminism_warnings=kinds)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        out["card"] = smi.stdout.strip()
+        log("bert resume " + json.dumps(out))
+        del model, trainer, trainer3, step_fn, restored
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_bert_wide_bf16(mx, torch, base_tokens_s):
     """The `bert_wide_bf16` path: phase 11b's model, cast and trainer,
     but BERTModel at bert_base's shape with BERT_WIDE_H heads of 256
@@ -6502,6 +7035,7 @@ def main(argv=()):
         bert_init = os.path.join(tmp, "bert_base_init.params")
         bert_launches = phase_bert_train(mx, torch, bert_init)
         bert_bf16_launches, bert_bf16 = phase_bert_train_bf16(mx, torch)
+        resume_launches = phase_bert_pretrain_resume(mx, torch)
         bert_wide_launches = phase_bert_wide_bf16(
             mx, torch, bert_bf16["tokens_per_s"])
         phase_bert_card_vs_cpu(mx, torch, bert_init)
@@ -6529,6 +7063,7 @@ def main(argv=()):
                    "resnet_conv1x1_bf16": conv_bf16_launches[c],
                    "bert_train": bert_launches[c],
                    "bert_train_bf16": bert_bf16_launches[c],
+                   "bert_pretrain_resume": resume_launches[c],
                    "bert_train_bf16_captured": bert_cap_launches[c],
                    "nmt_train_captured": nmt_cap_launches[c],
                    "nmt_train_bf16_captured": nmt_bf16_cap_launches[c],

@@ -44,7 +44,13 @@ update with `Trainer.capture` / `mx.jit_step`, the whole training step
 as one CUDA graph (`cachedop`), and the dependency engine (`engine`,
 `csrc/engine.cc` built with g++) that runs `serve.Server`'s decode loop
 by default and the `gluon.data.DataLoader`'s batchify tasks, with
-`metric`, `lr_scheduler` and `models.get_mlp` for MLP-on-MNIST.
+`metric`, `lr_scheduler` and `models.get_mlp` for MLP-on-MNIST, and the
+input pipeline, IO and checkpoints: `recordio` (with the C++ mmap
+reader `csrc/recordio.cc`), `gluon.data.RecordFileDataset`,
+`prefetch.DevicePrefetcher` behind `DataLoader(prefetch_to_device=...,
+pin_memory=True)`, `mx.nd.save` / `load`, `checkpoint` (atomic,
+checksummed, async and emergency saves, `CheckpointManager`), and
+`fault.retry` / `fault.preemption`.
 ROADMAP.md lists what is still to be ported.
 """
 
@@ -52,6 +58,7 @@ __version__ = "0.1.0"
 
 from . import base
 from .base import MXNetError
+from . import log
 from . import context
 from .context import cpu, gpu, num_gpus
 from . import observability
@@ -72,6 +79,9 @@ from . import lr_scheduler
 from . import metric
 from . import optimizer
 from . import gluon
+from . import recordio
+from . import prefetch
+from . import checkpoint
 from . import cachedop
 from .cachedop import CachedStep, jit_step
 from . import models
@@ -80,10 +90,10 @@ from . import convert
 from . import rtc
 from . import serve
 
-__all__ = ["MXNetError", "base", "context", "cpu", "gpu", "num_gpus",
+__all__ = ["MXNetError", "base", "log", "context", "cpu", "gpu", "num_gpus",
            "observability", "profiler", "fault", "kvstore", "random",
            "initializer", "init", "autograd", "ndarray", "nd", "ops",
            "amp", "parallel", "lr_scheduler", "metric", "optimizer", "gluon",
-           "engine", "cachedop",
+           "engine", "recordio", "prefetch", "checkpoint", "cachedop",
            "CachedStep", "jit_step",
            "models", "contrib", "convert", "rtc", "serve"]

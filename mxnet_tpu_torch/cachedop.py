@@ -39,7 +39,9 @@ The kernel wrappers count their launches on the host
 (`ops.kernels.LAUNCHES`), and so does `profiler.record_dispatch`; a
 capture launches nothing, so each entry keeps the counts its capture
 added and adds them again at every replay (`cudagraph_replays` counts
-the replays): N replays count N steps.
+the replays): N replays count N steps. A batch argument that reaches a
+card's step off its device is copied on the step's critical path and
+counted (`prefetch_h2d_sync`, `prefetch.record_sync_h2d`).
 
 Entries are keyed on (batch shapes and dtypes, the parameters' structure
 and tensors, the states' structure and tensors, the guard's mode, the
@@ -64,6 +66,7 @@ from collections import OrderedDict
 import torch
 
 from . import amp, autograd, engine, profiler
+from . import prefetch as _prefetch
 from . import random as _random
 from .base import MXNetError
 from .fault import injection as _finj
@@ -229,8 +232,18 @@ class CachedStep:
         return self._call_impl(batch, batch_size)
 
     def _call_impl(self, batch, batch_size):
+        dev = self._device()
+        if dev.type == "cuda":
+            # a batch off the card is copied on the step's critical path
+            # (`prefetch.DevicePrefetcher` delivers it there instead)
+            for b in batch:
+                t = b._data if isinstance(b, NDArray) else b
+                if not (isinstance(t, torch.Tensor) and t.device == dev):
+                    _prefetch.record_sync_h2d(
+                        t.numel() * t.element_size()
+                        if isinstance(t, torch.Tensor) else 0)
         batch_nd = [b if isinstance(b, NDArray) else NDArray(
-            torch.as_tensor(b, device=self._device())) for b in batch]
+            torch.as_tensor(b, device=dev)) for b in batch]
         if batch_size is None:
             if not batch_nd or batch_nd[0].ndim == 0:
                 raise MXNetError("capture: pass batch_size= when the first "

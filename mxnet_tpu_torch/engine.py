@@ -41,10 +41,11 @@ QoS — the engine is a multi-tenant scheduler, not a FIFO:
     `engine.EXPIRED`, `engine_deadline_expired` counts it). Tasks running
     past their deadline show as `overdue` in `pending_report()`.
 
-Engine-var users in the port: the gluon DataLoader (background class)
-and the serving decode loop (`serve/engine_bridge.py`, high class).
-`file_var` keeps its contract; its IO users (`nd.save` / `load`,
-recordio, checkpoints) are still to port (ROADMAP.md, Queue 1 [6b]).
+Engine-var users in the port: the gluon DataLoader and the device
+prefetcher (`prefetch.py`; background class), the serving decode loop
+(`serve/engine_bridge.py`, high class), and the IO on `file_var`:
+`nd.save` / `load`, `recordio`'s appends and async checkpoint saves
+(`checkpoint.py`, background class).
 
 Tasks run on the engine's worker threads. A task that launches CUDA work
 does so on that thread's current device and stream (both are per
@@ -1228,8 +1229,8 @@ def file_var(path):
     """The dependency Var for a filesystem path (one Var per absolute
     path). Host IO pushes write ops on this var and readers wait on it —
     the discipline the reference engine applies to NDArray save/load
-    (reference: NDArray::Save pushed with the array + output vars). Its
-    IO users are still to port (ROADMAP.md, Queue 1 [6b])."""
+    (reference: NDArray::Save pushed with the array + output vars): the
+    port's `nd.save` / `load`, `recordio` and `checkpoint`."""
     p = _os.path.abspath(str(path))
     with _file_vars_lock:
         v = _file_vars.get(p)

@@ -15,9 +15,17 @@ NDArrays on the device. No engine thread touches the card: a background
 task that launched CUDA work on its own thread would break a CUDA graph
 being captured meanwhile (`Trainer.capture`).
 
-`prefetch_to_device=` and `pin_memory=True` (the JAX package's device
-staging through `prefetch.DevicePrefetcher`) raise `MXNetError` naming
-ROADMAP.md Queue 1 [6b].
+Device mode (`prefetch_to_device=`, as in the JAX package): the host
+batches stage through a `prefetch.DevicePrefetcher`, whose engine tasks
+collate each batch into pinned host buffers while the consuming thread
+issues the copies to the card on a side stream, so that a step's inputs
+are on the card, in flight ahead of it, with no synchronous copy on its
+path. Pass True (the loader's `ctx`), a device, or a Trainer /
+CachedStep (the card its parameters live on). `pin_memory=True` means
+pinned host buffers, and turns this staging on where
+`prefetch_to_device` is not given; an explicit `prefetch_to_device=False`
+keeps the host path (the JAX package's opt-out). On `ctx=mx.cpu()` the
+staging tasks deliver CPU batches and nothing is pinned.
 """
 from __future__ import annotations
 
@@ -27,7 +35,6 @@ import numpy as np
 import torch
 
 from ... import engine
-from ...base import MXNetError
 from ...context import cpu, resolve_device
 from ...ndarray.ndarray import NDArray
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
@@ -71,6 +78,8 @@ class DataLoader:
     """Loads a dataset in mini-batches. The reference's arguments, plus
     `ctx`: the device the batches are delivered on (None = `mx.gpu(0)`,
     which raises without a card; `ctx=mx.cpu()` for the CPU).
+    `prefetch_to_device` and `pin_memory` stage through a
+    `DevicePrefetcher` (module docstring).
     `num_workers` sets the default `prefetch` (2 x max(num_workers, 1)
     batches ahead); the engine's threads do the work. `thread_pool` and
     `timeout` are accepted for the reference signature."""
@@ -80,13 +89,12 @@ class DataLoader:
                  num_workers=0, pin_memory=False, prefetch=None,
                  thread_pool=False, timeout=120, prefetch_to_device=None,
                  ctx=None):
-        if pin_memory or prefetch_to_device not in (None, False):
-            raise MXNetError(
-                "DataLoader(prefetch_to_device=..., pin_memory=True): "
-                "device staging (prefetch.DevicePrefetcher) is not ported "
-                "yet (ROADMAP.md, Queue 1 [6b]); batches are moved to the "
-                "loader's ctx on the consuming thread")
         self._device = resolve_device(ctx)
+        if pin_memory and prefetch_to_device is None:
+            prefetch_to_device = True
+        if prefetch_to_device is True:
+            prefetch_to_device = self._device
+        self._prefetch_to_device = prefetch_to_device
         self._dataset = dataset
         if batch_sampler is None:
             if batch_size is None:
@@ -112,13 +120,15 @@ class DataLoader:
     def _make_batch(self, indices):
         return self._batchify_fn([self._dataset[i] for i in indices])
 
-    def _host_iter(self):
+    def _host_iter(self, to_device=True):
         """Host-batch pipeline: up to `prefetch` batchify tasks in flight
-        on the engine. Abandoning the generator mid-epoch (early break /
-        GC) cancels queued tasks and no-ops in-flight ones — an abandoned
-        epoch must not keep consuming the dataset."""
+        on the engine; each batch is moved to the loader's device in the
+        consuming thread, or left on the host with `to_device=False` (the
+        DevicePrefetcher's source). Abandoning the generator mid-epoch
+        (early break / GC) cancels queued tasks and no-ops in-flight ones:
+        an abandoned epoch must not keep consuming the dataset."""
         if self._prefetch == 0:
-            yield from self._plain_iter()
+            yield from self._plain_iter(to_device)
             return
         state = {"closed": False}
         pending = deque()
@@ -160,7 +170,8 @@ class DataLoader:
                     # sampler indices are known, so batchify inline —
                     # backpressure must not drop training batches
                     batch = self._make_batch(indices)
-                yield _to_device(batch, self._device)
+                yield _to_device(batch, self._device) if to_device \
+                    else batch
         finally:
             state["closed"] = True
             # queued batchify tasks never run (futures resolve to
@@ -168,12 +179,27 @@ class DataLoader:
             group.cancel()
             pending.clear()
 
-    def _plain_iter(self):
-        """Unpipelined batchify (the prefetch=0 path), in the consuming
-        thread."""
+    def _plain_iter(self, to_device=True):
+        """Unpipelined batchify (the prefetch=0 path), in whichever thread
+        iterates it: the consumer, or a staging task."""
         for indices in self._batch_sampler:
-            yield _to_device(self._make_batch(indices), self._device)
+            batch = self._make_batch(indices)
+            yield _to_device(batch, self._device) if to_device else batch
+
+    def _device_iter(self):
+        """The device pipeline: this loader's host batches feed a
+        DevicePrefetcher (which takes slots of the blocking ledger for
+        the engine-backed batchify, or batchifies inline in its staging
+        tasks when granted none)."""
+        from ...prefetch import DevicePrefetcher
+        pf = DevicePrefetcher(self, device=self._prefetch_to_device)
+        try:
+            yield from pf
+        finally:
+            pf.close()
 
     def __iter__(self):
+        if self._prefetch_to_device not in (None, False):
+            return self._device_iter()
         return self._host_iter()
 

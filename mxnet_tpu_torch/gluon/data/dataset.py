@@ -1,10 +1,10 @@
 """Datasets (counterpart of `mxnet_tpu/gluon/data/dataset.py`; reference:
-python/mxnet/gluon/data/dataset.py). `RecordFileDataset` reads RecordIO
-files, which the port does not read yet: it raises naming ROADMAP.md
-Queue 1 [6b]."""
+python/mxnet/gluon/data/dataset.py). `RecordFileDataset` reads a
+RecordIO file through `recordio.open_record_file`."""
 from __future__ import annotations
 
-from ...base import MXNetError
+import os
+import threading
 
 __all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
@@ -96,9 +96,44 @@ class ArrayDataset(Dataset):
 
 class RecordFileDataset(Dataset):
     """A dataset over a RecordIO .rec file (reference:
-    gluon.data.RecordFileDataset): still to port with `recordio`."""
+    gluon.data.RecordFileDataset); each item is one record's bytes.
+
+    The records are read through `recordio.open_record_file`: the
+    native mmap reader (`csrc/recordio.cc`) where it builds, whose reads
+    are safe from the DataLoader's engine workers, else a Python scan.
+    Where the .idx sidecar lists every record, as `MXIndexedRecordIO`
+    writes it, item i is the record at its i-th key's offset, the order
+    the JAX package's dataset reads; an index of only some records is
+    read through `MXIndexedRecordIO`, one read at a time."""
 
     def __init__(self, filename):
-        raise MXNetError("gluon.data.RecordFileDataset reads RecordIO files,"
-                         " which are not ported yet (ROADMAP.md, Queue 1 "
-                         "[6b])")
+        from ...recordio import MXIndexedRecordIO, open_record_file
+        self._records = open_record_file(filename)
+        self._order = None
+        self._rec = None
+        self._lock = threading.Lock()
+        idx_path = os.path.splitext(filename)[0] + ".idx"
+        if os.path.exists(idx_path):
+            rec = MXIndexedRecordIO(idx_path, filename, "r")
+            offsets = [rec.idx[k] for k in rec.keys]
+            if len(set(offsets)) == len(offsets) == len(self._records):
+                # every record is indexed: its offset's rank in the file
+                # is its position among the reader's records
+                rank = {off: i for i, off in enumerate(sorted(offsets))}
+                self._order = [rank[off] for off in offsets]
+                rec.close()
+            else:
+                self._rec = rec
+                self._keys = rec.keys
+
+    def __len__(self):
+        return len(self._keys) if self._rec is not None else \
+            len(self._records)
+
+    def __getitem__(self, idx):
+        if self._rec is not None:
+            with self._lock:    # one file position, shared by the workers
+                return self._rec.read_idx(self._keys[idx])
+        if self._order is not None:
+            idx = self._order[idx]
+        return self._records[idx]

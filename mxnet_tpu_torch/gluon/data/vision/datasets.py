@@ -14,7 +14,7 @@ A sample's image is an NDArray in host memory (on the CPU): the
 DataLoader batchifies on the engine's threads and moves each batch to
 its device on the consuming thread. `ImageFolderDataset` and
 `ImageListDataset` read image files, which the port does not decode
-yet: they raise naming ROADMAP.md Queue 1 [6b].
+yet: they raise naming ROADMAP.md Queue 1 [6c].
 """
 from __future__ import annotations
 
@@ -98,7 +98,7 @@ class CIFAR100(_SyntheticImageDataset):
 def _file_datasets_unported(name):
     raise MXNetError(f"gluon.data.vision.{name} reads image files, which "
                      f"are not decoded by the port yet (ROADMAP.md, Queue "
-                     f"1 [6b])")
+                     f"1 [6c])")
 
 
 class ImageFolderDataset(Dataset):

@@ -1,15 +1,18 @@
 """mx.nd — the imperative NDArray namespace (counterpart of
-`mxnet_tpu/ndarray/`): the NDArray type, its creation functions, and the
-operators the Gluon layers of this slice call."""
+`mxnet_tpu/ndarray/`): the NDArray type, its creation functions,
+`save` / `load` / `load_frombuffer` (`utils`), and the operators the
+Gluon layers of this slice call."""
 from __future__ import annotations
 
 import torch
 
 from ..ops import nn_ops
 from .ndarray import NDArray, _apply, array, ones, zeros
+from .utils import load, load_frombuffer, save
 
-__all__ = ["NDArray", "array", "zeros", "ones", "FullyConnected",
-           "Embedding", "Activation", "Convolution", "StemConvS2D", "relu"]
+__all__ = ["NDArray", "array", "zeros", "ones", "save", "load",
+           "load_frombuffer", "FullyConnected", "Embedding", "Activation",
+           "Convolution", "StemConvS2D", "relu"]
 
 # "gelu" is the tanh approximation, as the JAX package's `jax.nn.gelu`
 # with its default approximate=True (mxnet_tpu/ops/nn_ops.py:364);

@@ -9,7 +9,8 @@ policies and the `failures()` report (the same callables are pushed to
 both, so the failure sites match by name). Part 2: every semantic of
 `tests/test_engine.py` on the port, for both inner engines where the
 reference test covers both, except `file_var`'s save / load / recordio
-users, which are not ported yet (ROADMAP.md, Queue 1 [6b]). Every wait on
+users, which tests/test_torch_nd_io.py, test_torch_recordio.py and
+test_torch_checkpoint.py hold (ROADMAP.md, Queue 1 [6b]). Every wait on
 a thread is bounded, so a hang fails a test instead of stalling the
 suite.
 """
@@ -793,7 +794,8 @@ def test_default_engines_never_single_worker():
 
 
 def test_file_var_is_one_var_per_path(tmp_path):
-    """file_var keeps its contract (its IO users wait for [6b])."""
+    """file_var keeps its contract: one var a path (its IO users, [6b],
+    order on it)."""
     a = engine.file_var(tmp_path / "x.bin")
     assert engine.file_var(str(tmp_path / "x.bin")) is a
     assert engine.file_var(tmp_path / "y.bin") is not a

@@ -387,7 +387,14 @@ def test_cuda_wide_kernels_match_their_plain_versions(dtype, b, h, sq, sk, d,
     """On the card each wide kernel against its plain version (fp32
     chip_smoke.py's FLASH_TOL / BWD_TOL, the 16-bit forms its per-dtype
     limits), two launches bit-identical, dK / dV exactly 0 past each key
-    length short of Sk."""
+    length short of Sk. A (b, h) slice whose only key cancels dP - delta
+    (a key length of 1: its true dQ and dK are 0, and both
+    implementations return rounding noise there) holds its dQ and dK
+    against float64 autograd instead, as
+    `test_cuda_wide_dq_matches_its_plain_version` does: at most
+    WIDE_F64_RATIO times the plain version's float64 distance plus one
+    unit roundoff of the slice's largest input-scaled value, scale *
+    A |K| for dQ and scale * A^T |Q| for dK (`_bwd_cancel_floor`'s A)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     import chip_smoke as cs
@@ -412,17 +419,41 @@ def test_cuda_wide_kernels_match_their_plain_versions(dtype, b, h, sq, sk, d,
     assert torch.allclose(lse, ref_lse, **cs.FLASH_TOL)
     for a, a2 in zip(got, again):
         assert torch.equal(a, a2)
+    # the batch rows whose dQ / dK cancel to 0 (a key length of 1)
+    cancelled = [bi for bi, n in enumerate(lens or []) if n == 1]
+    rest = [bi for bi in range(b) if bi not in cancelled]
+
+    def plain_part(i, t):
+        return t[rest] if i < 2 and cancelled else t
     if dtype == torch.float32:
         assert torch.allclose(out, ref, **cs.FLASH_TOL)
-        for a, r in zip(got, refs):
-            assert cs._within(torch, a, r, cs.BWD_TOL, True)
+        for i, (a, r) in enumerate(zip(got, refs)):
+            assert cs._within(torch, plain_part(i, a), plain_part(i, r),
+                              cs.BWD_TOL, True)
     else:
         lim = cs._lowp(dtype)
         assert cs._bf16_share(torch, out, ref, lim["out_atol"]
                               * cs._slice_max(v), lim["rtol"]) <= 1
-        for a, r in zip(got, refs):
+        for i, (a, r) in enumerate(zip(got, refs)):
+            a, r = plain_part(i, a), plain_part(i, r)
             assert cs._bf16_share(torch, a, r, lim["grad_atol"]
                                   * cs._slice_max(r), lim["rtol"]) <= 1
+    if cancelled:
+        r64 = cs._attention_grads_f64(torch, q, k, v, do, causal, scale,
+                                      lens)
+        terms = cs._bwd_cancel_floor(torch, q, k, v, do, out, causal, scale,
+                                     lens)
+        unit = cs.FP32_F64_FLOOR if dtype == torch.float32 \
+            else cs._lowp(dtype)["f64_floor"]
+        for i, key in ((0, "dq"), (1, "dk")):
+            top = (terms[key] / (cs.BWD_CANCEL * d)).abs().amax(
+                dim=(-2, -1)).cpu()
+            e64, p64 = ((t.cpu().double() - r64[i]).abs().amax(dim=(-2, -1))
+                        for t in (got[i], refs[i]))
+            for bi in cancelled:
+                assert bool((e64[bi] <= cs.WIDE_F64_RATIO * p64[bi]
+                             + unit * top[bi]).all()), (key, e64[bi],
+                                                        p64[bi], top[bi])
     for bi, n in enumerate(lens or []):
         if n < sk:
             assert got[1][bi, :, n:].abs().max().item() == 0.0

@@ -63,6 +63,29 @@ def test_source_imports_no_jax(path):
             (path, name)
 
 
+# the input pipeline, IO and checkpoint modules (ROADMAP.md Queue 1 [6b])
+IO_MODULES = ("recordio", "prefetch", "checkpoint", "log", "fault/retry",
+              "fault/preemption", "ndarray/utils", "gluon/data/dataset",
+              "gluon/data/dataloader")
+
+
+@pytest.mark.parametrize("name", IO_MODULES)
+def test_io_modules_are_scanned_and_stand_alone(name):
+    """Each IO module is one of the files the AST scan above covers, and
+    imports no JAX and nothing of the JAX package; the native RecordIO
+    reader is the port's own source, built from the port's directory."""
+    path = PKG / f"{name}.py"
+    assert path in set(PKG.rglob("*.py"))
+    for imported in _imports(path):
+        assert imported.split(".")[0] not in ("jax", "jaxlib", "ml_dtypes",
+                                              "mxnet_tpu"), imported
+    if name == "recordio":
+        src = PKG / "csrc" / "recordio.cc"
+        assert src.exists() and "mxnet_tpu/" not in src.read_text(
+        ).replace("mxnet_tpu_torch/", "")
+        assert "csrc" in path.read_text() and "_build" in path.read_text()
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
