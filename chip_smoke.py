@@ -224,6 +224,35 @@ Phases (any failure raises and the script exits non-zero):
   8b. resnet conv1x1, bf16 — phase 8 on that bf16 net's live stride-1 1x1
                  convolutions, through the bf16 kernel only (30
                  launches).
+  7p. resnet from a JPEG pack, bf16 (path `resnet_pack_bf16`) — 7b's
+                 model, weights and SGD fed from a JPEG RecordIO pack in
+                 the shape of an `im2rec --resize 256 --quality 95`
+                 ImageNet pack (PACK_RECORDS records written through
+                 `recordio.MXIndexedRecordIO` + `recordio.pack_img`,
+                 short side 256, long side 256-384, labels 0-999, numpy
+                 seed 0; record 0 decodes within PACK_PSNR_DB of its
+                 source) through `image.ImageIter(shuffle=True,
+                 aug_list=image.CreateAugmenter(resize=256,
+                 rand_crop=True, rand_mirror=True, mean=True, std=True))`
+                 and `io.PrefetchingIter(prefetch_to_device=mx.gpu(0))`,
+                 each batch's NCHW float32 transposed to NHWC and cast to
+                 bf16 on the card. Counters zeroed just before and read
+                 just after RESNET_STEPS steps: no port kernel; every
+                 parameter bf16 on the card, the loss finite, every
+                 running statistic moving. `io.ImageRecordIter` over the
+                 same pack on the card gives its ctx=mx.cpu() batches bit
+                 for bit (PACK_RECORD_ITER_BATCHES); an image folder of
+                 JPEG and PNG files through `ImageFolderDataset` and a
+                 card DataLoader gives its sources (PNG bit for bit, JPEG
+                 within PACK_PSNR_DB). Then phase 8b on the pack-fed net
+                 with its first batch: 30 bf16 conv1x1 launches, each
+                 held against its plain version. Logged, with no gate:
+                 images/s from the pack beside 7b's in memory, with
+                 spread; host decode ms a record and augment ms a batch;
+                 `prefetch_starved`; the synchronizing calls of the input
+                 path and of the step over PACK_SYNC_STEPS steps; pack
+                 write s (the first record, with the codec's g++ build,
+                 apart), mean record bytes, peak memory, phase s.
   9b. resnet card vs CPU, bf16 — that model cut to one bottleneck a
                  stage, phase 7's weights, one bf16 SGD step at B=4 on the
                  card and the CPU, each against the fp32 step on the CPU:
@@ -656,6 +685,20 @@ NMT_BF16_EMBED_GRAD_RTOL = 3 * 2.0 ** -7
 # 40-64: lr 0.1, momentum 0.9 in the parameter's dtype, no weight decay,
 # the mean loss's gradient as it is), the loss on fp32 logits
 RESNET_BF16_LR, RESNET_BF16_MOMENTUM = 0.1, 0.9
+# phase 7p: bench.py's bf16 ResNet-50 fed from a JPEG RecordIO pack in
+# the shape of an `im2rec --resize 256 --quality 95` ImageNet pack:
+# PACK_RECORDS records (12 batches), short side PACK_SHORT, long side
+# drawn from PACK_LONG, labels 0-999, from numpy seed 0; ImageRecordIter
+# reads PACK_RECORD_ITER_BATCHES batches of it; an image folder of
+# PACK_FOLDER_FILES files (JPEG and PNG, PACK_FOLDER_SIDE square) feeds
+# one DataLoader batch. A JPEG at q95 of these images comes back at least
+# PACK_PSNR_DB from its source (the N(0, 6) noise dominates its error)
+PACK_RECORDS, PACK_SHORT, PACK_LONG, PACK_QUALITY = 1536, 256, (256, 384), 95
+PACK_RECORD_ITER_BATCHES, PACK_SYNC_STEPS = 2, 3
+PACK_FOLDER_FILES, PACK_FOLDER_SIDE = 8, 64
+PACK_PSNR_DB = 30.0
+PACK_MEAN = (123.68, 116.28, 103.53)      # CreateAugmenter(mean=True)
+PACK_STD = (58.395, 57.12, 57.375)        # CreateAugmenter(std=True)
 # phase 9c: stem_conv_s2d against the plain 7x7 / stride-2 / pad-3
 # convolution at bench.py's input (128, 224, 224, 3), y and the weight
 # gradient each against float64 on the card: in fp32, no further from it
@@ -3808,7 +3851,295 @@ def phase_resnet_train_bf16(mx, torch, init_file):
                          ("reduce_kernel",),
                          "other elementwise (BatchNorm, ReLU, adds, SGD)":
                          ("elementwise",)})
-    return net, x, launches
+    return net, x, launches, summary
+
+
+def pack_image(rng, h=None, w=None):
+    """One HWC uint8 image of phase 7p's pack from the numpy Generator
+    `rng`: short side PACK_SHORT and long side drawn from PACK_LONG,
+    portrait or landscape (or h x w); six sinusoids a channel plus N(0, 6)
+    noise, a smooth field whose JPEG has a photo's size rather than
+    noise's. A channel's six sin(fx x + fy y + phase) are one sum of
+    outer products of their separable halves (`einsum`: no BLAS thread
+    pool beside the host pipeline this phase measures)."""
+    if h is None:
+        long_side = int(rng.integers(PACK_LONG[0], PACK_LONG[1] + 1))
+        h, w = (PACK_SHORT, long_side) if rng.random() < 0.5 \
+            else (long_side, PACK_SHORT)
+    y = np.arange(h, dtype=np.float32)
+    x = np.arange(w, dtype=np.float32)
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        fx, fy = rng.uniform(0.005, 0.08, (2, 6)).astype(np.float32)
+        amp = rng.uniform(10, 40, (6, 1)).astype(np.float32)
+        phase = rng.uniform(0, 6.3, (6, 1)).astype(np.float32)
+        a = np.outer(fx, x) + phase                 # (6, w)
+        b = np.outer(fy, y)                         # (6, h)
+        img[..., c] = np.einsum(
+            "kh,kw->hw", np.concatenate([np.cos(b), np.sin(b)]),
+            np.concatenate([amp * np.sin(a), amp * np.cos(a)]))
+    img += 128.0
+    img += 6.0 * rng.standard_normal(img.shape, dtype=np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def _pack_augmenters(mx):
+    return mx.image.CreateAugmenter((3, 224, 224), resize=256,
+                                    rand_crop=True, rand_mirror=True,
+                                    mean=True, std=True)
+
+
+def _image_folder_check(mx, torch, root, ctx):
+    """PACK_FOLDER_FILES images (JPEG and PNG by turns, two classes)
+    written as files under `root`, read by `ImageFolderDataset` through a
+    `DataLoader` on the card as one batch: the batch on the card, its
+    labels the files' classes, each image its source (PNG bit for bit,
+    JPEG within PACK_PSNR_DB). Returns {format: worst PSNR}."""
+    rng = np.random.default_rng(1)
+    sources = []
+    for k in range(PACK_FOLDER_FILES):
+        cls = k % 2
+        fmt = ".jpg" if (k // 2) % 2 == 0 else ".png"
+        img = pack_image(rng, PACK_FOLDER_SIDE, PACK_FOLDER_SIDE)
+        head = mx.recordio.IRHeader(0, float(cls), k, 0)
+        _, payload = mx.recordio.unpack(mx.recordio.pack_img(
+            head, img, quality=PACK_QUALITY, img_fmt=fmt))
+        os.makedirs(os.path.join(root, f"class{cls}"), exist_ok=True)
+        path = os.path.join(root, f"class{cls}", f"{k:02d}{fmt}")
+        with open(path, "wb") as f:
+            f.write(payload)
+        sources.append((path, cls, fmt, img))
+    ds = mx.gluon.data.vision.ImageFolderDataset(root)
+    check(ds.synsets == ["class0", "class1"] and len(ds) ==
+          PACK_FOLDER_FILES, f"ImageFolderDataset: {ds.synsets}, {len(ds)}")
+    loader = mx.gluon.data.DataLoader(ds, batch_size=PACK_FOLDER_FILES,
+                                      ctx=ctx)
+    data, label = next(iter(loader))
+    check(data._data.is_cuda and data.shape == (
+        PACK_FOLDER_FILES, PACK_FOLDER_SIDE, PACK_FOLDER_SIDE, 3)
+        and data.dtype == np.uint8, f"folder batch {data.shape} "
+        f"{data.dtype} on {data.context}")
+    by_path = {p: (c, f, img) for p, c, f, img in sources}
+    got = data.asnumpy()
+    psnr = {".jpg": float("inf"), ".png": float("inf")}
+    for i, (path, cls) in enumerate(ds.items):
+        c, fmt, img = by_path[path]
+        check(int(label.asnumpy()[i]) == c == cls, f"folder label of "
+                                                    f"{path}")
+        if fmt == ".png":
+            check(np.array_equal(got[i], img), f"PNG {path} not bit for bit")
+        else:
+            psnr[fmt] = min(psnr[fmt], _psnr(got[i], img))
+    check(psnr[".jpg"] >= PACK_PSNR_DB, f"folder JPEG PSNR {psnr}")
+    return psnr
+
+
+def phase_resnet_pack_bf16(mx, torch, init_file, memory_images_s):
+    """Phase 7p (module docstring): phase 7b's model and SGD fed from a
+    JPEG RecordIO pack through `image.ImageIter` and
+    `io.PrefetchingIter(prefetch_to_device=mx.gpu(0))`; then phase 8b's
+    conv1x1 check on the pack-fed net, whose launches it returns (the
+    path `resnet_pack_bf16`, counted from 0)."""
+    K = mx.ops.kernels
+    reg = mx.observability.registry()
+    ctx = mx.gpu(0)
+    t_phase = time.perf_counter()
+    out = dict(records=PACK_RECORDS, batch=RESNET_B, steps=RESNET_STEPS,
+               quality=PACK_QUALITY)
+    tmp = tempfile.mkdtemp(prefix="mxtt_imgpack_")
+    try:
+        # -------------------------------------------------------- the pack
+        rec, idx = os.path.join(tmp, "train.rec"), os.path.join(tmp,
+                                                                 "train.idx")
+        rng = np.random.default_rng(0)
+        writer = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+        gen_s = write_s = 0.0
+        nbytes, first, labels = 0, None, []
+        for i in range(PACK_RECORDS):
+            t0 = time.perf_counter()
+            img = pack_image(rng)
+            label = int(rng.integers(0, 1000))
+            t1 = time.perf_counter()
+            s = mx.recordio.pack_img(mx.recordio.IRHeader(0, float(label), i,
+                                                          0), img,
+                                     quality=PACK_QUALITY, img_fmt=".jpg")
+            writer.write_idx(i, s)
+            gen_s += t1 - t0
+            if first is None:       # g++ builds the codec at first use
+                first = (s, img)
+                out["first_record_s"] = time.perf_counter() - t1
+            else:
+                write_s += time.perf_counter() - t1
+            nbytes += len(s)
+            labels.append(label)
+        t0 = time.perf_counter()
+        writer.close()
+        out.update(pack_write_s=write_s + time.perf_counter() - t0,
+                   image_gen_s=gen_s, mean_record_bytes=nbytes / PACK_RECORDS,
+                   pack_bytes=os.path.getsize(rec))
+        head, back = mx.recordio.unpack_img(first[0], iscolor=1)
+        out["first_record_psnr_db"] = _psnr(back, first[1])
+        check(back.shape == first[1].shape and head.label == labels[0]
+              and out["first_record_psnr_db"] >= PACK_PSNR_DB,
+              f"record 0 decodes to {back.shape}, label {head.label}, "
+              f"{out['first_record_psnr_db']:.2f} dB")
+
+        # ------------------------ host decode and augment, on this thread
+        reader = mx.recordio.MXIndexedRecordIO(idx, rec, "r")
+        raws = [reader.read_idx(k) for k in range(RESNET_B)]
+        reader.close()
+        t0 = time.perf_counter()
+        decoded = [mx.recordio.unpack_img(r)[1] for r in raws]
+        out["host_decode_ms_per_record"] = (time.perf_counter() - t0) \
+            / RESNET_B * 1e3
+        augs = _pack_augmenters(mx)
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        for img in decoded:
+            x = mx.nd.array(img, ctx=mx.cpu())
+            for aug in augs:
+                x = aug(x)
+        out["host_augment_ms_per_batch"] = (time.perf_counter() - t0) * 1e3
+        check(x.shape == (224, 224, 3) and x.dtype == np.float32,
+              f"augmented image {x.shape} {x.dtype}")
+        del raws, decoded
+
+        # ------------------------------------------------------- the model
+        net = _resnet_s2d(mx)
+        net.load_parameters(init_file, ctx=ctx)
+        net.cast("bfloat16")
+        params = net._collect_params_with_prefix()
+        for name, p in params.items():
+            check(p.data()._data.dtype == torch.bfloat16
+                  and p.data()._data.is_cuda, f"{name} not bf16 on the card")
+        stats0 = {n: p.data()._data.clone() for n, p in params.items()
+                  if n.endswith(("running_mean", "running_var"))}
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": RESNET_BF16_LR,
+                                    "momentum": RESNET_BF16_MOMENTUM})
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def pack_iter():
+            it = mx.image.ImageIter(RESNET_B, (3, 224, 224), path_imgrec=rec,
+                                    path_imgidx=idx, shuffle=True,
+                                    aug_list=_pack_augmenters(mx))
+            return mx.io.PrefetchingIter(it, prefetch_to_device=ctx)
+
+        def step_inputs(batch):
+            # the user's NCHW float32 -> NHWC bf16, on the card
+            return (batch.data[0].transpose(0, 2, 3, 1).astype("bfloat16"),
+                    batch.label[0])
+
+        # ------------------------------- the main path, counters from 0
+        np.random.seed(0)
+        pf = pack_iter()
+        starved0 = reg.counter("prefetch_starved").value
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        losses, step_s, x0 = [], [], None
+        for _ in range(RESNET_STEPS):
+            t0 = time.perf_counter()
+            x, y = step_inputs(pf.next())
+            if x0 is None:
+                x0, y0 = x, y
+            losses.append(_resnet_bf16_step(mx, net, trainer, ce, x, y)
+                          ._data.detach())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        step_launches = dict(K.LAUNCHES)
+        out["prefetch_starved"] = (reg.counter("prefetch_starved").value
+                                   - starved0)
+        losses = [float(v) for v in losses]
+        check(x0.shape == (RESNET_B, 224, 224, 3) and x0._data.dtype ==
+              torch.bfloat16 and x0._data.is_cuda and bool(
+                  torch.isfinite(x0._data).all()), f"pack batch {x0.shape} "
+              f"{x0._data.dtype} on {x0.context}")
+        ys = y0.asnumpy()
+        check(ys.shape == (RESNET_B,) and ys.min() >= 0 and ys.max() < 1000
+              and set(ys.astype(int)) <= set(labels), f"pack labels {ys}")
+        check(all(np.isfinite(losses)), f"non-finite pack-fed loss: {losses}")
+        check(sum(step_launches.values()) == 0, f"the pack-fed bf16 ResNet "
+                                                f"step launched a port "
+                                                f"kernel: {step_launches}")
+        moved = sum(not torch.equal(p.data()._data, stats0[n])
+                    for n, p in params.items() if n in stats0)
+        check(moved == len(stats0), f"{len(stats0) - moved} running "
+                                    f"statistics did not move")
+        for name, p in params.items():
+            check(p.data()._data.dtype == torch.bfloat16,
+                  f"{name} left bf16 in training")
+        timed = step_s[2:]
+        img_s = [RESNET_B / t for t in timed]
+        out.update(losses=losses, images_per_s=RESNET_B * len(timed)
+                   / sum(timed), images_per_s_min=min(img_s),
+                   images_per_s_max=max(img_s),
+                   step_ms=[t * 1e3 for t in step_s],
+                   memory_images_per_s=memory_images_s,
+                   running_stats_moved=moved,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out["pack_over_memory"] = out["images_per_s"] / memory_images_s
+
+        pf.close()
+
+        # ------------ the input path's sync calls, on a fresh iterator
+        syncs = {}
+        pf = pack_iter()
+        for _ in range(PACK_SYNC_STEPS):
+            with _sync_calls(torch, syncs, "input"):
+                x, y = step_inputs(pf.next())
+            with _sync_calls(torch, syncs, "step"):
+                _resnet_bf16_step(mx, net, trainer, ce, x, y)
+        pf.close()
+        torch.cuda.synchronize()
+        out["sync_calls"] = syncs
+
+        # --------------------------- ImageRecordIter over the same pack
+        kw = dict(path_imgrec=rec, data_shape=(3, 224, 224),
+                  batch_size=RESNET_B, mean_r=PACK_MEAN[0],
+                  mean_g=PACK_MEAN[1], mean_b=PACK_MEAN[2],
+                  std_r=PACK_STD[0], std_g=PACK_STD[1], std_b=PACK_STD[2])
+        on_card = mx.io.ImageRecordIter(**kw)
+        on_host = mx.io.ImageRecordIter(ctx=mx.cpu(), **kw)
+        t0 = time.perf_counter()
+        for b in range(PACK_RECORD_ITER_BATCHES):
+            got = on_card.next()
+            torch.cuda.synchronize()
+            want = on_host.next()
+            g, w = got.data[0]._data, want.data[0]._data
+            check(g.is_cuda and tuple(g.shape) == (RESNET_B, 3, 224, 224)
+                  and torch.equal(g.cpu(), w) and torch.equal(
+                      got.label[0]._data.cpu(), want.label[0]._data)
+                  and bool(torch.isfinite(w).all()), f"ImageRecordIter "
+                  f"batch {b} on the card differs from the host's")
+            check(np.array_equal(want.label[0].asnumpy(), np.asarray(
+                labels[b * RESNET_B:(b + 1) * RESNET_B], np.float32)),
+                f"ImageRecordIter batch {b} labels")
+        out["record_iter_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 \
+            / (2 * PACK_RECORD_ITER_BATCHES)
+        out["record_iter_skipped"] = on_card.records_skipped
+
+        # ---------------------------------------- an image folder, once
+        out["folder_psnr_db"] = _image_folder_check(
+            mx, torch, os.path.join(tmp, "folder"), ctx)
+
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        out["card"] = smi.stdout.strip()
+        out["phase_s"] = time.perf_counter() - t_phase
+        log("resnet pack bf16 " + json.dumps(out))
+        launches = phase_resnet_conv1x1(mx, torch, net, x0, bf16_only=True)
+        del net, trainer, x0, x, y
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _resnet_cut_step(mx, ctx, init_file, bf16):
@@ -7021,12 +7352,14 @@ def main(argv=()):
         phase_resnet_card_vs_cpu(mx, torch, resnet_init)
         phase_stem_s2d(mx, torch)
         torch.cuda.empty_cache()
-        net, images, resnet_bf16_launches = phase_resnet_train_bf16(
-            mx, torch, resnet_init)
+        net, images, resnet_bf16_launches, bf16_summary = \
+            phase_resnet_train_bf16(mx, torch, resnet_init)
         conv_bf16_launches = phase_resnet_conv1x1(mx, torch, net, images,
                                                   bf16_only=True)
         del net, images
         torch.cuda.empty_cache()
+        pack_launches = phase_resnet_pack_bf16(
+            mx, torch, resnet_init, bf16_summary["images_per_s"])
         phase_resnet_card_vs_cpu_bf16(mx, torch, resnet_init)
         phase_resnet_captured_bn(mx, torch, resnet_init)
         by_name = {k["name"]: k for k in kernels}
@@ -7061,6 +7394,7 @@ def main(argv=()):
                    "resnet_conv1x1": conv_launches[c],
                    "resnet_train_bf16": resnet_bf16_launches[c],
                    "resnet_conv1x1_bf16": conv_bf16_launches[c],
+                   "resnet_pack_bf16": pack_launches[c],
                    "bert_train": bert_launches[c],
                    "bert_train_bf16": bert_bf16_launches[c],
                    "bert_pretrain_resume": resume_launches[c],

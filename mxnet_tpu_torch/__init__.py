@@ -50,7 +50,11 @@ reader `csrc/recordio.cc`), `gluon.data.RecordFileDataset`,
 `prefetch.DevicePrefetcher` behind `DataLoader(prefetch_to_device=...,
 pin_memory=True)`, `mx.nd.save` / `load`, `checkpoint` (atomic,
 checksummed, async and emergency saves, `CheckpointManager`), and
-`fault.retry` / `fault.preemption`.
+`fault.retry` / `fault.preemption`, and the image input pipeline:
+`image` (decode, resize, crops, the augmenters, `ImageIter`), `io`
+(`NDArrayIter`, `PrefetchingIter`, `ImageRecordIter`, ...),
+`contrib.io.DataLoaderIter` and the image-file datasets, on the port's
+own JPEG / PNG codec (`_imcodec`, `csrc/imcodec.cc` built with g++).
 ROADMAP.md lists what is still to be ported.
 """
 
@@ -80,6 +84,8 @@ from . import metric
 from . import optimizer
 from . import gluon
 from . import recordio
+from . import image
+from . import io
 from . import prefetch
 from . import checkpoint
 from . import cachedop
@@ -94,6 +100,6 @@ __all__ = ["MXNetError", "base", "log", "context", "cpu", "gpu", "num_gpus",
            "observability", "profiler", "fault", "kvstore", "random",
            "initializer", "init", "autograd", "ndarray", "nd", "ops",
            "amp", "parallel", "lr_scheduler", "metric", "optimizer", "gluon",
-           "engine", "recordio", "prefetch", "checkpoint", "cachedop",
-           "CachedStep", "jit_step",
+           "engine", "recordio", "image", "io", "prefetch", "checkpoint",
+           "cachedop", "CachedStep", "jit_step",
            "models", "contrib", "convert", "rtc", "serve"]

@@ -13,17 +13,17 @@ RecordIO image data.
 A sample's image is an NDArray in host memory (on the CPU): the
 DataLoader batchifies on the engine's threads and moves each batch to
 its device on the consuming thread. `ImageFolderDataset` and
-`ImageListDataset` read image files, which the port does not decode
-yet: they raise naming ROADMAP.md Queue 1 [6c].
+`ImageListDataset` read JPEG and PNG files through `image.imread` (the
+port's own codec).
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
 
 from ..dataset import Dataset
-from ....base import MXNetError
 from ....context import cpu
 from ....ndarray.ndarray import array
 
@@ -95,26 +95,73 @@ class CIFAR100(_SyntheticImageDataset):
     _train_size = 50000
 
 
-def _file_datasets_unported(name):
-    raise MXNetError(f"gluon.data.vision.{name} reads image files, which "
-                     f"are not decoded by the port yet (ROADMAP.md, Queue "
-                     f"1 [6c])")
-
-
 class ImageFolderDataset(Dataset):
-    """Images arranged in per-class folders (reference API): still to
-    port with `image`."""
+    """Images arranged in per-class folders (reference API): `root/<class
+    name>/<file>`, the classes sorted by name (`synsets`), a class's
+    files by name; an item is (HWC uint8 NDArray on the CPU, class
+    index). `flag` 0 reads grey (H, W, 1), 1 RGB."""
 
     def __init__(self, root, flag=1, transform=None):
-        _file_datasets_unported("ImageFolderDataset")
+        self._transform = transform
+        self._flag = flag
+        self.items = []
+        self.synsets = []
+        for i, cls in enumerate(sorted(os.listdir(root))):
+            path = os.path.join(root, cls)
+            if not os.path.isdir(path):
+                continue
+            self.synsets.append(cls)
+            for fname in sorted(os.listdir(path)):
+                self.items.append((os.path.join(path, fname), i))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        from ....image import imread
+        path, label = self.items[idx]
+        img = imread(path, self._flag)
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
 
 
 class ImageListDataset(Dataset):
-    """Images named by a .lst-style list (reference API): still to port
-    with `image`."""
+    """Images named by a .lst-style list (reference: ImageListDataset):
+    `imglist` is a path to a tab-separated `index\tlabel\tpath` file (the
+    im2rec .lst format) or an in-memory list of [label, path] entries;
+    paths resolve relative to `root`."""
 
     def __init__(self, root=".", imglist=None, flag=1, transform=None):
-        _file_datasets_unported("ImageListDataset")
+        self._transform = transform
+        self._flag = flag
+        self.items = []
+        if isinstance(imglist, str):
+            with open(imglist) as f:
+                for line in f:
+                    parts = line.rstrip("\n").split("\t")
+                    if len(parts) < 3:
+                        continue
+                    label = float(parts[1]) if len(parts) == 3 \
+                        else [float(v) for v in parts[1:-1]]
+                    self.items.append(
+                        (os.path.join(root, parts[-1]), label))
+        else:
+            for entry in (imglist or []):
+                label, path = entry[:-1], entry[-1]
+                label = label[0] if len(label) == 1 else list(label)
+                self.items.append((os.path.join(root, path), label))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        from ....image import imread
+        path, label = self.items[idx]
+        img = imread(path, self._flag)
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
 
 
 class ImageRecordDataset(Dataset):

@@ -216,6 +216,14 @@ class NDArray:
                     for i, s in enumerate(shape))
         return _apply(lambda a: a.reshape(out), [self])
 
+    def transpose(self, *axes):
+        """The axes permuted (reversed where none are given), as a new
+        array in the permuted order."""
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        axes = axes or tuple(reversed(range(self.ndim)))
+        return _apply(lambda a: a.permute(*axes).contiguous(), [self])
+
     def flatten(self):
         """(N, ...) -> (N, prod(...))."""
         return _apply(lambda a: a.reshape(a.shape[0], -1), [self])

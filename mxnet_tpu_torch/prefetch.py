@@ -534,14 +534,14 @@ class DevicePrefetcher:
         the TaskGroup, running ones become no-ops through the closed
         flag, and a generator source is closed (an abandoned epoch must
         not go on reading the dataset). Tasks still running are waited
-        for, so that their pinned sets are released on this thread."""
+        for, so that their pinned sets are released on this thread and
+        no task reads the source once close() has returned."""
         st = self._state
         if st.closed:
             return
         st.closed = True
         self._group.cancel()
-        if self._cuda:
-            self._group.drain()
+        self._group.drain()
         self._drop_pending()
         release_blocking_slots(self._reserved)
         self._reserved = 0

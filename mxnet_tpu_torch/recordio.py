@@ -12,9 +12,8 @@ The bytes on disk are the reference's and the JAX package's, so a .rec /
 
 `IRHeader` + `pack` / `unpack` implement the image-record convention
 (flag, a float label or `flag` float labels, id, id2). `pack_img` /
-`unpack_img` encode and decode image payloads with PIL, imported when
-they are called: they belong to the image pipeline (ROADMAP.md, Queue 1
-[6c]) and raise `MXNetError` naming PIL where it is missing.
+`unpack_img` encode and decode image payloads, JPEG or PNG, with the
+port's own codec (`_imcodec`, `csrc/imcodec.cc`): no PIL.
 
 `MXIndexedRecordIO` adds the `.idx` sidecar (``key\\tbyte-offset\\n``
 lines) for random access. Record IO is host work: the card sees these
@@ -31,7 +30,6 @@ from __future__ import annotations
 import collections
 import ctypes
 import hashlib
-import io as _io
 import os
 import struct
 import subprocess
@@ -40,6 +38,7 @@ from pathlib import Path
 
 import numpy as np
 
+from . import _imcodec
 from .base import MXNetError
 
 __all__ = ["MXRecordIO", "MXIndexedRecordIO", "IRHeader",
@@ -236,38 +235,29 @@ def unpack(s):
     return header, s
 
 
-def _pil_image():
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise MXNetError("recordio.pack_img / unpack_img need PIL, which is "
-                         "not installed; the image pipeline is ROADMAP.md "
-                         "Queue 1 [6c]") from e
-    return Image
-
-
 def pack_img(header, img, quality=95, img_fmt=".jpg"):
-    """IRHeader + HWC uint8 image -> record bytes (PIL-encoded; the
-    reference encodes with cv2.imencode)."""
-    Image = _pil_image()
+    """IRHeader + HWC uint8 image -> record bytes: a baseline JPEG at
+    libjpeg's `quality` (4:2:0 for colour, as PIL and libjpeg default)
+    for `img_fmt` ".jpg" / ".jpeg", a PNG otherwise, both by the port's
+    own codec (`_imcodec`; the JAX package encodes with PIL, the
+    reference with cv2.imencode)."""
     img = np.asarray(img, dtype=np.uint8)
-    buf = _io.BytesIO()
-    fmt = "JPEG" if img_fmt.lower() in (".jpg", ".jpeg") else "PNG"
-    kw = {"quality": quality} if fmt == "JPEG" else {}
-    Image.fromarray(img).save(buf, format=fmt, **kw)
-    return pack(header, buf.getvalue())
+    if img_fmt.lower() in (".jpg", ".jpeg"):
+        return pack(header, _imcodec.encode_jpeg(img, quality))
+    return pack(header, _imcodec.encode_png(img))
 
 
 def unpack_img(s, iscolor=-1):
-    """record bytes -> (IRHeader, HWC uint8 ndarray)."""
-    Image = _pil_image()
+    """record bytes -> (IRHeader, uint8 ndarray): `iscolor` 0 grey (H,
+    W), 1 RGB (H, W, 3), -1 the image's own mode (grey (H, W), RGB,
+    RGBA, grey+alpha, or a palette image's indices), as PIL gives them."""
     header, payload = unpack(s)
-    img = Image.open(_io.BytesIO(payload))
+    img = _imcodec.decode(payload)
     if iscolor == 0:
-        img = img.convert("L")
-    elif iscolor == 1:
-        img = img.convert("RGB")
-    return header, np.asarray(img)
+        return header, _imcodec.convert(img, "L")
+    if iscolor == 1:
+        return header, _imcodec.convert(img, "RGB")
+    return header, img.pixels
 
 
 # ---------------------------------------------------------------------------

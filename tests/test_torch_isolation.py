@@ -1,7 +1,7 @@
 """The port stands alone: `mxnet_tpu_torch` and `chip_smoke.py` import
-neither JAX, nor ml_dtypes (the card's machine has neither), nor the JAX
-package, and the port's entry points run on the card unless the caller
-asks for the CPU."""
+neither JAX, nor ml_dtypes, nor PIL (the card's machine has none of
+them), nor the JAX package, and the port's entry points run on the card
+unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -21,7 +21,8 @@ PKG = ROOT / "mxnet_tpu_torch"
 
 def test_import_pulls_in_no_jax():
     """Importing the package and every submodule, in a fresh
-    interpreter, loads no `jax*`, `ml_dtypes` or `mxnet_tpu` module."""
+    interpreter, loads no `jax*`, `ml_dtypes`, `PIL` or `mxnet_tpu`
+    module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mxnet_tpu_torch\n"
@@ -29,7 +30,7 @@ def test_import_pulls_in_no_jax():
         "                               'mxnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu'))\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'PIL', 'mxnet_tpu'))\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('mxnet_tpu_torch')]), bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -55,30 +56,40 @@ def _imports(path):
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
-    """AST scan: no `import jax...`, no `ml_dtypes` and no `mxnet_tpu` /
-    `mxnet_tpu.*` import anywhere in the port or in chip_smoke.py."""
+    """AST scan: no `import jax...`, no `ml_dtypes`, no `PIL` and no
+    `mxnet_tpu` / `mxnet_tpu.*` import anywhere in the port or in
+    chip_smoke.py."""
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "ml_dtypes", "mxnet_tpu"), \
-            (path, name)
+        assert top not in ("jax", "jaxlib", "ml_dtypes", "PIL",
+                           "mxnet_tpu"), (path, name)
 
 
 # the input pipeline, IO and checkpoint modules (ROADMAP.md Queue 1 [6b])
+# and the image pipeline's ([6c])
 IO_MODULES = ("recordio", "prefetch", "checkpoint", "log", "fault/retry",
               "fault/preemption", "ndarray/utils", "gluon/data/dataset",
-              "gluon/data/dataloader")
+              "gluon/data/dataloader", "image", "io", "contrib/io",
+              "_imcodec", "gluon/data/vision/datasets")
 
 
 @pytest.mark.parametrize("name", IO_MODULES)
 def test_io_modules_are_scanned_and_stand_alone(name):
     """Each IO module is one of the files the AST scan above covers, and
-    imports no JAX and nothing of the JAX package; the native RecordIO
-    reader is the port's own source, built from the port's directory."""
+    imports no JAX, no PIL and nothing of the JAX package; the native
+    RecordIO reader and the image codec are the port's own sources,
+    built from the port's directory."""
     path = PKG / f"{name}.py"
     assert path in set(PKG.rglob("*.py"))
     for imported in _imports(path):
         assert imported.split(".")[0] not in ("jax", "jaxlib", "ml_dtypes",
-                                              "mxnet_tpu"), imported
+                                              "PIL", "mxnet_tpu"), imported
+    if name == "_imcodec":
+        src = PKG / "csrc" / "imcodec.cc"
+        assert src.exists() and "mxnet_tpu/" not in src.read_text(
+        ).replace("mxnet_tpu_torch/", "")
+        from mxnet_tpu_torch import _imcodec
+        assert _imcodec._SRC == src and _imcodec._BUILD_DIR == PKG / "_build"
     if name == "recordio":
         src = PKG / "csrc" / "recordio.cc"
         assert src.exists() and "mxnet_tpu/" not in src.read_text(

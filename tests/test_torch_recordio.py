@@ -192,13 +192,20 @@ def test_pack_unpack_match_the_jax_package():
 
 
 def test_pack_img_names_pil_where_missing(monkeypatch):
-    """Without PIL, pack_img / unpack_img raise MXNetError naming it."""
-    img = np.zeros((4, 4, 3), np.uint8)
+    """Without PIL, pack_img / unpack_img work (the port's own codec,
+    since [6c]): a PNG record round-trips bit for bit, a JPEG one to its
+    shape; an empty payload raises MXNetError, naming no PIL."""
+    img = (np.random.RandomState(2).rand(6, 5, 3) * 255).astype(np.uint8)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(MXNetError, match="PIL"):
-        rio.pack_img(rio.IRHeader(0, 1.0, 5, 0), img, img_fmt=".png")
-    with pytest.raises(MXNetError, match="PIL"):
-        rio.unpack_img(rio.pack(rio.IRHeader(0, 1.0, 5, 0), b""))
+    head = rio.IRHeader(0, 1.0, 5, 0)
+    h, back = rio.unpack_img(rio.pack_img(head, img, img_fmt=".png"))
+    assert h.id == 5
+    np.testing.assert_array_equal(back, img)
+    _, back = rio.unpack_img(rio.pack_img(head, img, quality=90))
+    assert back.shape == img.shape and back.dtype == np.uint8
+    with pytest.raises(MXNetError, match="unrecognised") as err:
+        rio.unpack_img(rio.pack(head, b""))
+    assert "PIL" not in str(err.value)
 
 
 def test_pack_img_matches_the_jax_package():
