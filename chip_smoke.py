@@ -88,7 +88,8 @@ Phases (any failure raises and the script exits non-zero):
                  (WIDE_F64_RATIO), two launches bit-identical; each
                  timed at each D but 2048 beside SDPA in its dtype (and
                  the backend SDPA picks) and its bound, the dK/dV + dQ
-                 pair beside SDPA's backward; then
+                 pair beside SDPA's backward, and the misaligned q at D =
+                 256 in bf16 (`per_shape` "D256_misaligned_q"); then
                  `flash_attention` forward and backward at D = 256 in
                  each dtype with the counters zeroed just before and
                  read just after (path `wide_attention`).
@@ -356,11 +357,14 @@ Phases (any failure raises and the script exits non-zero):
                  one whole step of each under torch.profiler (device
                  kernels, host launch calls).
  11c. bert train, bf16, captured — 11b through `trainer.capture`, 10
-                 steps beside three eager fused runs of 10 from the same
+                 steps beside five eager fused runs of 10 from the same
                  weights (`_captured_vs_eager`): the losses and each
                  parameter no further from the first eager run than
                  CAPTURE_RATIO x the largest distance between eager runs
-                 plus an ulp, no
+                 plus an ulp (where the eager runs agree to the bit, at
+                 least CAPTURE_STEPS ulps of its largest element, and a
+                 copy of the captured weights with those parameters
+                 moved by twice that limit fails the same check), no
                  fallback, the warm steps' launches equal to the eager
                  steps', one graph launch and no kernel launch from the
                  host in a profiled warm step; tokens/s, peak memory and
@@ -370,6 +374,31 @@ Phases (any failure raises and the script exits non-zero):
   9d. resnet BN, captured — the cut bf16 S2D ResNet (9b's) at B = 16, 3
                  steps captured and eager: the running statistics moved and
                  carried.
+ 11d. bert data parallel, bf16 — 11b's model, batch and SGD through the
+                 store on a one-rank NCCL group (`kvstore.
+                 init_distributed`): (a) `Trainer(kvstore="dist_sync")`,
+                 one `allreduce_flat` a bucket a step, against the
+                 store-less Trainer from the same weights under torch's
+                 deterministic algorithms: the weights bit for bit, every
+                 step 12 / 12 / 12 / 26 bf16 flash forwards, dK/dV, dQ
+                 and LayerNorms (path `bert_dp_bf16`), the kv counters one
+                 collective a bucket a step; tokens/s and its spread
+                 beside 11b's and the store-less run's; (b) `trainer.
+                 capture` over that store with a `dp` mesh of one, the
+                 gradients reduced inside the graph (NCCL's one-rank
+                 forms; `kv_collective_bytes{op=in_graph_psum}` their
+                 bytes a replay), held as 11c is (path
+                 `bert_dp_bf16_captured`); (c) the
+                 gradients of two half batches pushed as two towers to
+                 `kv.create("device")`: each pull their `torch.add` bit
+                 for bit, and no further from the whole batch's gradient
+                 in fp32 than DP_TOWER_RATIO x the whole bf16 one's
+                 distance plus a bf16 ulp;
+                 (d) the store's in-graph all-reduce, reduce-scatter and
+                 all-gather captured in a CUDA graph and replayed: right,
+                 and their device work inside the replay of a graph made
+                 and replayed under the profiler (on one rank NCCL's
+                 copies; its kernels under `--ranks N`).
  12d. capture guard — a captured 2-layer bf16 BERT with skip_nonfinite and
                  `grad.nan` at step 2 (every weight and state bit for bit
                  through that replay, the streak 0, 1, 0), and float16
@@ -406,13 +435,21 @@ Phases (any failure raises and the script exits non-zero):
                  fp16.
 
 `--capture` runs the build and the fused-Trainer and captured-step
-phases alone (on fresh weights), with no kernels line and no `ok` line.
+phases alone, 11d among them (on fresh weights), with no kernels line and no `ok` line.
 `--ranks N` (N > 1 cards) runs phase 13 (a) over N NCCL ranks instead,
 one process a card: each rank's Ulysses and ring output and gradients
 against `flash_attention` over the whole sequence on its card
 (FLASH_TOL, BWD_TOL, float64), its launches checked (Ulysses one block,
-the ring the blocks at or before its shard), then a
-`{"sp_ranks": [...]}` line in place of the kernels line.
+the ring the blocks at or before its shard); then phase 11d over N NCCL
+ranks (B = BERT_B a rank): the eager store path, the captured step over
+a `dp` store and `sharded_update=True`, each form's weights bit for bit
+the same on every rank and within DP_RANKS_RATIO of the one-rank run on
+the global batch (the embedding tables also within twice that run's
+distance from an fp32 copy; every form's losses within
+DP_RANKS_LOSS_RTOL of its), the sharded optimizer state 1/N of each momentum whose dim 0
+splits over N, and (d) on the N ranks (NCCL's kernels in the replay);
+then a `{"sp_ranks": [...], "dp_ranks": [...]}`
+line in place of the kernels line.
 
 Output: progress lines, then `nvidia-smi`'s name and power limit, then
 one JSON line `{"kernels": [...]}`, then the last line
@@ -5347,17 +5384,23 @@ KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cudaLaunchCooperativeKernel")
 GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 # captured against eager from the same weights and batch, 10 steps, with
-# two more eager runs as the yardstick: the same kernels on the same
+# four more eager runs as the yardstick: the same kernels on the same
 # values, but a step is not bit for bit repeatable where an atomic sum's
 # order varies (BERT's MLM gather and segment embedding backwards), and
 # the differences grow along the steps. The captured run's largest
 # distance from the first eager run, over the steps' losses and per
 # parameter in norm after the last step, at most CAPTURE_RATIO times the
 # largest distance between two eager runs, plus one ulp (2^-8 relative
-# for bf16, 2^-23 for fp32; the loss is fp32): where the eager step
-# repeats bit for bit, so must the replay
+# for bf16, 2^-23 for fp32; the loss is fp32). A parameter whose eager
+# runs agree to the bit (spread 0) is held instead to `_rounding_floor`,
+# one ulp of its largest element for each of the CAPTURE_STEPS steps,
+# where that is the larger: without it, one rounding step the replay
+# takes differently fails it (`nsp.bias` at 4.65x in one run). Five eager
+# runs (ten pairs) measure a small parameter's spread: with three, a
+# 2-element bias's spread came out below what the replay showed
+# (`nsp.bias` at 1.096x in 11d (b) in one run)
 CAPTURE_RATIO = 3.0
-CAPTURE_EAGER_RUNS = 3
+CAPTURE_EAGER_RUNS = 5
 CAPTURE_STEPS = 10
 
 
@@ -5413,6 +5456,22 @@ def _kernel_count(rows):
 
 def _ulp(torch, dtype):
     return 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -23
+
+
+def _rounding_floor(torch, w):
+    """The limit's floor for a parameter: a rounding step the captured
+    run takes differently from the eager one changes an element by at
+    most one ulp of the largest element, |w|max (2^(e - 7) in bf16,
+    2^(e - 10) in fp16, 2^(e - 23) in fp32, e = floor(log2 |w|max)), and
+    the optimizer carries it through the later steps; at most one such
+    step a step over CAPTURE_STEPS steps is CAPTURE_STEPS of those
+    ulps."""
+    import math
+    top = float(w.double().abs().max())
+    if top == 0.0:
+        return 0.0
+    mant = {torch.bfloat16: 7, torch.float16: 10}.get(w.dtype, 23)
+    return CAPTURE_STEPS * 2.0 ** (math.floor(math.log2(top)) - mant)
 
 
 def phase_train_fused(mx, torch):
@@ -5583,16 +5642,50 @@ def _captured_vs_eager(mx, torch, tag, model, make_trainer, loss_fn,
     def dist(a, b, n):
         return float((a["weights"][n].double()
                       - b["weights"][n].double()).norm())
-    worst, bits, bad = (0.0, ""), 0, []
+    # each parameter's limit, the floor only where the eager runs agree
+    # to the bit
+    spreads, lims, floored = {}, {}, []
     for n, we in e["weights"].items():
-        spread = max(dist(a, b, n) for a, b in pairs)
-        lim = CAPTURE_RATIO * spread + _ulp(torch, we.dtype) * float(
+        spreads[n] = max(dist(a, b, n) for a, b in pairs)
+        lims[n] = CAPTURE_RATIO * spreads[n] + _ulp(torch, we.dtype) * float(
             we.double().norm())
-        d = dist(c, e, n)
-        worst = max(worst, (d / lim if lim else 0.0, n))
-        if d > lim:
-            bad.append((n, d, spread))
-        bits += int(torch.equal(c["weights"][n], we))
+        floor = _rounding_floor(torch, we)
+        if spreads[n] == 0.0 and floor > lims[n]:
+            lims[n] = floor
+            floored.append(n)
+
+    def beyond(weights):
+        """[(name, distance, eager spread)] of the parameters of
+        `weights` further from the first eager run than their limit."""
+        out = []
+        for n, we in e["weights"].items():
+            d = float((weights[n].double() - we.double()).norm())
+            if d > lims[n]:
+                out.append((n, d, spreads[n]))
+        return out
+    bad = beyond(c["weights"])
+    worst = max((dist(c, e, n) / lims[n] if lims[n] else 0.0, n)
+                for n in lims)
+    bits = sum(int(torch.equal(c["weights"][n], e["weights"][n]))
+               for n in lims)
+    # the control: a copy of the captured weights with each floored
+    # parameter moved by twice its limit (in float64, away from the eager
+    # weight; along its first element where they are equal) goes through
+    # the same comparison, and each of those parameters must fail it
+    moved = dict(c["weights"])
+    for n in floored:
+        we = e["weights"][n].double()
+        diff = c["weights"][n].double() - we
+        u = torch.zeros_like(diff).flatten()
+        if float(diff.norm()):
+            u = (diff / diff.norm()).flatten()
+        else:
+            u[0] = 1.0
+        moved[n] = c["weights"][n].double() + 2.0 * lims[n] * u.view_as(diff)
+    caught = {b[0] for b in beyond(moved)}
+    check(caught >= set(floored), f"{tag}: moved by twice their limit, "
+          f"{sorted(set(floored) - caught)} pass")
+    controls = len(floored)
     summary = dict(steps=CAPTURE_STEPS, tokens_per_step=tokens,
                    losses_eager=e["losses"].tolist(),
                    losses_captured=c["losses"].tolist(),
@@ -5602,6 +5695,7 @@ def _captured_vs_eager(mx, torch, tag, model, make_trainer, loss_fn,
                    loss_spread_of_eager_runs=loss_spread,
                    worst_param_share_of_limit=worst[0],
                    worst_param=worst[1], params=len(e["weights"]),
+                   params_at_the_floor_with_control=controls,
                    params_bit_equal=bits,
                    launches_per_step={k: v for k, v in
                                       c["per_step"][-1].items() if v},
@@ -5687,6 +5781,336 @@ def phase_bert_train_bf16_captured(mx, torch):
     return launches
 
 
+# the bf16 kernels of BERT-base (rows 1b, 2b, 3b, 8b): each must launch
+# on both of 11d's paths
+DP_KERNELS = ("flash_fwd_bf16", "flash_bwd_bf16", "flash_bwd_dq_bf16",
+              "layer_norm_bf16")
+# phase 11d (c): the sum of the two half-batch gradients pulled from a
+# "device" store, held with the whole batch's bf16 gradient against the
+# whole batch's gradient in fp32 from the same weights, per parameter in
+# norm: no further from it than DP_TOWER_RATIO x the whole bf16
+# gradient's distance plus one bf16 ulp of its norm (the bf16 parity
+# rule). Not against the whole bf16 gradient itself: the embeddings'
+# backward adds thousands of rows into a few bf16 elements, where small
+# addends are lost, so the token-type table's whole-batch and two-half
+# gradients part by 25-35 % of its norm (measured on the H100)
+DP_TOWER_RATIO = 2.0
+# phase 11d (d): the collectives captured in a CUDA graph, on bf16
+# buffers of DP_NCCL_ROWS x 768 (BERT-base's width)
+DP_NCCL_ROWS = 4096
+
+
+def _dp_trainer(mx, model, kvstore):
+    return mx.gluon.Trainer(model.collect_params(), "sgd",
+                            {"learning_rate": BERT_BF16_LR,
+                             "momentum": BERT_BF16_MOMENTUM},
+                            kvstore=kvstore)
+
+
+def _kv_counts(mx):
+    """(the store's `kv_allreduce` dispatches, `kv_collective_bytes` of
+    its process sums) so far."""
+    reg = mx.observability.registry()
+    return (mx.profiler.dispatch_count("kv_allreduce"),
+            reg.counter("kv_collective_bytes", op="process_sum").value)
+
+
+def _dp_store_runs(mx, torch, model, batch, start, want):
+    """11d (a): BERT_STEPS eager steps of 11b store-less and through
+    `Trainer(kvstore="dist_sync")` on the one-rank NCCL group, from the
+    same weights, under torch's deterministic algorithms; returns
+    {form: run}."""
+    K = mx.ops.kernels
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    with _deterministic(torch) as caught:
+        for form, kv in (("storeless", None), ("dist_sync", "dist_sync")):
+            _restore(torch, model, start)
+            tr = _dp_trainer(mx, model, kv)
+            kv0 = _kv_counts(mx)
+            losses, per_step, step_s, launches = _timed_steps(
+                torch, K, lambda: _bert_step(mx, model, tr, ce, batch, True),
+                BERT_STEPS)
+            kv1 = _kv_counts(mx)
+            runs[form] = dict(
+                losses=losses, step_s=step_s, launches=launches,
+                weights={n: t.clone() for n, t in
+                         _param_tensors(model).items()},
+                allreduce=kv1[0] - kv0[0], coll_bytes=kv1[1] - kv0[1],
+                buckets=len(tr._buckets or ()), store=tr._kvstore,
+                grad_bytes=sum(p.grad()._data.numel() * 2
+                               for p in model.collect_params().values()))
+            for i, counts in enumerate(per_step):
+                check(counts == want, f"bert dp bf16 {form} step {i + 1} "
+                                      f"launches {counts} != {want}")
+    log(f"bert dp bf16: deterministic-algorithm warnings "
+        f"{sorted({str(w.message)[:80] for w in caught})}")
+    return runs
+
+
+def _dp_towers(mx, torch, model, batch):
+    """11d (c): the gradients of the two half batches (each loss weighted
+    1/2, so that their sum is the whole batch's mean-loss gradient)
+    pushed as two towers to `kv.create("device")`: each pull is their
+    `torch.add`, bit for bit, and within DP_TOWER_RATIO of the whole
+    batch's bf16 gradient's distance from its fp32 gradient (an fp32 copy
+    of the model). Returns the worst share of that limit."""
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def grads(model, rows, weight):
+        params = list(model._collect_params_with_prefix().values())
+        for p in params:
+            p.zero_grad()
+        tok, seg, vl, pos, mlm_y, nsp_y = [mx.nd.NDArray(a._data[rows])
+                                           for a in batch]
+        with mx.autograd.record():
+            mlm, nsp = model(tok, seg, vl, pos)
+            mlm, nsp = mlm.astype("float32"), nsp.astype("float32")
+            loss = (ce(mlm.reshape((-1, BERT_VOCAB)),
+                       mlm_y.reshape((-1,))).mean()
+                    + ce(nsp, nsp_y).mean()) * weight
+        loss.backward()
+        return [p.grad()._data.clone() for p in params]
+
+    half = BERT_B // 2
+    g0 = grads(model, slice(0, half), 0.5)
+    g1 = grads(model, slice(half, BERT_B), 0.5)
+    gw = grads(model, slice(0, BERT_B), 1.0)
+    ref = _bert_pretraining(mx)
+    ref.initialize(ctx=mx.gpu(0))
+    for (name, p), q in zip(ref._collect_params_with_prefix().items(),
+                            model._collect_params_with_prefix().values()):
+        p.set_data(q.data())
+    g32 = grads(ref, slice(0, BERT_B), 1.0)
+    del ref
+    names = list(model._collect_params_with_prefix())
+    kv = mx.kv.create("device")
+    check(kv.type == "device" and kv.device.type == "cuda",
+          f"device store on {kv.device}")
+    worst, bits = (0.0, "", 0.0), 0
+    for i, (a, b, w, r) in enumerate(zip(g0, g1, gw, g32)):
+        kv.init(i, torch.zeros_like(a))
+        kv.push(i, [a, b])
+        got = kv.pull(i)._data
+        bits += int(_bits_equal(torch, got, torch.add(a, b)))
+        r = r.double()
+        whole = float((w.double() - r).norm())
+        lim = DP_TOWER_RATIO * whole + 2.0 ** -8 * float(r.norm())
+        d = float((got.double() - r).norm())
+        worst = max(worst, (d / lim if lim else float(d > 0), names[i],
+                            whole / max(float(r.norm()), 1e-30)))
+    check(bits == len(names), f"bert dp towers: {bits} of {len(names)} "
+                              f"pulls bit for bit torch.add of the towers")
+    check(worst[0] <= 1.0, f"bert dp towers: {worst[1]} at {worst[0]:.3f} "
+                           f"of its limit from the fp32 gradient")
+    log(f"bert dp towers: {len(names)} pulls equal torch.add(half0, "
+        f"half1) bit for bit; worst {worst[0]:.3f} of the limit "
+        f"(DP_TOWER_RATIO={DP_TOWER_RATIO} x the whole bf16 batch's "
+        f"distance from fp32 + a bf16 ulp) at {worst[1]}, whose whole bf16 "
+        f"gradient is {worst[2]:.3e} of its norm from fp32")
+    return worst[0]
+
+
+def _dp_nccl_graph(mx, torch, mesh):
+    """11d (d): the store's in-graph all-reduce (mean), reduce-scatter and
+    all-gather on the mesh's `dp` group (P ranks), run once outside,
+    then captured in a CUDA graph and replayed on new values: the right
+    results, bit for bit (small integers, exact in bf16, the same on
+    every rank); then a profiled replay shows the collectives' device
+    work from one graph launch and no kernel launch from the host. With
+    P > 1 that is NCCL's kernels. On one rank NCCL runs each collective
+    as a device copy (the in-place all-reduce as nothing, and the mean
+    over one rank multiplies by nothing), so the graph holds two copies
+    and no NCCL kernel, and the graph's own node list
+    (`CUDAGraph.debug_dump`) must name them: late in the whole script
+    the profile of that replay has held no device row at all, though it
+    shows both copies when the phase runs alone (cause not found), so
+    there the profile's rows are checked where it has them. Returns the
+    replay's NCCL kernel count (None where the profile has no row)."""
+    kv = mx.kv.create("dist_sync").set_mesh(mesh)
+    n = int(mesh.shape["dp"])
+    check(kv.capture_spec() is not None and kv.capture_spec()[2] == n,
+          f"capture spec {kv.capture_spec()} on a dp mesh of {n}")
+    g = torch.Generator(device="cpu").manual_seed(23)
+    dev = mesh.device
+
+    def draw():
+        return torch.randint(-8, 9, (DP_NCCL_ROWS, 768), generator=g).to(
+            dev).to(torch.bfloat16)
+    red, rs_in, ag_in = draw(), draw(), draw()
+    rs_out = torch.empty((DP_NCCL_ROWS // n, 768), dtype=torch.bfloat16,
+                         device=dev)
+    ag_out = torch.empty((DP_NCCL_ROWS * n, 768), dtype=torch.bfloat16,
+                         device=dev)
+
+    def collectives():
+        kv.graph_allreduce(red, "dp", n, mean=True)
+        kv.graph_reduce_scatter(rs_in, "dp", n, out=rs_out)
+        kv.graph_all_gather(ag_in, "dp", out=ag_out)
+
+    collectives()                       # the communicator, outside
+    torch.cuda.synchronize()
+    # on one rank the node list is read (debug_dump): keep_graph keeps it
+    graph = torch.cuda.CUDAGraph(keep_graph=n == 1)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        collectives()
+    if n == 1:
+        graph.instantiate()
+    want = [draw(), draw(), draw()]
+    for t, w in zip((red, rs_in, ag_in), want):
+        t.copy_(w)
+    graph.replay()
+    torch.cuda.synchronize()
+    me = mesh.axis_index("dp")
+    rows = DP_NCCL_ROWS // n
+    for name, got, w in (
+            ("all-reduce", red, want[0]),
+            ("reduce-scatter", rs_out, want[1][me * rows:(me + 1) * rows]
+             * n),
+            ("all-gather", ag_out, want[2].repeat(n, 1))):
+        check(_bits_equal(torch, got, w), f"nccl in a graph: the replayed "
+                                          f"{name} is wrong")
+    node_copies = None
+    if n == 1:
+        with tempfile.TemporaryDirectory() as tmp:
+            dot = os.path.join(tmp, "graph.dot")
+            graph.debug_dump(dot)
+            with open(dot) as f:
+                node_copies = f.read().lower().count("memcpy")
+        check(node_copies >= 2, f"nccl in a graph, 1 rank: the graph's "
+                                f"node list names {node_copies} copies")
+    prof = profile_launches(torch, graph.replay)
+    check(prof is not None and (prof[1] or n == 1), f"nccl in a graph: "
+          f"the profiled replay shows no device work "
+          f"({'no profiler' if prof is None else 'no device rows'})")
+    _, rows_, calls = prof
+    if not rows_:
+        log(f"nccl in a graph: 1 rank, results right, {node_copies} copies "
+            f"in the graph's node list; the profiled replay: no device "
+            f"row (not measured)")
+        return None
+    log_profile(f"nccl in a graph, {n} rank(s)", prof[0], rows_, "1 replay")
+    nccl = [r for r in rows_ if "nccl" in r[2].lower()]
+    copies = sum(r[1] for r in rows_ if "memcpy" in r[2].lower())
+    if n > 1:
+        check(len(nccl) >= 3, f"nccl in a graph: {len(nccl)} NCCL kernels "
+              f"in the replay ({[r[2][:60] for r in rows_]})")
+    else:
+        check(copies >= 2, f"nccl in a graph: {copies} device copies in "
+              f"the one-rank replay ({[r[2][:60] for r in rows_]})")
+    check(sum(calls.get(k, 0) for k in GRAPH_LAUNCH_CALLS) == 1 and sum(
+        calls.get(k, 0) for k in KERNEL_LAUNCH_CALLS) == 0,
+        f"nccl in a graph: host launch calls {calls}")
+    log(f"nccl in a graph: {n} rank(s), results right; the replay ran "
+        f"{sum(r[1] for r in nccl)} NCCL kernels "
+        f"({', '.join(r[2][:50] for r in nccl)}) and {copies} device "
+        f"copies from one graph launch"
+        + ("" if node_copies is None else
+           f" ({node_copies} copies in the node list)"))
+    return len(nccl)
+
+
+def phase_bert_dp_bf16(mx, torch, base_tokens_s):
+    """11d: 11b's bf16 BERT-base through the store on a one-rank NCCL
+    group (`kvstore.init_distributed`). (a) `Trainer(kvstore=
+    "dist_sync")` (one `allreduce_flat` a bucket a step) against the
+    store-less Trainer from the same weights, under deterministic
+    algorithms: the weights bit for bit, each step 12 / 12 / 12 / 26 bf16
+    flash forwards, dK/dV, dQ and LayerNorms, the kv counters one
+    collective a bucket a step, tokens/s and its spread beside 11b's and
+    the store-less run's; (b) `trainer.capture` over that store with a
+    `dp` mesh of one (`_captured_vs_eager`, 11c's limits); (c) two towers
+    on one card through `kv.create("device")`; (d) the store's
+    collectives in a CUDA graph. Returns the launches of (a)'s store run
+    and (b)'s captured run."""
+    K = mx.ops.kernels
+    mx.random.seed(0)
+    model = _bert_pretraining(mx)
+    model.initialize(ctx=mx.gpu(0))
+    model.cast("bfloat16")
+    batch = _bert_batch(mx, BERT_B, BERT_S, mx.gpu(0))
+    start = {n: t.clone() for n, t in _param_tensors(model).items()}
+    n = len(model.bert.encoder.layers)
+    want = dict(dict.fromkeys(K.LAUNCHES, 0), flash_fwd_bf16=n,
+                flash_bwd_bf16=n, flash_bwd_dq_bf16=n,
+                layer_norm_bf16=2 * n + 2)
+    mx.kvstore.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              f"backend {torch.distributed.get_backend()}")
+        runs = _dp_store_runs(mx, torch, model, batch, start, want)
+        a, b = runs["storeless"], runs["dist_sync"]
+        store = b["store"]
+        check(store.type == "ici" and store.num_workers == 1
+              and store.rank == 0, f"store {store.type} "
+              f"{store.rank}/{store.num_workers}")
+        same = sum(_bits_equal(torch, b["weights"][k], a["weights"][k])
+                   for k in a["weights"])
+        check(same == len(a["weights"]), f"bert dp bf16: {same} of "
+              f"{len(a['weights'])} weights bit for bit the store-less "
+              f"run's")
+        check(b["allreduce"] == b["buckets"] * BERT_STEPS and b["buckets"]
+              and b["coll_bytes"] == b["grad_bytes"] * BERT_STEPS,
+              f"bert dp bf16: {b['allreduce']} kv_allreduce and "
+              f"{b['coll_bytes']} bytes for {b['buckets']} buckets x "
+              f"{BERT_STEPS} steps of {b['grad_bytes']} bytes")
+        check(a["allreduce"] == 0, "the store-less run reduced")
+        summary = dict(weights_bit_equal=same, buckets=b["buckets"],
+                       kv_allreduce=b["allreduce"],
+                       kv_collective_bytes=b["coll_bytes"],
+                       tokens_per_s_11b=base_tokens_s,
+                       losses=b["losses"])
+        for form, r in runs.items():
+            timed = r["step_s"][2:]
+            tok = [BERT_B * BERT_S / t for t in timed]
+            summary[f"tokens_per_s_{form}"] = BERT_B * BERT_S * len(
+                timed) / sum(timed)
+            summary[f"tokens_per_s_{form}_min"] = min(tok)
+            summary[f"tokens_per_s_{form}_max"] = max(tok)
+        if base_tokens_s:
+            summary["dist_sync_over_11b"] = \
+                summary["tokens_per_s_dist_sync"] / base_tokens_s
+        log("bert dp bf16 " + json.dumps(summary))
+        launches = b["launches"]
+        # (b) the captured step over the store, a dp mesh of one
+        _restore(torch, model, start)
+        mesh = mx.parallel.make_mesh({"dp": 1})
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def make_trainer():
+            tr = _dp_trainer(mx, model, "dist_sync")
+            tr._kvstore.set_mesh(mesh)
+            check(tr._kvstore.capture_spec() is not None,
+                  "no capture spec on a dp mesh of one")
+            return tr
+        psum = mx.observability.registry().counter("kv_collective_bytes",
+                                                   op="in_graph_psum")
+        psum0 = psum.value
+        cap_launches = _captured_vs_eager(
+            mx, torch, "bert dp bf16 captured", model, make_trainer,
+            _bert_bench_loss(mx, model, ce),
+            lambda tr: _bert_step(mx, model, tr, ce, batch, True), batch, 1,
+            BERT_B * BERT_S, ("flash_fwd_bf16", "flash_bwd_bf16",
+                              "flash_bwd_dq_bf16", "layer_norm_bf16"))[0]
+        # the gradients reduced inside the graph: every replay (the
+        # CAPTURE_STEPS steps and the profiled one) counts their bytes
+        psum_bytes = psum.value - psum0
+        check(psum_bytes == (CAPTURE_STEPS + 1) * b["grad_bytes"],
+              f"bert dp bf16 captured: in_graph_psum {psum_bytes} bytes, "
+              f"want {CAPTURE_STEPS + 1} x {b['grad_bytes']}")
+        log(f"bert dp bf16 captured: in_graph_psum {psum_bytes} bytes in "
+            f"{CAPTURE_STEPS + 1} replays")
+        # (c) two towers, (d) NCCL inside a graph
+        _restore(torch, model, start)
+        _dp_towers(mx, torch, model, batch)
+        _dp_nccl_graph(mx, torch, mesh)
+    finally:
+        mx.kvstore.reset_distributed()
+    del model, batch, runs, start
+    torch.cuda.empty_cache()
+    return launches, cap_launches
+
+
 def _nmt_loss(mx, model, ce, bench):
     def loss_fn(src, tgt, lab, vl):
         logits = model(src, tgt, vl)
@@ -5755,7 +6179,7 @@ def _amp_step(mx, trainer, loss_fn, batch, batch_size):
 def phase_amp_f16(mx, torch, init_file):
     """float16 AMP (`amp.init("float16")`, MXNet's original AMP mode)
     training at full width through Gluon, eager and captured, each
-    through `_captured_vs_eager` (three eager runs of CAPTURE_STEPS steps
+    through `_captured_vs_eager` (five eager runs of CAPTURE_STEPS steps
     and one captured run, from the same weights, a fresh trainer and
     scaler each): (a) `BERTForPretraining(bert_base(max_length=512))`
     from `mx.random.seed(0)` at bench_bert.py's shape (B=16, S=512, 76
@@ -6524,9 +6948,219 @@ def _sp_rank(rank, world, port, out_dir):
         mx.kvstore.reset_distributed()
 
 
+# `--ranks N`, phase 11d over N ranks: each form's weights after
+# BERT_STEPS steps against the one-rank run on the global batch, per
+# parameter in norm: at most DP_RANKS_RATIO of how far that run moved the
+# parameter, plus 2^-7 of its norm (a bf16 ulp where an element sits at
+# the bottom of its binade: the ranks' reduction sums bf16 gradients in
+# another order than one backward over all the rows). An embedding table
+# (DP_RANKS_TABLES) adds twice the one-rank run's distance from an fp32
+# copy of the model trained the same way: its backward adds thousands of
+# rows into a few bf16 rows, where small addends are lost (the token-type
+# table adds 32768 rows into two in the one-rank run, 8192 a rank here;
+# it was 1.105x its limit without that term, every other parameter
+# below, on four H100s), so the one-rank run is no exact yardstick
+# there, and the bf16 parity rule (twice the reference's distance from
+# fp32, plus an ulp) measures how far off it is. Every form's losses
+# (the global batch's: the eager ranks' means all-reduced) within
+# DP_RANKS_LOSS_RTOL of the one-rank run's: a gradient off by a factor
+# would move them by about as much as the 10 steps do (1 %)
+DP_RANKS_RATIO = 0.5
+DP_RANKS_LOSS_RTOL = 2.0 ** -8
+DP_RANKS_TABLES = ("word_embed", "token_type_embed", "position")
+
+
+def _dp_rank_runs(mx, torch, world, rank):
+    """11d over `world` ranks on the default group, this rank's part: the
+    eager store path on its BERT_B rows (`step(world)`: each rank's loss
+    is its rows' mean; the global loss is their all-reduced mean), the
+    captured step over a `dp` store fed the global batch (each rank cuts
+    its rows, `global_batch=True`; 'mean'), and `sharded_update=True`
+    fed this rank's rows; rank 0 also runs the one-rank reference on the
+    global batch, and an fp32 copy of it for the embedding tables, and
+    measures every form against it. Checks nothing (`dp_ranks_main`
+    does, once every rank has ended): returns a JSON-able dict."""
+    import hashlib
+    mesh = mx.parallel.make_mesh({"dp": world})
+    ctx = mesh.device
+    mx.random.seed(0)
+    model = _bert_pretraining(mx)
+    model.initialize(ctx=ctx)
+    model.cast("bfloat16")
+    start = {n: t.clone() for n, t in _param_tensors(model).items()}
+    glob = _bert_batch(mx, BERT_B * world, BERT_S, ctx)
+    mine = [mx.nd.NDArray(a._data[rank * BERT_B:(rank + 1) * BERT_B])
+            for a in glob]
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn = _bert_bench_loss(mx, model, ce)
+    out, weights = {"rank": rank, "device": str(ctx)}, {}
+
+    def eager_step(tr):
+        with mx.autograd.record():
+            loss = loss_fn(*mine)
+        loss.backward()
+        tr.step(world)
+        # the global batch's loss: the mean of the ranks' means
+        total = loss._data.detach().float().clone()
+        torch.distributed.all_reduce(total)
+        return mx.nd.NDArray(total / world)
+
+    for form in ("eager", "captured", "sharded"):
+        _restore(torch, model, start)
+        tr = _dp_trainer(mx, model, "dist_sync")
+        if form == "eager":
+            step = lambda: eager_step(tr)        # noqa: E731
+        else:
+            tr._kvstore.set_mesh(mesh)
+            cap = tr.capture(loss_fn, sharded_update=form == "sharded")
+            if form == "captured":
+                step = lambda cap=cap: cap(      # noqa: E731
+                    *glob, batch_size=1, global_batch=True)
+            else:
+                step = lambda cap=cap: cap(*mine, batch_size=1)  # noqa: E731
+        t_form = time.perf_counter()
+        losses = [float(step()._data.detach()) for _ in range(BERT_STEPS)]
+        log(f"dp rank {rank}: {form}, {BERT_STEPS} steps in "
+            f"{time.perf_counter() - t_form:.1f} s")
+        weights[form] = {n: t.clone() for n, t in
+                         _param_tensors(model).items()}
+        h = hashlib.sha256()
+        for t in weights[form].values():
+            h.update(t.reshape(-1).view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        out[form] = dict(losses=losses, digest=h.hexdigest(), state_bytes=sum(
+            s._data.numel() * s._data.element_size()
+            for st in tr._updater.states.values() for s in st),
+            fallback=None if form == "eager" else cap.last_fallback_reason)
+    # what ZeRO keeps: 1/P of every momentum whose dim 0 splits over P
+    out["sharded_state_bytes_want"] = sum(
+        (p.data()._data.numel() * 2) // (
+            world if p.data().shape[0] % world == 0 else 1)
+        for p in model.collect_params().values())
+    if rank == 0:
+        _restore(torch, model, start)
+        tr = _dp_trainer(mx, model, None)
+        ref = [float(_bert_step(mx, model, tr, ce, glob, True)
+                     ._data.detach()) for _ in range(BERT_STEPS)]
+        ref_w = _param_tensors(model)
+        # the fp32 copy from the same start, trained the same way
+        f32 = _bert_pretraining(mx)
+        f32.initialize(ctx=ctx)
+        for p, (n, q) in zip(f32._collect_params_with_prefix().values(),
+                             start.items()):
+            p.set_data(mx.nd.NDArray(q.float()))
+        tr32 = _dp_trainer(mx, f32, None)
+        for _ in range(BERT_STEPS):
+            _bert_step(mx, f32, tr32, ce, glob, True)
+        ref32 = {n: t.double() for n, t in zip(
+            start, _param_tensors(f32).values())}
+        del f32, tr32
+        worst, table_err = {}, {}
+        for n in ref_w:
+            if any(k in n for k in DP_RANKS_TABLES):
+                table_err[n] = float((ref_w[n].double() - ref32[n]).norm())
+        for form, ws in weights.items():
+            worst[form] = (0.0, "")
+            for n, w in ws.items():
+                moved = float((ref_w[n].double() - start[n].double()).norm())
+                lim = DP_RANKS_RATIO * moved + 2.0 * table_err.get(
+                    n, 0.0) + 2.0 ** -7 * float(ref_w[n].double().norm())
+                d = float((w.double() - ref_w[n].double()).norm())
+                worst[form] = max(worst[form], (d / lim if lim else 0.0, n))
+        out["reference_losses"] = ref
+        out["table_distance_from_fp32"] = table_err
+        out["worst_share_of_limit"] = worst
+    del model, weights, start
+    if ctx.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(rank, world, port, out_dir):
+    """One NCCL rank of `--ranks N`'s phase 11d: writes its result, or
+    its traceback and exits at once (a rank that left would hold the
+    others in their next collective)."""
+    import traceback
+    sys.path.insert(0, HERE)
+    import torch
+    import mxnet_tpu_torch as mx
+    # phase_build's settings (the parent built the kernels)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mx.kvstore.init_distributed(f"127.0.0.1:{port}", world, rank)
+        check(torch.cuda.current_device() == rank
+              and torch.distributed.get_backend() == "nccl",
+              f"dp rank {rank} on cuda:{torch.cuda.current_device()}")
+        res = _dp_rank_runs(mx, torch, world, rank)
+        res["nccl_graph_kernels"] = _dp_nccl_graph(
+            mx, torch, mx.parallel.make_mesh({"dp": world}))
+        with open(os.path.join(out_dir, f"dp_rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"dp_rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.stdout.flush()
+        os._exit(1)
+    mx.kvstore.reset_distributed()
+
+
+def dp_ranks_main(mx, torch, world):
+    """`--ranks N`'s phase 11d: N NCCL ranks, one card each; then the
+    checks: no fallback, every form's weights the same bits on every
+    rank, the sharded state 1/N of each momentum whose dim 0 splits over
+    N, every form within its limit of the one-rank run, NCCL's kernels
+    in the graph. Returns the ranks' results."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as out_dir:
+        try:
+            mp.start_processes(_dp_rank, args=(world, _free_port(), out_dir),
+                               nprocs=world, start_method="spawn")
+        except Exception as e:
+            errs = {f: open(os.path.join(out_dir, f)).read()
+                    for f in sorted(os.listdir(out_dir))
+                    if f.endswith(".err")}
+            check(False, f"dp {world} ranks: {e}; {errs}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"dp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    r0 = ranks[0]
+    log(f"dp {world} ranks: " + json.dumps(r0))
+    for form in ("eager", "captured", "sharded"):
+        digests = {r[form]["digest"] for r in ranks}
+        check(len(digests) == 1, f"dp {world} ranks, {form}: the ranks' "
+                                 f"weights differ ({len(digests)} digests)")
+        check(all(r[form]["fallback"] is None for r in ranks),
+              f"dp {world} ranks, {form}: fell back "
+              f"{[r[form]['fallback'] for r in ranks]}")
+        share, name = r0["worst_share_of_limit"][form]
+        check(share <= 1.0, f"dp {world} ranks, {form}: {name} at "
+                            f"{share:.3f} of its limit from the one-rank "
+                            f"run on the global batch")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            r0[form]["losses"], r0["reference_losses"]))
+        check(rel <= DP_RANKS_LOSS_RTOL, f"dp {world} ranks, {form}: "
+              f"losses {rel:.3e} from the one-rank run's")
+    for r in ranks:
+        check(r["sharded"]["state_bytes"] == r["sharded_state_bytes_want"],
+              f"dp rank {r['rank']}: sharded state "
+              f"{r['sharded']['state_bytes']} bytes, want "
+              f"{r['sharded_state_bytes_want']}")
+    log(f"dp {world} ranks: every form's weights equal on every rank; "
+        f"optimizer state a rank {r0['captured']['state_bytes']} bytes "
+        f"replicated, {r0['sharded']['state_bytes']} sharded ("
+        f"{r0['sharded']['state_bytes'] / r0['captured']['state_bytes']:.3f}"
+        f"); worst share of the limit from the one-rank run "
+        f"{r0['worst_share_of_limit']}; NCCL kernels in a replay "
+        f"{r0['nccl_graph_kernels']}")
+    return ranks
+
+
 def sp_ranks_main(mx, torch, world):
     """`--ranks N`: the long-context example over N NCCL ranks, one card
-    each (one process a rank, spawned and joined here)."""
+    each (one process a rank, spawned and joined here), then phase 11d
+    over N ranks (`dp_ranks_main`)."""
     import torch.multiprocessing as mp
     check(torch.cuda.device_count() >= world,
           f"--ranks {world} needs {world} cards, have "
@@ -6545,13 +7179,14 @@ def sp_ranks_main(mx, torch, world):
             f"FLASH_TOL / BWD_TOL of flash_attention and {BWD_F64_RATIO}x "
             f"the plain version's distance from float64, worst abs err "
             f"{r['max_abs_err']:.3e}; launches {r['launches']}")
+    dp = dp_ranks_main(mx, torch, world)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    print(json.dumps({"sp_ranks": ranks}), flush=True)
+    print(json.dumps({"sp_ranks": ranks, "dp_ranks": dp}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -7029,9 +7664,11 @@ def _sdpa_backend(torch, fn):
     return "math"
 
 
-def _wide_times(mx, torch, g, dtype, d):
+def _wide_times(mx, torch, g, dtype, d, shift=False):
     """The wide kernels at (WIDE_B, WIDE_H, WIDE_S, d), causal, by CUDA-
-    graph replay: each kernel (as `flash_wide_plan` launches it), the
+    graph replay (`shift`: q one element off 16-byte alignment, as
+    `_wide_check` makes it, so that the kernels copy its rows element by
+    element): each kernel (as `flash_wide_plan` launches it), the
     backward pair, the plain versions, SDPA's forward and backward
     (fwd+bwd - fwd) in the same dtype and the backend it picks, and each
     kernel's bound (each input read and output written once at 3.35 TB/s
@@ -7042,6 +7679,12 @@ def _wide_times(mx, torch, g, dtype, d):
     F = torch.nn.functional
     b, h, s = WIDE_B, WIDE_H, WIDE_S
     q, k, v, do = _lowp_qkv(torch, g, b, h, s, s, d, n=4, dtype=dtype)
+    if shift:
+        base = torch.randn(b * h * s * d + 1, generator=g).to(
+            q.device).to(dtype)
+        q = base[1:].view(b, h, s, d)
+        check(q.data_ptr() % 16 != 0 and K._vec_copies(d, q, k, v, do) == 0,
+              f"wide times D={d}: q not misaligned")
     scale = d ** -0.5
     out, lse = K.flash_attention_fwd(q, k, v, True, scale)
     delta = (out.float() * do.float()).sum(-1).reshape(b * h, s).contiguous()
@@ -7211,25 +7854,28 @@ def phase_flash_wide(mx, torch):
                 (WIDE_SHIFT_D, True)]:
             for causal, lens in ((True, None), (False, WIDE_LENS)):
                 case(d, causal, lens, shift)
-            if d == WIDE_BIG_D or shift:
+            # the misaligned q is timed in bf16 (the path's dtype), its
+            # bound the aligned D = 256 row's
+            if d == WIDE_BIG_D or (shift and dtype != torch.bfloat16):
                 continue
-            t = _wide_times(mx, torch, g, dtype, d)
+            t = _wide_times(mx, torch, g, dtype, d, shift)
+            at = f"D{d}" + ("_misaligned_q" if shift else "")
             for kind in worst:
                 plain = t["plain_fwd_ms"] if kind == "fwd" \
                     else t["plain_bwd_ms"]
                 lib = t["sdpa_fwd_ms"] if kind == "fwd" else (
                     t["sdpa_bwd_ms"] if kind == "bwd_dkv" else None)
-                per_shape[kind][f"D{d}"] = dict(
+                per_shape[kind][at] = dict(
                     ms=t["ms"][kind], bound_ms=t["bounds"][kind][0],
                     bound_by=t["bounds"][kind][1], plain_ms=plain,
                     library_ms=lib, sdpa_backend=t["sdpa_backend"],
                     pairs=t["pairs"], plan=t["plans"][WIDE_PLAN_OF[kind]])
             for kind in ("bwd_dkv", "bwd_dq"):
-                per_shape[kind][f"D{d}"]["pair_ms"] = t["ms"]["pair"]
-                per_shape[kind][f"D{d}"]["pair_over_sdpa_bwd"] = \
+                per_shape[kind][at]["pair_ms"] = t["ms"]["pair"]
+                per_shape[kind][at]["pair_over_sdpa_bwd"] = \
                     t["ms"]["pair"] / t["sdpa_bwd_ms"]
-            log(f"flash_wide{sfx} D={d} times " + json.dumps(
-                {kind: per_shape[kind][f"D{d}"] for kind in worst}))
+            log(f"flash_wide{sfx} {at} times " + json.dumps(
+                {kind: per_shape[kind][at] for kind in worst}))
         for kind in worst:
             head = per_shape[kind]["D256"]
             rows[f"flash_wide_{kind}{sfx}"] = dict(
@@ -7251,7 +7897,7 @@ def phase_flash_wide(mx, torch):
 
 def capture_main(mx, torch):
     """`--capture`: the build and the fused-Trainer and captured-step
-    phases alone (fresh seed-0 weights for the NMT and ResNet phases in
+    phases alone (11d with them) (fresh seed-0 weights for the NMT and ResNet phases in
     place of phases 5 and 7's), for a quick check of the captured step;
     no kernels line and no `ok` line."""
     t_start = time.perf_counter()
@@ -7273,6 +7919,7 @@ def capture_main(mx, torch):
         phase_nmt_train_captured(mx, torch, nmt_init)
         phase_resnet_captured_bn(mx, torch, resnet_init)
     phase_bert_train_bf16_captured(mx, torch)
+    phase_bert_dp_bf16(mx, torch, None)
     phase_capture_guard(mx, torch)
     phase_train_fused(mx, torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7376,6 +8023,8 @@ def main(argv=()):
         phase_bert_wide_card_vs_cpu_bf16(mx, torch, bert_init)
         phase_train_fused(mx, torch)
         bert_cap_launches = phase_bert_train_bf16_captured(mx, torch)
+        dp_launches, dp_cap_launches = phase_bert_dp_bf16(
+            mx, torch, bert_bf16["tokens_per_s"])
         phase_capture_guard(mx, torch)
         amp_launches = phase_amp_f16(mx, torch, init_file)
     block_rows, lc_launches = phase_long_context(mx, torch)
@@ -7399,6 +8048,8 @@ def main(argv=()):
                    "bert_train_bf16": bert_bf16_launches[c],
                    "bert_pretrain_resume": resume_launches[c],
                    "bert_train_bf16_captured": bert_cap_launches[c],
+                   "bert_dp_bf16": dp_launches[c],
+                   "bert_dp_bf16_captured": dp_cap_launches[c],
                    "nmt_train_captured": nmt_cap_launches[c],
                    "nmt_train_bf16_captured": nmt_bf16_cap_launches[c],
                    "serve_cast": cast_launches[c],
@@ -7408,6 +8059,10 @@ def main(argv=()):
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         check(k["launches"] > 0, f"{k['name']} never launched on a path")
+        if c in DP_KERNELS:
+            check(by_path["bert_dp_bf16"] > 0
+                  and by_path["bert_dp_bf16_captured"] > 0,
+                  f"{k['name']} not launched on the store's paths")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -54,8 +54,13 @@ checksummed, async and emergency saves, `CheckpointManager`), and
 `image` (decode, resize, crops, the augmenters, `ImageIter`), `io`
 (`NDArrayIter`, `PrefetchingIter`, `ImageRecordIter`, ...),
 `contrib.io.DataLoaderIter` and the image-file datasets, on the port's
-own JPEG / PNG codec (`_imcodec`, `csrc/imcodec.cc` built with g++).
-ROADMAP.md lists what is still to be ported.
+own JPEG / PNG codec (`_imcodec`, `csrc/imcodec.cc` built with g++),
+and data parallelism: the key-value store (`mx.kv.create`, `KVStore`:
+push / pull / allreduce over NCCL, one process a card, gradient
+compression, the optimizer on the store), the Trainer's store path, a
+captured step that reduces across ranks (`sharded_update=True`: ZeRO-1),
+`parallel.make_train_step` / `DataParallelTrainer`, `shard_batch` and
+ZeRO checkpoints. ROADMAP.md lists what is still to be ported.
 """
 
 __version__ = "0.1.0"
@@ -70,6 +75,8 @@ from . import profiler
 from . import engine
 from . import fault
 from . import kvstore
+from . import kvstore as kv
+from .kvstore import KVStore
 from . import random
 from . import initializer
 from . import initializer as init
@@ -97,7 +104,8 @@ from . import rtc
 from . import serve
 
 __all__ = ["MXNetError", "base", "log", "context", "cpu", "gpu", "num_gpus",
-           "observability", "profiler", "fault", "kvstore", "random",
+           "observability", "profiler", "fault", "kvstore", "kv", "KVStore",
+           "random",
            "initializer", "init", "autograd", "ndarray", "nd", "ops",
            "amp", "parallel", "lr_scheduler", "metric", "optimizer", "gluon",
            "engine", "recordio", "image", "io", "prefetch", "checkpoint",

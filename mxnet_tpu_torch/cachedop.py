@@ -53,8 +53,38 @@ optimizer the fused update cannot reproduce (`optimizer`), a deferred
 initialisation (`deferred_init`), no gradients (`no_grads`), a host
 read inside `loss_fn` (`trace_error:CaptureHostRead`, on both devices)
 or another failure of the trial step (`trace_error:<type>`), a failed
-capture (`compile_error:<type>`). `sharded_update=True` raises
-(ROADMAP.md Queue 1 [5b]).
+capture (`compile_error:<type>`), the optimizer on the store
+(`update_on_kvstore`), a compressing store (`compression`), a
+multi-rank store without a mesh (`multiprocess`), a global batch whose
+rows do not split over the mesh (`batch_not_divisible`).
+
+Over a store with a mesh (`KVStore.capture_spec()` not None: an 'ici'
+store with a mesh attached, of one rank or more) the step is the JAX
+package's `shard_map` step, one process a rank: the batch is this rank's
+rows, as `parallel.shard_batch` and a prefetcher staging for the store
+hand them out (a tensor does not say which rows it holds, so a global
+batch that every rank holds is cut to this rank's rows only when the
+call says `global_batch=True`), the default `batch_size` is the global
+one (this rank's rows times P), and inside the graph
+the loss and every gradient are summed over the `dp` group by NCCL
+(`KVStore.graph_allreduce`), times 1/P with `grad_reduce="mean"` (for a
+loss that is the mean of this rank's rows), not with "sum". BatchNorm
+normalises with each rank's own statistics, and the running statistics
+are averaged over the ranks after the backward. `sharded_update=True`
+(ZeRO-1, arXiv:2004.13336; needs such a store) reduce-scatters each
+eligible gradient along dim 0 (`Optimizer.elementwise`, dim 0 a
+multiple of P), updates this rank's block of rows with the optimizer
+state it keeps for them (the state leaves become this rank's rows,
+marked `parallel._comm.sharded_leaf`, so that `Trainer.states_bytes`
+and checkpoints gather them), and all-gathers the weights; the other
+parameters take the replicated update in the same graph. The
+collectives run once in the trial step, before the capture, so that the
+group's communicator exists when the graph is recorded; each replay
+counts `kv_collective_bytes{op=in_graph_psum}` (or
+`in_graph_reduce_scatter`) with the gradients' bytes. The imperative
+fallback over such a store runs the eager store path on this rank's
+rows (gradients summed over the ranks; with "mean" the rescale takes
+the global batch times P, which makes it the captured step's).
 """
 from __future__ import annotations
 
@@ -77,6 +107,7 @@ from .observability import registry as _obs_registry
 from .observability import tracer as _tracer
 from .ops import kernels as _kernels
 from .optimizer import multi_tensor
+from .parallel import _comm
 
 __all__ = ["CachedStep", "jit_step"]
 
@@ -87,7 +118,8 @@ _fallback_counters = {}  # reason -> Counter cachedop_fallbacks{reason=}
 
 # cache-key layout; positions name a miss's reason
 _KEY_FIELDS = ("shape_change", "param_change", "state_change", "scale_mode",
-               "hyper_change", "autocast", "clip")
+               "hyper_change", "autocast", "mesh", "sharded", "grad_reduce",
+               "clip")
 
 # entries kept per CachedStep (an LRU): each holds a graph and its buffers
 _CACHE_MAX = 8
@@ -165,6 +197,16 @@ def _sig(t):
     return (tuple(t.shape), str(t.dtype), str(t.device))
 
 
+_NEEDS_MESH = ("sharded_update=True needs an 'ici' kvstore with a "
+               "multi-rank mesh attached (kvstore.set_mesh)")
+
+
+def _spec_of(trainer):
+    """The store's `capture_spec()` (None without a store or a mesh)."""
+    kv = trainer._kvstore
+    return None if kv is None else kv.capture_spec()
+
+
 def jit_step(trainer, loss_fn, **kwargs):
     """`trainer.capture(loss_fn, **kwargs)`:
 
@@ -191,19 +233,19 @@ class CachedStep:
     with a batch runs forward, backward, guard and fused update, and
     returns `loss_fn`'s output (the raw loss first) as NDArrays.
 
-    `grad_reduce` ('mean' or 'sum') states how a reduction over
-    data-parallel replicas would compose with the loss; with every
-    parameter on one device there is none to make."""
+    `grad_reduce` ('mean' or 'sum') states how the in-graph reduction
+    over a store's ranks composes with the loss (module docstring)."""
 
     def __init__(self, trainer, loss_fn, sharded_update=False,
                  grad_reduce="mean"):
         if grad_reduce not in ("mean", "sum"):
             raise MXNetError(f"grad_reduce must be 'mean' or 'sum', got "
                              f"{grad_reduce!r}")
-        if sharded_update:
-            raise MXNetError("capture(sharded_update=True) is not ported "
-                             "yet (ROADMAP.md, Queue 1 [5b]: distribution "
-                             "and sharding)")
+        kv = trainer._kvstore
+        if sharded_update and (kv is None or kv.type != "ici"):
+            raise MXNetError(_NEEDS_MESH)
+        self._sharded = bool(sharded_update)
+        self._grad_reduce = grad_reduce
         self._trainer = trainer
         self._loss_fn = loss_fn
         self._cache = OrderedDict()    # LRU: key -> _Entry or reason
@@ -223,15 +265,15 @@ class CachedStep:
         entry = self._cache.get(self._last_key)
         return entry.seconds if isinstance(entry, _Entry) else None
 
-    def __call__(self, *batch, batch_size=None):
+    def __call__(self, *batch, batch_size=None, global_batch=False):
         if _tracer.ACTIVE:
             with _tracer.span("Trainer.captured_step", cat="trainer",
                               args={"params": len(self._trainer._params),
                                     "cache_size": len(self._cache)}):
-                return self._call_impl(batch, batch_size)
-        return self._call_impl(batch, batch_size)
+                return self._call_impl(batch, batch_size, global_batch)
+        return self._call_impl(batch, batch_size, global_batch)
 
-    def _call_impl(self, batch, batch_size):
+    def _call_impl(self, batch, batch_size, global_batch):
         dev = self._device()
         if dev.type == "cuda":
             # a batch off the card is copied on the step's critical path
@@ -244,14 +286,19 @@ class CachedStep:
                         if isinstance(t, torch.Tensor) else 0)
         batch_nd = [b if isinstance(b, NDArray) else NDArray(
             torch.as_tensor(b, device=dev)) for b in batch]
-        if batch_size is None:
+        given = batch_size is not None
+        if not given:
             if not batch_nd or batch_nd[0].ndim == 0:
                 raise MXNetError("capture: pass batch_size= when the first "
                                  "batch argument has no leading batch dim")
             batch_size = int(batch_nd[0].shape[0])
         self.last_fallback_reason = None
+        spec = _spec_of(self._trainer)
         try:
-            return self._captured(batch_nd, batch_size)
+            if spec is not None:
+                batch_nd, batch_size = self._local_rows(
+                    spec, batch_nd, batch_size, given, global_batch)
+            return self._captured(batch_nd, batch_size, spec)
         except _CaptureUnsupported as e:
             self.last_fallback_reason = e.reason
             _fallback(e.reason)
@@ -262,7 +309,29 @@ class CachedStep:
                 warnings.warn(f"CachedStep: falling back to the imperative "
                               f"path ({e.reason}{cause})", RuntimeWarning,
                               stacklevel=3)
+            if spec is not None and self._grad_reduce == "mean":
+                # the eager store path sums each rank's mean-loss
+                # gradient: P times the global mean's
+                batch_size *= spec[2]
             return self._imperative(batch_nd, batch_size)
+
+    def _local_rows(self, spec, batch_nd, batch_size, given, global_batch):
+        """This rank's rows of each batch argument and the global batch
+        size (unless `given`): the batch is this rank's rows (its size
+        times P is the global one), or, with `global_batch`, the global
+        batch, cut here."""
+        mesh, axis, n = spec
+        if not global_batch:
+            return batch_nd, batch_size if given else batch_size * n
+        from .parallel.mesh import Sharding
+        sh = Sharding(mesh, (axis,))
+        out = []
+        for b in batch_nd:
+            t = b._data
+            if t.dim() == 0 or t.shape[0] % n:
+                raise _CaptureUnsupported("batch_not_divisible")
+            out.append(NDArray(sh.local_rows(t)))
+        return out, batch_size
 
     def _device(self):
         for p in self._trainer._params:
@@ -286,11 +355,21 @@ class CachedStep:
         return out
 
     # ------------------------------------------------------ captured path
-    def _captured(self, batch_nd, batch_size):
+    def _captured(self, batch_nd, batch_size, spec):
         tr = self._trainer
         opt = tr._optimizer
+        kv = tr._kvstore
+        if tr._update_on_kvstore:
+            raise _CaptureUnsupported("update_on_kvstore")
         if not multi_tensor.supports(opt):
             raise _CaptureUnsupported("optimizer")
+        if kv is not None and kv.type == "ici":
+            if kv._compression is not None:
+                raise _CaptureUnsupported("compression")
+            if spec is None and kv._group()[1] > 1:
+                raise _CaptureUnsupported("multiprocess")
+        if self._sharded and (spec is None or spec[2] <= 1):
+            raise MXNetError(_NEEDS_MESH)
         params = tr._params
         if any(p._deferred_init is not None for p in params):
             raise _CaptureUnsupported("deferred_init")
@@ -309,6 +388,10 @@ class CachedStep:
                 updater.states[i] = opt.create_state_multi_precision(
                     i, p.data())
             state_nds.append(tuple(updater.states[i]))
+        shard_ok = [self._shardable(spec, p, sv)
+                    for (_, p), sv in zip(diff, state_nds)]
+        if any(shard_ok):
+            state_nds = self._shard_states(spec, diff, state_nds, shard_ok)
 
         key = (
             tuple(_sig(b._data) for b in batch_nd),
@@ -322,6 +405,10 @@ class CachedStep:
             (multi_tensor._hyper_sig(opt),
              tuple(multi_tensor.hyper_groups(opt, [i for i, _ in diff]))),
             str(amp.autocast_dtype()),
+            None if spec is None else (spec[0].fingerprint(), spec[1],
+                                       spec[2]),
+            self._sharded,
+            self._grad_reduce,
             None if opt.clip_gradient is None else float(opt.clip_gradient),
         )
         entry = self._cache.get(key)
@@ -330,7 +417,8 @@ class CachedStep:
             profiler.record_jit_cache(False)
             self._last_key = key
             try:
-                entry = self._build(batch_nd, diff, state_nds, scale_mode)
+                entry = self._build(batch_nd, diff, state_nds, scale_mode,
+                                    spec, shard_ok)
             except _CaptureUnsupported as e:
                 # later steps with this signature go straight to the
                 # imperative path
@@ -347,6 +435,43 @@ class CachedStep:
         return self._dispatch(entry, batch_nd, diff, batch_size, scaler,
                               scale_mode)
 
+    def _shardable(self, spec, p, sv):
+        """Whether a parameter takes the sharded update: an elementwise
+        rule, dim 0 a multiple of P, and each state leaf the weight's
+        shape, 0-d, or this rank's rows of it already."""
+        if not self._sharded or spec is None:
+            return False
+        n = spec[2]
+        w = p.data()._data
+        if not (type(self._trainer._optimizer).elementwise and w.dim() >= 1
+                and w.shape[0] >= n and w.shape[0] % n == 0):
+            return False
+        rows = (w.shape[0] // n,) + tuple(w.shape[1:])
+        return all(tuple(s.shape) == tuple(w.shape) or s.ndim == 0
+                   or (tuple(s.shape) == rows
+                       and _comm.leaf_shard(s._data) is not None)
+                   for s in sv)
+
+    def _shard_states(self, spec, diff, state_nds, shard_ok):
+        """Replace each sharded parameter's whole state leaves by this
+        rank's rows of them (marked `sharded_leaf`), in the updater."""
+        mesh, axis, n = spec
+        group, me = mesh.group(axis), mesh.axis_index(axis)
+        states = self._trainer._updater.states
+        out = []
+        for (i, p), sv, ok in zip(diff, state_nds, shard_ok):
+            rows = p.data().shape[0] // n
+            if ok and any(s.ndim and _comm.leaf_shard(s._data) is None
+                          for s in sv):
+                sv = tuple(s if s.ndim == 0 or _comm.leaf_shard(s._data)
+                           is not None else NDArray(_comm.sharded_leaf(
+                               s._data.narrow(0, me * rows, rows).clone(),
+                               group, 0)) for s in sv)
+                states[i] = sv
+                self._trainer._zero_states = True
+            out.append(sv)
+        return out
+
     def _store(self, key, entry):
         while len(self._cache) >= _CACHE_MAX:
             self._cache.popitem(last=False)
@@ -362,33 +487,63 @@ class CachedStep:
         return "other"
 
     # ------------------------------------------------------------ build
-    def _build(self, batch_nd, diff, state_nds, scale_mode):
+    def _build(self, batch_nd, diff, state_nds, scale_mode, spec, shard_ok):
         t0 = time.perf_counter()
         tr = self._trainer
         opt = tr._optimizer
+        kv = tr._kvstore
         dev = batch_nd[0]._data.device if batch_nd else self._device()
         guard = scale_mode != "none"
         entry = _Entry()
         entry.guard = guard
         entry.static = [NDArray(b._data.detach().clone()) for b in batch_nd]
+        mesh = axis = None
+        n_rep = 1
+        if spec is not None:
+            mesh, axis, n_rep = spec
+            me = mesh.axis_index(axis)
+        mean = self._grad_reduce == "mean"
+        # each parameter's update tensors: the weight, or this rank's rows
+        # of it (a view) with the reduce-scattered gradient's buffer
+        upd_w, upd_g = {}, {}
+        for (i, p), ok in zip(diff, shard_ok):
+            w, g = p._data._data, p._grad._data
+            if ok:
+                rows = w.shape[0] // n_rep
+                upd_w[i] = w.narrow(0, me * rows, rows)
+                upd_g[i] = torch.empty((rows,) + tuple(g.shape[1:]),
+                                       dtype=g.dtype, device=g.device)
+            else:
+                upd_w[i], upd_g[i] = w, g
         cap = engine.get_bulk_size()
         buckets = multi_tensor.build_buckets(diff, cap)
         states_of = {i: st for (i, _), st in zip(diff, state_nds)}
         ups, base = [], _N_FIXED
         for bucket in buckets:
             up = multi_tensor.BucketUpdate(opt, bucket, unscale=False)
-            tensors = multi_tensor.bucket_tensors(
-                bucket, [states_of[i] for i, _ in bucket])
+            tensors = ([upd_w[i] for i, _ in bucket],
+                       [upd_g[i] for i, _ in bucket],
+                       [tuple(s._data for s in states_of[i])
+                        for i, _ in bucket])
             ups.append((up, tensors, base))
             base += up.n_scalars()
         entry.ups = ups
         entry.scal = multi_tensor.DeviceScalars(base, dev)
-        grads = [p._grad._data for _, p in diff]
+        grads = [upd_g[i] for i, _ in diff]
         by_dtype = {}
         for g in grads:
             by_dtype.setdefault(g.dtype, []).append(g)
-        targets = [p._data._data for _, p in diff] + \
+        targets = [upd_w[i] for i, _ in diff] + \
             [s._data for sv in state_nds for s in sv]
+        sharded = [(p._grad._data, upd_g[i], upd_w[i], p._data._data)
+                   for (i, p), ok in zip(diff, shard_ok) if ok]
+        replicated = [p._grad._data for (_, p), ok in zip(diff, shard_ok)
+                      if not ok]
+        entry.coll = (0 if spec is None else sum(
+            p._grad._data.numel() * p._grad._data.element_size()
+            for _, p in diff),
+            "in_graph_reduce_scatter" if sharded else "in_graph_psum")
+        entry.aux = None        # running statistics, known after the trial
         loss_fn = self._loss_fn
         scal = entry.scal
 
@@ -405,6 +560,16 @@ class CachedStep:
             autograd.backward([head], cot)
             found = None
             with torch.no_grad():
+                if mesh is not None:
+                    for g in replicated:
+                        kv.graph_allreduce(g, axis, n_rep, mean=mean)
+                    for g, gs, _, _ in sharded:
+                        kv.graph_reduce_scatter(g, axis, n_rep, mean=mean,
+                                                out=gs)
+                    kv.graph_allreduce(head._data.detach(), axis, n_rep,
+                                       mean=mean)
+                    for t in entry.aux or ():
+                        kv.graph_allreduce(t, axis, n_rep, mean=True)
                 if guard:
                     # the poison marks the step itself: the check sees
                     # the gradients before their product with it
@@ -412,6 +577,9 @@ class CachedStep:
                     inv = scal.buf[_INV:_INV + 1]
                     for dt, gl in by_dtype.items():
                         _check_and_unscale(gl, dt, found, inv, scal)
+                    if sharded:
+                        # each rank checked its own rows
+                        kv.graph_allreduce(found, axis, n_rep)
                     skip = found[0] > 0
                     backup = [t.clone() for t in targets]
                 for up, tensors, b in ups:
@@ -419,6 +587,8 @@ class CachedStep:
                 if guard:
                     for t, k in zip(targets, backup):
                         torch.where(skip, k, t, out=t)
+                for _, _, wl, w in sharded:
+                    kv.graph_all_gather(wl, axis, out=w)
             return [x._data for x in leaves], build, found
 
         entry.program = program
@@ -480,6 +650,8 @@ class CachedStep:
         finally:
             _nd._capturing[0] = False
             _block._aux_undo[0] = None
+            if entry.aux is None:
+                entry.aux = [p.data()._data for p, _ in undo.values()]
             if side is not None:
                 torch.cuda.current_stream(dev).wait_stream(side)
             with torch.no_grad():
@@ -500,8 +672,13 @@ class CachedStep:
         launches = dict(_kernels.LAUNCHES)
         dispatches = {k: c.value for k, c in profiler._dispatch.items()}
         _nd._capturing[0] = True
+        # with NCCL collectives in the graph, other threads (the process
+        # group's watchdog) keep making CUDA calls while it is captured:
+        # only this thread's calls are held to the capture's rules
+        mode = "thread_local" if entry.coll[0] else "global"
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode=mode):
                 outs = entry.program()
         except _nd.CaptureHostRead as e:
             raise _CaptureUnsupported(f"trace_error:{type(e).__name__}") \
@@ -543,6 +720,9 @@ class CachedStep:
                   if _finj.ENABLED and _finj.should_fire("grad.nan")
                   else 1.0)
         profiler.record_dispatch("captured_step")
+        if entry.coll[0]:
+            from . import kvstore as _kvs
+            _kvs._count_collective(entry.coll[1], entry.coll[0])
         for s, b in zip(entry.static, batch_nd):
             if s._data is not b._data:
                 s._data.copy_(b._data)

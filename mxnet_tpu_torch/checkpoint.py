@@ -36,8 +36,14 @@ for bit. The manifest keeps the JAX package's schema (``step``,
 ``[]``, unsharded — and ``quantization``). A checkpoint the JAX package
 wrote does not restore here: its ``state/`` is Orbax's (a tensorstore
 layout), and neither Orbax nor tensorstore is on the card's machine;
-its manifest, extras and health journal read as usual. Sharded and
-tiered leaves raise (ROADMAP.md Queue 1 [5b] / [5d]).
+its manifest, extras and health journal read as usual. A ZeRO leaf
+(this rank's block of an optimizer state, `parallel._comm.
+sharded_leaf`) is gathered whole, a collective every rank of its group
+joins, and written as an unsharded leaf; under a multi-rank default
+group only rank 0 writes (and prunes). Restoring into a ZeRO leaf takes
+this rank's block of the saved whole, so a step saved at one number of
+ranks restores at any other, as the JAX package's global arrays do.
+DTensor and tiered leaves raise (ROADMAP.md Queue 1 [5d]).
 
 A restored run goes on as the uninterrupted one would, bit for bit,
 only where its steps are themselves repeatable: with dropout 0 (or the
@@ -202,9 +208,12 @@ def _leaf_tensor(leaf):
     if getattr(leaf, "_tiered_state", None) is not None:
         raise _unported("tiered embedding tables", "[5d]")
     if hasattr(leaf, "placements") and hasattr(leaf, "device_mesh"):
-        raise _unported("a leaf sharded over a mesh", "[5b]")
+        raise _unported("a DTensor leaf (rule-driven sharding)", "[5d]")
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach()
+        from .parallel import _comm
+        mark = _comm.leaf_shard(leaf)
+        t = leaf.detach()
+        return t if mark is None else _comm.sharded_leaf(t, *mark)
     return torch.as_tensor(np.asarray(leaf))
 
 
@@ -397,9 +406,12 @@ def _host_snapshot(params):
     device leaf by a synchronous copy on the current stream, a host
     leaf by a copy of its own, so that no later in-place update reaches
     the save. bfloat16 becomes its 2-byte patterns (numpy void, V2)."""
+    from .parallel import _comm
     out = []
     for path, leaf in _flatten_with_path(params):
         t = _leaf_tensor(leaf)
+        if _comm.leaf_shard(t) is not None:
+            t = _comm.gather_leaf(t)
         host = t.to("cpu") if t.device.type != "cpu" else t.clone()
         if host.dtype == torch.bfloat16:
             arr = host.contiguous().view(torch.int16).numpy().view("V2")
@@ -415,6 +427,13 @@ def _write_state(root, snapshot):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:
             np.save(f, arr, allow_pickle=False)
+
+
+def _writer():
+    """Whether this process writes checkpoints: any process outside a
+    multi-rank default group, else rank 0 alone."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def save_sharded(directory, step, params, _async=False, extras=None,
@@ -447,6 +466,9 @@ def save_sharded(directory, step, params, _async=False, extras=None,
     elif quantization is False:
         quantization = None
     snapshot = _host_snapshot(params)
+    if not _writer():
+        # the other ranks joined the gathers; rank 0 writes the step
+        return engine.inline_future(lambda: final) if _async else final
     extras = {k: bytes(v) for k, v in (extras or {}).items()}
     for name in extras:
         if os.sep in name or name in (MANIFEST_NAME, STATE_DIR):
@@ -507,8 +529,20 @@ def save_sharded(directory, step, params, _async=False, extras=None,
 def _restore_leaf(arr, like, name):
     """One saved array as the template leaf `like`: its dtype, device and
     kind (NDArray, tensor or numpy)."""
+    from .parallel import _comm
     t = _tensor(arr)
     want = _leaf_tensor(like)
+    mark = _comm.leaf_shard(want)
+    if mark is not None:
+        import torch.distributed as dist
+        group, dim = mark
+        n = dist.get_world_size(group)
+        k = t.shape[dim] // n if t.dim() > dim else 0
+        if k * n != (t.shape[dim] if t.dim() > dim else -1):
+            raise MXNetError(f"checkpoint leaf {name!r} of shape "
+                             f"{tuple(t.shape)} does not split over {n} "
+                             f"ranks on dim {dim}")
+        t = t.narrow(dim, dist.get_rank(group) * k, k)
     if tuple(t.shape) != tuple(want.shape):
         raise MXNetError(f"checkpoint leaf {name!r} has shape "
                          f"{tuple(t.shape)}, the template {tuple(want.shape)}")
@@ -517,6 +551,8 @@ def _restore_leaf(arr, like, name):
     if isinstance(like, np.ndarray):
         return t.numpy()
     t = t.to(want.device)
+    if mark is not None:
+        t = _comm.sharded_leaf(t.contiguous(), *mark)
     return NDArray(t) if isinstance(like, NDArray) else t
 
 
@@ -646,8 +682,12 @@ class CheckpointManager:
             extras[HEALTH_NAME] = json.dumps(health).encode()
         if not _async:
             path = save_sharded(self.directory, step, params, extras=extras)
-            self._prune(step)
+            if _writer():
+                self._prune(step)
             return path
+        if not _writer():
+            return save_sharded(self.directory, step, params, _async=True,
+                                extras=extras)
         from . import engine
         fut = save_sharded(self.directory, step, params, _async=True,
                            extras=extras, _group=self._group)

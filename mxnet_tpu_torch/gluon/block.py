@@ -40,11 +40,21 @@ __all__ = ["Block", "HybridBlock"]
 _aux_undo = [None]
 
 
+# while `parallel.functional_call` runs a block: where the auxiliary
+# updates go instead of their parameters, {Parameter: new tensor}
+_aux_sink = [None]
+
+
 def _report_aux_update(param, new_value):
     """Write a layer's new auxiliary state (BatchNorm's running
     statistics) into its parameter, in place and outside autograd: the
     JAX package rebinds the array, and its traced path returns the
-    update instead (`mxnet_tpu/gluon/block.py:154`)."""
+    update instead (`mxnet_tpu/gluon/block.py:154`), as
+    `parallel.functional_call` does here."""
+    sink = _aux_sink[0]
+    if sink is not None:
+        sink[param] = new_value.detach()
+        return
     undo = _aux_undo[0]
     if undo is not None and id(param) not in undo:
         undo[id(param)] = (param, param.data()._data.detach().clone())

@@ -181,7 +181,9 @@ class BatchNorm(HybridBlock):
     normalises with the batch statistics and moves `running_mean` /
     `running_var` towards them; otherwise the running statistics
     normalise. The running statistics are `grad_req="null"` parameters,
-    so the Trainer never updates them."""
+    so the Trainer never updates them. Under `nn_ops.sync_batch_norm(g)`
+    (what `parallel.make_train_step` over a mesh installs) the batch
+    statistics are those of every rank of `g`."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, in_channels=0,
@@ -228,7 +230,7 @@ class BatchNorm(HybridBlock):
         def bn(a, g, b, mm, mv):
             y, new["mean"], new["var"] = nn_ops.batch_norm(
                 a, g, b, mm, mv, self._epsilon, self._momentum, training,
-                self._axis)
+                self._axis, group=nn_ops.sync_group())
             return y
         out = _apply(bn, [x, gamma, beta, running_mean, running_var])
         if training:

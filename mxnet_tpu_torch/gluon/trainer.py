@@ -16,12 +16,24 @@ counts into `trainer_steps_skipped` and the streak
 `consecutive_skipped_steps`; more than `max_skipped_steps` in a row
 raise. The `grad.nan` fault point poisons every gradient in `step`.
 
+The store (`kvstore=`, any kind `kvstore.create` takes, or a KVStore)
+carries the gradients across ranks. Each rank's gradient is its own (the
+sum or mean over its own rows, as its loss says); on a cross-rank store
+('dist_sync', 'ici', ...; one process a card) `allreduce_grads` sums it
+over the store's group, one `allreduce_flat` a fused bucket (one a
+parameter unfused), and `step(batch_size)` rescales by 1/batch_size, so
+the caller passes the global batch size, as with MXNet's dist_sync. On
+'local' / 'device', or a group of one, there is nothing to sum. The
+eager path keeps BatchNorm's statistics per rank. `update_on_kvstore=
+True` runs the optimizer on the store (push the reduced gradient, pull
+the weight back; per parameter, as in the JAX package), and
+`compression_params` configures the store's gradient compression, which
+engages on its stacked pushes (`kvstore.set_gradient_compression`).
+
 `capture(loss_fn)` returns the whole step as one `cachedop.CachedStep`
-(a CUDA graph on the card). Every parameter lives once, on its own
-device, so the `"device"`, `"local"` and `None` key-value stores are the
-same no-op store and `allreduce_grads()` has nothing to do. The
-distributed stores, updates on the store, gradient compression, sharded
-updates and `shard()` raise, naming their ROADMAP.md item.
+(a CUDA graph on the card), with the gradient reduction inside the graph
+over a store that has a mesh (`KVStore.capture_spec`). `shard()`,
+`resize_mesh()` and shard plans raise (ROADMAP.md Queue 1 [5d]).
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ import time
 import torch
 
 from .. import amp, engine, profiler
+from .. import kvstore as kvs_mod
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..fault import injection as _finj
@@ -41,8 +54,6 @@ from ..optimizer import multi_tensor
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
-
-_LOCAL_STORES = (None, "device", "local")
 
 _reg = _obs_registry()
 _steps_counter = _reg.counter("trainer_steps")
@@ -73,25 +84,35 @@ class Trainer:
         if not isinstance(params, (list, tuple)):
             raise MXNetError("params must be a ParameterDict or a list of "
                              "Parameter")
-        if kvstore not in _LOCAL_STORES:
-            raise _unported(f"kvstore={kvstore!r}",
-                            "Queue 1 [5b]: distribution and sharding")
-        if update_on_kvstore:
-            raise _unported("update_on_kvstore=True",
-                            "Queue 1 [5b]: distribution and sharding")
-        if compression_params:
-            raise _unported("gradient compression",
-                            "Queue 1 [5b]: distribution and sharding")
         for p in params:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"invalid parameter {p}")
         self._params = list(params)
+        # int keys for the Trainer's updater, str keys for the store's
+        # (it stringifies them): lr_mult / wd_mult hit either way
         param_dict = {i: p for i, p in enumerate(self._params)}
+        param_dict.update({str(i): p for i, p in enumerate(self._params)})
         self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
                                          **(optimizer_params or {}))
-        self._fused = bool(fused) and multi_tensor.supports(self._optimizer)
+        self._fused = bool(fused) and not bool(update_on_kvstore) and \
+            multi_tensor.supports(self._optimizer)
         self._updater = opt_mod.get_updater(self._optimizer,
                                             fused=self._fused)
+        self._kvstore = kvs_mod.create(kvstore, device=self._param_device()) \
+            if kvstore else None
+        if compression_params:
+            if self._kvstore is None:
+                raise MXNetError("compression_params requires a kvstore")
+            self._kvstore.set_gradient_compression(compression_params)
+        self._update_on_kvstore = bool(update_on_kvstore)
+        if self._update_on_kvstore:
+            if self._kvstore is None:
+                raise MXNetError("update_on_kvstore=True requires a kvstore")
+            self._kvstore.set_optimizer(self._optimizer)
+        self._kv_keys = set()
+        # set once a captured sharded step keeps only this rank's rows of
+        # some optimizer states (`parallel._comm.sharded_leaf`)
+        self._zero_states = False
         self._buckets = None
         self._bucket_sig = None
         self._last_step_t = None
@@ -110,9 +131,59 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def _param_device(self):
+        """The device of the first parameter that has one (its data or
+        its deferred initialisation), else None (the card)."""
+        for p in self._params:
+            if p._data is not None:
+                return p._data._data.device
+            if p._deferred_init is not None:
+                return p._deferred_init[1]
+        return None
+
+    def _init_kvstore(self):
+        """Give the store a copy of each parameter it does not hold yet
+        (incremental: deferred parameters join once they exist). Only a
+        store that runs the optimizer holds the weights."""
+        if not self._update_on_kvstore:
+            return
+        for i, p in enumerate(self._params):
+            if i not in self._kv_keys and p._data is not None:
+                self._kvstore.init(i, p.data())
+                self._kv_keys.add(i)
+
+    def _reduces(self):
+        """Whether the gradients go through the store's collectives: an
+        'ici' store with a process group (of one rank too, where each
+        collective is an identity the card still runs)."""
+        kv = self._kvstore
+        return kv is not None and kv._group()[0] is not None
+
     def allreduce_grads(self):
-        """Aggregate gradients across devices: nothing to do, every
-        parameter lives once."""
+        """Sum every gradient over the store's ranks, in place: one
+        `allreduce_flat` a fused bucket, one a parameter unfused; nothing
+        on a local store or without a process group."""
+        if _tracer.ACTIVE:
+            with _tracer.span("Trainer.allreduce_grads", cat="trainer"):
+                return self._allreduce_grads_impl()
+        return self._allreduce_grads_impl()
+
+    def _allreduce_grads_impl(self):
+        if not self._reduces():
+            return
+        if self._fused:
+            groups = [[p for _, p in b] for b in
+                      self._get_buckets(self._updatable_pairs(True))]
+        else:
+            groups = [[p] for p in self._params
+                      if p.grad_req != "null" and p._grad is not None]
+        with torch.no_grad():
+            for ps in groups:
+                grads = [p._grad._data for p in ps]
+                torch._foreach_copy_(grads,
+                                     self._kvstore.allreduce_flat(grads))
+                if not self._fused:
+                    profiler.record_dispatch("allreduce")
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale the gradients by 1/batch_size and apply one update."""
@@ -135,12 +206,17 @@ class Trainer:
                 for p in self._params:
                     if p._grad is not None:
                         p._grad._data.mul_(float("nan"))
+        self._init_kvstore()
         self.allreduce_grads()
         self._apply_update(ignore_stale_grad)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Apply one update with rescale_grad 1/batch_size, behind the
         guard (no allreduce, no step count)."""
+        if self._update_on_kvstore:
+            raise MXNetError("update() cannot be called when "
+                             "update_on_kvstore=True: the store owns the "
+                             "optimizer; use step()")
         self._optimizer.rescale_grad = 1.0 / batch_size
         self._apply_update(ignore_stale_grad)
 
@@ -175,6 +251,8 @@ class Trainer:
 
     # ------------------------------------------------------------ update
     def _apply_update(self, ignore_stale_grad):
+        if self._zero_states:
+            self._unshard_states()
         if self._fused:
             self._fused_update(ignore_stale_grad)
             return
@@ -182,8 +260,23 @@ class Trainer:
             self._note_skip("AMP overflow / nonfinite gradients")
             return
         for i, p in self._updatable_pairs(ignore_stale_grad):
-            self._updater(i, p.grad(), p.data())
+            if self._update_on_kvstore:
+                # the gradient is reduced already: a replicated push
+                self._kvstore.push(i, [p.grad()], layout="replicated")
+                self._kvstore.pull(i, out=p.data())
+            else:
+                self._updater(i, p.grad(), p.data())
         self._note_applied()
+
+    def _unshard_states(self):
+        """Gather the states a captured sharded step left as this rank's
+        rows, for an eager update (a collective every rank joins)."""
+        from ..parallel import _comm
+        for k, v in self._updater.states.items():
+            if any(_comm.leaf_shard(s._data) is not None for s in v):
+                self._updater.states[k] = tuple(
+                    NDArray(_comm.gather_leaf(s._data)) for s in v)
+        self._zero_states = False
 
     def _guard_says_skip(self):
         """With AMP's loss scaler: unscale the gradients, judge the
@@ -272,15 +365,26 @@ class Trainer:
     def states_bytes(self):
         """The optimizer state as one bytes blob (what `save_states`
         writes): the update count and each parameter's state tensors, on
-        the host."""
-        states = {k: tuple(s._data.detach().cpu() for s in v)
+        the host; the store's blob when the store runs the optimizer. A
+        ZeRO-sharded state (`capture(sharded_update=True)`) is gathered
+        whole first, a collective every rank of its group joins, so the
+        blob restores at any number of ranks."""
+        if self._update_on_kvstore:
+            return self._kvstore.optimizer_states_bytes()
+        from ..parallel import _comm
+        states = {k: tuple(_comm.gather_leaf(s._data).detach().cpu()
+                           for s in v)
                   for k, v in self._updater.states.items()}
         return pickle.dumps({"num_update": self._optimizer.num_update,
                              "states": states})
 
     def load_states_bytes(self, blob):
         """Inverse of `states_bytes`: each state goes to its parameter's
-        device."""
+        device, whole (a captured sharded step takes its rows again at
+        its next call)."""
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states_bytes(blob)
+            return
         data = pickle.loads(blob)
         self._optimizer.num_update = data["num_update"]
         states = {}
@@ -310,10 +414,23 @@ class Trainer:
             for x, y in batches:
                 loss = step(x, y)
 
-        `sharded_update=True` raises (Queue 1 [5b])."""
+        Over a store with a mesh (`KVStore.capture_spec`) the batch is
+        this rank's rows (`step(..., global_batch=True)` cuts a global
+        batch that every rank holds) and the gradients are reduced inside
+        the graph (`grad_reduce` 'mean' or 'sum'); `sharded_update=True`
+        also shards the update (ZeRO-1) and needs such a store over more
+        than one rank."""
         from ..cachedop import CachedStep
         return CachedStep(self, loss_fn, sharded_update=sharded_update,
                           grad_reduce=grad_reduce)
 
+    @property
+    def shard_plan(self):
+        """The store's rule-driven shard plan: none in the port ([5d])."""
+        return None
+
     def shard(self, *args, **kwargs):
-        raise _unported("shard()", "Queue 1 [5b]: distribution and sharding")
+        raise _unported("shard()", "Queue 1 [5d]: rule-driven sharding")
+
+    def resize_mesh(self, *args, **kwargs):
+        raise _unported("resize_mesh()", "Queue 1 [5d]: rule-driven sharding")

@@ -9,7 +9,16 @@ here they are PyTorch: the convolution is `F.conv2d` (cuDNN on the
 card) and pooling `F.max_pool2d` / `F.avg_pool2d`. BatchNorm keeps the
 JAX package's numerics as a `torch.autograd.Function`: a one-pass
 forward shifted by the running mean, and the hand-fused two-pass
-backward of `_bn_train_vjp_bwd`.
+backward of `_bn_train_vjp_bwd`. With a process group (`group=`, or
+the one `sync_batch_norm(group)` installs) the statistics are the global
+batch's: each rank's sums of x - shift, of its square and its row count
+are all-reduced in the forward, and the backward's two sums (of dy and
+of dy * xhat) before dx; the gradients of gamma and beta stay this
+rank's own, for the caller's gradient reduction to sum. Which path uses
+which statistics: `parallel.make_train_step` over a mesh synchronises
+them (the JAX step is one global-view program); the eager store path
+and the captured step over a store keep them per rank, as MXNet's
+multi-device training and the JAX `shard_map` step do.
 
 Layouts are the JAX package's: data `NCHW` or `NHWC`, and a weight
 `(O, I, kh, kw)` for NCHW or `(O, kh, kw, I)` for NHWC. NHWC tensors
@@ -19,13 +28,41 @@ gradients come back in the stored layout. Only 2-D windows are ported;
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
 
 __all__ = ["amp_cast", "promote", "convolution", "stem_conv_s2d",
-           "pooling", "global_pooling", "batch_norm"]
+           "pooling", "global_pooling", "batch_norm", "sync_batch_norm",
+           "sync_group"]
+
+# the process group BatchNorm layers synchronise their statistics over
+# (`sync_batch_norm`), or None
+_SYNC = [None]
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group):
+    """Within the block, training-mode BatchNorm layers take their batch
+    statistics over every rank of `group` (None: per rank)."""
+    prev, _SYNC[0] = _SYNC[0], group
+    try:
+        yield
+    finally:
+        _SYNC[0] = prev
+
+
+def sync_group():
+    """The group `sync_batch_norm` installed, or None."""
+    return _SYNC[0]
+
+
+def _all_reduce(t, group):
+    from ..parallel import _comm
+    return _comm.all_reduce(t, group)
 
 _LAYOUTS = ("NCHW", "NHWC")
 
@@ -171,22 +208,34 @@ class _BNTrain(torch.autograd.Function):
     its precision when |mean| >> std, where E[x^2] - E[x]^2 would not
     (docs/PERF.md "Variance numerics"); clamped at 0. The statistics
     carry no gradient; the backward is the closed form of
-    `_bn_train_vjp_bwd`, not autograd of the forward."""
+    `_bn_train_vjp_bwd`, not autograd of the forward. `group` (a process
+    group of more than one rank, or None) makes the statistics the
+    global batch's (module docstring)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, shift, axis, eps):
+    def forward(ctx, x, gamma, beta, shift, axis, eps, group=None):
         shape, axes = _bn_shape(x, axis)
         xf = x.float()
         sf = shift.detach().float().reshape(shape)
         xc = xf - sf
-        m1 = xc.mean(dim=axes)
-        var = ((xc * xc).mean(dim=axes) - m1 * m1).clamp_min(0.0)
+        if group is None:
+            n = x.numel() // x.shape[axis]
+            m1 = xc.mean(dim=axes)
+            m2 = (xc * xc).mean(dim=axes)
+        else:
+            c = x.shape[axis]
+            sums = torch.cat([xc.sum(dim=axes), (xc * xc).sum(dim=axes),
+                              xc.new_full((1,), x.numel() // c)])
+            _all_reduce(sums, group)
+            n = sums[-1]
+            m1, m2 = sums[:c] / n, sums[c:2 * c] / n
+        var = (m2 - m1 * m1).clamp_min(0.0)
         mean = m1 + sf.reshape(-1)
         inv = torch.rsqrt(var + eps)
         y = ((xf - mean.reshape(shape)) * inv.reshape(shape)
              * gamma.float().reshape(shape) + beta.float().reshape(shape))
         ctx.save_for_backward(x, gamma, mean, inv)
-        ctx.axis = axis
+        ctx.axis, ctx.group, ctx.n = axis, group, n
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
@@ -194,27 +243,36 @@ class _BNTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, gamma, mean, inv = ctx.saved_tensors
         shape, axes = _bn_shape(x, ctx.axis)
-        n = x.numel() // x.shape[ctx.axis]
+        n = ctx.n
         dyf = dy.float()
         xhat = (x.float() - mean.reshape(shape)) * inv.reshape(shape)
         dbeta = dyf.sum(dim=axes)
         dgamma = (dyf * xhat).sum(dim=axes)
+        sb, sg = dbeta, dgamma
+        if ctx.group is not None:
+            both = _all_reduce(torch.cat([dbeta, dgamma]), ctx.group)
+            sb, sg = both[:dbeta.numel()], both[dbeta.numel():]
         k = (gamma.float() * inv / n).reshape(shape)
-        dx = k * (n * dyf - dbeta.reshape(shape)
-                  - xhat * dgamma.reshape(shape))
+        dx = k * (n * dyf - sb.reshape(shape) - xhat * sg.reshape(shape))
         return (dx.to(x.dtype), dgamma.to(gamma.dtype),
-                dbeta.to(gamma.dtype), None, None, None)
+                dbeta.to(gamma.dtype), None, None, None, None)
 
 
 def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
-               momentum=0.9, training=True, axis=1):
+               momentum=0.9, training=True, axis=1, group=None):
     """BatchNorm over every axis but `axis`. Returns (y, new_moving_mean,
     new_moving_var); in inference mode the moving statistics normalise
-    and come back unchanged. The new moving statistics are detached."""
+    and come back unchanged. The new moving statistics are detached.
+    `group`: the process group whose ranks share the batch statistics
+    (None, or a group of one rank: this rank's batch alone)."""
     axis = axis % x.dim()
+    if group is not None:
+        import torch.distributed as dist
+        if dist.get_world_size(group) == 1:
+            group = None
     if training:
         y, mean, var = _BNTrain.apply(x, gamma, beta, moving_mean, axis,
-                                      float(eps))
+                                      float(eps), group)
         with torch.no_grad():
             new_mean = (momentum * moving_mean.float()
                         + (1 - momentum) * mean).to(moving_mean.dtype)

@@ -75,8 +75,8 @@ class Optimizer:
     optional `lr_scheduler(num_update) -> lr`."""
 
     # True when the rule is elementwise over the weight (no whole-tensor
-    # reduction): what a sharded update needs (Queue 1 [5b]); subclasses
-    # opt in, as in the JAX package
+    # reduction): what `capture(sharded_update=True)` needs to update a
+    # block of rows alone; subclasses opt in, as in the JAX package
     elementwise = False
 
     def __init__(self, learning_rate=0.01, wd=0.0, rescale_grad=1.0,

@@ -1,7 +1,13 @@
-"""Differentiable collectives over a process group: what `lax` gives the
-JAX package inside `shard_map` (`ppermute`, tiled `all_to_all`) and the
-pair of conversions between a global tensor and this rank's slice that
-`shard_map`'s in / out specs make.
+"""Collectives over a process group: what `lax` gives the JAX package
+inside `shard_map`.
+
+The differentiable ones (`ppermute`, tiled `all_to_all`, and the pair of
+conversions between a global tensor and this rank's slice that
+`shard_map`'s in / out specs make) serve sequence parallelism. The plain
+ones (`all_reduce`, `reduce_scatter`, `all_gather`: `lax.psum`,
+`lax.psum_scatter(tiled=True)` and `lax.all_gather(tiled=True)` along
+dim 0) serve the store and data parallelism; they write no autograd
+graph.
 
 Every function is the identity on a group of one, and then runs no
 collective at all. Gradients equal `shard_map`'s global ones when every
@@ -19,7 +25,9 @@ import torch.distributed as dist
 from ..base import MXNetError
 
 __all__ = ["ppermute_start", "ppermute", "keep_in_graph", "all_to_all",
-           "shard", "gather", "check_devices"]
+           "shard", "gather", "check_devices", "all_reduce",
+           "reduce_scatter", "all_gather", "sharded_leaf", "leaf_shard",
+           "gather_leaf", "clone_leaf"]
 
 
 def check_devices(mesh, *tensors):
@@ -218,3 +226,97 @@ def gather(x, group, dim):
     if dist.get_world_size(group) == 1:
         return x
     return _Gather.apply(x, group, dim)
+
+
+# ---------------------------------------------------------------------------
+# plain collectives (no autograd): the store's and data parallelism's
+# ---------------------------------------------------------------------------
+def _nccl(group):
+    return dist.get_backend(group) == "nccl"
+
+
+def all_reduce(x, group, op="sum"):
+    """`x` summed (or maxed, op="max") over the ranks of `group`, in
+    place; returns `x`. Legal inside CUDA-graph capture on NCCL once the
+    group's communicator exists. Like the two below, it runs the
+    collective on a group of one rank too (the caller skips what it need
+    not run)."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def reduce_scatter(x, group, out=None):
+    """This rank's block of rows of `x` summed over `group`:
+    `lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)`. Dim 0
+    must split evenly. On NCCL it is `reduce_scatter_tensor` into `out`
+    (allocated when None). gloo's reduce-scatter is missing from some
+    torch builds, so on the CPU it is composed: an all-reduce of a copy,
+    then this rank's rows."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[0] % n:
+        raise MXNetError(f"reduce_scatter: dim 0 of size {x.shape[0]} "
+                         f"does not split over {n} ranks")
+    rows = x.shape[0] // n
+    if out is None:
+        out = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+    if _nccl(group):
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+        return out
+    full = x.detach().clone()
+    dist.all_reduce(full, group=group)
+    return out.copy_(full.narrow(0, me * rows, rows))
+
+
+def all_gather(x, group, out=None):
+    """Every rank's `x` stacked along dim 0 in rank order:
+    `lax.all_gather(x, axis, axis=0, tiled=True)`. On NCCL it is
+    `all_gather_into_tensor` into `out` (allocated when None; `x` may be
+    this rank's block of `out`, an in-place gather). On the CPU it is
+    composed from gloo's list all-gather and a concatenation, for the
+    same reason as `reduce_scatter`."""
+    n = dist.get_world_size(group)
+    shape = (x.shape[0] * n,) + tuple(x.shape[1:])
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if _nccl(group):
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return out.copy_(torch.cat(parts, 0))
+
+
+# ---------------------------------------------------------------------------
+# ZeRO leaves: a rank's block of an optimizer-state tensor
+# ---------------------------------------------------------------------------
+def sharded_leaf(t, group, dim=0):
+    """Mark `t` as this rank's block, along `dim`, of a tensor split in
+    equal blocks over the ranks of `group` (a ZeRO optimizer-state leaf,
+    the JAX package's array sharded over `dp`); returns `t`."""
+    t._mx_zero = (group, dim)
+    return t
+
+
+def leaf_shard(t):
+    """(group, dim) of a `sharded_leaf`, or None for a whole tensor."""
+    return getattr(t, "_mx_zero", None)
+
+
+def gather_leaf(t):
+    """The whole tensor of a `sharded_leaf` (a collective: every rank of
+    its group calls it), or `t` itself when it is whole."""
+    mark = leaf_shard(t)
+    if mark is None:
+        return t
+    group, dim = mark
+    full = all_gather(t.movedim(dim, 0).contiguous(), group)
+    return full.movedim(0, dim)
+
+
+def clone_leaf(t):
+    """A copy of `t` that keeps its `sharded_leaf` mark."""
+    c = t.clone()
+    mark = leaf_shard(t)
+    return c if mark is None else sharded_leaf(c, *mark)

@@ -19,21 +19,28 @@ prefetcher's side stream; an event recorded there is what the
 consumer's current stream waits on, so the step's kernels order after
 the copy without a host wait, and each tensor handed out is recorded on
 that stream (`record_stream`) so that its memory is not reused before
-the step that reads it has run. A set of pinned buffers goes back to a
-staging task only once the event of its last copy has completed. Since
-the host runs ahead of the card, the copy for batch N+1 overlaps step
-N's kernels. The buffers are allocated (at the first batch of each
-shape) and freed on the consuming thread too; at most `2 * depth` sets
-live at once, and a set that does not fit the batch its task staged is
-dropped rather than offered again. A leaf already on a card is not
-staged: it passes through as it is, and the pinned sets hold no slot
-for it.
+the step that reads it has run. Since the host runs ahead of the card,
+the copy for batch N+1 overlaps step N's kernels. The buffers are
+allocated (at the first batch of each signature, the shapes and dtypes
+of its host leaves) and freed on the consuming thread too. The free sets
+are kept per signature, each list at most `depth` long, and a staging
+task is offered the oldest free set of each signature whose last copy
+has completed; it fills the one that fits its batch, and the others go
+back. At most `2 * depth` sets live at once: past that a batch whose
+signature has no free set takes an idle set of a signature no batch of
+the last `2 * depth` had, or, with none, is copied from its host tensors
+unpinned. So the sets made depend on the batches' signatures, not on how
+fast the card runs. A leaf already on a card is not staged: it passes
+through as it is, and the pinned sets hold no slot for it.
 
 `capture_spec=` takes a Trainer or a CachedStep (the card its
-parameters live on) or a device; a mesh or a store's batch sharding
-raises (ROADMAP.md Queue 1 [5b]), and so does `RowPrefetcher`, the
-tiered-embedding prefetcher ([5d]). On the CPU (`device=mx.cpu()`) the
-tasks stage the whole batch and nothing is pinned.
+parameters live on), a device, or a placement over a mesh: a `Mesh`
+(its first axis), a (mesh, axis, n) capture spec or a store (its
+`batch_sharding()`); each batch is then this rank's block of rows
+(`parallel.mesh.Sharding`: cut on the host by the staging task), which
+a captured step over that store takes as it is. `RowPrefetcher`, the tiered-embedding prefetcher, raises (ROADMAP.md
+Queue 1 [5d]). On the CPU (`device=mx.cpu()`) the tasks stage the whole
+batch and nothing is pinned.
 
 Telemetry (the JAX package's names):
   prefetch_depth            gauge      batches staged or in flight
@@ -144,25 +151,36 @@ def _unported(what, item):
 
 
 def resolve_placement(target):
-    """The `torch.device` a placement target stages onto:
+    """Where a placement target stages batches:
 
       True                      -> mx.gpu(0)
       torch.device / str        -> that device (`context.resolve_device`)
       CachedStep / Trainer      -> the device its parameters live on
+      Mesh                      -> this rank's rows over its first axis
+      (mesh, axis, n)           -> this rank's rows over `axis`
+      a store                   -> its `batch_sharding()`, or, when that
+                                   is None, its device
+      a `parallel.mesh.Sharding`-> itself
       None / False              -> None (no device staging)
 
-    A mesh, a (mesh, axis, n) capture spec or a store's batch sharding
-    raise: sharded staging is ROADMAP.md Queue 1 [5b]."""
+    A row placement is a `parallel.mesh.Sharding` (its `.device` is this
+    rank's device), everything else a `torch.device`."""
+    from .parallel.mesh import Mesh, Sharding
     if target is None or target is False:
         return None
     if target is True:
         return resolve_device(None)
     if isinstance(target, (torch.device, str)):
         return resolve_device(target)
-    from .parallel.mesh import Mesh
-    if isinstance(target, Mesh) or (isinstance(target, tuple)
-                                    and len(target) == 3):
-        raise _unported("staging sharded over a mesh", "[5b]")
+    if isinstance(target, Sharding):
+        return target
+    if isinstance(target, Mesh):
+        return Sharding(target, (target.axis_names[0],))
+    if isinstance(target, tuple) and len(target) == 3:
+        return Sharding(target[0], (target[1],))
+    if hasattr(target, "batch_sharding"):
+        sh = target.batch_sharding()
+        return sh if sh is not None else resolve_device(target.device)
     trainer = getattr(target, "_trainer", target)
     params = getattr(trainer, "_params", None)
     if params is not None:
@@ -170,8 +188,6 @@ def resolve_placement(target):
             if p._data is not None:
                 return resolve_device(p._data._data.device)
         return resolve_device(None)
-    if hasattr(target, "batch_sharding"):
-        raise _unported("a store's batch sharding", "[5b]")
     raise TypeError(f"cannot resolve a device placement from "
                     f"{type(target).__name__!r}")
 
@@ -213,13 +229,16 @@ def _nbytes(tensors):
 
 
 def place(batch, device):
-    """Stage one batch onto `device` now, in the calling thread: the same
-    structure with every leaf an NDArray there. To a card, a host leaf
-    goes through a pinned buffer and a non-blocking copy on the current
-    stream."""
+    """Stage one batch onto `device` (or a row placement,
+    `resolve_placement`) now, in the calling thread: the same structure
+    with every leaf an NDArray there. To a card, a host leaf goes through
+    a pinned buffer and a non-blocking copy on the current stream."""
     t0 = _time.perf_counter()
+    rows, device = _split_placement(device)
     leaves, rebuild = _flatten(batch)
     host = [_host_tensor(x) for x in leaves]
+    if rows is not None:
+        host = [rows.local_rows(h) for h in host]
     out = []
     for t in host:
         if t.device == device:
@@ -231,6 +250,13 @@ def place(batch, device):
     _h2d_bytes.observe(_nbytes(host))
     _h2d_seconds.observe(_time.perf_counter() - t0)
     return rebuild([NDArray(t) for t in out])
+
+
+def _split_placement(placement):
+    """(row placement or None, device) of a `resolve_placement` result."""
+    if isinstance(placement, torch.device) or placement is None:
+        return None, placement
+    return placement, placement.device
 
 
 # sentinels a staging task may return instead of a batch
@@ -252,14 +278,21 @@ class _State:
 
 class _Staged:
     """A staging task's result: the batch's leaves (CPU leaves in the
-    pinned buffers of the set handed to the task where it matched) and
+    pinned buffers of `pinned`, the offered set that fit, or None) and
     its rebuild function."""
-    __slots__ = ("leaves", "rebuild", "in_pinned")
+    __slots__ = ("leaves", "rebuild", "pinned")
 
-    def __init__(self, leaves, rebuild, in_pinned):
+    def __init__(self, leaves, rebuild, pinned):
         self.leaves = leaves
         self.rebuild = rebuild
-        self.in_pinned = in_pinned
+        self.pinned = pinned
+
+
+def _signature(leaves):
+    """What a pinned set must match: each host leaf's shape and dtype,
+    None for a leaf already on a card."""
+    return tuple(None if h.device.type != "cpu" else
+                 (tuple(h.shape), h.dtype) for h in leaves)
 
 
 def _matches(pinned, host):
@@ -296,8 +329,8 @@ class DevicePrefetcher:
 
     def __init__(self, source, depth=None, device=None, capture_spec=None):
         target = capture_spec if capture_spec is not None else device
-        self._device = resolve_placement(True if target is None
-                                         else target)
+        self._rows, self._device = _split_placement(resolve_placement(
+            True if target is None else target))
         self._cuda = self._device.type == "cuda"
         depth = DEFAULT_DEPTH if depth is None else int(depth)
         self._reserved = 0
@@ -315,28 +348,45 @@ class DevicePrefetcher:
         self._pending = deque()
         self._slot = 0
         self._delivered = 0
-        # the card's side: the copy stream, and the pinned sets, each
-        # with the event of its last copy (allocated, queried and freed
-        # on the consuming thread only)
+        # the card's side: the copy stream, and the free pinned sets,
+        # each with its signature and the event of its last copy, oldest
+        # first (allocated, queried and freed on the consuming thread)
         self._stream = None
-        self._pinned = deque()          # [(pinned set, event or None)]
+        self._pinned = deque()          # [(signature, set, event or None)]
         self._owned = []                # every live set
         self._max_pinned = 2 * self._depth
+        self._recent = deque(maxlen=self._max_pinned)  # batch signatures
         for _ in range(self._depth):
             self._submit()
 
     # ------------------------------------------------------------ produce
     def _free_pinned(self):
-        """A pinned set whose last copy has completed, for the next
-        staging task; None while there is none (the task then returns
-        plain host tensors and the consumer stages them)."""
-        if not self._pinned:
-            return None
-        pinned, ev = self._pinned[0]
-        if ev is not None and not ev.query():
-            return None
-        self._pinned.popleft()
-        return pinned
+        """The offer to the next staging task: of each signature, the
+        oldest free set whose last copy has completed (copies complete in
+        stream order, so a later one of that signature has not either).
+        The task fills the one that fits its batch, or none (it then
+        returns plain host tensors and the consumer stages them)."""
+        offer, seen = [], set()
+        for entry in list(self._pinned):
+            sig, pinned, ev = entry
+            if sig in seen:
+                continue
+            seen.add(sig)
+            if ev is None or ev.query():
+                self._pinned.remove(entry)
+                offer.append((sig, pinned))
+        return offer
+
+    def _keep_free(self, sig, pinned, ev):
+        """A set back on its signature's free list, which keeps at most
+        `depth` sets (the oldest beyond that is freed)."""
+        self._pinned.append((sig, pinned, ev))
+        same = [e for e in self._pinned if e[0] == sig]
+        if len(same) > self._depth:
+            self._pinned.remove(same[0])
+            if same[0][2] is not None:
+                same[0][2].synchronize()
+            self._drop_set(same[0][1])
 
     def _drop_set(self, pinned):
         """Free a set whose copies have completed; consuming thread only
@@ -349,13 +399,14 @@ class DevicePrefetcher:
             return False
         slot = self._slot
         self._slot = (self._slot + 1) % self._depth
-        pinned = self._free_pinned()
-        # the task reaches its set through `holder`, which the consumer
+        offer = self._free_pinned() if self._cuda else []
+        # the task reaches its offer through `holder`, which the consumer
         # empties: the last reference to a set then lies on the consuming
         # thread, never in a closure an engine worker still holds
-        holder = [] if pinned is None else [pinned]
+        holder = [offer] if offer else []
         on_host = self._cuda
         device = self._device
+        rows = self._rows
 
         def prefetch_stage(st=st, holder=holder):
             # host work only: no CUDA call on an engine thread
@@ -371,15 +422,19 @@ class DevicePrefetcher:
             t0 = _time.perf_counter()
             leaves, rebuild = _flatten(item)
             host = [_host_tensor(x) for x in leaves]
+            if rows is not None:
+                # this rank's rows of the global batch: a view, no
+                # copy and no CUDA call
+                host = [rows.local_rows(h) for h in host]
             if not on_host:
                 out = rebuild([NDArray(t if t.device == device
                                        else t.to(device)) for t in host])
-            elif holder and _matches(holder[0], host):
-                out = _Staged([h if p is None else p.copy_(h)
-                               for p, h in zip(holder[0], host)],
-                              rebuild, True)
             else:
-                out = _Staged(host, rebuild, False)
+                fit = next((p for _, p in (holder[0] if holder else ())
+                            if _matches(p, host)), None)
+                out = _Staged(host if fit is None else
+                              [h if p is None else p.copy_(h)
+                               for p, h in zip(fit, host)], rebuild, fit)
             _h2d_bytes.observe(_nbytes(host))
             _h2d_seconds.observe(_time.perf_counter() - t0)
             return out
@@ -410,11 +465,27 @@ class DevicePrefetcher:
         return True
 
     # ------------------------------------------------------------ consume
-    def _to_card(self, staged, given):
+    def _make_room(self, sig):
+        """Whether a new set may be allocated for a batch of signature
+        `sig`: under the cap, or after freeing an idle set (its copy
+        completed) of a signature none of the recent batches had."""
+        if len(self._owned) < self._max_pinned:
+            return True
+        for entry in self._pinned:
+            osig, old, ev = entry
+            if osig != sig and osig not in self._recent and \
+                    (ev is None or ev.query()):
+                self._pinned.remove(entry)
+                self._drop_set(old)
+                return True
+        return False
+
+    def _to_card(self, staged, offer):
         """Issue the copies of one staged batch on the side stream, make
         the current stream wait for them, and keep the pinned set until
-        they complete. `given` is the set handed to the staging task, or
-        None. Consuming thread only."""
+        they complete. `offer` is what the staging task was offered
+        ([(signature, set)]); the sets it did not fill go back. Consuming
+        thread only."""
         dev = self._device
         cur = torch.cuda.current_stream(dev)
         if self._stream is None:
@@ -422,21 +493,15 @@ class DevicePrefetcher:
         # the engine may hold the task's future (a later task's
         # dependency) past this batch: its result must not keep the set
         leaves, staged.leaves = staged.leaves, None
-        pinned = given if staged.in_pinned else None
-        needs_set = any(h.device.type == "cpu" for h in leaves)
-        if pinned is None and given is not None:
-            if needs_set:
-                self._drop_set(given)        # another shape: never fits
-            else:
-                self._return_unused(given)   # nothing of this batch to pin
-        if pinned is None and needs_set:
-            # first batch of this shape, or no set was free: new buffers,
-            # allocated here on the consuming thread, within the cap
-            if len(self._owned) >= self._max_pinned:
-                old, ev = self._pinned.popleft()
-                if ev is not None:
-                    ev.synchronize()
-                self._drop_set(old)
+        pinned, staged.pinned = staged.pinned, None
+        self._return_unused([(sg, p) for sg, p in offer or ()
+                             if p is not pinned])
+        sig = _signature(leaves)
+        self._recent.append(sig)
+        if pinned is None and any(h.device.type == "cpu" for h in leaves) \
+                and self._make_room(sig):
+            # first batch of this signature, or no set of it was free:
+            # new buffers, allocated here on the consuming thread
             pinned = [torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
                       if h.device.type == "cpu" else None for h in leaves]
             leaves = [h if p is None else p.copy_(h)
@@ -455,7 +520,7 @@ class DevicePrefetcher:
             if t is not h:
                 t.record_stream(cur)
         if pinned is not None:
-            self._pinned.append((pinned, ev))
+            self._keep_free(sig, pinned, ev)
         return staged.rebuild([NDArray(t) for t in out])
 
     def __iter__(self):
@@ -466,7 +531,7 @@ class DevicePrefetcher:
             if not self._pending:
                 raise StopIteration
             fut, holder = self._pending.popleft()
-            pinned = holder.pop() if holder else None
+            offer = holder.pop() if holder else None
             _depth_delta(-1)
             was_ready = fut.done()
             try:
@@ -476,7 +541,7 @@ class DevicePrefetcher:
                 # carry its root cause): drop the queue, re-arm on fresh
                 # vars, and raise it once; the next call goes on with the
                 # next batch
-                self._return_unused(pinned)
+                self._return_unused(offer)
                 self._drop_pending()
                 self._slot_vars = [engine.Var() for _ in range(self._depth)]
                 self._src_var = engine.Var()
@@ -485,7 +550,7 @@ class DevicePrefetcher:
                     self._submit()
                 raise
             if res is _EOF or res is _DROPPED or engine.skipped(res):
-                self._return_unused(pinned)
+                self._return_unused(offer)
                 if engine.skipped(res):
                     # shed by a bounded background queue before it ran:
                     # the source did not advance, so stage it again
@@ -498,17 +563,17 @@ class DevicePrefetcher:
             self._delivered += 1
             _batches_counter.inc()
             if isinstance(res, _Staged):
-                res = self._to_card(res, pinned)
+                res = self._to_card(res, offer)
             self._submit()
             return res
 
     next = __next__
 
-    def _return_unused(self, pinned):
-        """A pinned set its task did not fill goes back as free (its last
-        copy completed before it was handed out)."""
-        if pinned is not None:
-            self._pinned.appendleft((pinned, None))
+    def _return_unused(self, offer):
+        """Offered sets a task did not fill go back as free, at the front
+        (their last copies completed before they were offered)."""
+        for sig, pinned in reversed(offer or ()):
+            self._pinned.appendleft((sig, pinned, None))
 
     @property
     def depth(self):

@@ -428,7 +428,7 @@ def test_unsupported_optimizer_and_other_fallbacks():
         warnings.simplefilter("ignore", RuntimeWarning)
         step(*_batch(mx))
     assert step.last_fallback_reason == "deferred_init"
-    with pytest.raises(MXNetError, match=r"\[5b\]"):
+    with pytest.raises(MXNetError, match="sharded_update=True needs"):
         tr.capture(lambda a, b: a, sharded_update=True)
 
 

@@ -594,7 +594,7 @@ def test_sharded_and_tiered_leaves_raise(tmp_path):
     class MeshLeaf:
         placements = ()
         device_mesh = None
-    with pytest.raises(MXNetError, match=r"\[5b\]"):
+    with pytest.raises(MXNetError, match=r"DTensor.*\[5d\]"):
         checkpoint.save_sharded(str(tmp_path), 0, {"w": MeshLeaf()})
     checkpoint.save_sharded(str(tmp_path), 1, {"w": _w(1)})
     mpath = tmp_path / "1" / checkpoint.MANIFEST_NAME

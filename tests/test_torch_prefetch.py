@@ -3,7 +3,7 @@
 order as the plain loader, the telemetry (`prefetch_batches`,
 `prefetch_depth`, `prefetch_starved`, the staging histograms), failure
 and cancellation, the bounded-queue degrade, and the refusals (no
-quiet staging on the CPU for a card, meshes [5b], `RowPrefetcher`
+quiet staging on the CPU for a card, `RowPrefetcher`
 [5d]). No JAX here: the reference is the port's own plain loader, so
 the `card` tests run on the card's machine (`--noconftest -m card`)."""
 import threading
@@ -183,7 +183,7 @@ def test_rejected_staging_degrades_to_inline():
 
 def test_the_card_is_never_quietly_replaced(monkeypatch):
     """Without CUDA, staging for the card raises instead of staging on
-    the CPU; meshes and store shardings raise [5b]; RowPrefetcher [5d]."""
+    the CPU, for a store on the card too; RowPrefetcher raises [5d]."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="CUDA"):
         prefetch.DevicePrefetcher([np.zeros(2)])
@@ -192,14 +192,16 @@ def test_the_card_is_never_quietly_replaced(monkeypatch):
                                  prefetch_to_device=True)
     with pytest.raises(MXNetError, match="CUDA"):
         prefetch.resolve_placement("cuda:0")
-    with pytest.raises(MXNetError, match=r"\[5b\]"):
-        prefetch.resolve_placement((None, "dp", 4))
 
     class Store:
+        device = "cuda:0"
+
         def batch_sharding(self):
             return None
-    with pytest.raises(MXNetError, match=r"\[5b\]"):
+    with pytest.raises(MXNetError, match="CUDA"):
         prefetch.resolve_placement(Store())
+    with pytest.raises(MXNetError, match="CUDA"):
+        mx.kv.create("dist_sync")
     with pytest.raises(MXNetError, match=r"\[5d\]"):
         prefetch.RowPrefetcher([], None, {})
     assert prefetch.resolve_placement(None) is None
