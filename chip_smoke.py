@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (`mxnet_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py        # from the root of a checkout
-    python3 chip_smoke.py --ranks N   # sequence parallelism on N cards
+    python3 chip_smoke.py --ranks N   # sequence, data and composite
+                                      # parallelism on N cards
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -396,9 +397,10 @@ Phases (any failure raises and the script exits non-zero):
                  distance plus a bf16 ulp;
                  (d) the store's in-graph all-reduce, reduce-scatter and
                  all-gather captured in a CUDA graph and replayed: right,
-                 and their device work inside the replay of a graph made
-                 and replayed under the profiler (on one rank NCCL's
-                 copies; its kernels under `--ranks N`).
+                 and their device work in DP_PROFILE_REPLAYS replays
+                 under the profiler (on one rank NCCL's copies, also in
+                 the graph's node list; its kernels under `--ranks N`);
+                 an empty profile fails.
  12d. capture guard — a captured 2-layer bf16 BERT with skip_nonfinite and
                  `grad.nan` at step 2 (every weight and state bit for bit
                  through that replay, the streak 0, 1, 0), and float16
@@ -434,6 +436,24 @@ Phases (any failure raises and the script exits non-zero):
                  (BF16_F64_RATIO); (d) timed beside SDPA in bf16 and
                  fp16.
 
+ 14. composite — the 5-axis train step (`parallel.composite`) at
+                 COMPOSITE_BASE (BERT-base's widths, 12 layers, S = 512,
+                 B = 8 in 2 microbatches, an 8-expert Switch-style MoE
+                 in every block at capacity 1.25; 585 M parameters,
+                 fp32) on a one-rank NCCL group, every axis of size 1,
+                 under deterministic algorithms: (a) 10 SGD steps from
+                 seed-0 weights (counters zeroed just before, read just
+                 after: COMPOSITE_WANT a step), tokens/s over steps 3-10,
+                 step ms, peak memory and each MoE layer's dropped
+                 share; (b) the first step against one float64 step
+                 through the kernels' plain formulas (COMPOSITE_F64_RATIO
+                 x the fp32 plain step's distance), with a control that
+                 must fail; (c) 2 layers, B = 2, card against CPU
+                 (COMPOSITE_CPU_RTOL); (d) `remat=True` and
+                 `sp_strategy="alltoall"` against (a)'s first step; (e)
+                 `column_parallel_dense` / `row_parallel_dense`,
+                 `pipeline_apply` and `moe_ffn` on one-rank meshes.
+
 `--capture` runs the build and the fused-Trainer and captured-step
 phases alone, 11d among them (on fresh weights), with no kernels line and no `ok` line.
 `--ranks N` (N > 1 cards) runs phase 13 (a) over N NCCL ranks instead,
@@ -448,7 +468,12 @@ the global batch (the embedding tables also within twice that run's
 distance from an fp32 copy; every form's losses within
 DP_RANKS_LOSS_RTOL of its), the sharded optimizer state 1/N of each momentum whose dim 0
 splits over N, and (d) on the N ranks (NCCL's kernels in the replay);
-then a `{"sp_ranks": [...], "dp_ranks": [...]}`
+then phase 14 over N = 4 ranks at COMPOSITE_RANKS_LAYERS layers of full
+width, each of COMPOSITE_RANKS_CASES (pp x tp, tp x ep, sp x ep with
+the ring and with all-to-all, dp x pp with 3 microbatches) against the
+one-rank step of its configuration on card 0, within (b)'s limits, every
+block that several ranks hold the same bits on each; then a
+`{"sp_ranks": [...], "dp_ranks": [...], "composite_ranks": {...}}`
 line in place of the kernels line.
 
 Output: progress lines, then `nvidia-smi`'s name and power limit, then
@@ -5798,6 +5823,14 @@ DP_TOWER_RATIO = 2.0
 # phase 11d (d): the collectives captured in a CUDA graph, on bf16
 # buffers of DP_NCCL_ROWS x 768 (BERT-base's width)
 DP_NCCL_ROWS = 4096
+# 11d (d) profiles DP_PROFILE_REPLAYS replays of that graph in one window:
+# torch.profiler (Kineto / CUPTI) loses device records of a window once
+# the process is some seconds old, a lone record's window most often
+# (`chip_profiler_age.py`, torch alone, on an H100 with torch 2.11: a
+# one-kernel window shows no row from 20-60 s on, while 192-200 of 200
+# kernels show), so one replay's two copies vanished late in the whole
+# script (ROADMAP Queue 3 #18)
+DP_PROFILE_REPLAYS = 50
 
 
 def _dp_trainer(mx, model, kvstore):
@@ -5916,17 +5949,15 @@ def _dp_nccl_graph(mx, torch, mesh):
     all-gather on the mesh's `dp` group (P ranks), run once outside,
     then captured in a CUDA graph and replayed on new values: the right
     results, bit for bit (small integers, exact in bf16, the same on
-    every rank); then a profiled replay shows the collectives' device
-    work from one graph launch and no kernel launch from the host. With
-    P > 1 that is NCCL's kernels. On one rank NCCL runs each collective
-    as a device copy (the in-place all-reduce as nothing, and the mean
-    over one rank multiplies by nothing), so the graph holds two copies
-    and no NCCL kernel, and the graph's own node list
-    (`CUDAGraph.debug_dump`) must name them: late in the whole script
-    the profile of that replay has held no device row at all, though it
-    shows both copies when the phase runs alone (cause not found), so
-    there the profile's rows are checked where it has them. Returns the
-    replay's NCCL kernel count (None where the profile has no row)."""
+    every rank); then DP_PROFILE_REPLAYS profiled replays show the
+    collectives' device work, one graph launch each and no kernel launch
+    from the host, and the check fails on an empty profile. With P > 1
+    that is NCCL's kernels. On one rank NCCL runs each collective as a
+    device copy (the in-place all-reduce as nothing, and the mean over
+    one rank multiplies by nothing), so the graph holds two copies and no
+    NCCL kernel: the graph's own node list (`CUDAGraph.debug_dump`) must
+    name them, and the profile must show them. Returns the replays' NCCL
+    kernel count."""
     kv = mx.kv.create("dist_sync").set_mesh(mesh)
     n = int(mesh.shape["dp"])
     check(kv.capture_spec() is not None and kv.capture_spec()[2] == n,
@@ -5979,34 +6010,33 @@ def _dp_nccl_graph(mx, torch, mesh):
                 node_copies = f.read().lower().count("memcpy")
         check(node_copies >= 2, f"nccl in a graph, 1 rank: the graph's "
                                 f"node list names {node_copies} copies")
-    prof = profile_launches(torch, graph.replay)
-    check(prof is not None and (prof[1] or n == 1), f"nccl in a graph: "
-          f"the profiled replay shows no device work "
+    prof = profile_launches(torch, lambda: [
+        graph.replay() for _ in range(DP_PROFILE_REPLAYS)])
+    check(prof is not None and prof[1], f"nccl in a graph: the profiled "
+          f"replays show no device work "
           f"({'no profiler' if prof is None else 'no device rows'})")
     _, rows_, calls = prof
-    if not rows_:
-        log(f"nccl in a graph: 1 rank, results right, {node_copies} copies "
-            f"in the graph's node list; the profiled replay: no device "
-            f"row (not measured)")
-        return None
-    log_profile(f"nccl in a graph, {n} rank(s)", prof[0], rows_, "1 replay")
+    log_profile(f"nccl in a graph, {n} rank(s)", prof[0], rows_,
+                f"{DP_PROFILE_REPLAYS} replays")
     nccl = [r for r in rows_ if "nccl" in r[2].lower()]
     copies = sum(r[1] for r in rows_ if "memcpy" in r[2].lower())
     if n > 1:
         check(len(nccl) >= 3, f"nccl in a graph: {len(nccl)} NCCL kernels "
-              f"in the replay ({[r[2][:60] for r in rows_]})")
+              f"in the replays ({[r[2][:60] for r in rows_]})")
     else:
         check(copies >= 2, f"nccl in a graph: {copies} device copies in "
-              f"the one-rank replay ({[r[2][:60] for r in rows_]})")
-    check(sum(calls.get(k, 0) for k in GRAPH_LAUNCH_CALLS) == 1 and sum(
-        calls.get(k, 0) for k in KERNEL_LAUNCH_CALLS) == 0,
-        f"nccl in a graph: host launch calls {calls}")
-    log(f"nccl in a graph: {n} rank(s), results right; the replay ran "
-        f"{sum(r[1] for r in nccl)} NCCL kernels "
+              f"the one-rank replays ({[r[2][:60] for r in rows_]})")
+    check(sum(calls.get(k, 0) for k in GRAPH_LAUNCH_CALLS)
+          == DP_PROFILE_REPLAYS and sum(calls.get(k, 0) for k in
+                                        KERNEL_LAUNCH_CALLS) == 0,
+          f"nccl in a graph: host launch calls {calls}")
+    log(f"nccl in a graph: {n} rank(s), results right; {DP_PROFILE_REPLAYS} "
+        f"replays ran {sum(r[1] for r in nccl)} NCCL kernels "
         f"({', '.join(r[2][:50] for r in nccl)}) and {copies} device "
-        f"copies from one graph launch"
+        f"copies in the profile, one graph launch each"
         + ("" if node_copies is None else
-           f" ({node_copies} copies in the node list)"))
+           f" ({node_copies} copies in the node list, "
+           f"{2 * DP_PROFILE_REPLAYS} launched)"))
     return len(nccl)
 
 
@@ -7180,17 +7210,620 @@ def sp_ranks_main(mx, torch, world):
             f"the plain version's distance from float64, worst abs err "
             f"{r['max_abs_err']:.3e}; launches {r['launches']}")
     dp = dp_ranks_main(mx, torch, world)
+    composite = composite_ranks_main(mx, torch, world)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    print(json.dumps({"sp_ranks": ranks, "dp_ranks": dp}), flush=True)
+    print(json.dumps({"sp_ranks": ranks, "dp_ranks": dp,
+                      "composite_ranks": composite}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the composite 5-axis train step (dp x pp x tp x sp x ep)
+# ---------------------------------------------------------------------------
+# BERT-base's widths (vocab 30522, 768, 12 heads of 64, FFN 3072, 12
+# layers, S = 512) with a Switch-style MoE layer in every block, shaped
+# as the Switch Transformer's 8-expert base models (Fedus et al.,
+# arXiv:2101.03961: top-1 over 8 experts at d_model 768, capacity factor
+# 1.25), each expert BERT-base's FFN width; B = 8 in 2 microbatches, SGD
+# at 1e-2, fp32 (TF32 off): about 585 M parameters
+COMPOSITE_BASE = dict(vocab=30522, d_model=768, n_heads=12, d_head=64,
+                      d_ff=3072, n_experts=8, d_expert_ff=3072, n_layers=12,
+                      seq_len=512, batch=8, n_micro=2, capacity_factor=1.25,
+                      lr=1e-2)
+COMPOSITE_STEPS = 10
+# 14 (b): the fp32 step's loss and each updated leaf no further (in norm)
+# from one float64 step through the plain versions than
+# COMPOSITE_F64_RATIO x the fp32 plain step's distance from it, plus one
+# fp32 ulp of the largest element (a leaf whose update both fp32 steps
+# round alike has equal distances; the kernels' other summation order
+# shows in the gradients, which the update carries at lr = 1e-2). 14 (d)
+# holds remat and the all-to-all step to (a)'s first step within the
+# same limits, and `--ranks 4` every factorisation to the one-rank step
+COMPOSITE_F64_RATIO = 4.0
+# 14 (c): 2 layers, B = 2, on the card and the CPU (plain versions) from
+# the same weights: the loss within TRAIN_LOSS_RTOL, each leaf's update
+# within COMPOSITE_CPU_RTOL of the CPU's in norm, plus one fp32 ulp of
+# the leaf's largest element for each element (the two round the updated
+# weights apart where their gradients differ in the last bits)
+COMPOSITE_CPU_RTOL = 1e-3
+# 14 (e): each helper's output and gradients within COMPOSITE_HELPER_RTOL
+# of the reference's norm: fp32 sums in another grouping (the pipeline's
+# weight gradient adds four microbatches' products; the loop takes them
+# in one GEMM)
+COMPOSITE_HELPER_RTOL = 1e-5
+# the launches of one step (12 layers x 2 microbatches: a ring block and
+# three LayerNorms each, S = 512 takes the split backward; the final
+# LayerNorm once)
+COMPOSITE_WANT = dict(flash_block=24, flash_fwd=24, flash_bwd=24,
+                      flash_bwd_dq=24, layer_norm=73)
+# `--ranks 4`: (tag, (dp, pp, tp, sp, ep), config changes), each against
+# the one-rank step of its configuration; over the model axes only the
+# drops do not depend on the factorisation, so capacity 1.25 holds; with
+# dp or sp above 1 a shard's capacity is smaller, so capacity n_experts
+# (nothing drops, as the JAX package's dryrun_multichip runs it). GPipe
+# with 3 microbatches over 2 stages needs a batch that dp * 3 divides: 12
+COMPOSITE_RANKS_LAYERS = 4
+COMPOSITE_RANKS_CASES = [
+    ("pp2_tp2", (1, 2, 2, 1, 1), {}),
+    ("tp2_ep2", (1, 1, 2, 1, 2), {}),
+    ("sp2_ep2_ring", (1, 1, 1, 2, 2), dict(capacity_factor=8.0, batch=12,
+                                           n_micro=3)),
+    ("sp2_ep2_alltoall", (1, 1, 1, 2, 2), dict(
+        capacity_factor=8.0, batch=12, n_micro=3, sp_strategy="alltoall")),
+    ("dp2_pp2_micro3", (2, 2, 1, 1, 1), dict(capacity_factor=8.0, batch=12,
+                                             n_micro=3))]
+
+
+def _composite_cfg(mx, **change):
+    return mx.parallel.composite.CompositeConfig(
+        **{**COMPOSITE_BASE, **change})
+
+
+def _composite_data(torch, cfg, dev):
+    """Tokens and targets (batch, seq_len), int64, from a CPU seed."""
+    g = torch.Generator().manual_seed(14)
+    shape = (cfg.batch, cfg.seq_len)
+    return (torch.randint(0, cfg.vocab, shape, generator=g).to(dev),
+            torch.randint(0, cfg.vocab, shape, generator=g).to(dev))
+
+
+def _composite_leaves(mx, tree):
+    return dict(mx.parallel.composite._leaves_with_paths(tree))
+
+
+def _composite_run(mx, torch, mesh, cfg, params, tokens, targets):
+    """One composite step from a copy of the global `params`: (this
+    rank's updated blocks {path: tensor}, loss)."""
+    step, shard, data_sh = mx.parallel.composite.make_composite_train_step(
+        mesh, cfg)
+    p, loss = step(shard(params), data_sh.place(tokens),
+                   data_sh.place(targets))
+    return _composite_leaves(mx, p), float(loss)
+
+
+@contextlib.contextmanager
+def _composite_plain(mx, torch):
+    """The composite step through the plain versions of its kernels, in
+    the tensors' own dtype (their formulas: LayerNorm's centred biased
+    variance, eps 1e-5; causal softmax attention over the sequence, which
+    a one-rank ring covers in its one diagonal block), so that it runs in
+    float64 too."""
+    import math
+    comp = mx.parallel.composite
+
+    def ln(x, g, b, eps=1e-5):
+        xc = x - x.mean(-1, keepdim=True)
+        var = (xc * xc).mean(-1, keepdim=True)
+        return xc * torch.rsqrt(var + eps) * g + b
+
+    def attention(q, k, v, axis_name="sp", causal=False, sm_scale=None, *,
+                  mesh):
+        check(mesh.shape[axis_name] == 1, "the plain composite runs on one "
+                                          "rank")
+        s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+        return torch.matmul(torch.softmax(s, -1), v)
+    saved = comp._ln, comp.ring_attention
+    comp._ln, comp.ring_attention = ln, attention
+    try:
+        yield
+    finally:
+        comp._ln, comp.ring_attention = saved
+
+
+def _composite_limits(mx, torch, mesh, cfg, params, tokens, targets):
+    """14 (b)'s limits for `cfg` from `params`: the fp32 plain step's and
+    a float64 plain step's leaves, each leaf's limit COMPOSITE_F64_RATIO
+    x their distance plus one fp32 ulp of its largest element. Returns
+    (float64 leaves, float64 loss, {path: limit}, loss limit)."""
+    with _composite_plain(mx, torch):
+        plain, plain_loss = _composite_run(mx, torch, mesh, cfg, params,
+                                           tokens, targets)
+        p64 = mx.parallel.composite._rebuild(
+            list(_composite_leaves(mx, params)),
+            [v.double() for v in _composite_leaves(mx, params).values()])
+        f64, f64_loss = _composite_run(mx, torch, mesh, cfg, p64, tokens,
+                                       targets)
+        del p64
+    limits = {}
+    for path, w in f64.items():
+        d = float((plain[path].double() - w).norm())
+        limits[path] = COMPOSITE_F64_RATIO * d + 2.0 ** -23 * float(
+            w.abs().max())
+    loss_lim = COMPOSITE_F64_RATIO * abs(plain_loss - f64_loss) \
+        + 2.0 ** -23 * abs(f64_loss)
+    return f64, f64_loss, limits, loss_lim
+
+
+def _composite_worst(got, want, limits):
+    """(worst share of its limit, its leaf) of `got` against `want`."""
+    worst = (0.0, "")
+    for path, w in want.items():
+        d = float((got[path].double() - w.double()).norm())
+        worst = max(worst, (d / limits[path] if limits[path] else
+                            float(d > 0), "/".join(path)))
+    return worst
+
+
+def _composite_drops(mx, drops):
+    """Wrap the composite's `route` to keep each call's dropped-token
+    count (on the card, read after) in `drops`; returns the original."""
+    comp = mx.parallel.composite
+    route = comp.route
+
+    def counted(logits, n_experts, capacity_factor):
+        out = route(logits, n_experts, capacity_factor)
+        drops.append(((~out[3]).sum(), logits.shape[0]))
+        return out
+    comp.route = counted
+    return route
+
+
+def _composite_helpers(mx, torch, dev):
+    """14 (e): the standalone helpers on one-rank meshes at BERT-base's
+    width: column- then row-parallel against torch.matmul; pipeline_apply
+    with four layers stacked in its one stage against the sequential loop,
+    forward and gradients; moe_ffn with an ep mesh against it without."""
+    par = mx.parallel
+    g = torch.Generator(device=dev.type).manual_seed(15)
+    d, f = COMPOSITE_BASE["d_model"], COMPOSITE_BASE["d_ff"]
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def close(a, b, what):
+        a, b = a.detach().double(), b.detach().double()
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        check(rel <= COMPOSITE_HELPER_RTOL, f"composite (e) {what}: "
+              f"{rel:.3e} of its norm from the reference")
+        return rel
+    worst = 0.0
+    x, w1, w2 = rnd(2048, d), rnd(f, d, scale=d ** -0.5), \
+        rnd(d, f, scale=f ** -0.5)
+    tp = par.make_mesh({"tp": 1})
+    y = par.row_parallel_dense(torch.relu(par.column_parallel_dense(
+        x, w1, mesh=tp)), w2, mesh=tp)
+    worst = max(worst, close(y, torch.matmul(torch.relu(torch.matmul(
+        x, w1.T)), w2.T), "tensor-parallel dense"))
+    ws = rnd(1, 4, d, d, scale=d ** -0.5).requires_grad_(True)
+    xm = rnd(4, 512, d).requires_grad_(True)
+    r = rnd(4, 512, d)
+
+    def stage(p, h):
+        for i in range(p["w"].shape[0]):
+            h = torch.tanh(torch.matmul(h, p["w"][i]))
+        return h
+    out = par.pipeline_apply(stage, {"w": ws}, xm, par.make_mesh({"pp": 1}))
+    gw, gx = torch.autograd.grad((out * r).sum(), (ws, xm))
+    ref = stage({"w": ws[0]}, xm)
+    rw, rx = torch.autograd.grad((ref * r).sum(), (ws, xm))
+    for a, b, what in ((out, ref, "pipeline forward"),
+                       (gw, rw, "pipeline weight gradient"),
+                       (gx, rx, "pipeline input gradient")):
+        worst = max(worst, close(a, b, what))
+    moe = par.init_moe_params(g, 8, d, f, device=dev)
+    moe = {k: v.requires_grad_(True) for k, v in moe.items()}
+    xe = rnd(2, 512, d).requires_grad_(True)
+    re_ = rnd(2, 512, d)
+    runs = []
+    for mesh in (par.make_mesh({"ep": 1}), None):
+        o, aux = par.moe_ffn(moe, xe, mesh=mesh)
+        runs.append((o, aux, *torch.autograd.grad(
+            (o * re_).sum() + aux, (xe, *moe.values()))))
+    for a, b, what in zip(runs[0], runs[1], ("out", "aux", "dx", "dgate",
+                                             "dwi", "dwo")):
+        worst = max(worst, close(a, b, f"moe_ffn on an ep mesh, {what}"))
+    log(f"composite (e): column / row-parallel dense against torch.matmul, "
+        f"pipeline_apply (4 layers in one stage, 4 microbatches) against "
+        f"the loop with its gradients, moe_ffn over ep = 1 against no mesh "
+        f"(8 experts, 2 x 512 tokens): worst {worst:.3e} of the "
+        f"reference's norm (COMPOSITE_HELPER_RTOL={COMPOSITE_HELPER_RTOL})")
+
+
+def phase_composite_train(mx, torch):
+    """14: the composite 5-axis train step (`parallel.composite`) at
+    COMPOSITE_BASE on a one-rank NCCL group (`make_composite_mesh(1)`,
+    every axis of size 1), fp32, under torch's deterministic algorithms.
+    (a) COMPOSITE_STEPS steps from `init_composite_params` (seed 0) on
+    seeded tokens: each step's launches exactly COMPOSITE_WANT (counters
+    zeroed just before, read just after), every loss finite, tokens/s
+    over steps 3-10 with its spread, step ms, peak memory, and the share
+    of tokens each MoE layer drops (counted from the step's own routing);
+    (b) (a)'s first step against one float64 step through the plain
+    versions (`_composite_plain`), within COMPOSITE_F64_RATIO of the fp32
+    plain step's distance, and a control (one expert's wi_e moved by
+    twice its limit) that must fail; (c) 2 layers, B = 2, card against
+    CPU; (d) `remat=True` and `sp_strategy="alltoall"`, one step each,
+    against (a)'s first step within (b)'s limits; (e) the standalone
+    helpers (`_composite_helpers`). Returns (a)'s launches."""
+    K = mx.ops.kernels
+    comp = mx.parallel.composite
+    dev = mx.gpu(0)
+    cfg = _composite_cfg(mx)
+    mx.kvstore.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              f"backend {torch.distributed.get_backend()}")
+        mesh = comp.make_composite_mesh(1)
+        check(mesh.device_type == "cuda" and set(mesh.shape.values()) == {1},
+              f"mesh {mesh}")
+        g = torch.Generator(device=dev.type).manual_seed(0)
+        start = comp.init_composite_params(g, cfg, device=dev)
+        n_params = sum(v.numel() for v in _composite_leaves(mx, start)
+                       .values())
+        tokens, targets = _composite_data(torch, cfg, dev)
+        step, shard, data_sh = comp.make_composite_train_step(mesh, cfg)
+        params = shard(start)
+        tok, tgt = data_sh.place(tokens), data_sh.place(targets)
+        drops = []
+        route = _composite_drops(mx, drops)
+        losses, per_step, step_s = [], [], []
+        with _deterministic(torch) as caught:
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                K.reset_launch_counts()
+                for i in range(COMPOSITE_STEPS):
+                    before = dict(K.LAUNCHES)
+                    t0 = time.perf_counter()
+                    losses.append(float(step(params, tok, tgt)[1]))
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    per_step.append({k: K.LAUNCHES[k] - before[k]
+                                     for k in before})
+                    if i == 0:
+                        first = {k: v.clone() for k, v in
+                                 _composite_leaves(mx, params).items()}
+                launches = dict(K.LAUNCHES)
+            finally:
+                comp.route = route
+        peak = torch.cuda.max_memory_allocated()
+        # one more step under the profiler: a window of thousands of
+        # kernels, which loses at most a few at its start (Queue 3 #18)
+        prof = device_profile(torch, lambda: step(params, tok, tgt))
+        busy, shares = None, None
+        if prof is None or not prof[1]:
+            log("composite train: the profiled step shows no device row "
+                "(not measured)")
+        else:
+            busy = log_profile("composite train", prof[0], prof[1],
+                               "1 step after the timed ones")
+            shares = _profile_shares("composite train", prof[1], {
+                "gemm": GEMM_WORDS, "flash": ("flash",),
+                "layer_norm": ("layer_norm",),
+                "index / sort": ("index", "scatter", "gather", "sort",
+                                 "embedding"),
+                "softmax": ("softmax",)})
+        want = dict(dict.fromkeys(K.LAUNCHES, 0), **COMPOSITE_WANT)
+        for i, counts in enumerate(per_step):
+            check(counts == want, f"composite step {i + 1} launches "
+                                  f"{counts} != {want}")
+        check(all(np.isfinite(losses)), f"composite losses {losses}")
+        n_layers = cfg.n_layers
+        per_layer = [0.0] * n_layers
+        for i, (n, tokens_in) in enumerate(drops):
+            per_layer[i % n_layers] += float(n) / tokens_in / (
+                len(drops) / n_layers)
+        timed = step_s[2:]
+        tok_s = [cfg.batch * cfg.seq_len / t for t in timed]
+        summary = dict(
+            params=n_params, losses=losses,
+            tokens_per_s=cfg.batch * cfg.seq_len * len(timed) / sum(timed),
+            tokens_per_s_min=min(tok_s), tokens_per_s_max=max(tok_s),
+            step_ms=1e3 * sum(timed) / len(timed),
+            step_ms_min=1e3 * min(timed), step_ms_max=1e3 * max(timed),
+            peak_gb=peak / 1e9, busy_share=busy, device_shares=shares,
+            drop_share_by_layer=per_layer,
+            drop_share=sum(per_layer) / n_layers,
+            deterministic_warnings=sorted({str(w.message)[:60]
+                                           for w in caught}))
+        log("composite train " + json.dumps(summary))
+        del params
+        # (b) against float64
+        f64, f64_loss, limits, loss_lim = _composite_limits(
+            mx, torch, mesh, cfg, start, tokens, targets)
+        worst = _composite_worst(first, f64, limits)
+        check(abs(losses[0] - f64_loss) <= loss_lim,
+              f"composite (b): loss {losses[0]} vs float64 {f64_loss}, "
+              f"limit {loss_lim:.3e}")
+        check(worst[0] <= 1.0, f"composite (b): {worst[1]} at "
+                               f"{worst[0]:.3f} of its limit from float64")
+        path = ("blocks", "wi_e")
+        bad = dict(first)
+        bump = torch.zeros_like(bad[path])
+        bump[0, 3] = torch.randn(bump[0, 3].shape, generator=g,
+                                 device=dev)
+        bad[path] = bad[path] + 2.0 * limits[path] * bump / bump.norm()
+        control = _composite_worst(bad, f64, limits)
+        check(control[0] > 1.0 and control[1] == "blocks/wi_e",
+              f"composite (b) control: wi_e moved by twice its limit "
+              f"passed ({control})")
+        log(f"composite (b): loss {losses[0]:.7f} vs float64 "
+            f"{f64_loss:.7f} (limit {loss_lim:.3e}); worst leaf {worst[1]} "
+            f"at {worst[0]:.3f} of its limit (COMPOSITE_F64_RATIO="
+            f"{COMPOSITE_F64_RATIO} x the fp32 plain step's distance + an "
+            f"ulp); control: layer 0 expert 3's wi_e moved by twice the "
+            f"limit reads {control[0]:.3f}")
+        del f64
+        # (d) remat and the all-to-all sequence strategy
+        for change in (dict(remat=True), dict(sp_strategy="alltoall")):
+            with _deterministic(torch):
+                got, loss = _composite_run(mx, torch, mesh, _composite_cfg(
+                    mx, **change), start, tokens, targets)
+            w = _composite_worst(got, first, limits)
+            check(w[0] <= 1.0 and abs(loss - losses[0]) <= loss_lim,
+                  f"composite (d) {change}: {w[1]} at {w[0]:.3f} of (b)'s "
+                  f"limit, loss {loss} vs {losses[0]}")
+            log(f"composite (d) {change}: loss {loss:.7f}; worst leaf {w[1]} "
+                f"at {w[0]:.3f} of (b)'s limit from (a)'s first step")
+            del got
+        torch.cuda.empty_cache()
+        _composite_helpers(mx, torch, dev)
+        # (c) card against CPU, the card's half on this group
+        cut = _composite_cfg(mx, n_layers=2, batch=2)
+        small = {k: (v if k != "blocks" else {n: b[:2].clone() for n, b in
+                                              v.items()})
+                 for k, v in start.items()}
+        tok2, tgt2 = tokens[:2], targets[:2]
+        card, card_loss = _composite_run(mx, torch, mesh, cut, small, tok2,
+                                         tgt2)
+        card = {k: v.cpu() for k, v in card.items()}
+    finally:
+        mx.kvstore.reset_distributed()
+    del start
+    torch.cuda.empty_cache()
+    cpu_small = {k: (v.cpu() if k != "blocks" else
+                     {n: b.cpu() for n, b in v.items()})
+                 for k, v in small.items()}
+    mx.kvstore.init_distributed(device="cpu")
+    try:
+        cpu, cpu_loss = _composite_run(
+            mx, torch, comp.make_composite_mesh(1), cut, cpu_small,
+            tok2.cpu(), tgt2.cpu())
+    finally:
+        mx.kvstore.reset_distributed()
+    check(abs(card_loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss),
+          f"composite (c): loss {card_loss} vs CPU {cpu_loss}")
+    w0 = _composite_leaves(mx, cpu_small)
+    worst = (0.0, "")
+    for path, c in cpu.items():
+        lim = COMPOSITE_CPU_RTOL * float((c.double() - w0[path].double())
+                                         .norm()) \
+            + c.numel() ** 0.5 * 2.0 ** -23 * float(w0[path].abs().max())
+        d = float((card[path].double() - c.double()).norm())
+        worst = max(worst, (d / lim if lim else float(d > 0),
+                            "/".join(path)))
+    check(worst[0] <= 1.0, f"composite (c): {worst[1]} at {worst[0]:.3f} "
+                           f"of its limit from the CPU")
+    log(f"composite (c) card vs cpu (2 layers, B = 2, full width): loss "
+        f"{card_loss:.7f} vs {cpu_loss:.7f} (rtol {TRAIN_LOSS_RTOL}); worst "
+        f"leaf {worst[1]} at {worst[0]:.3f} of its limit "
+        f"(COMPOSITE_CPU_RTOL={COMPOSITE_CPU_RTOL} of the CPU's update + an "
+        f"ulp an element)")
+    return launches
+
+
+def _composite_ref_key(change):
+    """The one-rank reference a `--ranks` case is held to: its
+    configuration but the sequence strategy."""
+    return "ref_" + "_".join(f"{k}{v}" for k, v in sorted(change.items())
+                             if k != "sp_strategy")
+
+
+def _composite_refs(mx, torch, ref_dir, cases):
+    """`--ranks N`'s references, on card 0 with a one-rank NCCL group:
+    for each configuration of COMPOSITE_RANKS_CASES (COMPOSITE_RANKS_LAYERS
+    layers), the one-rank step from the seed-0 weights (a CPU generator,
+    as the ranks draw them), its leaves written to `ref_dir`, and (b)'s
+    limits."""
+    comp = mx.parallel.composite
+    dev = mx.gpu(0)
+    refs = {}
+    mx.kvstore.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = comp.make_composite_mesh(1)
+        for _, _, change in cases:
+            key = _composite_ref_key(change)
+            if key in refs:
+                continue
+            cfg = _composite_cfg(mx, n_layers=COMPOSITE_RANKS_LAYERS,
+                                 **{k: v for k, v in change.items()
+                                    if k != "sp_strategy"})
+            params = comp.init_composite_params(
+                torch.Generator().manual_seed(0), cfg, device=dev)
+            tokens, targets = _composite_data(torch, cfg, dev)
+            with _deterministic(torch):
+                got, loss = _composite_run(mx, torch, mesh, cfg, params,
+                                           tokens, targets)
+            _, f64_loss, limits, loss_lim = _composite_limits(
+                mx, torch, mesh, cfg, params, tokens, targets)
+            os.makedirs(os.path.join(ref_dir, key))
+            for path, w in got.items():
+                np.save(os.path.join(ref_dir, key, "_".join(path) + ".npy"),
+                        w.cpu().numpy())
+            refs[key] = dict(loss=loss, loss_limit=loss_lim,
+                             limits={"/".join(p): v for p, v in
+                                     limits.items()}, f64_loss=f64_loss)
+            del params, got
+            torch.cuda.empty_cache()
+    finally:
+        mx.kvstore.reset_distributed()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _composite_rank_runs(mx, torch, world, rank, ref_dir):
+    """`--ranks N`'s composite, this rank's part: every case of
+    COMPOSITE_RANKS_CASES on a mesh over the N ranks, one step from the
+    seed-0 weights, under deterministic algorithms; for each leaf this
+    rank's block, its coordinates, its SHA-256 and its squared distance
+    from the same block of the one-rank step. Checks nothing."""
+    import hashlib
+    comp = mx.parallel.composite
+    specs = _composite_leaves(mx, comp.composite_param_specs())
+    out = {}
+    for tag, sizes, change in COMPOSITE_RANKS_CASES:
+        if np.prod(sizes) != world:
+            continue
+        mesh = mx.parallel.make_mesh(dict(zip(comp.AXES, sizes)))
+        dev = mesh.device
+        cfg = _composite_cfg(mx, n_layers=COMPOSITE_RANKS_LAYERS, **change)
+        params = comp.init_composite_params(
+            torch.Generator().manual_seed(0), cfg, device=dev)
+        tokens, targets = _composite_data(torch, cfg, dev)
+        t0 = time.perf_counter()
+        with _deterministic(torch):
+            got, loss = _composite_run(mx, torch, mesh, cfg, params, tokens,
+                                       targets)
+        leaves = {}
+        ref = os.path.join(ref_dir, _composite_ref_key(change))
+        for path, block in got.items():
+            at = [mesh.axis_index(a) if a else 0 for a in specs[path]]
+            whole = np.load(os.path.join(ref, "_".join(path) + ".npy"),
+                            mmap_mode="r")
+            idx = tuple(slice(i * n, (i + 1) * n)
+                        for i, n in zip(at, block.shape))
+            want = torch.from_numpy(np.ascontiguousarray(whole[idx])).to(dev)
+            leaves["/".join(path)] = dict(
+                at=at, sq=float(((block.double() - want.double()) ** 2)
+                                .sum()),
+                sha=hashlib.sha256(block.reshape(-1).view(torch.uint8)
+                                   .cpu().numpy().tobytes()).hexdigest())
+        out[tag] = dict(loss=loss, leaves=leaves,
+                        coords=[mesh.axis_index(a) for a in comp.AXES],
+                        seconds=time.perf_counter() - t0)
+        del params, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _composite_rank(rank, world, port, out_dir, ref_dir):
+    """One NCCL rank of `--ranks N`'s composite: writes its result, or
+    its traceback and exits at once (a rank that left would hold the
+    others in their next collective)."""
+    import traceback
+    sys.path.insert(0, HERE)
+    import torch
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mx.kvstore.init_distributed(f"127.0.0.1:{port}", world, rank)
+        check(torch.cuda.current_device() == rank
+              and torch.distributed.get_backend() == "nccl",
+              f"composite rank {rank} on cuda:{torch.cuda.current_device()}")
+        res = _composite_rank_runs(mx, torch, world, rank, ref_dir)
+        with open(os.path.join(out_dir, f"composite_rank{rank}.json"),
+                  "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"composite_rank{rank}.err"),
+                  "w") as f:
+            f.write(traceback.format_exc())
+        sys.stdout.flush()
+        os._exit(1)
+    mx.kvstore.reset_distributed()
+
+
+def composite_ranks_main(mx, torch, world):
+    """`--ranks N`'s composite: the one-rank references on card 0, then N
+    NCCL ranks, one card each, through every case of
+    COMPOSITE_RANKS_CASES; then the checks: every block that several
+    ranks hold has the same bits on each, each case's loss and every
+    leaf within (b)'s limits of its one-rank step. Returns the
+    summary."""
+    import torch.multiprocessing as mp
+    cases = [c for c in COMPOSITE_RANKS_CASES if np.prod(c[1]) == world]
+    if not cases:
+        log(f"composite: no case of COMPOSITE_RANKS_CASES spans {world} "
+            f"ranks")
+        return {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_dir = os.path.join(tmp, "refs")
+        t0 = time.perf_counter()
+        refs = _composite_refs(mx, torch, ref_dir, cases)
+        log(f"composite {world} ranks: one-rank references in "
+            f"{time.perf_counter() - t0:.1f} s: " + json.dumps(
+                {k: dict(loss=v["loss"], f64_loss=v["f64_loss"],
+                         loss_limit=v["loss_limit"]) for k, v in
+                 refs.items()}))
+        try:
+            mp.start_processes(_composite_rank, args=(
+                world, _free_port(), tmp, ref_dir), nprocs=world,
+                start_method="spawn")
+        except Exception as e:
+            errs = {f: open(os.path.join(tmp, f)).read()
+                    for f in sorted(os.listdir(tmp)) if f.endswith(".err")}
+            check(False, f"composite {world} ranks: {e}; {errs}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"composite_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    summary = {}
+    for tag, sizes, change in cases:
+        ref = refs[_composite_ref_key(change)]
+        losses = {r[tag]["loss"] for r in ranks}
+        check(len(losses) == 1, f"composite {tag}: the ranks' losses "
+                                f"differ {losses}")
+        loss = losses.pop()
+        check(abs(loss - ref["loss"]) <= ref["loss_limit"],
+              f"composite {tag}: loss {loss} vs the one-rank {ref['loss']}"
+              f" (limit {ref['loss_limit']:.3e})")
+        worst, replicated = (0.0, ""), 0
+        for name, lim in ref["limits"].items():
+            blocks = {}
+            for r in ranks:
+                leaf = r[tag]["leaves"][name]
+                blocks.setdefault(tuple(leaf["at"]), []).append(leaf)
+            for at, held in blocks.items():
+                check(len({h["sha"] for h in held}) == 1,
+                      f"composite {tag}: block {at} of {name} differs "
+                      f"between the {len(held)} ranks holding it")
+                replicated += len(held) > 1
+            d = sum(held[0]["sq"] for held in blocks.values()) ** 0.5
+            worst = max(worst, (d / lim if lim else float(d > 0), name))
+        check(worst[0] <= 1.0, f"composite {tag}: {worst[1]} at "
+                               f"{worst[0]:.3f} of its limit from the "
+                               f"one-rank step")
+        summary[tag] = dict(sizes=sizes, loss=loss, ref_loss=ref["loss"],
+                            worst_share=worst[0], worst_leaf=worst[1],
+                            replicated_blocks_bit_equal=replicated,
+                            seconds=max(r[tag]["seconds"] for r in ranks))
+        log(f"composite {world} ranks, {tag} {sizes}: loss {loss:.7f} vs "
+            f"one rank {ref['loss']:.7f}; worst leaf {worst[1]} at "
+            f"{worst[0]:.3f} of (b)'s limit; {replicated} replicated "
+            f"blocks bit-equal on every rank holding them")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -8029,6 +8662,7 @@ def main(argv=()):
         amp_launches = phase_amp_f16(mx, torch, init_file)
     block_rows, lc_launches = phase_long_context(mx, torch)
     kernels.extend(block_rows)
+    composite_launches = phase_composite_train(mx, torch)
     for k in kernels:
         # a row's launches are its wrapper's counter (`flash_block_attention`
         # counts under `flash_block`)
@@ -8054,11 +8688,15 @@ def main(argv=()):
                    "nmt_train_bf16_captured": nmt_bf16_cap_launches[c],
                    "serve_cast": cast_launches[c],
                    "bert_wide_bf16": bert_wide_launches[c],
+                   "composite_train": composite_launches[c],
                    **{path: n[c] for path, n in amp_launches.items()},
                    **{path: n[c] for path, n in lc_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         check(k["launches"] > 0, f"{k['name']} never launched on a path")
+        if c in COMPOSITE_WANT:
+            check(by_path["composite_train"] > 0,
+                  f"{k['name']} not launched on the composite step")
         if c in DP_KERNELS:
             check(by_path["bert_dp_bf16"] > 0
                   and by_path["bert_dp_bf16_captured"] > 0,

@@ -35,6 +35,11 @@ structure — and takes the int8 snapshots of the JAX package's
 `embed_scale` row scales), which no model holds. A port `DecodeRuntime`
 runs on the result, so both packages' runtimes can be fed one identical
 int8 snapshot.
+
+`composite_params_from_jax(tree)` and `moe_params_from_jax(tree)` take
+the parameter pytrees of the JAX package's `parallel.composite` and
+`parallel.moe` as numpy arrays and return the port's trees (global, on
+the device), every leaf checked against the port's `init_*`.
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ from .base import MXNetError, from_numpy
 from .context import resolve_device
 from .models.transformer import TransformerNMT
 
-__all__ = ["load_jax_parameters", "from_jax_weights", "from_jax_snapshot"]
+__all__ = ["load_jax_parameters", "from_jax_weights", "from_jax_snapshot",
+           "composite_params_from_jax", "moe_params_from_jax"]
 
 _ENC_DENSE = {"qkv": "attn.qkv", "proj": "attn.proj", "ffn1": "ffn.ffn1",
               "ffn2": "ffn.ffn2"}
@@ -147,3 +153,77 @@ def from_jax_snapshot(weights, device=None):
         return from_numpy(x).to(device)
 
     return carry(weights)
+
+
+# ---------------------------------------------------------------------------
+# the parallel package's parameter pytrees
+# ---------------------------------------------------------------------------
+def _tree_from_jax(tree, want, device, what):
+    """`tree` (nested dicts of numpy arrays) as tensors on `device`,
+    checked leaf by leaf against `want` ({name: shape}, nested alike):
+    the same names, each shape, and one float dtype for every leaf."""
+    dev = resolve_device(device)
+    dtypes = set()
+
+    def one(t, w, path):
+        if isinstance(w, dict):
+            if not isinstance(t, dict) or set(t) != set(w):
+                got = sorted(t) if isinstance(t, dict) else type(t).__name__
+                raise MXNetError(f"{what}: {path or 'the tree'} holds "
+                                 f"{got}, want {sorted(w)}")
+            return {k: one(t[k], w[k], f"{path}/{k}") for k in w}
+        x = from_numpy(t)
+        if tuple(x.shape) != tuple(w):
+            raise MXNetError(f"{what}: {path} has shape {tuple(x.shape)}, "
+                             f"want {tuple(w)}")
+        dtypes.add(x.dtype)
+        return x
+    out = one(tree, want, "")
+    if len(dtypes) != 1 or not next(iter(dtypes)).is_floating_point:
+        raise MXNetError(f"{what}: the leaves' dtypes "
+                         f"{sorted(map(str, dtypes))} are not one float dtype")
+
+    def move(t):
+        return {k: move(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.to(dev)
+    return move(out)
+
+
+def composite_params_from_jax(tree, device=None):
+    """The JAX package's `init_composite_params` tree, every leaf a numpy
+    array (`jax.tree.map(np.asarray, params)`), as the port's tree on
+    `device` (None = `mx.gpu(0)`): the configuration is read off the
+    leaves' shapes and every leaf is checked against the shapes of the
+    port's `init_composite_params` for it."""
+    from .parallel.composite import CompositeConfig, _param_shapes
+    try:
+        b = tree["blocks"]
+        n_layers, d_model, n_heads, d_head = np.shape(b["wq"])
+        cfg = CompositeConfig(
+            vocab=np.shape(tree["embed"])[0], d_model=d_model,
+            n_heads=n_heads, d_head=d_head, d_ff=np.shape(b["w1"])[2],
+            n_experts=np.shape(b["wi_e"])[1],
+            d_expert_ff=np.shape(b["wi_e"])[3], n_layers=n_layers,
+            seq_len=np.shape(tree["pos"])[0])
+    except (KeyError, TypeError, ValueError, IndexError) as e:
+        raise MXNetError(f"composite params: not a composite tree ({e!r})")
+    want = _param_shapes(cfg)
+
+    def shapes(t):
+        return {k: shapes(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[0]
+    return _tree_from_jax(tree, shapes(want), device, "composite params")
+
+
+def moe_params_from_jax(tree, device=None):
+    """The JAX package's `init_moe_params` dict as numpy arrays, as the
+    port's on `device` (None = `mx.gpu(0)`), checked against the shapes
+    of the port's `init_moe_params`: gate (D, E), wi (E, D, F), wo (E,
+    F, D)."""
+    try:
+        d, e = np.shape(tree["gate"])
+        f = np.shape(tree["wi"])[2]
+    except (KeyError, TypeError, ValueError, IndexError) as e:
+        raise MXNetError(f"moe params: not a MoE tree ({e!r})")
+    return _tree_from_jax(tree, {"gate": (d, e), "wi": (e, d, f),
+                                 "wo": (e, f, d)}, device, "moe params")

@@ -3,7 +3,10 @@ inside `shard_map`.
 
 The differentiable ones (`ppermute`, tiled `all_to_all`, and the pair of
 conversions between a global tensor and this rank's slice that
-`shard_map`'s in / out specs make) serve sequence parallelism. The plain
+`shard_map`'s in / out specs make) serve sequence parallelism; Megatron's
+conjugate pair `f_identity_bwd_psum` / `g_psum_bwd_identity` serves
+tensor, expert and pipeline parallelism (`composite.py`), and `psum` sums
+a value in the forward only (the composite's loss). The plain
 ones (`all_reduce`, `reduce_scatter`, `all_gather`: `lax.psum`,
 `lax.psum_scatter(tiled=True)` and `lax.all_gather(tiled=True)` along
 dim 0) serve the store and data parallelism; they write no autograd
@@ -16,6 +19,15 @@ its cotangent and `_gather` slices it, so nothing is summed over ranks
 (`torch.distributed.nn.functional.all_gather` would sum them, and with
 the same loss on every rank that multiplies gradients by the group
 size).
+
+A bare all-reduce under autograd is wrong in either direction for the
+model-parallel axes: `torch.distributed.nn.functional.all_reduce` sums
+again in its backward, which scales a cotangent that every rank already
+holds whole by the group size. f and g pin the algebra instead: f marks
+the entry into a branch whose ranks each hold a part of the weights
+(identity forward, the partial cotangents summed in the backward), g its
+exit (the partial outputs summed forward, the whole cotangent passed
+through backward).
 """
 from __future__ import annotations
 
@@ -25,7 +37,8 @@ import torch.distributed as dist
 from ..base import MXNetError
 
 __all__ = ["ppermute_start", "ppermute", "keep_in_graph", "all_to_all",
-           "shard", "gather", "check_devices", "all_reduce",
+           "shard", "gather", "f_identity_bwd_psum", "g_psum_bwd_identity",
+           "psum", "check_devices", "all_reduce",
            "reduce_scatter", "all_gather", "sharded_leaf", "leaf_shard",
            "gather_leaf", "clone_leaf"]
 
@@ -226,6 +239,60 @@ def gather(x, group, dim):
     if dist.get_world_size(group) == 1:
         return x
     return _Gather.apply(x, group, dim)
+
+
+def _summed(x, group):
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+class _FIdentityBwdPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _GPsumBwdIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def f_identity_bwd_psum(x, group):
+    """Megatron's f: `x` itself; the backward sums the cotangent over
+    `group`, so that a tensor every rank holds whole gets back the whole
+    cotangent from a branch whose ranks each compute a part of it."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _FIdentityBwdPsum.apply(x, group)
+
+
+def g_psum_bwd_identity(x, group):
+    """Megatron's g: `x` summed over `group` (each rank's partial
+    output); the backward passes the cotangent through, since every rank
+    already holds it whole."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _GPsumBwdIdentity.apply(x, group)
+
+
+def psum(x, group):
+    """`lax.psum(x, axis)` in the forward only: a detached copy of `x`
+    summed over `group` (the composite's loss); `x` itself, detached, on
+    a group of one."""
+    if dist.get_world_size(group) == 1:
+        return x.detach()
+    return _summed(x, group)
 
 
 # ---------------------------------------------------------------------------

@@ -26,18 +26,19 @@ from .. import kvstore
 from ..base import MXNetError
 
 __all__ = ["Mesh", "make_mesh", "single_axis_mesh", "local_mesh_devices",
-           "Sharding", "replicated", "shard_batch"]
+           "P", "Sharding", "replicated", "shard_batch"]
 
 
 class Mesh:
     """A `torch.distributed` `DeviceMesh` with the JAX Mesh's view of it:
     `shape` (axis name -> size, in the axes' order) and `axis_names`.
-    `group(axis)` is the process group of this rank's line along `axis`,
-    `axis_index(axis)` this rank's place on it, `device_type` "cuda"
-    (NCCL) or "cpu" (gloo)."""
+    `group(axis)` is the process group of this rank's line along `axis`
+    (or along a tuple of axes), `axis_index(axis)` this rank's place on
+    it, `device_type` "cuda" (NCCL) or "cpu" (gloo)."""
 
     def __init__(self, device_mesh):
         self.device_mesh = device_mesh
+        self._groups = {}         # tuple of axes -> this rank's group
 
     @property
     def axis_names(self):
@@ -52,7 +53,24 @@ class Mesh:
         return self.device_mesh.device_type
 
     def group(self, axis):
-        return self.device_mesh.get_group(axis)
+        """The process group of this rank's line along `axis`, a name or
+        a tuple of names (`lax.psum(x, ("dp", "sp"))`'s group: the ranks
+        that share this rank's place on every other axis). A tuple's
+        groups are made on first use, every line of them at once, so
+        every rank of the default group must ask for the same tuples in
+        the same order (the composite asks in its constructor); they are
+        kept on the mesh."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        unknown = [a for a in axes if a not in self.axis_names]
+        if unknown or not axes:
+            raise MXNetError(f"{self!r} has no axes {axis!r}")
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        key = tuple(a for a in self.axis_names if a in axes)
+        if key not in self._groups:
+            self._groups[key] = _line_group(self.device_mesh.mesh,
+                                            self.axis_names, key)
+        return self._groups[key]
 
     def axis_index(self, axis):
         return self.device_mesh.get_local_rank(axis)
@@ -72,6 +90,19 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({self.shape}, device_type={self.device_type!r})"
+
+
+def _line_group(ranks, names, axes):
+    """This rank's group among the lines of `ranks` (the mesh's rank
+    tensor) along `axes`: every line is made, in one order on every
+    rank, as `dist.new_group` wants."""
+    keep = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in keep]
+    lines = ranks.permute(*rest, *keep).reshape(
+        -1, int(np.prod([ranks.shape[i] for i in keep])))
+    mine, _ = dist.new_subgroups_by_enumeration(
+        [[int(r) for r in line] for line in lines])
+    return mine
 
 
 def local_mesh_devices():
@@ -112,16 +143,33 @@ def single_axis_mesh(axis="dp", n=None):
     return make_mesh({axis: n or len(devices)}, devices)
 
 
+class P(tuple):
+    """A PartitionSpec: one entry a dim, an axis name or None
+    (`jax.sharding.PartitionSpec`, whose tuple it equals)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return f"P{tuple(self)!r}"
+
+
 class Sharding:
     """A `NamedSharding(mesh, P(*spec))` of the JAX package in the port's
-    one-rank-a-device terms: `spec` () is replicated, (axis,) is dim 0
-    split over `axis` in contiguous blocks of rows. `place(x)` is
-    `jax.device_put(x, sharding)` for a global `x` that every rank holds:
-    the rows of this rank (or all of `x`) on this rank's device."""
+    one-rank-a-device terms: `spec` has one entry a leading dim, an axis
+    name (that dim split over the axis in contiguous blocks, block r on
+    the rank at place r of the axis) or None (whole); () is replicated.
+    `place(x)` is `jax.device_put(x, sharding)` for a global `x` that
+    every rank holds: this rank's block (or all of `x`) on this rank's
+    device. `axis`, `num_shards` and `local_rows` speak of dim 0, the
+    batch's."""
 
     def __init__(self, mesh, spec=()):
         self.mesh = mesh
         self.spec = tuple(spec)
+        for ax in self.spec:
+            if ax is not None and ax not in mesh.shape:
+                raise MXNetError(f"{mesh!r} has no axis {ax!r}")
 
     @property
     def device(self):
@@ -133,7 +181,7 @@ class Sharding:
 
     @property
     def num_shards(self):
-        return int(self.mesh.shape[self.axis]) if self.spec else 1
+        return int(self.mesh.shape[self.axis]) if self.axis else 1
 
     def __eq__(self, other):
         return (isinstance(other, Sharding) and self.spec == other.spec
@@ -145,20 +193,31 @@ class Sharding:
     def __repr__(self):
         return f"Sharding({self.mesh!r}, P{self.spec!r})"
 
+    def _block(self, x, dim, ax, what):
+        n = int(self.mesh.shape[ax])
+        if x.dim() <= dim or x.shape[dim] % n:
+            raise MXNetError(f"{self!r}: dim {dim} of a {tuple(x.shape)} "
+                             f"{what} does not split over {n} ranks")
+        rows = x.shape[dim] // n
+        return x.narrow(dim, self.mesh.axis_index(ax) * rows, rows)
+
     def local_rows(self, x):
         """This rank's block of rows of a global `x` (a view), on the
-        device `x` is on; `x` itself when replicated."""
-        if not self.spec:
+        device `x` is on; `x` itself when dim 0 is whole."""
+        if not self.axis:
             return x
-        n = self.num_shards
-        if x.dim() == 0 or x.shape[0] % n:
-            raise MXNetError(f"{self!r}: dim 0 of a {tuple(x.shape)} batch "
-                             f"does not split over {n} ranks")
-        rows = x.shape[0] // n
-        return x.narrow(0, self.mesh.axis_index(self.axis) * rows, rows)
+        return self._block(x, 0, self.axis, "batch")
+
+    def local_block(self, x):
+        """This rank's block of a global `x` along every split dim (a
+        view), on the device `x` is on."""
+        for dim, ax in enumerate(self.spec):
+            if ax is not None:
+                x = self._block(x, dim, ax, "tensor")
+        return x
 
     def place(self, x):
-        return self.local_rows(x).to(self.device)
+        return self.local_block(x).to(self.device)
 
 
 def replicated(mesh):
